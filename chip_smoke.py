@@ -1,0 +1,544 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (mlcomp_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failed check raises and the script exits non-zero
+without printing a result:
+
+1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
+   power limit.
+2. build: compiles every kernel in mlcomp_tpu_torch/csrc with nvcc.
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's shapes of the 1.2B transformer_lm (hidden 2048, 16
+   heads, mlp 8192, vocab 32768), with its time, the plain version's, one
+   PyTorch library call's (a yardstick only; the port never calls it) and
+   the card's bound for the same work.
+4. serve: the 1.2B all-int8 transformer_lm (int8 weights through the int8
+   matmul, int8 KV cache, fused qkv/gate_up, 16 layers, random weights
+   from a seed) behind the HTTP server on 127.0.0.1; concurrent greedy and
+   sampled requests; launch counts of every kernel over that run; prefill
+   and decode times.
+5. parity: one prefill and 8 teacher-forced decode steps of the same model
+   with the kernels and with their plain versions, logits compared.
+6. summary: a ``kernels`` JSON line, then, last, the device line.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
+
+import torch
+
+CFG = {
+    "name": "transformer_lm", "vocab_size": 32768, "hidden": 2048, "layers": 16,
+    "heads": 16, "mlp_dim": 8192, "dtype": "bfloat16",
+    "decode_fused": True, "kv_quant": True,
+}
+SEED = 0
+BATCH, PROMPT, NEW = 8, 512, 128
+
+# data-sheet peaks (dense): memory bytes/s, bf16 tensor FLOP/s
+PEAKS = {
+    "H100 SXM": (3.35e12, 989e12),
+    "H100 PCIe": (2.0e12, 756e12),
+    "H100 NVL": (3.9e12, 835e12),
+    "H200": (4.8e12, 989e12),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def peaks_for(name: str):
+    n = name.upper()
+    if "H200" in n:
+        return "H200", PEAKS["H200"]
+    if "PCIE" in n:
+        return "H100 PCIe", PEAKS["H100 PCIe"]
+    if "NVL" in n:
+        return "H100 NVL", PEAKS["H100 NVL"]
+    if "H100" in n:
+        return "H100 SXM", PEAKS["H100 SXM"]
+    raise SystemExit(f"no data-sheet peaks for {name!r}; add them to PEAKS")
+
+
+def time_ms(fns, iters=20, warmup=3):
+    """Mean device time of one call, cycling through ``fns`` (copies of the
+    operands, so that the weights come from device memory, not L2)."""
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def copies_for(nbytes: int) -> int:
+    return max(2, math.ceil(160e6 / max(nbytes, 1)))
+
+
+class Kernel:
+    def __init__(self, name, source, replaces, module, counter="launches"):
+        self.name, self.source, self.replaces = name, source, replaces
+        self.module, self.counter = module, counter
+        self.rows = []          # per-shape measurements
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.module, self.counter)
+
+    def reset(self) -> None:
+        setattr(self.module, self.counter, 0)
+
+    def add(self, **kw):
+        self.rows.append(kw)
+        log("  " + json.dumps(kw))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # ---- 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    kind = torch.cuda.get_device_name(0)
+    card, (bw, flops) = peaks_for(kind)
+    log(f"device: {kind}; bounds from the {card} data sheet: {bw / 1e12} TB/s, "
+        f"{flops / 1e12} TFLOP/s bf16")
+
+    # ---- 2. build
+    from mlcomp_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+
+    from mlcomp_tpu_torch.ops.cuda import decode_attention as da
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+    from mlcomp_tpu_torch.ops.cuda import quant_matmul as qm
+
+    kernels = {
+        "B1": Kernel("quant_matmul", "mlcomp_tpu_torch/csrc/quant_matmul.cu",
+                     "mlcomp_tpu/ops/pallas/quant_matmul.py:41", qm),
+        "B2": Kernel("quant_matmul_norm", "mlcomp_tpu_torch/csrc/quant_matmul.cu",
+                     "mlcomp_tpu/ops/pallas/quant_matmul.py:61", qm, "norm_launches"),
+        "B3": Kernel("decode_attention", "mlcomp_tpu_torch/csrc/decode_attention.cu",
+                     "mlcomp_tpu/ops/pallas/decode_attention.py:173", da),
+        "B5": Kernel("flash_attention_fwd", "mlcomp_tpu_torch/csrc/flash_attention.cu",
+                     "mlcomp_tpu/ops/pallas/flash_attention.py:507", fa),
+    }
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def bound_of(nbytes, ops):
+        """The card's least time for work that moves ``nbytes`` (each input
+        read once, each output written once) and does ``ops`` bf16 tensor
+        operations: the larger of the two times."""
+        t_bytes, t_ops = nbytes / bw, ops / flops
+        return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+    # ---- 3. kernels against their plain versions
+    log("phase kernels")
+    # tolerance, element by element: |kernel - plain| <= 2^-7 (|ref| + ref_abs).
+    # ref_abs is the plain version on the absolute values of the summed
+    # operand (|x| and |q8|, |v|): the sum of the absolute terms behind each
+    # output.  Both sides round the output to bf16 (at most one step apart,
+    # 2^-7 |ref|).  Inside, each rounds an intermediate to bf16 where the two
+    # can land on neighbouring values: the normed x (B2), p or p * vs against
+    # another running max (B3, B5); that moves each term by at most 2^-8 of
+    # it (2^-7 for a normed x element on a tie), so the sum by at most 2^-7
+    # ref_abs.  f32 sums in another order add ~2^-20 of it.  A wrong tile, a
+    # wrong scale or a missed mask moves an output by a whole term.
+    rel_tol = 2.0 ** -7
+
+    def held(name, out, ref, ref_abs):
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        limit = rel_tol * (ref.float().abs() + ref_abs.float())
+        err = diff.max().item()
+        ratio = (diff / limit.clamp_min(1e-30)).max().item()
+        if not math.isfinite(err) or not bool((diff <= limit).all()):
+            raise AssertionError(f"{name}: |kernel - plain| over 2^-7 (|ref| + ref_abs): "
+                                 f"max error {err}, max error / limit {ratio}")
+        return err, ratio
+
+    hidden, mlp, vocab = CFG["hidden"], CFG["mlp_dim"], CFG["vocab_size"]
+    layers = CFG["layers"]
+    qkv_n = 3 * hidden
+    d_shapes = [(hidden, qkv_n), (hidden, 2 * mlp), (mlp, hidden), (hidden, hidden),
+                (hidden, vocab)]
+    # calls per shape in a decode step (decode_fused): B2 runs qkv, gate_up
+    # and the lm_head; B1 runs out and down; a prefill runs all four
+    # projections through B1.  The serve phase checks these against the
+    # launch counts it measures.
+    b1_step = {(hidden, hidden): layers, (mlp, hidden): layers}
+    b2_step = {(hidden, qkv_n): layers, (hidden, 2 * mlp): layers, (hidden, vocab): 1}
+    b1_prefill = {(hidden, qkv_n): layers, (hidden, 2 * mlp): layers, (mlp, hidden): layers,
+                  (hidden, hidden): layers}
+
+    def qmm_case(rows, d, n, norm):
+        q8 = torch.randint(-127, 128, (d, n), generator=g, device=dev, dtype=torch.int8)
+        sc = torch.rand(n, generator=g, device=dev) / (127 * math.sqrt(d))
+        x = torch.randn(rows, d, generator=g, device=dev).bfloat16()
+        gn = torch.rand(d, generator=g, device=dev) + 0.5 if norm else None
+        out = qm.quant_matmul(x, q8, sc, norm_scale=gn)
+        err, ratio = held(f"quant_matmul{'_norm' if norm else ''} {rows}x{d}x{n}", out,
+                          qm.quant_matmul_plain(x, q8, sc, norm_scale=gn),
+                          qm.quant_matmul_plain(x.abs(), q8.abs(), sc, norm_scale=gn))
+        ncopy = copies_for(d * n)
+        ws = [q8] + [q8.clone() for _ in range(ncopy - 1)]
+        kms = time_ms([lambda w=w: qm.quant_matmul(x, w, sc, norm_scale=gn) for w in ws])
+        pms = time_ms([lambda w=w: qm.quant_matmul_plain(x, w, sc, norm_scale=gn) for w in ws[:2]],
+                      iters=5, warmup=1)
+        wb = [(w.float() * sc).bfloat16() for w in ws[:2]]
+        # yardstick: the bf16 product alone (for B2 on the normed x)
+        xl = x
+        if norm:
+            x32 = x.float()
+            xl = (x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + 1e-6) * gn).bfloat16()
+        lms = time_ms([lambda w=w: torch.matmul(xl, w) for w in wb])
+        del ws, wb
+        nbytes = rows * d * x.element_size() + d * n + n * 4 + rows * n * 2 + (d * 4 if norm else 0)
+        ops = 2 * rows * d * n
+        return dict(rows=rows, d=d, n=n, max_abs_err=err, err_over_limit=ratio, ms=kms,
+                    plain_ms=pms, library_ms=lms, **bound_of(nbytes, ops))
+
+    for d, n in d_shapes:
+        kernels["B1"].add(**qmm_case(BATCH, d, n, False))
+        kernels["B2"].add(**qmm_case(BATCH, d, n, True))
+    for d, n in b1_prefill:
+        kernels["B1"].add(**qmm_case(BATCH * PROMPT, d, n, False))
+    torch.cuda.empty_cache()
+
+    # B3: the decode step's cache: prompt bucket 512 + 128 new tokens
+    heads = CFG["heads"]
+    dh = hidden // heads
+    l_buf = da.pick_buffer_len(PROMPT + NEW, heads, dh)
+    starts = torch.randint(0, PROMPT - 100, (BATCH,), generator=g, device=dev, dtype=torch.int32)
+    stops = torch.full((BATCH,), PROMPT + NEW // 2, dtype=torch.int32, device=dev)
+    caches = []
+    for _ in range(copies_for(2 * BATCH * heads * l_buf * dh)):
+        k8, ks = da.quantize_kv(torch.randn(BATCH, l_buf, heads, dh, generator=g, device=dev))
+        v8, vs = da.quantize_kv(torch.randn(BATCH, l_buf, heads, dh, generator=g, device=dev))
+        caches.append((k8.transpose(1, 2).contiguous(),
+                       ks.transpose(1, 2)[:, :, None].bfloat16().contiguous(),
+                       v8.transpose(1, 2).contiguous(),
+                       vs.transpose(1, 2)[:, :, None].bfloat16().contiguous()))
+    q = torch.randn(BATCH, heads, dh, generator=g, device=dev).bfloat16()
+    scale = 1.0 / math.sqrt(dh)
+    out = da.decode_attention(q, *caches[0], starts, stops, scale)
+    k8, ks, v8, vs = caches[0]
+    err, ratio = held("decode_attention", out,
+                      da.decode_attention_plain(q, k8, ks, v8, vs, starts, stops, scale),
+                      da.decode_attention_plain(q, k8, ks, v8.abs(), vs, starts, stops, scale))
+    del k8, ks, v8, vs
+    kms = time_ms([lambda c=c: da.decode_attention(q, *c, starts, stops, scale) for c in caches])
+    pms = time_ms([lambda c=c: da.decode_attention_plain(q, *c, starts, stops, scale)
+                   for c in caches[:2]], iters=5, warmup=1)
+    slots = torch.arange(l_buf, device=dev)
+    mask = ((slots[None] >= starts[:, None]) & (slots[None] < stops[:, None]))[:, None, None, :]
+    dq = [((c[0].float() * c[1].float().transpose(2, 3)).bfloat16(),
+           (c[2].float() * c[3].float().transpose(2, 3)).bfloat16()) for c in caches[:2]]
+    q4 = q[:, :, None]
+    lms = time_ms([lambda kv=kv: torch.nn.functional.scaled_dot_product_attention(
+        q4, kv[0], kv[1], attn_mask=mask, scale=scale) for kv in dq])
+    live = int((stops - starts).sum().item())
+    # q in, out back; K and V int8 with their bf16 scales over the live
+    # window only; the window bounds
+    nbytes = q.numel() * 2 * 2 + live * heads * (2 * dh + 2 * 2) + BATCH * 8
+    ops = 4 * live * heads * dh
+    kernels["B3"].add(b=BATCH, h=heads, h_kv=heads, l_buf=l_buf, dh=dh, live_slots=live,
+                      max_abs_err=err, err_over_limit=ratio, ms=kms, plain_ms=pms,
+                      library_ms=lms, **bound_of(nbytes, ops))
+    del caches, dq
+    torch.cuda.empty_cache()
+
+    # B5: the prefill, causal, left padding as kv_start
+    pads = torch.randint(0, PROMPT - 100, (BATCH,), generator=g, device=dev, dtype=torch.int32)
+    qkv = [[torch.randn(BATCH, PROMPT, heads, dh, generator=g, device=dev).bfloat16()
+            for _ in range(3)] for _ in range(3)]
+    fq, fk, fv = qkv[0]
+    out, lse = fa.flash_attention_fwd(fq, fk, fv, True, scale, pads)
+    hi = torch.full_like(pads, PROMPT)
+    ref, ref_lse = fa.flash_attention_plain(fq, fk, fv, True, scale, pads, hi)
+    err, ratio = held("flash_attention", out, ref,
+                      fa.flash_attention_plain(fq, fk, fv.abs(), True, scale, pads, hi)[0])
+    live_rows = ref_lse > -1e29
+    lse_err = (lse - ref_lse).abs()[live_rows].max().item()
+    if lse_err > 1e-3:
+        raise AssertionError(f"flash_attention lse: max error {lse_err} > 1e-3")
+    if not bool((out.float().transpose(1, 2)[~live_rows] == 0).all()):
+        raise AssertionError("flash_attention: a row with no live key must output 0")
+    kms = time_ms([lambda t=t: fa.flash_attention_fwd(t[0], t[1], t[2], True, scale, pads)
+                   for t in qkv])
+    pms = time_ms([lambda t=t: fa.flash_attention_plain(t[0], t[1], t[2], True, scale, pads, hi)
+                   for t in qkv[:2]], iters=5, warmup=1)
+    pos = torch.arange(PROMPT, device=dev)
+    fmask = ((pos[:, None] >= pos[None, :])[None] & (pos[None, None, :] >= pads[:, None, None]))[:, None]
+    tq = [[x.transpose(1, 2).contiguous() for x in t] for t in qkv[:2]]
+    lms = time_ms([lambda t=t: torch.nn.functional.scaled_dot_product_attention(
+        t[0], t[1], t[2], attn_mask=fmask, scale=scale) for t in tq])
+    n_live = (PROMPT - pads).long()
+    live_rows_n = int(n_live.sum().item())
+    pairs = int((n_live * (n_live + 1) // 2).sum().item())
+    # q, k and v of the live rows only (a row before kv_start is never
+    # read); the whole output (dead rows are written as 0) and lse; pads
+    nbytes = (3 * live_rows_n * heads * dh * 2 + BATCH * PROMPT * heads * dh * 2
+              + BATCH * heads * PROMPT * 4 + BATCH * 4)
+    ops = 4 * pairs * heads * dh
+    kernels["B5"].add(b=BATCH, s=PROMPT, h=heads, dh=dh, live_rows=live_rows_n,
+                      live_pairs=pairs, max_abs_err=err, err_over_limit=ratio,
+                      lse_err=lse_err, ms=kms, plain_ms=pms, library_ms=lms,
+                      **bound_of(nbytes, ops))
+    del qkv, tq
+    torch.cuda.empty_cache()
+
+    # ---- 4. serve
+    log("phase serve")
+    from mlcomp_tpu_torch.io.weights import init_params
+    from mlcomp_tpu_torch.models.generation import generate
+    from mlcomp_tpu_torch.serve import load_service, make_http_server
+
+    t0 = time.perf_counter()
+    params = init_params(CFG, SEED, device=dev)
+    service = load_service(
+        CFG, params=params, device="cuda", quantize="kernel", batch_sizes=(1, BATCH),
+        prompt_buckets=(PROMPT,), max_new_buckets=(NEW,), batch_window_ms=200.0,
+    )
+    del params
+    torch.cuda.empty_cache()
+    model = service.model
+    log(f"load_service: {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    httpd = make_http_server(service, "127.0.0.1", 0, model_name="transformer_lm-1.2b")
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(body):
+        req = urllib.request.Request(url + "/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if r.status != 200:
+                raise AssertionError(f"/generate answered {r.status}")
+            return json.loads(r.read())
+
+    vocab = CFG["vocab_size"]
+    cpu_rng = torch.Generator().manual_seed(SEED)
+
+    def prompt_of(n):
+        return torch.randint(1, vocab, (n,), generator=cpu_rng).tolist()
+
+    lengths = torch.linspace(100, 500, BATCH).long().tolist()
+    bodies = [{"prompt": prompt_of(n), "max_new_tokens": NEW, "logprobs": True} for n in lengths]
+    bodies += [{"prompt": prompt_of(300), "max_new_tokens": NEW, "logprobs": True,
+                "temperature": 0.8, "top_p": 0.95} for _ in range(2)]
+    # warm the allocator and the kernel libraries outside the counted run
+    post({"prompt": prompt_of(16), "max_new_tokens": 2})
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        results = list(ex.map(post, bodies))
+    wall = time.perf_counter() - t0
+    alone = prompt_of(200)
+    first = post({"prompt": alone, "max_new_tokens": NEW})
+    second = post({"prompt": alone, "max_new_tokens": NEW})
+    counts = {key: k.launches for key, k in kernels.items()}
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    httpd.shutdown()
+    httpd.server_close()
+    server.join(timeout=10)
+    for body, res in zip(bodies, results):
+        ids = res["ids"]
+        if len(ids) != NEW:
+            raise AssertionError(f"expected {NEW} ids, got {len(ids)}")
+        if not all(0 <= t < vocab for t in ids):
+            raise AssertionError("generated id outside the vocabulary")
+        if len(res["logprobs"]) != NEW or max(res["logprobs"]) > 0:
+            raise AssertionError("logprobs must be <= 0, one per token")
+    if first["ids"] != second["ids"]:
+        raise AssertionError("the same greedy prompt gave different tokens")
+    if not health.get("ok"):
+        raise AssertionError(f"/healthz: {health}")
+    log(f"serve: {len(bodies)} concurrent requests in {wall:.2f} s "
+        f"(batches {health['batches']}, rows {health['batched_rows']}); "
+        f"repeat prompt identical; healthz ok")
+    log("launches over the serve run: " + json.dumps(
+        {kernels[key].name: n for key, n in counts.items()}))
+    for key in kernels:
+        if counts[key] <= 0:
+            raise AssertionError(f"{kernels[key].name} never launched on the main path")
+
+    # launches and time per prefill / decode step, straight through generate
+    prompts = torch.randint(1, vocab, (BATCH, PROMPT), generator=g, device=dev)
+    pmask = torch.ones(BATCH, PROMPT, dtype=torch.bool, device=dev)
+    for r, n in enumerate(lengths):
+        pmask[r, : PROMPT - n] = False
+
+    def run(n_new):
+        for k in kernels.values():
+            k.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        generate(model, prompts, n_new, prompt_mask=pmask)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, {key: k.launches for key, k in kernels.items()}
+
+    run(2)
+    pre_s, pre_n = run(1)
+    full_s, full_n = run(NEW)
+    step_ms = (full_s - pre_s) * 1e3 / (NEW - 1)
+    per_step = {key: (full_n[key] - pre_n[key]) / (NEW - 1) for key in kernels}
+    log(f"prefill {BATCH}x{PROMPT}: {pre_s * 1e3:.2f} ms; decode {step_ms:.3f} ms/step "
+        f"({BATCH * 1e3 / step_ms:.1f} tok/s at B={BATCH}); end to end "
+        f"{BATCH * NEW / full_s:.1f} tok/s for {BATCH}x{NEW} tokens")
+    log("launches per prefill: " + json.dumps(pre_n) + "; per decode step: " + json.dumps(per_step))
+    # the summary below weighs each kernel shape's time by its calls in one
+    # step or prefill: those call counts must be the ones just measured
+    expected = {("B1", "step"): sum(b1_step.values()), ("B2", "step"): sum(b2_step.values()),
+                ("B1", "prefill"): sum(b1_prefill.values())}
+    measured = {("B1", "step"): per_step["B1"], ("B2", "step"): per_step["B2"],
+                ("B1", "prefill"): pre_n["B1"]}
+    if measured != expected:
+        raise AssertionError(f"launches per step/prefill {measured} differ from the shape "
+                             f"decomposition {expected}")
+
+    # ---- 5. parity: kernels vs their plain versions on the 1.2B model
+    log("phase parity")
+    import mlcomp_tpu_torch.models.transformer as tr
+    import mlcomp_tpu_torch.ops.attention as at
+    import mlcomp_tpu_torch.ops.quant as oq
+
+    @contextmanager
+    def plain_kernels():
+        """Route the model's kernel call sites to the plain versions (on the
+        card's tensors), for the comparison only."""
+        saved = (oq.quant_matmul, tr.decode_attention, at.flash_attention)
+
+        def qmm(x, q8, sc, norm_scale=None, norm_eps=1e-6):
+            return qm.quant_matmul_plain(x, q8, sc, norm_scale, norm_eps)
+
+        def dec(q, k8, ks, v8, vs, kv_start=None, kv_stop=None, scale=None):
+            b, l_b = q.shape[0], k8.shape[2]
+            return da.decode_attention_plain(
+                q, k8, ks, v8, vs, da._rows(kv_start, b, 0, q.device),
+                da._rows(kv_stop, b, l_b, q.device), scale)
+
+        def fl(q, k, v, causal=False, scale=None, kv_start=None, kv_stop=None):
+            b, s_k = q.shape[0], k.shape[1]
+            return fa.flash_attention_plain(
+                q, k, v, causal, scale if scale is not None else q.shape[-1] ** -0.5,
+                fa._window(kv_start, b, 0, q.device), fa._window(kv_stop, b, s_k, q.device))[0]
+
+        oq.quant_matmul, tr.decode_attention, at.flash_attention = qmm, dec, fl
+        try:
+            yield
+        finally:
+            oq.quant_matmul, tr.decode_attention, at.flash_attention = saved
+
+    forced = torch.randint(1, vocab, (BATCH, 8), generator=g, device=dev)
+
+    @torch.inference_mode()
+    def teacher_forced():
+        cache = model.init_cache(BATCH, PROMPT + 8)
+        positions = torch.clamp(torch.cumsum(pmask.int(), 1) - 1, min=0)
+        kv_mask = torch.cat([pmask, torch.ones(BATCH, 8, dtype=torch.bool, device=dev)], 1)
+        outs = [model(prompts, positions=positions, cache=cache, kv_mask=kv_mask,
+                      last_only=True)[:, -1]]
+        pos = pmask.sum(1)
+        for j in range(8):
+            outs.append(model(forced[:, j: j + 1], positions=(pos + j)[:, None], cache=cache,
+                              kv_mask=kv_mask, last_only=True)[:, -1])
+        return torch.stack(outs, 1)
+
+    lk = teacher_forced()
+    with plain_kernels():
+        lp = teacher_forced()
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError("non-finite logits")
+    dlog = (lk - lp).abs().max().item()
+    mag = lp.abs().max().item()
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    log(f"parity: prefill + 8 decode steps, max |logit(kernels) - logit(plain)| {dlog:.4f} "
+        f"(max |logit| {mag:.3f}); greedy-token agreement {agree:.3f}")
+    # tolerance: every bf16 activation may differ by one rounding between
+    # the two (f32 sums in other orders), and 16 layers carry that along;
+    # 5% of the logit range is far below what a wrong kernel produces
+    if dlog > 0.05 * mag:
+        raise AssertionError(f"parity: logits differ by {dlog} > 0.05 x {mag}")
+    service.close()
+
+    # ---- 6. summary
+    def total(weighted):
+        """Times, bytes and operations summed over one decode step's (or
+        prefill's) calls: ``weighted`` pairs each measured shape with its
+        calls; the bound is that of the summed work."""
+        agg = {f: sum(r[f] * c for r, c in weighted) for f in ("ms", "plain_ms", "library_ms")}
+        agg.update(bound_of(sum(r["bytes"] * c for r, c in weighted),
+                            sum(r["ops"] * c for r, c in weighted)))
+        agg["calls"] = sum(c for _, c in weighted)
+        return agg
+
+    def by_shape(key, shapes, n_rows):
+        rows = {(r["d"], r["n"]): r for r in kernels[key].rows if r["rows"] == n_rows}
+        return [(rows[s], c) for s, c in shapes.items()]
+
+    # each kernel's work in one decode step at B=8 (B1, B2, B3) or in one
+    # 8x512 prefill (B5); B1's prefill share rides along under "prefill"
+    scopes = {
+        "B1": ("decode step: out and down of every layer", by_shape("B1", b1_step, BATCH)),
+        "B2": ("decode step: qkv and gate_up of every layer, lm_head",
+               by_shape("B2", b2_step, BATCH)),
+        "B3": ("decode step: every layer", [(kernels["B3"].rows[0], per_step["B3"])]),
+        "B5": ("prefill 8x512: every layer", [(kernels["B5"].rows[0], pre_n["B5"])]),
+    }
+    entries = []
+    for key, (label, weighted) in scopes.items():
+        k = kernels[key]
+        entry = {
+            "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+            "launches": counts[key], "max_abs_err": max(r["max_abs_err"] for r in k.rows),
+            "err_over_limit": max(r["err_over_limit"] for r in k.rows),
+            "scope": label, **total(weighted),
+        }
+        if key == "B1":
+            entry["prefill"] = {"scope": "prefill 8x512: all four projections of every layer",
+                                **total(by_shape("B1", b1_prefill, BATCH * PROMPT))}
+        entries.append(entry)
+    log(json.dumps({"serve": {
+        "prefill_ms": pre_s * 1e3, "decode_ms_per_step": step_ms,
+        "decode_tok_s": BATCH * 1e3 / step_ms, "e2e_tok_s": BATCH * NEW / full_s,
+        "launches_per_decode_step": per_step, "launches_per_prefill": pre_n,
+        "parity_max_abs_logit_err": dlog, "greedy_agreement": agree, "card": smi}}))
+    log(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+"""Command line of the port: ``python -m mlcomp_tpu_torch.cli serve ...``.
+
+One command, ``serve``, with the JAX CLI's flag names.  ``--ckpt`` names
+a ``.npz`` params tree (``io.weights.save_npz``).  It serves on the GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _cmd_serve(args: argparse.Namespace) -> int:
+    import yaml
+
+    from mlcomp_tpu_torch.serve import load_service, serve_http
+
+    with open(args.model) as f:
+        doc = yaml.safe_load(f)
+    # a bare model mapping, or any YAML with a top-level ``model:`` section
+    model_cfg = doc.get("model", doc) if isinstance(doc, dict) else doc
+    if args.kv_quant:
+        model_cfg = {**model_cfg, "kv_quant": True}
+    if not args.ckpt:
+        # serving random init silently would look healthy and emit junk
+        print("error: pass --ckpt (a .npz params file to serve)", file=sys.stderr)
+        return 2
+    service = load_service(
+        model_cfg,
+        ckpt_path=args.ckpt,
+        batch_sizes=tuple(int(x) for x in args.batch_sizes.split(",")),
+        prompt_buckets=tuple(int(x) for x in args.prompt_buckets.split(",")),
+        max_new_buckets=tuple(int(x) for x in args.max_new_buckets.split(",")),
+        batch_window_ms=args.batch_window_ms,
+        temperature=args.temperature,
+        top_k=args.top_k,
+        top_p=args.top_p,
+        repetition_penalty=args.repetition_penalty,
+        eos_id=args.eos_id,
+        pad_id=args.pad_id,
+        quantize=args.quantize or False,
+        request_timeout_s=args.request_timeout,
+    )
+    serve_http(service, args.host, args.port, model_name=str(model_cfg.get("name", "model")))
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="mlcomp_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sv = sub.add_parser(
+        "serve",
+        help="serve an LM over HTTP on the GPU: KV-cache decode, window"
+        " micro-batching, bucketed shapes (POST /generate)",
+    )
+    sv.add_argument("--model", required=True,
+                    help="YAML with the model config (a bare mapping, or a"
+                    " YAML with a top-level 'model:' section)")
+    sv.add_argument("--ckpt", default=None, help=".npz params file")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8900)
+    sv.add_argument("--batch-sizes", default="1,2,4,8")
+    sv.add_argument("--prompt-buckets", default="128,256,512,1024")
+    sv.add_argument("--max-new-buckets", default="32,128")
+    sv.add_argument("--batch-window-ms", type=float, default=10.0)
+    sv.add_argument("--temperature", type=float, default=0.0)
+    sv.add_argument("--top-k", type=int, default=None)
+    sv.add_argument("--top-p", type=float, default=None)
+    sv.add_argument("--repetition-penalty", type=float, default=1.0)
+    sv.add_argument("--eos-id", type=int, default=None)
+    sv.add_argument("--pad-id", type=int, default=0)
+    sv.add_argument("--quantize", default=None, choices=("int8", "kernel"),
+                    help="int8 weight-only: storage ('int8', dequantized at"
+                    " load) or the CUDA int8 matmul ('kernel')")
+    sv.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache read by the CUDA flash-decode kernel")
+    # accepted so that a JAX serve command line carries over; the window
+    # batcher is the one this package serves
+    sv.add_argument("--batcher", default="window", choices=("window",))
+    sv.add_argument("--request-timeout", type=float, default=600.0)
+    sv.set_defaults(fn=_cmd_serve)
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
