@@ -14,20 +14,29 @@ without printing a result:
    heads, mlp 8192, vocab 32768), with its time, the plain version's, one
    PyTorch library call's (a yardstick only; the port never calls it) and
    the card's bound for the same work.
-4. serve: the 1.2B all-int8 transformer_lm (int8 weights through the int8
-   matmul, int8 KV cache, fused qkv/gate_up, 16 layers, random weights
-   from a seed) behind the HTTP server on 127.0.0.1; concurrent greedy and
-   sampled requests; launch counts of every kernel over that run; prefill
-   and decode times.
-5. parity: one prefill and 8 teacher-forced decode steps of the same model
-   with the kernels and with their plain versions, logits compared.
-6. summary: a ``kernels`` JSON line, then, last, the device line.
+4. window serve: the 1.2B all-int8 transformer_lm (int8 weights through
+   the int8 matmul, int8 KV cache, fused qkv/gate_up, 16 layers, random
+   weights from a seed) behind the HTTP server on 127.0.0.1 through the
+   window batcher; concurrent greedy and sampled requests; launch counts
+   of every kernel over that run; prefill and decode times.
+5. window parity: one prefill and 8 teacher-forced decode steps of the
+   same model with the kernels and with their plain versions.
+6. engine serve (the main path): the same model behind HTTP through the
+   default continuous batcher (8 slots, prompt bucket 512, 128 new tokens,
+   prefill chunk 256, adaptive K, pipeline depth 2, fused admission):
+   concurrent greedy and sampled requests of 100-500 prompt tokens, one
+   SSE stream, a repeated greedy prompt; every kernel must launch; TTFT,
+   decode ms per step at 8 live slots, tok/s and the K rungs used.
+7. engine parity: a (1, 256) admission chunk at cache index 256 and 8
+   per-row-cursor decode steps, kernels against plain versions.
+8. summary: a ``kernels`` JSON line, then, last, the device line.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import queue
 import subprocess
 import sys
 import threading
@@ -44,7 +53,7 @@ CFG = {
     "decode_fused": True, "kv_quant": True,
 }
 SEED = 0
-BATCH, PROMPT, NEW = 8, 512, 128
+BATCH, PROMPT, NEW, CHUNK = 8, 512, 128, 256
 
 # data-sheet peaks (dense): memory bytes/s, bf16 tensor FLOP/s
 PEAKS = {
@@ -146,6 +155,8 @@ def main() -> int:
                      "mlcomp_tpu/ops/pallas/quant_matmul.py:61", qm, "norm_launches"),
         "B3": Kernel("decode_attention", "mlcomp_tpu_torch/csrc/decode_attention.cu",
                      "mlcomp_tpu/ops/pallas/decode_attention.py:173", da),
+        "B4": Kernel("decode_attention_chunk", "mlcomp_tpu_torch/csrc/decode_attention.cu",
+                     "mlcomp_tpu/ops/pallas/decode_attention.py:323", da, "chunk_launches"),
         "B5": Kernel("flash_attention_fwd", "mlcomp_tpu_torch/csrc/flash_attention.cu",
                      "mlcomp_tpu/ops/pallas/flash_attention.py:507", fa),
     }
@@ -158,6 +169,16 @@ def main() -> int:
         t_bytes, t_ops = nbytes / bw, ops / flops
         return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+    def total(weighted):
+        """Times, bytes and operations summed over one decode step's (or
+        prefill's, or admission chunk's) calls: ``weighted`` pairs each
+        measured shape with its calls; the bound is that of the summed work."""
+        agg = {f: sum(r[f] * c for r, c in weighted) for f in ("ms", "plain_ms", "library_ms")}
+        agg.update(bound_of(sum(r["bytes"] * c for r, c in weighted),
+                            sum(r["ops"] * c for r, c in weighted)))
+        agg["calls"] = sum(c for _, c in weighted)
+        return agg
 
     # ---- 3. kernels against their plain versions
     log("phase kernels")
@@ -198,6 +219,10 @@ def main() -> int:
     b1_prefill = {(hidden, qkv_n): layers, (hidden, 2 * mlp): layers, (mlp, hidden): layers,
                   (hidden, hidden): layers}
 
+    def by_shape(key, shapes, n_rows):
+        rows = {(r["d"], r["n"]): r for r in kernels[key].rows if r["rows"] == n_rows}
+        return [(rows[s], c) for s, c in shapes.items()]
+
     def qmm_case(rows, d, n, norm):
         q8 = torch.randint(-127, 128, (d, n), generator=g, device=dev, dtype=torch.int8)
         sc = torch.rand(n, generator=g, device=dev) / (127 * math.sqrt(d))
@@ -230,6 +255,11 @@ def main() -> int:
         kernels["B2"].add(**qmm_case(BATCH, d, n, True))
     for d, n in b1_prefill:
         kernels["B1"].add(**qmm_case(BATCH * PROMPT, d, n, False))
+    # an engine admission chunk: its four projections at CHUNK rows (B1) and
+    # its last_only lm_head at one row (B2, which splits D otherwise)
+    for d, n in b1_prefill:
+        kernels["B1"].add(**qmm_case(CHUNK, d, n, False))
+    kernels["B2"].add(**qmm_case(1, hidden, vocab, True))
     torch.cuda.empty_cache()
 
     # B3: the decode step's cache: prompt bucket 512 + 128 new tokens
@@ -272,8 +302,67 @@ def main() -> int:
     kernels["B3"].add(b=BATCH, h=heads, h_kv=heads, l_buf=l_buf, dh=dh, live_slots=live,
                       max_abs_err=err, err_over_limit=ratio, ms=kms, plain_ms=pms,
                       library_ms=lms, **bound_of(nbytes, ops))
+    # the one-query chunk is the single-query decode: the same kernel body
+    one = da.decode_attention_chunk(q[:, None], *caches[0], starts, stops, scale)[:, 0]
+    torch.cuda.synchronize()
+    if not torch.equal(one, out):
+        raise AssertionError("decode_attention_chunk at S = 1 differs from decode_attention")
     del caches, dq
     torch.cuda.empty_cache()
+
+    # B4: an admission chunk (1, 256) at cache index 256 of a 512-token
+    # prompt with left padding (window [pad, 512)), and a verify-width
+    # chunk S = 32 of 8 rows at per-row cursors
+    def chunk_case(b, s_q, starts, stop0):
+        cache_bytes = 2 * b * heads * l_buf * dh
+        cs = []
+        for _ in range(copies_for(cache_bytes)):
+            k8, ks = da.quantize_kv(torch.randn(b, l_buf, heads, dh, generator=g, device=dev))
+            v8, vs = da.quantize_kv(torch.randn(b, l_buf, heads, dh, generator=g, device=dev))
+            cs.append((k8.transpose(1, 2).contiguous(),
+                       ks.transpose(1, 2)[:, :, None].bfloat16().contiguous(),
+                       v8.transpose(1, 2).contiguous(),
+                       vs.transpose(1, 2)[:, :, None].bfloat16().contiguous()))
+        qc = torch.randn(b, s_q, heads, dh, generator=g, device=dev).bfloat16()
+        k8, ks, v8, vs = cs[0]
+        outc = da.decode_attention_chunk(qc, k8, ks, v8, vs, starts, stop0, scale)
+        err, ratio = held(f"decode_attention_chunk {b}x{s_q}", outc,
+                          da.decode_attention_chunk_plain(qc, k8, ks, v8, vs, starts, stop0, scale),
+                          da.decode_attention_chunk_plain(qc, k8, ks, v8.abs(), vs, starts,
+                                                          stop0, scale))
+        del k8, ks, v8, vs
+        kms = time_ms([lambda c=c: da.decode_attention_chunk(qc, *c, starts, stop0, scale)
+                       for c in cs])
+        pms = time_ms([lambda c=c: da.decode_attention_chunk_plain(qc, *c, starts, stop0, scale)
+                       for c in cs[:2]], iters=5, warmup=1)
+        slots = torch.arange(l_buf, device=dev)
+        qstop = stop0[:, None] + torch.arange(s_q, device=dev)[None]            # (B, S)
+        cmask = ((slots[None, None] >= starts[:, None, None])
+                 & (slots[None, None] < qstop[..., None]))[:, None]          # (B, 1, S, L)
+        dq = [((c[0].float() * c[1].float().transpose(2, 3)).bfloat16(),
+               (c[2].float() * c[3].float().transpose(2, 3)).bfloat16()) for c in cs[:2]]
+        qt = qc.transpose(1, 2)
+        lms = time_ms([lambda kv=kv: torch.nn.functional.scaled_dot_product_attention(
+            qt, kv[0], kv[1], attn_mask=cmask, scale=scale) for kv in dq])
+        # keys each query attends, summed; the K/V window a row reads once
+        pairs = int((qstop - starts[:, None]).clamp_min(0).sum().item())
+        window = int((stop0 + s_q - 1 - starts).clamp_min(0).sum().item())
+        nbytes = (2 * qc.numel() * 2 + window * heads * (2 * dh + 2 * 2) + b * 8)
+        ops = 4 * pairs * heads * dh
+        kernels["B4"].add(b=b, s=s_q, h=heads, h_kv=heads, l_buf=l_buf, dh=dh,
+                          live_pairs=pairs, window_slots=window, max_abs_err=err,
+                          err_over_limit=ratio, ms=kms, plain_ms=pms, library_ms=lms,
+                          **bound_of(nbytes, ops))
+        del cs, dq
+        torch.cuda.empty_cache()
+
+    adm_pad = 100
+    chunk_case(1, CHUNK, torch.tensor([adm_pad], dtype=torch.int32, device=dev),
+               torch.tensor([CHUNK + 1], dtype=torch.int32, device=dev))
+    chunk_case(BATCH, 32, torch.randint(0, 100, (BATCH,), generator=g, device=dev,
+                                        dtype=torch.int32),
+               torch.randint(PROMPT, PROMPT + NEW - 32, (BATCH,), generator=g, device=dev,
+                             dtype=torch.int32))
 
     # B5: the prefill, causal, left padding as kv_start
     pads = torch.randint(0, PROMPT - 100, (BATCH,), generator=g, device=dev, dtype=torch.int32)
@@ -315,8 +404,8 @@ def main() -> int:
     del qkv, tq
     torch.cuda.empty_cache()
 
-    # ---- 4. serve
-    log("phase serve")
+    # ---- 4. window serve
+    log("phase window serve")
     from mlcomp_tpu_torch.io.weights import init_params
     from mlcomp_tpu_torch.models.generation import generate
     from mlcomp_tpu_torch.serve import load_service, make_http_server
@@ -326,8 +415,8 @@ def main() -> int:
     service = load_service(
         CFG, params=params, device="cuda", quantize="kernel", batch_sizes=(1, BATCH),
         prompt_buckets=(PROMPT,), max_new_buckets=(NEW,), batch_window_ms=200.0,
+        batcher="window",
     )
-    del params
     torch.cuda.empty_cache()
     model = service.model
     log(f"load_service: {time.perf_counter() - t0:.2f} s; "
@@ -340,7 +429,7 @@ def main() -> int:
     def post(body):
         req = urllib.request.Request(url + "/generate", data=json.dumps(body).encode(),
                                      headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=600) as r:
+        with urllib.request.urlopen(req, timeout=180) as r:
             if r.status != 200:
                 raise AssertionError(f"/generate answered {r.status}")
             return json.loads(r.read())
@@ -387,11 +476,13 @@ def main() -> int:
     log(f"serve: {len(bodies)} concurrent requests in {wall:.2f} s "
         f"(batches {health['batches']}, rows {health['batched_rows']}); "
         f"repeat prompt identical; healthz ok")
-    log("launches over the serve run: " + json.dumps(
+    log("launches over the window serve run: " + json.dumps(
         {kernels[key].name: n for key, n in counts.items()}))
     for key in kernels:
-        if counts[key] <= 0:
-            raise AssertionError(f"{kernels[key].name} never launched on the main path")
+        # the window path prefills at cache index 0 only: no chunk kernel
+        if (counts[key] <= 0) != (key == "B4"):
+            raise AssertionError(f"{kernels[key].name}: {counts[key]} launches on the window path")
+    window_counts = counts
 
     # launches and time per prefill / decode step, straight through generate
     prompts = torch.randint(1, vocab, (BATCH, PROMPT), generator=g, device=dev)
@@ -427,8 +518,8 @@ def main() -> int:
         raise AssertionError(f"launches per step/prefill {measured} differ from the shape "
                              f"decomposition {expected}")
 
-    # ---- 5. parity: kernels vs their plain versions on the 1.2B model
-    log("phase parity")
+    # ---- 5. window parity: kernels vs their plain versions on the 1.2B model
+    log("phase window parity")
     import mlcomp_tpu_torch.models.transformer as tr
     import mlcomp_tpu_torch.ops.attention as at
     import mlcomp_tpu_torch.ops.quant as oq
@@ -437,7 +528,8 @@ def main() -> int:
     def plain_kernels():
         """Route the model's kernel call sites to the plain versions (on the
         card's tensors), for the comparison only."""
-        saved = (oq.quant_matmul, tr.decode_attention, at.flash_attention)
+        saved = (oq.quant_matmul, tr.decode_attention, tr.decode_attention_chunk,
+                 at.flash_attention)
 
         def qmm(x, q8, sc, norm_scale=None, norm_eps=1e-6):
             return qm.quant_matmul_plain(x, q8, sc, norm_scale, norm_eps)
@@ -448,17 +540,44 @@ def main() -> int:
                 q, k8, ks, v8, vs, da._rows(kv_start, b, 0, q.device),
                 da._rows(kv_stop, b, l_b, q.device), scale)
 
+        def chunk(q, k8, ks, v8, vs, kv_start=None, kv_stop0=None, scale=None):
+            b, s_q, l_b = q.shape[0], q.shape[1], k8.shape[2]
+            return da.decode_attention_chunk_plain(
+                q, k8, ks, v8, vs, da._rows(kv_start, b, 0, q.device),
+                da._rows(kv_stop0, b, l_b - s_q + 1, q.device), scale)
+
         def fl(q, k, v, causal=False, scale=None, kv_start=None, kv_stop=None):
             b, s_k = q.shape[0], k.shape[1]
             return fa.flash_attention_plain(
                 q, k, v, causal, scale if scale is not None else q.shape[-1] ** -0.5,
                 fa._window(kv_start, b, 0, q.device), fa._window(kv_stop, b, s_k, q.device))[0]
 
-        oq.quant_matmul, tr.decode_attention, at.flash_attention = qmm, dec, fl
+        (oq.quant_matmul, tr.decode_attention, tr.decode_attention_chunk,
+         at.flash_attention) = qmm, dec, chunk, fl
         try:
             yield
         finally:
-            oq.quant_matmul, tr.decode_attention, at.flash_attention = saved
+            (oq.quant_matmul, tr.decode_attention, tr.decode_attention_chunk,
+             at.flash_attention) = saved
+
+    def compare(what, run_fn):
+        """Logits with the kernels against logits with the plain versions.
+        Tolerance: every bf16 activation may differ by one rounding between
+        the two (f32 sums in other orders), and 16 layers carry that along;
+        5% of the logit range is far below what a wrong kernel produces."""
+        lk = run_fn()
+        with plain_kernels():
+            lp = run_fn()
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            raise AssertionError(f"{what}: non-finite logits")
+        dlog = (lk - lp).abs().max().item()
+        mag = lp.abs().max().item()
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        log(f"parity, {what}: max |logit(kernels) - logit(plain)| {dlog:.4f} "
+            f"(max |logit| {mag:.3f}); greedy-token agreement {agree:.3f}")
+        if dlog > 0.05 * mag:
+            raise AssertionError(f"parity, {what}: logits differ by {dlog} > 0.05 x {mag}")
+        return dlog, agree
 
     forced = torch.randint(1, vocab, (BATCH, 8), generator=g, device=dev)
 
@@ -475,45 +594,241 @@ def main() -> int:
                               kv_mask=kv_mask, last_only=True)[:, -1])
         return torch.stack(outs, 1)
 
-    lk = teacher_forced()
-    with plain_kernels():
-        lp = teacher_forced()
-    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-        raise AssertionError("non-finite logits")
-    dlog = (lk - lp).abs().max().item()
-    mag = lp.abs().max().item()
-    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-    log(f"parity: prefill + 8 decode steps, max |logit(kernels) - logit(plain)| {dlog:.4f} "
-        f"(max |logit| {mag:.3f}); greedy-token agreement {agree:.3f}")
-    # tolerance: every bf16 activation may differ by one rounding between
-    # the two (f32 sums in other orders), and 16 layers carry that along;
-    # 5% of the logit range is far below what a wrong kernel produces
-    if dlog > 0.05 * mag:
-        raise AssertionError(f"parity: logits differ by {dlog} > 0.05 x {mag}")
+    dlog, agree = compare("window prefill + 8 decode steps", teacher_forced)
+    service.close()
+    del service
+    torch.cuda.empty_cache()
+
+    # ---- 6. engine serve: the default continuous batcher, the main path
+    log("phase engine serve")
+    t0 = time.perf_counter()
+    service = load_service(
+        CFG, params=params, device="cuda", quantize="kernel", batch_sizes=(1, BATCH),
+        prompt_buckets=(PROMPT,), max_new_buckets=(NEW,), prefill_chunk=CHUNK,
+    )
+    del params
+    torch.cuda.empty_cache()
+    model = service.model
+    eng = service.engine
+    if service.batcher != "continuous" or not eng.adaptive_k or eng.pipeline_depth != 2 \
+            or not eng.fused_admission:
+        raise AssertionError(f"the default service is not the continuous engine: "
+                             f"{service.stats()}")
+    log(f"load_service (continuous): {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; engine cache L = "
+        f"{da.pick_buffer_len(eng.l_buf, heads, dh)} for {eng.l_buf} slots")
+    httpd = make_http_server(service, "127.0.0.1", 0, model_name="transformer_lm-1.2b")
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def sse(body):
+        """POST a streaming request; (events, seconds from sending it to the
+        first token event, and to the last token event)."""
+        req = urllib.request.Request(url + "/generate",
+                                     data=json.dumps({**body, "stream": True}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        events, stamps = [], []
+        with urllib.request.urlopen(req, timeout=180) as r:
+            for line in r:
+                if line.startswith(b"data: "):
+                    events.append(json.loads(line[len(b"data: "):]))
+                    stamps.append(time.perf_counter() - t)
+        if len(stamps) < 2:
+            raise AssertionError(f"SSE stream without tokens: {events}")
+        return events, stamps[0], stamps[-2]
+
+    def streamed(events, n_new):
+        """The final result of an SSE stream, after checking that its token
+        events come in step order and spell its ids."""
+        *tokens, done = events
+        if not done.get("done") or [e["token"] for e in tokens] != done["ids"] or \
+                len(done["ids"]) != n_new:
+            raise AssertionError(f"SSE stream out of order or incomplete: {done}")
+        if [e["step"] for e in tokens] != sorted(e["step"] for e in tokens):
+            raise AssertionError("SSE steps out of order")
+        return done
+
+    def pct(xs, q):
+        return torch.quantile(torch.tensor(xs, dtype=torch.float64), q).item()
+
+    # prompts of 100-500 tokens in the 512 bucket with chunks of 256: below
+    # 256 the only chunk runs at cache index 256 (B4 only); above it the
+    # first chunk runs at index 0 (B5) and the second at 256 (B4).  Every
+    # request streams, so that the client stamps its own time to first
+    # token under this load
+    lengths = torch.linspace(100, 500, 10).long().tolist() + [300]
+    bodies = [{"prompt": prompt_of(n), "max_new_tokens": NEW, "logprobs": True}
+              for n in lengths]
+    for b in bodies[1::4]:
+        b.update(temperature=0.8, top_p=0.95)
+    post({"prompt": prompt_of(16), "max_new_tokens": 2})   # warm the allocator
+    for k in kernels.values():
+        k.reset()
+    st0 = eng.stats()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        streams = list(ex.map(sse, bodies))
+    wall = time.perf_counter() - t0
+    st_mid = eng.stats()
+    alone = prompt_of(200)
+    first = post({"prompt": alone, "max_new_tokens": NEW})
+    second = post({"prompt": alone, "max_new_tokens": NEW})
+    lone_events, ttft_lone, _ = sse({"prompt": prompt_of(400), "max_new_tokens": 16})
+    counts = {key: k.launches for key, k in kernels.items()}
+    st1 = eng.stats()
+    for events, _, _ in streams:
+        res = streamed(events, NEW)
+        ids = res["ids"]
+        if not all(0 <= t < vocab for t in ids):
+            raise AssertionError(f"expected {NEW} ids in the vocabulary, got {ids}")
+        if len(res["logprobs"]) != NEW or max(res["logprobs"]) > 0:
+            raise AssertionError("logprobs must be <= 0, one per token")
+    streamed(lone_events, 16)
+    ttft = [f * 1e3 for _, f, _ in streams]
+    per_tok = [(t_last - f) * 1e3 / (NEW - 1) for _, f, t_last in streams]
+    ttft_ms = {"p50": pct(ttft, 0.5), "p95": pct(ttft, 0.95), "max": max(ttft)}
+    per_token_ms = {"p50": pct(per_tok, 0.5), "p95": pct(per_tok, 0.95)}
+    if first["ids"] != second["ids"]:
+        raise AssertionError("the same greedy prompt gave different tokens")
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    if not (health.get("ok") and health.get("ready")):
+        raise AssertionError(f"/healthz: {health}")
+    log("launches over the engine serve run: " + json.dumps(
+        {kernels[key].name: n for key, n in counts.items()}))
+    for key in kernels:
+        if counts[key] <= 0:
+            raise AssertionError(f"{kernels[key].name} never launched on the engine path")
+    emitted = st_mid["emitted_tokens"] - st0["emitted_tokens"]
+    k_used = {k: n - st0["dispatches_by_k"].get(k, 0)
+              for k, n in st_mid["dispatches_by_k"].items()}
+    log(f"engine serve: {len(bodies)} concurrent SSE requests (100-500 prompt tokens, "
+        f"3 sampled) in {wall:.2f} s, {emitted} tokens ({emitted / wall:.1f} tok/s); "
+        f"client TTFT over these {len(bodies)}: p50 {ttft_ms['p50']:.1f} ms, p95 "
+        f"{ttft_ms['p95']:.1f} ms (sorted: {[round(x, 1) for x in sorted(ttft)]}); lone SSE "
+        f"TTFT {ttft_lone * 1e3:.1f} ms; per-token p50 {per_token_ms['p50']:.3f} ms; "
+        f"K rungs used (dispatches per K): {json.dumps(k_used)}; repeat prompt identical; "
+        f"healthz ok and ready")
+
+    # decode ms per step with all 8 slots live: 8 requests of 100 prompt
+    # tokens, each streaming into a tap that stamps the host time the
+    # engine hands it a token (at a dispatch readback).  The window runs
+    # from the readback that gives the last of them its first token to
+    # the readback that gives one of them its last; the consumer blocks
+    # in queue.get, so it takes no interpreter time from the engine loop
+    class Tap:
+        def __init__(self, i, sink):
+            self.i, self.sink = i, sink
+
+        def put(self, item):
+            self.sink.put((self.i, time.perf_counter(), item))
+
+    sink: "queue.Queue" = queue.Queue()
+    futs8 = [service.submit(prompt_of(100), NEW, stream=Tap(i, sink)) for i in range(BATCH)]
+    seen: dict = {}
+    ended = 0
+    while ended < BATCH:
+        i, t, item = sink.get(timeout=180)
+        if item is None:
+            ended += 1
+        else:
+            seen.setdefault(i, []).append((t, item["step"]))
+    for f in futs8:
+        f.result(timeout=180)
+    t_a, s_a = max(ev[0] for ev in seen.values())       # the last first token
+    t_b, s_b = min(ev[-1] for ev in seen.values())      # the first last token
+    if len(seen) != BATCH or s_b <= s_a:
+        raise AssertionError(f"no window with all {BATCH} slots decoding: {s_a}, {s_b}")
+    steady_ms = (t_b - t_a) * 1e3 / (s_b - s_a)
+    log(f"engine decode at {BATCH} live slots: {steady_ms:.3f} ms/step "
+        f"({BATCH * 1e3 / steady_ms:.1f} tok/s; {s_b - s_a} steps in "
+        f"{(t_b - t_a) * 1e3:.1f} ms, K {eng.stats()['k_ladder']} ladder)")
+    httpd.shutdown()
+    httpd.server_close()
+    server.join(timeout=10)
+
+    # ---- 7. engine parity: an admission chunk at index 256, 8 per-row-cursor steps
+    log("phase engine parity")
+    chunk_ids = torch.randint(1, vocab, (1, PROMPT), generator=g, device=dev)
+    chunk_pos = torch.clamp(torch.arange(PROMPT, device=dev) - adm_pad, min=0)[None]
+    chunk_start = torch.tensor([adm_pad], dtype=torch.int32, device=dev)
+
+    @torch.inference_mode()
+    def admission_chunk():
+        cache = model.init_cache(1, eng.l_buf)
+        model(chunk_ids[:, :CHUNK], positions=chunk_pos[:, :CHUNK], cache=cache,
+              last_only=True, kv_start=chunk_start)
+        return model(chunk_ids[:, CHUNK:], positions=chunk_pos[:, CHUNK:], cache=cache,
+                     kv_start=chunk_start)
+
+    starts8 = PROMPT - pmask.sum(1).int()
+    cur0 = (PROMPT - torch.arange(BATCH, device=dev)).int()   # row r rewrites its last r slots
+    pos0 = pmask.sum(1) - torch.arange(BATCH, device=dev)
+
+    @torch.inference_mode()
+    def cursor_steps():
+        cache = model.init_cache(BATCH, eng.l_buf)
+        positions = torch.clamp(torch.cumsum(pmask.int(), 1) - 1, min=0)
+        model(prompts, positions=positions, cache=cache, kv_start=starts8, last_only=True)
+        outs = []
+        for j in range(8):
+            outs.append(model(forced[:, j: j + 1], positions=(pos0 + j)[:, None], cache=cache,
+                              kv_start=starts8, cache_cursor=cur0 + j, last_only=True)[:, -1])
+        return torch.stack(outs, 1)
+
+    chunk_dlog, chunk_agree = compare("admission chunk (1, 256) at cache index 256",
+                                      admission_chunk)
+    cur_dlog, cur_agree = compare("8 per-row-cursor decode steps", cursor_steps)
+
+    # one admission chunk as the engine runs it (last_only), kernels on: its
+    # launches per kernel, and its wall on the card (host clock around
+    # synchronized runs of the chunk at index 256)
+    @torch.inference_mode()
+    def chunk_ms(reps=5):
+        cache = model.init_cache(1, eng.l_buf)
+        model(chunk_ids[:, :CHUNK], positions=chunk_pos[:, :CHUNK], cache=cache,
+              last_only=True, kv_start=chunk_start)
+        walls, launched = [], None
+        for _ in range(reps):
+            cache.index = CHUNK
+            for k in kernels.values():
+                k.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model(chunk_ids[:, CHUNK:], positions=chunk_pos[:, CHUNK:], cache=cache,
+                  last_only=True, kv_start=chunk_start)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            launched = launched or {key: k.launches for key, k in kernels.items()}
+        return min(walls), launched
+
+    adm_chunk_ms, per_chunk = chunk_ms()
+    # the summary weighs the B1, B2 and B4 shapes by these calls
+    expected = {"B1": sum(b1_prefill.values()), "B2": 1, "B3": 0, "B4": layers, "B5": 0}
+    if per_chunk != expected:
+        raise AssertionError(f"launches per admission chunk {per_chunk}, expected {expected}")
+    share = {"B1": total(by_shape("B1", b1_prefill, CHUNK))["ms"],
+             "B2": total(by_shape("B2", {(hidden, vocab): 1}, 1))["ms"],
+             "B4": kernels["B4"].rows[0]["ms"] * per_chunk["B4"]}
+    b4_chunk_ms = share["B4"]
+    log(f"admission chunk (1, 256) at index 256: {adm_chunk_ms:.3f} ms wall (best of 5); "
+        f"of it, in ms: " + ", ".join(f"{key} {v:.3f} ({100 * v / adm_chunk_ms:.1f}%)"
+                                      for key, v in share.items()))
     service.close()
 
-    # ---- 6. summary
-    def total(weighted):
-        """Times, bytes and operations summed over one decode step's (or
-        prefill's) calls: ``weighted`` pairs each measured shape with its
-        calls; the bound is that of the summed work."""
-        agg = {f: sum(r[f] * c for r, c in weighted) for f in ("ms", "plain_ms", "library_ms")}
-        agg.update(bound_of(sum(r["bytes"] * c for r, c in weighted),
-                            sum(r["ops"] * c for r, c in weighted)))
-        agg["calls"] = sum(c for _, c in weighted)
-        return agg
-
-    def by_shape(key, shapes, n_rows):
-        rows = {(r["d"], r["n"]): r for r in kernels[key].rows if r["rows"] == n_rows}
-        return [(rows[s], c) for s, c in shapes.items()]
-
-    # each kernel's work in one decode step at B=8 (B1, B2, B3) or in one
-    # 8x512 prefill (B5); B1's prefill share rides along under "prefill"
+    # ---- 8. summary
+    # each kernel's work in one decode step at B=8 (B1, B2, B3), in one
+    # 8x512 prefill (B5) or in one admission chunk at index 256 (B4); B1's
+    # prefill share rides along under "prefill"
     scopes = {
         "B1": ("decode step: out and down of every layer", by_shape("B1", b1_step, BATCH)),
         "B2": ("decode step: qkv and gate_up of every layer, lm_head",
                by_shape("B2", b2_step, BATCH)),
         "B3": ("decode step: every layer", [(kernels["B3"].rows[0], per_step["B3"])]),
+        "B4": ("admission chunk (1, 256) at cache index 256: every layer",
+               [(kernels["B4"].rows[0], per_chunk["B4"])]),
         "B5": ("prefill 8x512: every layer", [(kernels["B5"].rows[0], pre_n["B5"])]),
     }
     entries = []
@@ -521,19 +836,43 @@ def main() -> int:
         k = kernels[key]
         entry = {
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": counts[key], "max_abs_err": max(r["max_abs_err"] for r in k.rows),
+            "launches": counts[key], "launches_window_path": window_counts[key],
+            "max_abs_err": max(r["max_abs_err"] for r in k.rows),
             "err_over_limit": max(r["err_over_limit"] for r in k.rows),
             "scope": label, **total(weighted),
         }
         if key == "B1":
             entry["prefill"] = {"scope": "prefill 8x512: all four projections of every layer",
                                 **total(by_shape("B1", b1_prefill, BATCH * PROMPT))}
+            entry["admission_chunk"] = {
+                "scope": "admission chunk (1, 256): all four projections of every layer",
+                **total(by_shape("B1", b1_prefill, CHUNK))}
+        if key == "B2":
+            entry["admission_chunk"] = {"scope": "admission chunk (1, 256): last_only lm_head",
+                                        **total(by_shape("B2", {(hidden, vocab): 1}, 1))}
+        if key == "B4":
+            entry["verify_width"] = {"scope": "8 rows x 32 queries, one call",
+                                     **total([(kernels["B4"].rows[1], 1)])}
         entries.append(entry)
     log(json.dumps({"serve": {
         "prefill_ms": pre_s * 1e3, "decode_ms_per_step": step_ms,
         "decode_tok_s": BATCH * 1e3 / step_ms, "e2e_tok_s": BATCH * NEW / full_s,
         "launches_per_decode_step": per_step, "launches_per_prefill": pre_n,
         "parity_max_abs_logit_err": dlog, "greedy_agreement": agree, "card": smi}}))
+    log(json.dumps({"engine": {
+        "requests": len(bodies), "wall_s": wall, "emitted_tokens": emitted,
+        "tok_s": emitted / wall, "ttft_ms_loaded": ttft_ms, "per_token_ms_loaded": per_token_ms,
+        "lone_sse_ttft_ms": ttft_lone * 1e3, "decode_ms_per_step_8_slots": steady_ms,
+        "decode_tok_s_8_slots": BATCH * 1e3 / steady_ms, "k_rungs_used": k_used,
+        "fused_chunks": st1["fused_chunks"] - st0["fused_chunks"],
+        "prefill_chunks": st1["prefill_chunks"] - st0["prefill_chunks"],
+        "pipeline": st1["pipeline"], "launches": counts,
+        "b4_launches_per_admission_chunk": per_chunk["B4"],
+        "admission_chunk_ms": adm_chunk_ms, "b4_ms_per_admission_chunk": b4_chunk_ms,
+        "admission_chunk_kernel_ms": share, "launches_per_admission_chunk": per_chunk,
+        "parity_chunk_max_abs_logit_err": chunk_dlog, "parity_chunk_agreement": chunk_agree,
+        "parity_cursor_max_abs_logit_err": cur_dlog, "parity_cursor_agreement": cur_agree,
+        "card": smi}}))
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

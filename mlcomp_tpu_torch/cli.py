@@ -10,6 +10,19 @@ import argparse
 import sys
 
 
+def _steps_per_dispatch(value: str):
+    """``--steps-per-dispatch``: a positive int, or ``adaptive``."""
+    if value.strip().lower() == "adaptive":
+        return "adaptive"
+    try:
+        k = int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected an int or 'adaptive', got {value!r}")
+    if k < 1:
+        raise argparse.ArgumentTypeError(f"steps per dispatch must be >= 1, got {k}")
+    return k
+
+
 def _cmd_serve(args: argparse.Namespace) -> int:
     import yaml
 
@@ -40,6 +53,12 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         pad_id=args.pad_id,
         quantize=args.quantize or False,
         request_timeout_s=args.request_timeout,
+        batcher=args.batcher,
+        steps_per_dispatch=args.steps_per_dispatch,
+        prefill_chunk=args.prefill_chunk,
+        engine_pipeline_depth=args.engine_pipeline_depth,
+        engine_fused_admission=False if args.engine_staged_admission else None,
+        dispatch_stall_timeout=args.dispatch_stall_timeout or None,
     )
     serve_http(service, args.host, args.port, model_name=str(model_cfg.get("name", "model")))
     return 0
@@ -50,8 +69,9 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     sv = sub.add_parser(
         "serve",
-        help="serve an LM over HTTP on the GPU: KV-cache decode, window"
-        " micro-batching, bucketed shapes (POST /generate)",
+        help="serve an LM over HTTP on the GPU: continuous batching (or"
+        " window micro-batching), KV-cache decode, bucketed shapes"
+        " (POST /generate)",
     )
     sv.add_argument("--model", required=True,
                     help="YAML with the model config (a bare mapping, or a"
@@ -74,9 +94,32 @@ def main(argv=None) -> int:
                     " load) or the CUDA int8 matmul ('kernel')")
     sv.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache read by the CUDA flash-decode kernel")
-    # accepted so that a JAX serve command line carries over; the window
-    # batcher is the one this package serves
-    sv.add_argument("--batcher", default="window", choices=("window",))
+    sv.add_argument("--batcher", default="auto", choices=("auto", "continuous", "window"),
+                    help="'continuous' (the default, 'auto'): fixed decode slots,"
+                    " requests join a running decode at a dispatch boundary,"
+                    " finished rows free their slot, tokens stream (POST"
+                    " /generate with \"stream\": true -> SSE).  'window': one"
+                    " generate per arrival window (offline batch generation)")
+    sv.add_argument("--steps-per-dispatch", type=_steps_per_dispatch, default=None,
+                    help="continuous batcher: decode steps per dispatch (K)."
+                    " Default 'adaptive': K picked per boundary from the queue"
+                    " depth and slot occupancy over a 1/2/4/8 ladder (tokens"
+                    " are the same under any K schedule).  An integer pins K")
+    sv.add_argument("--engine-pipeline-depth", type=int, default=None,
+                    help="continuous batcher: dispatches in flight (default 2);"
+                    " 1 is the synchronous loop (the bisect mode)")
+    sv.add_argument("--engine-staged-admission", action="store_true",
+                    help="continuous batcher: run every prefill chunk at a"
+                    " drained boundary instead of behind a decode dispatch"
+                    " (the bisect mode; the same tokens)")
+    sv.add_argument("--prefill-chunk", type=int, default=256,
+                    help="continuous batcher: admission prefill chunk (tokens);"
+                    " all-pad chunks are skipped")
+    sv.add_argument("--dispatch-stall-timeout", type=float, default=300.0,
+                    help="continuous batcher: watchdog threshold in seconds — a"
+                    " dispatch stuck longer fails its requests, flips /healthz"
+                    " to 503 and allows one restart of a dead loop; 0"
+                    " disables the watchdog")
     sv.add_argument("--request-timeout", type=float, default=600.0)
     sv.set_defaults(fn=_cmd_serve)
     args = p.parse_args(argv)

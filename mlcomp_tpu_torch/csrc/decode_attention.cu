@@ -1,22 +1,37 @@
-// Single-query flash decode over an int8 KV cache.
+// Flash decode over an int8 KV cache: one query per row (B3) and S chunk
+// queries per row (B4), one kernel body for both.
 //
-// Replaces the Pallas kernel `_kernel` (with `_flash_block_update` and
-// `_flash_finalize`) of mlcomp_tpu/ops/pallas/decode_attention.py, launched
-// by `decode_attention`:
+// Replaces two Pallas kernels of mlcomp_tpu/ops/pallas/decode_attention.py
+// (both built on `_flash_block_update` and `_flash_finalize`):
+//   - `_kernel` (`decode_attention`): q (B, H, dh), one query per row;
+//   - `_kernel_chunk` (`decode_attention_chunk`, decode_attention.py:323):
+//     q (B, S, H, dh), query j of row b attends [kv_start[b], kv_stop0[b] + j).
 //
-//     out[b, h, :] = softmax_j(q[b, h] . k8[b, hkv, j] * scale * ks[b, hkv, j])
-//                    @ (v8[b, hkv, j] * vs[b, hkv, j])     for j in [lo_b, hi_b)
+//     out[b, j, h, :] = softmax_i(q[b, j, h] . k8[b, hkv, i] * scale * ks[b, hkv, i])
+//                       @ (v8[b, hkv, i] * vs[b, hkv, i])   for i in [lo_b, stop0_b + j)
 //
-// What bounds it on an H100: the int8 K/V bytes of each row's live window,
-// read once per generated token; the arithmetic is a few FLOPs per byte.
-// The design: one CTA per (batch row, KV head) holds the G = H / Hkv query
-// heads of its group, so each shared KV head is read once; the CTA walks
-// only the blocks that intersect [kv_start, kv_stop) (dead blocks are never
-// read: the not-yet-generated tail of the buffer costs nothing), staging
-// 128 slots of K and V at a time through shared memory with 16-byte loads,
-// and keeps the online softmax (m, l, acc) in f32.  At B = 8 and Hkv = 16
-// that is 128 CTAs on 132 SMs; a batch of 1 leaves most SMs idle and will
-// need the KV axis split across CTAs (a later change).
+// What bounds it on an H100: bytes.  Each CTA reads the int8 K/V of its
+// row's live window once and does a few FLOPs per byte.  A decode step
+// (B3) reads the whole live window of every row; an admission chunk (B4,
+// q (1, 256, 16, 128) against a 768-slot cache) reads ~0.13 MB of K/V
+// per head and does ~0.8 GFLOP in all: microseconds of work, so at that
+// shape launch latency and the CTA's serial block loop bound it.
+//
+// The design: a query ROW is one (query j, group head g) pair, r = j * G + g
+// with G = H / Hkv, so the G heads sharing a KV head sit side by side.  One
+// CTA takes a tile of up to 8 such rows of one (batch row, KV head) and
+// walks only the KV blocks that intersect the tile's live range
+// [kv_start, max stop), staging 128 slots of K and V at a time through
+// shared memory with 16-byte loads.  Each row keeps its own online softmax
+// (m, l, acc) in f32 and its own causal stop; a block past a row's stop
+// leaves that row unchanged.  The query tiles are a grid axis, so ONE
+// launch covers any S: the TPU sweeps 32 queries per pallas_call because
+// of VMEM, which is no contract of the result, since each query's window
+// and arithmetic do not depend on the tile it rides in.  B3 is the S = 1
+// case of the same kernel (one tile of G rows), so a one-query chunk
+// equals the single-query decode bit for bit.  At B = 8, Hkv = 16 a decode
+// step is 128 CTAs on 132 SMs; the admission chunk is 32 tiles x 16 heads
+// = 512 CTAs.
 //
 // Arithmetic follows the TPU kernel, in its order: logits are (q . k) *
 // scale * ks with q in bf16, k int8 (exact in bf16) and f32 sums; masked
@@ -32,7 +47,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int BLK = 128;          // slots per staged block (one per thread)
-constexpr int MAX_G = 8;          // query heads per KV head
+constexpr int MAX_R = 8;          // query rows per CTA
 constexpr int MAX_DH = 256;
 constexpr float NEG_INF = -1e30f;
 
@@ -48,61 +63,75 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// smem layout (bytes, all 16-aligned): qs G*dh f32 | kb BLK*(dh+16) i8 |
-// vb BLK*dh i8 | ksc BLK f32 | vsc BLK f32 | pv G*BLK f32 | red 2*4 f32
+// smem layout (bytes, all 16-aligned): qs R*dh f32 | kb BLK*(dh+16) i8 |
+// vb BLK*dh i8 | ksc BLK f32 | vsc BLK f32 | pv R*BLK f32 | red 2*4 f32
+//
+// q (B, S, H, dh); out (B, S, H, dh); grid (tiles of MAX_R rows, Hkv, B).
 __global__ void __launch_bounds__(THREADS)
-decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                        const int8_t* __restrict__ k8,
-                        const __nv_bfloat16* __restrict__ ks,
-                        const int8_t* __restrict__ v8,
-                        const __nv_bfloat16* __restrict__ vs,
-                        const int* __restrict__ kv_start,
-                        const int* __restrict__ kv_stop,
-                        __nv_bfloat16* __restrict__ out,
-                        int H, int Hkv, int L, int dh, float scale) {
+attend_kernel(const __nv_bfloat16* __restrict__ q,
+              const int8_t* __restrict__ k8,
+              const __nv_bfloat16* __restrict__ ks,
+              const int8_t* __restrict__ v8,
+              const __nv_bfloat16* __restrict__ vs,
+              const int* __restrict__ kv_start,
+              const int* __restrict__ kv_stop0,
+              __nv_bfloat16* __restrict__ out,
+              int S, int H, int Hkv, int L, int dh, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / Hkv;
   const int kstride = dh + 16;     // padded K rows: conflict-free 16 B reads
   float* qs = reinterpret_cast<float*>(smem);
-  int8_t* kb = reinterpret_cast<int8_t*>(qs + G * dh);
+  int8_t* kb = reinterpret_cast<int8_t*>(qs + MAX_R * dh);
   int8_t* vb = kb + BLK * kstride;
   float* ksc = reinterpret_cast<float*>(vb + BLK * dh);
   float* vsc = ksc + BLK;
   float* pv = vsc + BLK;
-  float* red = pv + G * BLK;
+  float* red = pv + MAX_R * BLK;
 
-  const int b = blockIdx.y;
-  const int hk = blockIdx.x;
+  const int r0 = blockIdx.x * MAX_R;           // first row of this tile
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int R = min(MAX_R, S * G - r0);        // rows in this tile
   const int t = threadIdx.x;
   const int warp = t >> 5;
   const int lane = t & 31;
 
   const int lo = max(kv_start[b], 0);
-  const int hi = min(kv_stop[b], L);
+  const int stop0 = kv_stop0[b];
+  int hi[MAX_R];
+  int hi_max = 0;
+#pragma unroll
+  for (int r = 0; r < MAX_R; ++r) {
+    hi[r] = (r < R) ? min(stop0 + (r0 + r) / G, L) : 0;
+    hi_max = max(hi_max, hi[r]);
+  }
 
-  for (int i = t; i < G * dh; i += THREADS)
-    qs[i] = __bfloat162float(q[((size_t)b * H + hk * G) * dh + i]);
+  for (int i = t; i < R * dh; i += THREADS) {
+    const int row = r0 + i / dh;
+    const int j = row / G, g = row - (row / G) * G;
+    qs[i] = __bfloat162float(q[(((size_t)b * S + j) * H + hk * G + g) * dh + i % dh]);
+  }
 
   const size_t row_base = ((size_t)b * Hkv + hk) * L;  // slot 0 of this (b, hkv)
   const int ndim = dh / THREADS;                       // output dims per thread
-  float acc[MAX_G][MAX_DH / THREADS];
-  float m[MAX_G], l[MAX_G];
+  float acc[MAX_R][MAX_DH / THREADS];
+  float m[MAX_R], l[MAX_R];
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
+  for (int r = 0; r < MAX_R; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < MAX_DH / THREADS; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < MAX_DH / THREADS; ++i) acc[r][i] = 0.f;
   }
 
-  for (int j0 = (lo / BLK) * BLK; j0 < hi; j0 += BLK) {
+  for (int j0 = (lo / BLK) * BLK; j0 < hi_max; j0 += BLK) {
     __syncthreads();  // the previous block's smem reads are done
     const int vec = dh / 16;
     for (int i = t; i < BLK * vec; i += THREADS) {
       const int j = i / vec;
       const int c = (i - j * vec) * 16;
       int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
-      if (j0 + j < hi) {
+      if (j0 + j < hi_max) {
         kv = __ldg(reinterpret_cast<const int4*>(k8 + (row_base + j0 + j) * dh + c));
         vv = __ldg(reinterpret_cast<const int4*>(v8 + (row_base + j0 + j) * dh + c));
       }
@@ -110,25 +139,25 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<int4*>(vb + j * dh + c) = vv;
     }
     {
-      const bool in = j0 + t < hi;
+      const bool in = j0 + t < hi_max;
       ksc[t] = in ? __bfloat162float(ks[row_base + j0 + t]) : 0.f;
       vsc[t] = in ? __bfloat162float(vs[row_base + j0 + t]) : 0.f;
     }
     __syncthreads();
 
     const int slot = j0 + t;
-    const bool live = slot >= lo && slot < hi;
-    float alpha[MAX_G];
+    float alpha[MAX_R];
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g >= G) break;
+    for (int r = 0; r < MAX_R; ++r) {
+      if (r >= R) break;
+      const bool live = slot >= lo && slot < hi[r];
       float dot = 0.f;
-      const float* qg = qs + g * dh;
+      const float* qr = qs + r * dh;
       for (int d = 0; d < dh; d += 16) {
         const int4 raw = *reinterpret_cast<const int4*>(kb + t * kstride + d);
         const int8_t* kk = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-        for (int e = 0; e < 16; ++e) dot = fmaf(qg[d + e], (float)kk[e], dot);
+        for (int e = 0; e < 16; ++e) dot = fmaf(qr[d + e], (float)kk[e], dot);
       }
       float s = (dot * scale) * ksc[t];
       s = live ? s : NEG_INF;
@@ -137,73 +166,80 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
       if (lane == 0) red[warp] = bm;
       __syncthreads();
       bm = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-      const float m_new = fmaxf(m[g], bm);
+      const float m_new = fmaxf(m[r], bm);
       const float p = (m_new > NEG_INF / 2) ? expf(s - m_new) : 0.f;
       float bs = warp_sum(p);
       if (lane == 0) red[4 + warp] = bs;
       __syncthreads();
       bs = (red[4] + red[5]) + (red[6] + red[7]);
-      alpha[g] = expf(m[g] - m_new);
-      l[g] = alpha[g] * l[g] + bs;
-      m[g] = m_new;
-      pv[g * BLK + t] = __bfloat162float(__float2bfloat16(p * vsc[t]));
-      __syncthreads();  // red is reused by the next head; pv complete
+      alpha[r] = expf(m[r] - m_new);
+      l[r] = alpha[r] * l[r] + bs;
+      m[r] = m_new;
+      pv[r * BLK + t] = __bfloat162float(__float2bfloat16(p * vsc[t]));
+      __syncthreads();  // red is reused by the next row; pv complete
     }
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g >= G) break;
-      const float* pg = pv + g * BLK;
+    for (int r = 0; r < MAX_R; ++r) {
+      if (r >= R) break;
+      const float* pr = pv + r * BLK;
 #pragma unroll
       for (int i = 0; i < MAX_DH / THREADS; ++i) {
         if (i >= ndim) break;
         const int d = t + i * THREADS;
         float dv = 0.f;
-        for (int j = 0; j < BLK; ++j) dv = fmaf(pg[j], (float)vb[j * dh + d], dv);
-        acc[g][i] = acc[g][i] * alpha[g] + dv;
+        for (int j = 0; j < BLK; ++j) dv = fmaf(pr[j], (float)vb[j * dh + d], dv);
+        acc[r][i] = acc[r][i] * alpha[r] + dv;
       }
     }
   }
 
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    if (g >= G) break;
-    const float lg = (l[g] == 0.f) ? 1.f : l[g];
+  for (int r = 0; r < MAX_R; ++r) {
+    if (r >= R) break;
+    const int row = r0 + r;
+    const int j = row / G, g = row - (row / G) * G;
+    const float lr = (l[r] == 0.f) ? 1.f : l[r];
 #pragma unroll
     for (int i = 0; i < MAX_DH / THREADS; ++i) {
       if (i >= ndim) break;
       const int d = t + i * THREADS;
-      out[((size_t)b * H + hk * G + g) * dh + d] = __float2bfloat16(acc[g][i] / lg);
+      out[(((size_t)b * S + j) * H + hk * G + g) * dh + d] = __float2bfloat16(acc[r][i] / lr);
     }
   }
+}
+
+int launch(const void* q, const void* k8, const void* ks, const void* v8, const void* vs,
+           const void* kv_start, const void* kv_stop0, void* out, int B, int S, int H,
+           int Hkv, int L, int dh, float scale, void* stream) {
+  const int smem = MAX_R * dh * 4 + BLK * (dh + 16) + BLK * dh + 2 * BLK * 4 +
+                   MAX_R * BLK * 4 + 8 * 4;
+  cudaFuncSetAttribute(attend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int rows = S * (H / Hkv);
+  dim3 grid((rows + MAX_R - 1) / MAX_R, Hkv, B);
+  attend_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k8),
+      static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(v8),
+      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(kv_start),
+      static_cast<const int*>(kv_stop0), static_cast<__nv_bfloat16*>(out), S, H, Hkv,
+      L, dh, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int decode_attention_smem_bytes(int G, int dh) {
-  return G * dh * 4 + BLK * (dh + 16) + BLK * dh + 2 * BLK * 4 + G * BLK * 4 + 8 * 4;
-}
-
-// q (B, H, dh) bf16; k8/v8 (B, Hkv, L, dh) int8; ks/vs (B, Hkv, 1, L)
-// bf16; kv_start/kv_stop (B,) int32; out (B, H, dh) bf16.  dh is 128 or
-// 256; H / Hkv <= 8.  Returns cudaGetLastError().
-int decode_attention_launch(const void* q, const void* k8, const void* ks,
-                            const void* v8, const void* vs,
-                            const void* kv_start, const void* kv_stop,
-                            void* out, int B, int H, int Hkv, int L, int dh,
-                            float scale, void* stream) {
-  const int smem = decode_attention_smem_bytes(H / Hkv, dh);
-  cudaFuncSetAttribute(decode_attention_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid(Hkv, B);
-  decode_attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k8),
-      static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(v8),
-      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(kv_start),
-      static_cast<const int*>(kv_stop), static_cast<__nv_bfloat16*>(out), H,
-      Hkv, L, dh, scale);
-  return (int)cudaGetLastError();
+// q (B, S, H, dh) bf16, query j attending [kv_start, kv_stop0 + j);
+// k8/v8 (B, Hkv, L, dh) int8; ks/vs (B, Hkv, 1, L) bf16; kv_start/kv_stop0
+// (B,) int32; out (B, S, H, dh) bf16; dh 128 or 256.  The single-query
+// decode is S = 1.  Returns cudaGetLastError().
+int decode_attention_chunk_launch(const void* q, const void* k8, const void* ks,
+                                  const void* v8, const void* vs,
+                                  const void* kv_start, const void* kv_stop0,
+                                  void* out, int B, int S, int H, int Hkv, int L,
+                                  int dh, float scale, void* stream) {
+  return launch(q, k8, ks, v8, vs, kv_start, kv_stop0, out, B, S, H, Hkv, L, dh, scale,
+                stream);
 }
 
 }  // extern "C"

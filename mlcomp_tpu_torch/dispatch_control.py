@@ -1,0 +1,132 @@
+"""Adaptive dispatch depth: the load-to-K controller behind the engine's
+``steps_per_dispatch="adaptive"`` mode.
+
+The port's own copy of mlcomp_tpu/dispatch_control.py (the port imports
+nothing of the JAX package).
+
+The K-step dispatch trades two latencies against each other:
+
+- LARGE K amortizes the per-dispatch host cost over K tokens — the
+  throughput mode.  But joins land only at dispatch boundaries, so a
+  request admitted while a K=8 dispatch is in flight waits up to K-1
+  extra steps, and an admission's prefill chunks advance one per
+  boundary — K multiplies TTFT.
+- SMALL K brings boundaries K-times closer — the TTFT mode.  But every
+  boundary pays the full dispatch cost.
+
+This controller picks K per BOUNDARY from the live load signals (queue
+depth, active slots):
+
+- queued joiners waiting for a slot -> climb the ladder with queue depth;
+- empty queue with free slots -> the ladder floor (an arrival can land at
+  any moment, and the boundary it joins at should be at most one small
+  dispatch away);
+- empty queue, every slot busy -> the ladder top (nobody can join until a
+  retirement frees a slot — amortize).
+
+HYSTERESIS: a switch needs the same desired K on ``hysteresis``
+consecutive boundaries AND ``min_dwell_s`` since the last switch.  The
+one exception is full quiesce (no queue, no active rows): the controller
+snaps to the floor immediately.
+
+Token streams are K-INVARIANT by construction (each request's sampling
+keys derive from (engine seed, request seed, token position), and the
+dispatch at K is the K=1 step iterated), so the controller may switch
+mid-stream.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+DEFAULT_LADDER: Tuple[int, ...] = (1, 2, 4, 8)
+
+
+def desired_k(ladder: Sequence[int], queue_depth: int, active: int,
+              slots: int) -> int:
+    """The PURE decision policy (no hysteresis): which ladder rung
+    this instant's load signals ask for.  Kept free of state so the
+    decision table is directly testable."""
+    if queue_depth <= 0:
+        if slots > 0 and active >= slots:
+            return ladder[-1]   # saturated, nobody waiting to join
+        return ladder[0]        # room for a joiner: stay TTFT-ready
+    # queued joiners: climb one rung per depth doubling (1 -> rung 1,
+    # 2-3 -> rung 2, 4-7 -> rung 3, ...) — deep queues reach the top
+    idx = min(int(queue_depth).bit_length(), len(ladder) - 1)
+    return ladder[idx]
+
+
+class AdaptiveKController:
+    """Hysteretic ladder controller for ``steps_per_dispatch``.
+
+    ``decide`` is called once per dispatch boundary with the engine's
+    live queue-depth/occupancy signals and returns the K the NEXT
+    dispatch should use.  ``clock`` is injectable for the decision
+    tests (dwell windows under a fake clock)."""
+
+    def __init__(self, ladder: Sequence[int] = DEFAULT_LADDER,
+                 hysteresis: int = 3, min_dwell_s: float = 0.25,
+                 clock=time.monotonic):
+        ladder = tuple(sorted({int(k) for k in ladder}))
+        if not ladder or ladder[0] < 1:
+            raise ValueError(
+                f"k ladder must be non-empty positive ints, got {ladder!r}"
+            )
+        self.ladder = ladder
+        self.hysteresis = max(1, int(hysteresis))
+        self.min_dwell_s = float(min_dwell_s)
+        self._clock = clock
+        self.k = ladder[0]
+        self.changes = 0
+        self._candidate: Optional[int] = None
+        self._votes = 0
+        self._last_switch: Optional[float] = None
+        self.last_signal: Dict[str, Any] = {}
+
+    # ------------------------------------------------------------ decide
+
+    def decide(self, queue_depth: int, active: int, slots: int) -> int:
+        want = desired_k(self.ladder, queue_depth, active, slots)
+        self.last_signal = {
+            "queue_depth": int(queue_depth), "active": int(active),
+            "slots": int(slots), "desired_k": want,
+        }
+        if want == self.k:
+            self._candidate, self._votes = None, 0
+            return self.k
+        if queue_depth <= 0 and active <= 0:
+            # full quiesce: snap to the desired rung (the floor) with
+            # no hysteresis — nothing is dispatching, so the switch
+            # can't thrash anything, and the next arrival's TTFT must
+            # not pay for the last burst's K
+            return self._switch(want)
+        if want != self._candidate:
+            self._candidate, self._votes = want, 1
+        else:
+            self._votes += 1
+        if self._votes < self.hysteresis:
+            return self.k
+        now = self._clock()
+        if (self._last_switch is not None
+                and now - self._last_switch < self.min_dwell_s):
+            return self.k
+        return self._switch(want, now)
+
+    def _switch(self, k: int, now: Optional[float] = None) -> int:
+        self.k = k
+        self.changes += 1
+        self._candidate, self._votes = None, 0
+        self._last_switch = self._clock() if now is None else now
+        return self.k
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "k": self.k,
+            "ladder": list(self.ladder),
+            "changes": self.changes,
+            "hysteresis": self.hysteresis,
+            "min_dwell_s": self.min_dwell_s,
+            "last_signal": dict(self.last_signal),
+        }

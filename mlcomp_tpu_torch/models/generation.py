@@ -8,10 +8,11 @@ value back to the host, so the host only waits at the end, when the ids
 come back.  Ragged prompts batch by LEFT-padding (``prompt_mask``), which
 sets per-row RoPE positions and masks the pad slots.
 
-Randomness is an explicit ``torch.Generator`` on the model's device; it
-draws other numbers than ``jax.random`` for the same seed, so sampled
-(not greedy) tokens are comparable between the packages only as
-distributions.
+Randomness is an explicit ``torch.Generator`` on the model's device, or,
+for the continuous engine, a counter-based hash of (engine seed, request
+seed, token position) (:func:`sample_token_rowwise_keyed`).  Both draw
+other numbers than ``jax.random`` for the same seed, so sampled (not
+greedy) tokens are comparable between the packages only as distributions.
 """
 
 from __future__ import annotations
@@ -95,6 +96,72 @@ def sample_token_rowwise(generator, logits, temperature, top_k, top_p,
     if not any_sampled:
         return greedy
     sampled = _categorical(generator, process_logits_rowwise(logits, temperature, top_k, top_p))
+    return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2^32`` for int64 ``x`` in [0, 2^32) without overflowing
+    int64: the constant splits into 16-bit halves."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche hash (Wellons' lowbias32) over int64 tensors
+    holding values in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keyed_uniform(seed: int, rseed: torch.Tensor, position: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """(B, n) uniforms in (0, 1), a pure function of (engine ``seed``, each
+    row's request seed ``rseed`` (B,), the row's token ``position`` (B,),
+    column index): a counter-based generator in plain integer ops, so a
+    row's draw for one token never depends on which batch, dispatch or
+    neighbours it was drawn with."""
+    golden = 0x9E3779B9
+    key = _hash32(torch.full_like(rseed, seed & _M32, dtype=torch.int64))
+    key = _hash32((key + _mul32(rseed.long() & _M32, golden)) & _M32)
+    key = _hash32((key ^ (position.long() & _M32)) & _M32)
+    cols = torch.arange(n, device=rseed.device, dtype=torch.int64)
+    h = _hash32((key[:, None] + _mul32(cols[None] + 1, golden)) & _M32)
+    return _unit(_hash32(h ^ key[:, None]))
+
+
+def _unit(h: torch.Tensor) -> torch.Tensor:
+    """float32 uniforms in (0, 1) from 32-bit hashes: the 23 high bits,
+    centred in their interval.  float32 holds ``(k + 0.5) * 2^-23`` exactly
+    for every 23-bit k, so the largest draw is ``1 - 2^-24``; with 24 bits
+    the top one would round to 1.0, and ``-log(-log(1))`` wins any race."""
+    return ((h >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
+def sample_token_rowwise_keyed(seed: int, rseed: torch.Tensor, position: torch.Tensor,
+                               logits: torch.Tensor, temperature: torch.Tensor,
+                               top_k: torch.Tensor, top_p: torch.Tensor,
+                               any_sampled: bool = True) -> torch.Tensor:
+    """:func:`sample_token_rowwise` with a PER-ROW key: row r's draw for the
+    token at ``position[r]`` comes from (``seed``, ``rseed[r]``,
+    ``position[r]``) alone, through the exponential race
+    ``argmax(logits - log E)`` with ``E = -log U`` and ``U`` from
+    :func:`keyed_uniform`.  The continuous engine keys every request this
+    way, so its sampled tokens are the same under any dispatch depth,
+    pipeline depth or join order (the JAX package's
+    ``fold_in(fold_in(rng, request), position)``; the bits differ)."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not any_sampled:
+        return greedy
+    proc = process_logits_rowwise(logits, temperature, top_k, top_p)
+    e = -torch.log(keyed_uniform(seed, rseed, position, logits.shape[-1]))
+    sampled = torch.argmax(proc - torch.log(e), dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled)
 
 

@@ -9,13 +9,22 @@ kernel, and kernel-consumable int8 leaves load as
 
 Decoding runs against an explicit :class:`DecodeCache` that the caller
 allocates (``init_cache``) and passes to every forward; the model writes
-each step's K/V into it IN PLACE at ``cache.index`` and advances the
-index.  Two cache layouts: the dense (B, L, Hkv, dh) cache in the model
-dtype, and with ``kv_quant`` the int8 cache (B, Hkv, L, dhp) with
-(B, Hkv, 1, L) bf16 scales, dh zero-padded to 128 and L from
-``pick_buffer_len`` (the JAX package's shapes), read by the CUDA
-flash-decode kernel.  Only the global-index decode of ``generate`` is
-ported: one prefill at index 0, then single-token steps.
+each step's K/V into it IN PLACE.  Two cache layouts: the dense
+(B, L, Hkv, dh) cache in the model dtype, and with ``kv_quant`` the int8
+cache (B, Hkv, L, dhp) with (B, Hkv, 1, L) bf16 scales, dh zero-padded to
+128 and L from ``pick_buffer_len`` (the JAX package's shapes), read by the
+CUDA flash-decode kernels.
+
+Two write contracts, as in the JAX package:
+
+- a global index (``cache.index``, a host integer the caller may set):
+  every row writes its S new K/V at ``[index, index + S)`` and the index
+  advances by S.  ``generate`` prefills at index 0 and steps from there;
+  the engine's admission starts its cache past the all-pad chunks.
+- per-row cursors (``cache_cursor``, (B,) int32, the continuous engine's
+  contract): row b writes at ``[cur_b, cur_b + S)`` (the start clamped so
+  the span fits, as a dynamic-update-slice clamps) and query j attends
+  slots ``<= cur_b + j``; ``cache.index`` is neither read nor advanced.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from mlcomp_tpu_torch.models import MODELS
 from mlcomp_tpu_torch.ops.attention import dot_product_attention
 from mlcomp_tpu_torch.ops.cuda.decode_attention import (
     decode_attention,
+    decode_attention_chunk,
     pick_buffer_len,
     quantize_kv,
 )
@@ -123,10 +133,56 @@ class QuantKVCache:
 
 @dataclass
 class DecodeCache:
-    """Every layer's cache and the global write index (a host integer: the
-    window decode advances it identically for every row)."""
+    """Every layer's cache and the global write index (a host integer: a
+    global-index decode advances it identically for every row)."""
     layers: List[Union[KVCache, QuantKVCache]]
     index: int = 0
+
+
+@dataclass
+class RowCursors:
+    """Per-row cursors resolved once per forward, for every layer: row b
+    writes its S new K/V at slots ``cursor_b + j`` (the start clamped to
+    ``[0, L - S]`` like ``dynamic_update_slice``; the engine keeps a
+    scratch slot so a retired row's frozen cursor never needs it), and
+    query j sits at slot ``q_slots[b, j] = cursor_b + j``.  ``flat`` are
+    those slots as row indices of the cache flattened to (rows, features):
+    (B*L, Hkv*dh) for the dense layout, (B*Hkv*L, dhp) for the int8 one,
+    where the (B*Hkv*L,) scale rows share them; one ``index_copy_`` per
+    cache tensor writes them."""
+    q_slots: torch.Tensor    # (B, S) int64
+    stop0: torch.Tensor      # (B,) int32: query 0's exclusive stop
+    flat: torch.Tensor       # (B*S,) dense, or (B*S*Hkv,) int8 layout
+
+    @classmethod
+    def of(cls, cursor: torch.Tensor, s: int, layer_cache) -> "RowCursors":
+        cur = cursor.long()
+        dev = cur.device
+        j = torch.arange(s, device=dev)[None]
+        rows = torch.arange(cur.shape[0], device=dev)[:, None]
+        if isinstance(layer_cache, KVCache):
+            l_buf = layer_cache.k.shape[1]
+            flat = rows * l_buf + torch.clamp(cur, 0, l_buf - s)[:, None] + j
+        else:
+            h_kv, l_buf = layer_cache.kq.shape[1], layer_cache.kq.shape[2]
+            slot = torch.clamp(cur, 0, l_buf - s)[:, None] + j                 # (B, S)
+            head = rows[:, :, None] * h_kv + torch.arange(h_kv, device=dev)   # (B, 1, Hkv)
+            flat = head * l_buf + slot[:, :, None]                            # (B, S, Hkv)
+        return cls(q_slots=cur[:, None] + j, stop0=(cur + 1).to(torch.int32),
+                   flat=flat.reshape(-1))
+
+
+def _causal_mask(q_slots: torch.Tensor, l_buf: int, kv_mask, kv_start) -> torch.Tensor:
+    """(B or 1, 1, S, L) mask: slot <= the query's own slot (``q_slots``
+    (B or 1, S)), within the row's valid slots (``kv_mask`` (B, L), or the
+    window start ``kv_start`` (B,))."""
+    slots = torch.arange(l_buf, device=q_slots.device)
+    mask = (slots[None, None] <= q_slots[..., None])[:, None]
+    if kv_mask is not None:
+        mask = mask & kv_mask[:, None, None, :].bool()
+    elif kv_start is not None:
+        mask = mask & (slots[None] >= kv_start[:, None])[:, None, None]
+    return mask
 
 
 def _project(x, norm, linears, fold: bool):
@@ -157,7 +213,7 @@ class SelfAttention(nn.Module):
         self.out = Dense((hidden,), 2, dtype)
 
     def forward(self, x, positions, cache=None, index: int = 0, kv_mask=None,
-                kv_start=None, fold: bool = False):
+                kv_start=None, fold: bool = False, cursor=None):
         if self.decode_fused:
             (qkv,) = _project(x, self.norm, [self.qkv], fold)
             q = qkv[..., : self.heads, :]
@@ -170,9 +226,9 @@ class SelfAttention(nn.Module):
         if cache is None:
             attn = dot_product_attention(q, k, v, causal=True)
         elif self.kv_quant:
-            attn = self._decode_attention_quant(q, k, v, cache, index, kv_start)
+            attn = self._decode_attention_quant(q, k, v, cache, index, kv_start, cursor)
         else:
-            attn = self._decode_attention(q, k, v, cache, index, kv_mask, kv_start)
+            attn = self._decode_attention(q, k, v, cache, index, kv_mask, kv_start, cursor)
         return x + self.out(attn)
 
     def init_cache(self, b: int, max_len: int, device):
@@ -192,50 +248,67 @@ class SelfAttention(nn.Module):
             torch.zeros(scales, dtype=torch.bfloat16, device=device),
         )
 
-    def _decode_attention(self, q, k, v, c: KVCache, i: int, kv_mask, kv_start):
-        """Dense-cache decode: write K/V at slot ``i`` (in place), attend
-        under a slot <= own-slot mask.  The prefill at ``i == 0`` attends
-        the fresh K/V directly (causal, left pads as a ``kv_start``
-        window), which keeps the flash path."""
+    def _decode_attention(self, q, k, v, c: KVCache, i: int, kv_mask, kv_start, cursor):
+        """Dense-cache decode: write K/V (in place) at slot ``i`` or at each
+        row's cursor, attend under a slot <= own-slot mask.  A global-index
+        prefill at ``i == 0`` attends the fresh K/V directly (causal, left
+        pads as a ``kv_start`` window), which keeps the flash path."""
         s = q.shape[1]
+        l_buf = c.k.shape[1]
+        if cursor is not None:
+            feats = c.k.shape[2] * c.k.shape[3]
+            c.k.view(-1, feats).index_copy_(0, cursor.flat, k.reshape(-1, feats))
+            c.v.view(-1, feats).index_copy_(0, cursor.flat, v.reshape(-1, feats))
+            mask = _causal_mask(cursor.q_slots, l_buf, kv_mask, kv_start)
+            return dot_product_attention(q, c.k, c.v, mask=mask)
         c.k[:, i: i + s] = k
         c.v[:, i: i + s] = v
         if s > 1 and i == 0:
             return dot_product_attention(q, k, v, causal=True, kv_start=kv_start)
-        slots = torch.arange(c.k.shape[1], device=q.device)
-        q_slots = i + torch.arange(s, device=q.device)
-        mask = (slots[None, :] <= q_slots[:, None])[None, None]
-        if kv_mask is not None:
-            mask = mask & kv_mask[:, None, None, :].bool()
+        q_slots = (i + torch.arange(s, device=q.device))[None]
+        mask = _causal_mask(q_slots, l_buf, kv_mask, kv_start)
         return dot_product_attention(q, c.k, c.v, mask=mask)
 
-    def _decode_attention_quant(self, q, k, v, c: QuantKVCache, i: int, kv_start):
-        """int8-cache decode: quantize the new K/V per (slot, head), write
-        values and bf16 scales at slot ``i`` (in place), then a
-        single-token step runs the flash-decode kernel over each row's
-        window ``[kv_start, i + 1)``; the prefill (``i == 0``) attends the
-        fresh bf16 K/V through the flash-attention kernel."""
-        b, s, hkv, dh = k.shape
+    def _decode_attention_quant(self, q, k, v, c: QuantKVCache, i: int, kv_start, cursor):
+        """int8-cache decode: quantize the new K/V per (slot, head) and
+        write values and bf16 scales (in place) at slot ``i`` or at each
+        row's cursor.  One new token per row runs the flash-decode kernel
+        over the row's window ``[kv_start, own slot + 1)``; a chunk (S > 1)
+        runs the chunk kernel, query j stopping at ``own slot + j + 1``.
+        A global-index prefill at ``i == 0`` attends the fresh K/V through
+        the flash-attention kernel instead."""
+        s, dh = k.shape[1], k.shape[3]
         dhp = c.kq.shape[-1]
-        if s > 1 and i > 0:
-            raise NotImplementedError(
-                "chunked decode against the int8 cache (cache index > 0 "
-                "with several new tokens) is not ported yet"
-            )
         pad = (0, dhp - dh)
         kq, ks_ = quantize_kv(F.pad(k, pad) if dhp != dh else k)
         vq, vs_ = quantize_kv(F.pad(v, pad) if dhp != dh else v)
-        c.kq[:, :, i: i + s] = kq.transpose(1, 2)
-        c.vq[:, :, i: i + s] = vq.transpose(1, 2)
-        c.ks[:, :, 0, i: i + s] = ks_.transpose(1, 2).to(c.ks.dtype)
-        c.vs[:, :, 0, i: i + s] = vs_.transpose(1, 2).to(c.vs.dtype)
+        ks_, vs_ = ks_.to(c.ks.dtype), vs_.to(c.vs.dtype)
+        if cursor is not None:
+            # kq (B, S, Hkv, dhp) and ks_ (B, S, Hkv) flatten in the order of
+            # cursor.flat
+            c.kq.view(-1, dhp).index_copy_(0, cursor.flat, kq.reshape(-1, dhp))
+            c.vq.view(-1, dhp).index_copy_(0, cursor.flat, vq.reshape(-1, dhp))
+            c.ks.view(-1).index_copy_(0, cursor.flat, ks_.reshape(-1))
+            c.vs.view(-1).index_copy_(0, cursor.flat, vs_.reshape(-1))
+            stop0 = cursor.stop0
+        else:
+            c.kq[:, :, i: i + s] = kq.transpose(1, 2)
+            c.vq[:, :, i: i + s] = vq.transpose(1, 2)
+            c.ks[:, :, 0, i: i + s] = ks_.transpose(1, 2)
+            c.vs[:, :, 0, i: i + s] = vs_.transpose(1, 2)
+            if s > 1 and i == 0:
+                return dot_product_attention(q, k, v, causal=True, kv_start=kv_start)
+            stop0 = i + 1
+        qp = F.pad(q, pad) if dhp != dh else q
         if s == 1:
-            qp = F.pad(q, pad) if dhp != dh else q
             out = decode_attention(qp[:, 0].contiguous(), c.kq, c.ks, c.vq, c.vs,
-                                   kv_start=kv_start, kv_stop=i + 1,
+                                   kv_start=kv_start, kv_stop=stop0,
                                    scale=1.0 / math.sqrt(dh))
             return out[..., :dh][:, None]
-        return dot_product_attention(q, k, v, causal=True, kv_start=kv_start)
+        out = decode_attention_chunk(qp.contiguous(), c.kq, c.ks, c.vq, c.vs,
+                                     kv_start=kv_start, kv_stop0=stop0,
+                                     scale=1.0 / math.sqrt(dh))
+        return out[..., :dh]
 
 
 class DecoderLayer(nn.Module):
@@ -252,8 +325,8 @@ class DecoderLayer(nn.Module):
         self.down = Dense((hidden,), 1, dtype)
 
     def forward(self, x, positions, cache=None, index=0, kv_mask=None, kv_start=None,
-                fold=False):
-        x = self.attn(x, positions, cache, index, kv_mask, kv_start, fold)
+                fold=False, cursor=None):
+        x = self.attn(x, positions, cache, index, kv_mask, kv_start, fold, cursor)
         if self.decode_fused:
             (gu,) = _project(x, self.norm, [self.gate_up], fold)
             gate, up = gu[..., : self.mlp_dim], gu[..., self.mlp_dim:]
@@ -382,24 +455,31 @@ class TransformerLM(nn.Module):
 
     def forward(self, ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 cache: Optional[DecodeCache] = None, kv_mask: Optional[torch.Tensor] = None,
-                last_only: bool = False) -> torch.Tensor:
+                last_only: bool = False, cache_cursor: Optional[torch.Tensor] = None,
+                kv_start: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits (B, S, V) f32, or (B, 1, V) with ``last_only``.  With a
         ``cache``, ``positions`` are required (the caller owns the decode
-        cursor), ``kv_mask`` (B, max_len) marks valid slots (False = left
-        padding), and the cache index advances by S."""
+        cursor), and the valid slots are ``kv_mask`` (B, max_len; False =
+        left padding) or the window start ``kv_start`` (B,).  Without
+        ``cache_cursor`` the new K/V go to ``cache.index`` and the index
+        advances by S; with it (B,) each row writes at its own cursor."""
         b, s = ids.shape
         if positions is None:
             if cache is not None:
                 raise ValueError("decoding needs explicit positions")
             positions = torch.arange(s, device=ids.device)[None].expand(b, s)
-        # left padding makes the invalid slots a prefix: a window start is exact
-        kv_start = None if kv_mask is None else torch.argmax(kv_mask.int(), dim=1).int()
+        if kv_start is None and kv_mask is not None:
+            # left padding makes the invalid slots a prefix: a window start is exact
+            kv_start = torch.argmax(kv_mask.int(), dim=1).int()
         h = self.emb(ids.long())
         index = cache.index if cache is not None else 0
+        cursor = None
+        if cache_cursor is not None:
+            cursor = RowCursors.of(cache_cursor, s, cache.layers[0])
         for li, layer in enumerate(self.layers):
             h = layer(h, positions, None if cache is None else cache.layers[li], index,
-                      kv_mask, kv_start, self.fold_norms)
-        if cache is not None:
+                      kv_mask, kv_start, self.fold_norms, cursor)
+        if cache is not None and cache_cursor is None:
             cache.index += s
         if last_only:
             h = h[:, -1:]

@@ -1,22 +1,36 @@
-"""LM serving over HTTP, the window batcher: the counterpart of
-mlcomp_tpu/serve.py with ``batcher="window"``.
+"""LM serving over HTTP: the counterpart of mlcomp_tpu/serve.py.
 
-Requests that arrive within a short window and share a ``max_new``
-bucket decode together through one ``models.generation.generate`` call:
-prompts left-pad into a length bucket, the batch pads to a batch-size
-bucket with copies of row 0, and per-request sampling knobs ride as
-per-row arrays.  One background thread owns all device work; HTTP handler
-threads enqueue requests and wait on futures.
+Two batchers, picked by ``GenerationService(batcher=)``:
 
-HTTP surface (stdlib ``http.server``):
+- ``"continuous"`` (the default; ``"auto"`` means it): the slot engine
+  (``engine.DecodeEngine``).  Requests join a running decode at a dispatch
+  boundary, finished rows free their slot at once, tokens stream as they
+  land, and requests carry deadlines and can be cancelled.
+- ``"window"``: requests that arrive within a short window and share a
+  ``max_new`` bucket decode together through one
+  ``models.generation.generate`` call: prompts left-pad into a length
+  bucket, the batch pads to a batch-size bucket with copies of row 0, and
+  per-request sampling knobs ride as per-row arrays.  One background
+  thread owns all device work.
+
+HTTP handler threads enqueue requests and wait on futures.  HTTP surface
+(stdlib ``http.server``):
 
     POST /generate  {"prompt": [ids...], "max_new_tokens": 64,
                      "temperature": 0.8, "top_k": 50, "top_p": 0.95,
                      "eos_id": 2, "logprobs": true,
-                     "repetition_penalty": 1.1}
+                     "repetition_penalty": 1.1, "deadline_s": 30,
+                     "stream": false}
         -> {"ids": [...generated ids...], "latency_ms": ...,
             "batched_with": n, "trace_id": "...", "logprobs": [...]}
-    GET  /healthz   -> {"ok": true, "model": ..., **stats}
+        With "stream": true (continuous batcher) the answer is server-sent
+        events: one ``data: {"token", "logprob", "step"}`` per token, then
+        ``data: {"done": true, **result}``; a client that disconnects
+        cancels its request.
+    GET  /healthz   -> {"ok": ..., "ready": ..., "model": ..., **stats}
+        ``ok`` is liveness (503 when the engine is down), ``ready`` is
+        whether to send new traffic (false while draining).
+    POST /drain     {"draining": true} -> {"ok": true, "draining": true}
     GET  /stats     -> the service counters
 """
 
@@ -81,17 +95,25 @@ def left_pad_row(ids: Sequence[int], s_bucket: int, pad_id: int):
 
 
 def _fail_future(fut: Future, err: BaseException) -> None:
-    if not fut.done():
-        fut.set_exception(err)
+    """Fail a future idempotently: a close race and a drain can both reach
+    the same future."""
+    try:
+        if not fut.done():
+            fut.set_exception(err)
+    except Exception:  # InvalidStateError: the other side resolved it
+        pass
 
 
 class GenerationService:
-    """Micro-batching wrapper around ``models.generation.generate``.
+    """The serving front of one model: the continuous engine or the window
+    batcher (module docstring).
 
     ``params`` is a flax-layout params tree (``io.weights``); ``quantize``
     False, ``"int8"`` (storage: dequantized once at load) or ``"kernel"``
     (int8 weights consumed by the CUDA int8 matmul).  The weights load into
-    ``model`` on its device."""
+    ``model`` on its device.  The continuous engine takes ``batch_sizes[-1]``
+    slots, the prompt buckets, ``max_new_buckets[-1]`` as its budget cap,
+    and the engine knobs (``steps_per_dispatch`` default ``"adaptive"``)."""
 
     def __init__(
         self,
@@ -110,10 +132,26 @@ class GenerationService:
         seed: int = 0,
         repetition_penalty: float = 1.0,
         request_timeout_s: float = 600.0,
+        batcher: str = "auto",
+        steps_per_dispatch: "Optional[int | str]" = None,
+        prefill_chunk: int = 256,
+        engine_pipeline_depth: Optional[int] = None,
+        engine_fused_admission: Optional[bool] = None,
+        dispatch_stall_timeout: Optional[float] = None,
     ):
         from mlcomp_tpu_torch.models.generation import prep_decode_variables
         from mlcomp_tpu_torch.ops.quant import quantize_params
 
+        if batcher == "auto":
+            batcher = "continuous"
+        if batcher not in ("continuous", "window"):
+            raise ValueError(f"batcher: expected 'auto'/'continuous'/'window', got {batcher!r}")
+        if batcher == "window" and (
+                engine_fused_admission is not None
+                or (engine_pipeline_depth is not None and int(engine_pipeline_depth) > 1)):
+            raise ValueError("engine_pipeline_depth > 1 and engine_fused_admission need "
+                             "the continuous batcher")
+        self.batcher = batcher
         self.model = model
         self.batch_sizes = tuple(sorted(batch_sizes))
         self.prompt_buckets = tuple(sorted(prompt_buckets))
@@ -135,13 +173,31 @@ class GenerationService:
         self.request_timeout_s = float(request_timeout_s)
         if self.request_timeout_s <= 0:
             raise ValueError(f"request_timeout_s must be positive, got {request_timeout_s}")
-        self._gen = torch.Generator(device=model.device).manual_seed(seed)
         self._queue: "queue.Queue" = queue.Queue()
         self._deferred: List[Dict[str, Any]] = []
         self._stats = {"requests": 0, "batches": 0, "batched_rows": 0}
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._loop, daemon=True)
-        self._thread.start()
+        # readiness vs liveness: a draining daemon is ok (keep it) but not
+        # ready (send it no new traffic)
+        self._draining = False
+        self.engine = None
+        self._thread = None
+        if batcher == "continuous":
+            from mlcomp_tpu_torch.engine import DecodeEngine
+
+            self.engine = DecodeEngine(
+                model, slots=self.batch_sizes[-1], prompt_buckets=self.prompt_buckets,
+                max_new_cap=self.max_new_buckets[-1], pad_id=self.pad_id, seed=seed,
+                steps_per_dispatch=("adaptive" if steps_per_dispatch is None
+                                    else steps_per_dispatch),
+                prefill_chunk=prefill_chunk, pipeline_depth=engine_pipeline_depth,
+                fused_admission=engine_fused_admission,
+                dispatch_stall_timeout=dispatch_stall_timeout,
+            )
+        else:
+            self._gen = torch.Generator(device=model.device).manual_seed(seed)
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
 
     # ------------------------------------------------------------- public
 
@@ -149,11 +205,19 @@ class GenerationService:
                temperature: Optional[float] = None, top_k: Optional[int] = None,
                top_p: Optional[float] = None, eos_id: Optional[int] = None,
                logprobs: bool = False, repetition_penalty: Optional[float] = None,
-               trace_id: Optional[str] = None) -> Future:
+               trace_id: Optional[str] = None, stream: Optional["queue.Queue"] = None,
+               deadline_s: Optional[float] = None) -> Future:
         """Enqueue one request; the future resolves to ``{"ids": generated
         ids (prompt excluded, capped at ``max_new_tokens``, pads after EOS
         trimmed), "latency_ms", "batched_with", "trace_id"}`` and
-        ``"logprobs"`` when asked."""
+        ``"logprobs"`` when asked.
+
+        Continuous batcher only: ``stream`` (a ``queue.Queue``) receives
+        ``{"token", "logprob", "step"}`` dicts as tokens land, then
+        ``None``; ``deadline_s`` (default, and upper clamp, the service's
+        ``request_timeout_s``) retires the request at the next dispatch
+        boundary past it with ``DeadlineExceeded``.  The future carries
+        ``rid``, the handle :meth:`cancel` takes."""
         if trace_id is not None and not valid_trace_id(trace_id):
             raise ValueError(f"trace_id must be 32 lowercase hex chars, got {trace_id!r}")
         ids = [int(t) for t in prompt_ids]
@@ -189,6 +253,16 @@ class GenerationService:
             raise ValueError(f"prompt ids must lie in [0, {self._neutral_k})")
         _bucket(len(ids), self.prompt_buckets, "prompt length")
         nb = _bucket(n_new, self.max_new_buckets, "max_new_tokens")
+        if self.engine is not None:
+            # a client may only tighten the operator's request timeout
+            eff = self.request_timeout_s if deadline_s is None else min(
+                float(deadline_s), self.request_timeout_s)
+            return self.engine.submit(
+                ids, n_new, temperature=t, top_k=k, top_p=p, eos_id=eos, logprobs=logprobs,
+                repetition_penalty=rp, stream=stream, deadline_s=eff, trace_id=trace_id)
+        if stream is not None or deadline_s is not None:
+            raise ValueError("token streaming and per-request deadlines need the continuous "
+                             "batcher; this service runs the window batcher")
         self._stats["requests"] += 1
         fut: Future = Future()
         tid = trace_id if trace_id is not None else make_trace_id()
@@ -208,20 +282,44 @@ class GenerationService:
     def generate(self, prompt_ids, max_new_tokens, **knobs):
         return self.submit(prompt_ids, max_new_tokens, **knobs).result()
 
+    def cancel(self, rid: int) -> bool:
+        """Cancel a live continuous-engine request by rid (the ``rid`` of
+        its Future); False for the window batcher, which cannot."""
+        return self.engine.cancel(rid) if self.engine is not None else False
+
+    def set_draining(self, draining: bool) -> bool:
+        """The drain bit behind ``POST /drain``: a draining service keeps
+        serving what it holds and stays ok, but reads ``ready: false``."""
+        self._draining = bool(draining)
+        return self._draining
+
     def stats(self) -> Dict[str, Any]:
-        return {
+        out = {
             **self._stats,
             "queue_depth": self._queue.qsize() + len(self._deferred),
             "quantize": self.quant_mode,
-            "batcher": "window",
-            "healthy": self._thread.is_alive(),
-            "ready": self._thread.is_alive() and not self._stop.is_set(),
+            "batcher": self.batcher,
             "device": str(self.model.device),
             "request_timeout_s": self.request_timeout_s,
         }
+        if self.engine is not None:
+            eng = self.engine.stats()
+            out["queue_depth"] = eng.pop("queue_depth")
+            out["requests"] = eng["requests"]
+            out["healthy"] = eng["healthy"]
+            out["latency"] = eng["latency"]
+            out["engine"] = eng
+        else:
+            out["healthy"] = self._thread.is_alive()
+        out["draining"] = self._draining
+        out["ready"] = bool(out["healthy"] and not self._draining and not self._stop.is_set())
+        return out
 
     def close(self) -> None:
         self._stop.set()
+        if self.engine is not None:
+            self.engine.close()
+            return
         self._thread.join(timeout=5.0)
         err = RuntimeError("generation service closed")
         if not self._thread.is_alive():
@@ -401,28 +499,76 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
             if route == "/healthz":
                 st = service.stats()
                 ok = bool(st["healthy"])
+                # 503 while the engine is down; the body says why
                 return self._json({"ok": ok, "model": model_name, **st}, 200 if ok else 503)
             if route == "/stats":
                 return self._json(service.stats())
             return self._json({"error": "not found"}, 404)
 
+        def _stream(self, fut, toks: "queue.Queue"):
+            """Server-sent events: one ``data:`` line per token as it lands,
+            a final ``done`` event with the whole result, then close.  Never
+            raises once the headers are out: a failure ends the stream with
+            an ``error`` event.  A broken pipe means the client left: the
+            request is cancelled so its row frees its slot."""
+            timeout = service.request_timeout_s + 30.0
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Connection", "close")
+            self.end_headers()
+            try:
+                while True:
+                    item = toks.get(timeout=timeout)
+                    if item is None:
+                        break
+                    self.wfile.write(f"data: {json.dumps(item)}\n\n".encode())
+                    self.wfile.flush()
+                final = fut.result(timeout=timeout)
+                self.wfile.write(f"data: {json.dumps({'done': True, **final})}\n\n".encode())
+                self.wfile.flush()
+            except ConnectionError:
+                service.cancel(getattr(fut, "rid", 0))
+            except Exception as e:
+                status = getattr(e, "status", None)
+                err = json.dumps({"error": f"{type(e).__name__}: {e}",
+                                  "trace_id": getattr(fut, "trace_id", None),
+                                  **({"status": status} if status else {})})
+                try:
+                    self.wfile.write(f"data: {err}\n\n".encode())
+                    self.wfile.flush()
+                except OSError:
+                    pass
+
         def do_POST(self):  # noqa: N802
-            if self.path.split("?", 1)[0] != "/generate":
+            route = self.path.split("?", 1)[0]
+            if route == "/drain":
+                # flip ready without touching ok; {"draining": false} undoes it
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    draining = json.loads(self.rfile.read(n) or b"{}").get("draining", True)
+                    if not isinstance(draining, bool):
+                        raise ValueError(f"draining must be a JSON boolean, got {draining!r}")
+                except (ValueError, TypeError, AttributeError) as e:
+                    return self._json({"error": f"{type(e).__name__}: {e}"}, 400)
+                return self._json({"ok": True, "draining": service.set_draining(draining)})
+            if route != "/generate":
                 return self._json({"error": "not found"}, 404, close=True)
             tid = make_trace_id()
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n) or b"{}")
-                if req.get("stream"):
-                    raise ValueError("token streaming needs the continuous batcher; "
-                                     "this service runs the window batcher")
+                toks: Optional["queue.Queue"] = queue.Queue() if req.get("stream") else None
                 fut = service.submit(
                     req["prompt"], int(req.get("max_new_tokens", 32)),
                     temperature=req.get("temperature"), top_k=req.get("top_k"),
                     top_p=req.get("top_p"), eos_id=req.get("eos_id"),
                     logprobs=req.get("logprobs", False),
                     repetition_penalty=req.get("repetition_penalty"), trace_id=tid,
+                    stream=toks, deadline_s=req.get("deadline_s"),
                 )
+                if toks is not None:
+                    return self._stream(fut, toks)
                 return self._json(fut.result(timeout=service.request_timeout_s + 30.0))
             except FutTimeout as e:
                 return self._json({"error": f"{type(e).__name__}: {e}",
@@ -430,7 +576,10 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
             except (KeyError, ValueError, TypeError) as e:
                 return self._json({"error": f"{type(e).__name__}: {e}", "trace_id": tid}, 400)
             except Exception as e:
-                return self._json({"error": f"{type(e).__name__}: {e}", "trace_id": tid}, 500)
+                status = getattr(e, "status", None)
+                code = 504 if status == "deadline_exceeded" else 500
+                return self._json({"error": f"{type(e).__name__}: {e}", "trace_id": tid,
+                                   **({"status": status} if status else {})}, code)
 
     return ThreadingHTTPServer((host, port), Handler)
 

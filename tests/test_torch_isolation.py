@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -37,6 +38,20 @@ def test_import_leaves_jax_out_of_the_process():
                          env=env, cwd=str(REPO), timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"the port pulled in: {out.stdout.strip()}"
+
+
+@pytest.mark.parametrize("module", ["mlcomp_tpu_torch.engine", "mlcomp_tpu_torch.dispatch_control"])
+def test_engine_modules_alone_leave_jax_out(module):
+    code = (
+        f"import sys, {module}\n"
+        "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
+        " 'flax', 'mlcomp_tpu'))))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(REPO), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"{module} pulled in: {out.stdout.strip()}"
 
 
 def test_no_jax_or_mlcomp_tpu_imports_in_the_source():

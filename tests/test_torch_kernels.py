@@ -111,6 +111,41 @@ def test_decode_attention_matches_pallas(h, h_kv, q_dtype):
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("s_q", [1, 5, da.CHUNK_MAX_SQ + 8])
+def test_decode_attention_chunk_matches_pallas(s_q):
+    """B4 against JAX ``decode_attention_chunk`` in interpret mode: GQA rep
+    2, per-row windows, query j stopping at ``kv_stop0 + j``.  S = 40 takes
+    the TPU's query-tiled route (two sweeps of CHUNK_MAX_SQ); the port
+    covers it in one call.  Row 2's windows are all empty and give 0."""
+    rng = np.random.default_rng(100 + s_q)
+    b, h, h_kv, l_buf, dh = 3, 4, 2, 256, 128
+    k8, ks = _quant_cache(rng, b, h_kv, l_buf, dh)
+    v8, vs = _quant_cache(rng, b, h_kv, l_buf, dh)
+    q = _bf16_np(rng.normal(size=(b, s_q, h, dh)).astype(np.float32))
+    start = np.array([0, 17, 100], np.int32)
+    stop0 = np.array([l_buf - s_q + 1, 30, 100 - s_q + 1], np.int32)
+    ref = jda.decode_attention_chunk(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k8), jnp.asarray(ks, jnp.bfloat16),
+        jnp.asarray(v8), jnp.asarray(vs, jnp.bfloat16),
+        kv_start=jnp.asarray(start), kv_stop0=jnp.asarray(stop0), scale=0.1,
+    )
+    args = (_t(k8), _t(ks, torch.bfloat16), _t(v8), _t(vs, torch.bfloat16))
+    out = da.decode_attention_chunk(_t(q, torch.bfloat16), *args, _t(start), _t(stop0),
+                                    scale=0.1)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s_q, h, dh)
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.all(out[2].float().numpy() == 0) and np.all(ref[2] == 0)
+    # B3's tolerance, for B3's reason: p rounds to bf16 before P V on both
+    # sides (against another running max: one pass here, 256-slot blocks
+    # there) and the output rounds to bf16, each 2^-8 relative
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=2 ** -7, atol=2 ** -7)
+    if s_q == 1:
+        # the single-query decode is the one-query chunk, bit for bit
+        single = da.decode_attention(_t(q[:, 0], torch.bfloat16), *args, _t(start),
+                                     _t(stop0), scale=0.1)
+        assert torch.equal(single, out[:, 0])
+
+
 def test_decode_attention_checks_scale_layout():
     q = torch.zeros(2, 4, 128)
     k8 = torch.zeros(2, 4, 128, 128, dtype=torch.int8)

@@ -127,14 +127,88 @@ def test_int8_cache_layout_matches_jax():
     assert tuple(c.vs.shape) == jc["cached_value_scale"].shape
 
 
+def _jax_decode(extra):
+    """The JAX model and one jitted decode apply (one compile per shape)."""
+    jm, jt = _jax({"dtype": "float32", **extra})
+    run = jax.jit(lambda c, ids, p, m, cur: jm.apply(
+        {"params": jt, "cache": c}, ids, decode=True, positions=p, kv_mask=m,
+        cache_cursor=cur, mutable=["cache"]))
+    run_global = jax.jit(lambda c, ids, p, m: jm.apply(
+        {"params": jt, "cache": c}, ids, decode=True, positions=p, kv_mask=m,
+        mutable=["cache"]))
+    return jm, run, run_global
+
+
 def test_chunked_int8_decode_is_not_ported():
+    """The path that raised NotImplementedError before the chunk kernel:
+    a chunk of 4 at global cache index 8 on the int8 cache now runs the
+    chunk kernel's plain version and matches the JAX apply (which takes the
+    multi-query Pallas kernel in interpret mode at this width)."""
+    jm, _, run_global = _jax_decode({"kv_quant": True})
+    rng = np.random.default_rng(6)
+    b = 2
+    ids = rng.integers(1, 256, (b, 12))
+    pm = np.ones((b, 12), bool)
+    pm[0, :3] = False
+    pos = np.maximum(np.cumsum(pm, 1) - 1, 0)
+    kv_mask = np.concatenate([pm, np.ones((b, 4), bool)], 1)
+    cache = j_init_cache(jm, b, 16)
+    _, upd = run_global(cache, jnp.asarray(ids[:, :8]), jnp.asarray(pos[:, :8]),
+                        jnp.asarray(kv_mask))
+    ref, _ = run_global(upd["cache"], jnp.asarray(ids[:, 8:]), jnp.asarray(pos[:, 8:]),
+                        jnp.asarray(kv_mask))
     m = _port({"kv_quant": True, "dtype": "float32"})
-    cache = m.init_cache(1, 12)
-    ids = torch.ones(1, 4, dtype=torch.long)
-    pos = torch.arange(4)[None]
-    m(ids, positions=pos, cache=cache)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        m(ids, positions=pos + 4, cache=cache)
+    cache_t = m.init_cache(b, 16)
+    km = torch.from_numpy(kv_mask)
+    m(torch.from_numpy(ids[:, :8]), positions=torch.from_numpy(pos[:, :8]), cache=cache_t,
+      kv_mask=km)
+    out = m(torch.from_numpy(ids[:, 8:]), positions=torch.from_numpy(pos[:, 8:]),
+            cache=cache_t, kv_mask=km)
+    assert cache_t.index == 12
+    # f32 model, f32 rounding only: both sides quantize the same K/V to int8
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("s", [1, 4])
+def test_row_cursor_decode_matches_flax(kv_quant, s):
+    """Per-row cache cursors (the continuous engine's contract) against the
+    JAX apply with ``cache_cursor``: two rows at different cursors write
+    their s new tokens at their own slots and attend slots <= cursor + j;
+    a second single-token step reads what the first wrote."""
+    extra = {"kv_quant": kv_quant}
+    jm, run, run_global = _jax_decode(extra)
+    rng = np.random.default_rng(7 + s)
+    b, l_max = 2, 24
+    prompt = rng.integers(1, 256, (b, 10))
+    pm = np.ones((b, 10), bool)
+    pm[0, :2] = False
+    pos = np.maximum(np.cumsum(pm, 1) - 1, 0)
+    kv_mask = np.concatenate([pm, np.ones((b, l_max - 10), bool)], 1)
+    cur = np.array([8, 10], np.int32)          # row 0 rewrites its last two slots
+    new = rng.integers(1, 256, (b, s))
+    new_pos = pos[np.arange(b), cur - 1][:, None] + 1 + np.arange(s)[None]
+    nxt = rng.integers(1, 256, (b, 1))
+
+    cache = j_init_cache(jm, b, l_max)
+    _, upd = run_global(cache, jnp.asarray(prompt), jnp.asarray(pos), jnp.asarray(kv_mask))
+    ref1, upd = run(upd["cache"], jnp.asarray(new), jnp.asarray(new_pos), jnp.asarray(kv_mask),
+                    jnp.asarray(cur))
+    ref2, _ = run(upd["cache"], jnp.asarray(nxt), jnp.asarray(new_pos[:, -1:] + 1),
+                  jnp.asarray(kv_mask), jnp.asarray(cur + s))
+
+    m = _port({"dtype": "float32", **extra})
+    ct = m.init_cache(b, l_max)
+    km = torch.from_numpy(kv_mask)
+    m(torch.from_numpy(prompt), positions=torch.from_numpy(pos), cache=ct, kv_mask=km)
+    out1 = m(torch.from_numpy(new), positions=torch.from_numpy(new_pos), cache=ct, kv_mask=km,
+             cache_cursor=torch.from_numpy(cur))
+    out2 = m(torch.from_numpy(nxt), positions=torch.from_numpy(new_pos[:, -1:] + 1), cache=ct,
+             kv_mask=km, cache_cursor=torch.from_numpy(cur + s))
+    assert ct.index == 10      # per-row cursors neither read nor advance it
+    # f32 model: f32 rounding only (int8 codes equal on both sides)
+    np.testing.assert_allclose(out1.numpy(), np.asarray(ref1), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out2.numpy(), np.asarray(ref2), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("extra,quant", [

@@ -1,5 +1,7 @@
-"""The port's window service and HTTP server, on the CPU, against the JAX
-package's window service fed the same weights."""
+"""The port's services and HTTP server, on the CPU: the window service
+against the JAX package's window service fed the same weights, and the
+default continuous service (its engine is held against the JAX engine in
+test_torch_engine.py) through its HTTP surface."""
 
 import json
 import threading
@@ -33,9 +35,8 @@ CFG = {"name": "transformer_lm", "vocab_size": 256, "hidden": 128, "layers": 2, 
        "kv_heads": 2, "dtype": "float32", "kv_quant": True, "decode_fused": True}
 TREE = init_params(CFG, seed=1)
 PORT_KW = dict(batch_sizes=(1, 2, 4), prompt_buckets=(8, 16), max_new_buckets=(4, 8),
-               quantize="kernel", batch_window_ms=100.0)
-# the JAX service picks its batcher; the port serves the window batcher only
-KW = {**PORT_KW, "batcher": "window"}
+               quantize="kernel", batch_window_ms=100.0, batcher="window")
+KW = PORT_KW
 
 
 @pytest.fixture(scope="module")
@@ -170,7 +171,81 @@ def test_cli_serve_needs_a_checkpoint(tmp_path, capsys):
     cfg.write_text("model:\n  name: transformer_lm\n  vocab_size: 256\n")
     assert main(["serve", "--model", str(cfg)]) == 2
     assert "--ckpt" in capsys.readouterr().err
-    # the JAX command line's --batcher carries over for the one batcher ported
-    assert main(["serve", "--model", str(cfg), "--batcher", "window"]) == 2
-    with pytest.raises(SystemExit):
-        main(["serve", "--model", str(cfg), "--batcher", "continuous"])
+    # the JAX command line's engine flags carry over
+    for flags in (["--batcher", "window"], ["--batcher", "continuous"],
+                  ["--steps-per-dispatch", "adaptive", "--engine-pipeline-depth", "1",
+                   "--engine-staged-admission", "--prefill-chunk", "64",
+                   "--dispatch-stall-timeout", "0"], ["--steps-per-dispatch", "4"]):
+        assert main(["serve", "--model", str(cfg), *flags]) == 2
+    for bad in (["--batcher", "speculative"], ["--steps-per-dispatch", "0"],
+                ["--steps-per-dispatch", "fast"]):
+        with pytest.raises(SystemExit):
+            main(["serve", "--model", str(cfg), *bad])
+
+
+@pytest.fixture(scope="module")
+def continuous():
+    kw = {k: v for k, v in PORT_KW.items() if k not in ("batcher", "batch_window_ms")}
+    svc = load_service(CFG, params=TREE, device="cpu", **kw)
+    yield svc
+    svc.close()
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=600)
+
+
+def test_default_service_is_continuous_and_matches_the_window_service(continuous, service):
+    assert continuous.stats()["batcher"] == "continuous"
+    assert continuous.stats()["engine"]["adaptive_k"]
+    prompt = [3, 14, 15, 92, 65, 35]
+    got = continuous.submit(prompt, 5, logprobs=True).result(timeout=600)
+    ref = service.submit(prompt, 5, logprobs=True).result(timeout=600)
+    assert got["ids"] == ref["ids"]
+    # the same model code and kernels' plain versions, batched differently
+    np.testing.assert_allclose(got["logprobs"], ref["logprobs"], rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="continuous batcher"):
+        service.submit(prompt, 2, deadline_s=5.0)
+
+
+def test_sse_stream_healthz_and_drain(continuous):
+    httpd = make_http_server(continuous, "127.0.0.1", 0, model_name="tiny")
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with _post(url + "/generate", {"prompt": [4, 5, 6], "max_new_tokens": 6,
+                                       "logprobs": True, "stream": True}) as r:
+            assert r.headers["Content-Type"] == "text/event-stream"
+            events = [json.loads(line[len(b"data: "):]) for line in r.read().split(b"\n\n")
+                      if line.startswith(b"data: ")]
+        *tokens, done = events
+        assert done["done"] and len(done["ids"]) == 6
+        assert [e["token"] for e in tokens] == done["ids"]
+        assert [e["logprob"] for e in tokens] == done["logprobs"]
+        steps = [e["step"] for e in tokens]
+        assert steps == sorted(steps)
+        assert done["ids"] == continuous.generate([4, 5, 6], 6)["ids"]
+
+        def health():
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                return json.loads(r.read())
+
+        h = health()
+        assert h["ok"] and h["ready"] and h["batcher"] == "continuous" and not h["draining"]
+        with _post(url + "/drain", {}) as r:
+            assert json.loads(r.read()) == {"ok": True, "draining": True}
+        h = health()
+        assert h["ok"] and not h["ready"] and h["draining"]
+        with _post(url + "/drain", {"draining": False}) as r:
+            assert json.loads(r.read())["draining"] is False
+        assert health()["ready"]
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(url + "/drain", {"draining": "yes"})
+        assert e.value.code == 400
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=10)
