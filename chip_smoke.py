@@ -146,6 +146,7 @@ def main() -> int:
 
     from mlcomp_tpu_torch.ops.cuda import decode_attention as da
     from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+    from mlcomp_tpu_torch.ops.cuda import page_gather as pgm
     from mlcomp_tpu_torch.ops.cuda import quant_matmul as qm
 
     kernels = {
@@ -159,7 +160,16 @@ def main() -> int:
                      "mlcomp_tpu/ops/pallas/decode_attention.py:323", da, "chunk_launches"),
         "B5": Kernel("flash_attention_fwd", "mlcomp_tpu_torch/csrc/flash_attention.cu",
                      "mlcomp_tpu/ops/pallas/flash_attention.py:507", fa),
+        "B6": Kernel("paged_decode_attention", "mlcomp_tpu_torch/csrc/decode_attention.cu",
+                     "mlcomp_tpu/ops/pallas/decode_attention.py:957", da, "paged_launches"),
+        "B7": Kernel("paged_decode_attention_chunk", "mlcomp_tpu_torch/csrc/decode_attention.cu",
+                     "mlcomp_tpu/ops/pallas/decode_attention.py:1169", da,
+                     "paged_chunk_launches"),
+        "B8": Kernel("page_gather", "mlcomp_tpu_torch/csrc/page_gather.cu",
+                     "mlcomp_tpu/kvpool/layout.py:384", pgm),
     }
+    # the kernels the dense paths run (B1-B5) and those of the paged paths
+    dense_keys = ("B1", "B2", "B3", "B4", "B5")
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     def bound_of(nbytes, ops):
@@ -404,6 +414,135 @@ def main() -> int:
     del qkv, tq
     torch.cuda.empty_cache()
 
+    # B6 and B7: B3's and B4's kernel body through a page table.  The page
+    # size is the paged engine's (128 slots, 6 pages per 768-slot row);
+    # each row's window lives in shuffled physical pages, the table maps
+    # NULL (page 0, zeros) past it, and the graveyard page (1) holds
+    # non-finite scales that no table entry maps.  Paged must equal the
+    # dense kernel on the same bytes laid out densely, bit for bit.
+    page_t = 128
+
+    def paginate(cache, last):
+        """pages (kq, ks, vq, vs) and a (B, MP) table holding the rows of a
+        dense cache up to slot ``last[b]``; the dense cache of those bytes"""
+        k8, ks, v8, vs = cache
+        b, h_kv, l_b, d = k8.shape
+        mp = l_b // page_t
+        n_pages = 2 + b * mp
+        table = (torch.randperm(n_pages - 2, generator=g, device=dev)[: b * mp] + 2).view(b, mp)
+        live = torch.arange(mp, device=dev)[None] * page_t <= last[:, None]
+        table = torch.where(live, table, torch.zeros_like(table)).int().contiguous()
+        pages = []
+        for x in (k8, ks, v8, vs):
+            if x.dtype == torch.int8:
+                tiles = x.view(b, h_kv, mp, page_t, d).permute(0, 2, 1, 3, 4)
+            else:
+                tiles = x.view(b, h_kv, 1, mp, page_t).permute(0, 3, 1, 2, 4)
+            pg = torch.zeros((n_pages,) + tuple(tiles.shape[2:]), dtype=x.dtype, device=dev)
+            pg[table[live].long()] = tiles[live]
+            if x.dtype != torch.int8:
+                pg[1] = float("nan")
+            pages.append(pg)
+        dense = tuple(t.contiguous() for t in da.pages_to_dense(*pages, table))
+        return tuple(pages), table, dense
+
+    def paged_case(key, twin, qp, cache, starts, stop0):
+        """B6 (q (B, H, dh)) or B7 (q (B, S, H, dh)) against B3 / B4 on the
+        same bytes (bit for bit) and against its plain version (2^-7 rule)."""
+        single = qp.dim() == 3
+        b, s_q = qp.shape[0], 1 if single else qp.shape[1]
+        pages, table, dense = paginate(cache, stop0 + s_q - 2)
+        if single:
+            kern, plain, twin_fn = (da.paged_decode_attention, da.paged_decode_attention_plain,
+                                    da.decode_attention)
+        else:
+            kern, plain, twin_fn = (da.paged_decode_attention_chunk,
+                                    da.paged_decode_attention_chunk_plain,
+                                    da.decode_attention_chunk)
+        out = kern(qp, *pages, table, starts, stop0, scale)
+        if not torch.equal(out, twin_fn(qp, *dense, starts, stop0, scale)):
+            raise AssertionError(f"{kernels[key].name} differs from {twin} on the same bytes")
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"{kernels[key].name}: non-finite output")
+        kq, ks, vq, vs = pages
+        err, ratio = held(f"{kernels[key].name} {b}x{s_q}", out,
+                          plain(qp, kq, ks, vq, vs, table, starts, stop0, scale),
+                          plain(qp, kq, ks, vq.abs(), vs, table, starts, stop0, scale))
+        copies = [pages] + [tuple(t.clone() for t in pages)
+                            for _ in range(copies_for(sum(t.nbytes for t in pages)) - 1)]
+        kms = time_ms([lambda c=c: kern(qp, *c, table, starts, stop0, scale) for c in copies])
+        pms = time_ms([lambda c=c: plain(qp, *c, table, starts, stop0, scale)
+                       for c in copies[:2]], iters=5, warmup=1)
+        # yardstick: SDPA on a bf16 copy gathered through the table
+        l_b = dense[0].shape[2]
+        slots = torch.arange(l_b, device=dev)
+        qstop = stop0[:, None] + torch.arange(s_q, device=dev)[None]
+        cmask = ((slots[None, None] >= starts[:, None, None])
+                 & (slots[None, None] < qstop[..., None]))[:, None]
+        dq = ((dense[0].float() * dense[1].float().transpose(2, 3)).bfloat16(),
+              (dense[2].float() * dense[3].float().transpose(2, 3)).bfloat16())
+        qt = (qp[:, None] if single else qp).transpose(1, 2)
+        lms = time_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, dq[0], dq[1], attn_mask=cmask, scale=scale)])
+        pairs = int((qstop - starts[:, None]).clamp_min(0).sum().item())
+        window = int((stop0 + s_q - 1 - starts).clamp_min(0).sum().item())
+        # q in, out back, the live K/V window and its scales once, the table
+        # and the window bounds
+        nbytes = (2 * qp.numel() * 2 + window * heads * (2 * dh + 2 * 2) + table.numel() * 4
+                  + b * 8)
+        kernels[key].add(b=b, s=s_q, h=heads, h_kv=heads, page_tokens=page_t,
+                         pages_per_row=table.shape[1], live_pairs=pairs, window_slots=window,
+                         max_abs_err=err, err_over_limit=ratio, ms=kms, plain_ms=pms,
+                         library_ms=lms, **bound_of(nbytes, 4 * pairs * heads * dh))
+        del copies, dq
+        torch.cuda.empty_cache()
+
+    def quant_cache(b):
+        k8, ks = da.quantize_kv(torch.randn(b, l_buf, heads, dh, generator=g, device=dev))
+        v8, vs = da.quantize_kv(torch.randn(b, l_buf, heads, dh, generator=g, device=dev))
+        return (k8.transpose(1, 2).contiguous(),
+                ks.transpose(1, 2)[:, :, None].bfloat16().contiguous(),
+                v8.transpose(1, 2).contiguous(),
+                vs.transpose(1, 2)[:, :, None].bfloat16().contiguous())
+
+    # B6 at the decode step's windows (B3's), B7 at the verify width and
+    # at the admission chunk (B4's two cases)
+    paged_case("B6", "decode_attention", q, quant_cache(BATCH), starts, stops)
+    paged_case("B7", "decode_attention_chunk",
+               torch.randn(BATCH, 32, heads, dh, generator=g, device=dev).bfloat16(),
+               quant_cache(BATCH), torch.randint(0, 100, (BATCH,), generator=g, device=dev,
+                                                 dtype=torch.int32),
+               torch.randint(PROMPT, PROMPT + NEW - 32, (BATCH,), generator=g, device=dev,
+                             dtype=torch.int32))
+    paged_case("B7", "decode_attention_chunk",
+               torch.randn(1, CHUNK, heads, dh, generator=g, device=dev).bfloat16(),
+               quant_cache(1), torch.tensor([adm_pad], dtype=torch.int32, device=dev),
+               torch.tensor([CHUNK + 1], dtype=torch.int32, device=dev))
+
+    # B8: one layer's K (or V) gather of the bf16-KV paged engine's decode
+    # step: 8 rows x 6 pages of (128, 16, 128) bf16 from a 50-page pool
+    n_pool = 2 + BATCH * (l_buf // page_t)
+    pool_bytes = n_pool * page_t * heads * dh * 2
+    pools = [torch.randn(n_pool, page_t, heads, dh, generator=g, device=dev).bfloat16()
+             for _ in range(copies_for(pool_bytes))]
+    gtable = (torch.randperm(n_pool - 2, generator=g, device=dev)[: BATCH * (l_buf // page_t)]
+              + 2).view(BATCH, -1).int()
+    gout = pgm.page_gather(pools[0], gtable)
+    torch.cuda.synchronize()
+    if not torch.equal(gout, pools[0][gtable.long()]):
+        raise AssertionError("page_gather differs from pages[table]")
+    kms = time_ms([lambda p=p: pgm.page_gather(p, gtable) for p in pools])
+    pms = time_ms([lambda p=p: pgm.page_gather_plain(p, gtable) for p in pools[:2]],
+                  iters=5, warmup=1)
+    flat_idx = gtable.view(-1).long()
+    lms = time_ms([lambda p=p: torch.index_select(p, 0, flat_idx) for p in pools])
+    moved = gout.nbytes
+    kernels["B8"].add(s=BATCH, mp=gtable.shape[1], page_bytes=pools[0][0].nbytes,
+                      max_abs_err=0.0, err_over_limit=0.0, ms=kms, plain_ms=pms,
+                      library_ms=lms, **bound_of(2 * moved + gtable.numel() * 4, 0))
+    del pools, gout
+    torch.cuda.empty_cache()
+
     # ---- 4. window serve
     log("phase window serve")
     from mlcomp_tpu_torch.io.weights import init_params
@@ -479,8 +618,9 @@ def main() -> int:
     log("launches over the window serve run: " + json.dumps(
         {kernels[key].name: n for key, n in counts.items()}))
     for key in kernels:
-        # the window path prefills at cache index 0 only: no chunk kernel
-        if (counts[key] <= 0) != (key == "B4"):
+        # the window path prefills at cache index 0 only (no chunk kernel)
+        # and reads a dense cache (no paged kernel)
+        if (counts[key] <= 0) != (key not in dense_keys or key == "B4"):
             raise AssertionError(f"{kernels[key].name}: {counts[key]} launches on the window path")
     window_counts = counts
 
@@ -606,7 +746,6 @@ def main() -> int:
         CFG, params=params, device="cuda", quantize="kernel", batch_sizes=(1, BATCH),
         prompt_buckets=(PROMPT,), max_new_buckets=(NEW,), prefill_chunk=CHUNK,
     )
-    del params
     torch.cuda.empty_cache()
     model = service.model
     eng = service.engine
@@ -617,10 +756,6 @@ def main() -> int:
     log(f"load_service (continuous): {time.perf_counter() - t0:.2f} s; "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; engine cache L = "
         f"{da.pick_buffer_len(eng.l_buf, heads, dh)} for {eng.l_buf} slots")
-    httpd = make_http_server(service, "127.0.0.1", 0, model_name="transformer_lm-1.2b")
-    server = threading.Thread(target=httpd.serve_forever, daemon=True)
-    server.start()
-    url = f"http://127.0.0.1:{httpd.server_address[1]}"
 
     def sse(body):
         """POST a streaming request; (events, seconds from sending it to the
@@ -657,67 +792,15 @@ def main() -> int:
     # 256 the only chunk runs at cache index 256 (B4 only); above it the
     # first chunk runs at index 0 (B5) and the second at 256 (B4).  Every
     # request streams, so that the client stamps its own time to first
-    # token under this load
+    # token under this load.  The paged engine phase replays them.
     lengths = torch.linspace(100, 500, 10).long().tolist() + [300]
     bodies = [{"prompt": prompt_of(n), "max_new_tokens": NEW, "logprobs": True}
               for n in lengths]
     for b in bodies[1::4]:
         b.update(temperature=0.8, top_p=0.95)
-    post({"prompt": prompt_of(16), "max_new_tokens": 2})   # warm the allocator
-    for k in kernels.values():
-        k.reset()
-    st0 = eng.stats()
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(bodies)) as ex:
-        streams = list(ex.map(sse, bodies))
-    wall = time.perf_counter() - t0
-    st_mid = eng.stats()
-    alone = prompt_of(200)
-    first = post({"prompt": alone, "max_new_tokens": NEW})
-    second = post({"prompt": alone, "max_new_tokens": NEW})
-    lone_events, ttft_lone, _ = sse({"prompt": prompt_of(400), "max_new_tokens": 16})
-    counts = {key: k.launches for key, k in kernels.items()}
-    st1 = eng.stats()
-    for events, _, _ in streams:
-        res = streamed(events, NEW)
-        ids = res["ids"]
-        if not all(0 <= t < vocab for t in ids):
-            raise AssertionError(f"expected {NEW} ids in the vocabulary, got {ids}")
-        if len(res["logprobs"]) != NEW or max(res["logprobs"]) > 0:
-            raise AssertionError("logprobs must be <= 0, one per token")
-    streamed(lone_events, 16)
-    ttft = [f * 1e3 for _, f, _ in streams]
-    per_tok = [(t_last - f) * 1e3 / (NEW - 1) for _, f, t_last in streams]
-    ttft_ms = {"p50": pct(ttft, 0.5), "p95": pct(ttft, 0.95), "max": max(ttft)}
-    per_token_ms = {"p50": pct(per_tok, 0.5), "p95": pct(per_tok, 0.95)}
-    if first["ids"] != second["ids"]:
-        raise AssertionError("the same greedy prompt gave different tokens")
-    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
-        health = json.loads(r.read())
-    if not (health.get("ok") and health.get("ready")):
-        raise AssertionError(f"/healthz: {health}")
-    log("launches over the engine serve run: " + json.dumps(
-        {kernels[key].name: n for key, n in counts.items()}))
-    for key in kernels:
-        if counts[key] <= 0:
-            raise AssertionError(f"{kernels[key].name} never launched on the engine path")
-    emitted = st_mid["emitted_tokens"] - st0["emitted_tokens"]
-    k_used = {k: n - st0["dispatches_by_k"].get(k, 0)
-              for k, n in st_mid["dispatches_by_k"].items()}
-    log(f"engine serve: {len(bodies)} concurrent SSE requests (100-500 prompt tokens, "
-        f"3 sampled) in {wall:.2f} s, {emitted} tokens ({emitted / wall:.1f} tok/s); "
-        f"client TTFT over these {len(bodies)}: p50 {ttft_ms['p50']:.1f} ms, p95 "
-        f"{ttft_ms['p95']:.1f} ms (sorted: {[round(x, 1) for x in sorted(ttft)]}); lone SSE "
-        f"TTFT {ttft_lone * 1e3:.1f} ms; per-token p50 {per_token_ms['p50']:.3f} ms; "
-        f"K rungs used (dispatches per K): {json.dumps(k_used)}; repeat prompt identical; "
-        f"healthz ok and ready")
+    alone, lone_prompt, warm = prompt_of(200), prompt_of(400), prompt_of(16)
+    steady_prompts = [prompt_of(100) for _ in range(BATCH)]
 
-    # decode ms per step with all 8 slots live: 8 requests of 100 prompt
-    # tokens, each streaming into a tap that stamps the host time the
-    # engine hands it a token (at a dispatch readback).  The window runs
-    # from the readback that gives the last of them its first token to
-    # the readback that gives one of them its last; the consumer blocks
-    # in queue.get, so it takes no interpreter time from the engine loop
     class Tap:
         def __init__(self, i, sink):
             self.i, self.sink = i, sink
@@ -725,29 +808,115 @@ def main() -> int:
         def put(self, item):
             self.sink.put((self.i, time.perf_counter(), item))
 
-    sink: "queue.Queue" = queue.Queue()
-    futs8 = [service.submit(prompt_of(100), NEW, stream=Tap(i, sink)) for i in range(BATCH)]
-    seen: dict = {}
-    ended = 0
-    while ended < BATCH:
-        i, t, item = sink.get(timeout=180)
-        if item is None:
-            ended += 1
-        else:
-            seen.setdefault(i, []).append((t, item["step"]))
-    for f in futs8:
-        f.result(timeout=180)
-    t_a, s_a = max(ev[0] for ev in seen.values())       # the last first token
-    t_b, s_b = min(ev[-1] for ev in seen.values())      # the first last token
-    if len(seen) != BATCH or s_b <= s_a:
-        raise AssertionError(f"no window with all {BATCH} slots decoding: {s_a}, {s_b}")
-    steady_ms = (t_b - t_a) * 1e3 / (s_b - s_a)
-    log(f"engine decode at {BATCH} live slots: {steady_ms:.3f} ms/step "
-        f"({BATCH * 1e3 / steady_ms:.1f} tok/s; {s_b - s_a} steps in "
-        f"{(t_b - t_a) * 1e3:.1f} ms, K {eng.stats()['k_ladder']} ladder)")
-    httpd.shutdown()
-    httpd.server_close()
-    server.join(timeout=10)
+    def engine_serve(service, label):
+        """The engine's HTTP run: the concurrent SSE requests, a repeated
+        greedy prompt, a lone SSE request; launch counts over that run;
+        then decode ms per step with all 8 slots live.  Returns what it
+        measured."""
+        nonlocal url
+        eng = service.engine
+        httpd = make_http_server(service, "127.0.0.1", 0, model_name="transformer_lm-1.2b")
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        post({"prompt": warm, "max_new_tokens": 2})   # warm the allocator
+        for k in kernels.values():
+            k.reset()
+        st0 = eng.stats()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as ex:
+            streams = list(ex.map(sse, bodies))
+        wall = time.perf_counter() - t0
+        st_mid = eng.stats()
+        first = post({"prompt": alone, "max_new_tokens": NEW})
+        second = post({"prompt": alone, "max_new_tokens": NEW})
+        lone_events, ttft_lone, _ = sse({"prompt": lone_prompt, "max_new_tokens": 16})
+        counts = {key: k.launches for key, k in kernels.items()}
+        st1 = eng.stats()
+        ids = []
+        for events, _, _ in streams:
+            res = streamed(events, NEW)
+            ids.append(res["ids"])
+            if not all(0 <= t < vocab for t in res["ids"]):
+                raise AssertionError(f"expected {NEW} ids in the vocabulary, got {res['ids']}")
+            if len(res["logprobs"]) != NEW or max(res["logprobs"]) > 0:
+                raise AssertionError("logprobs must be <= 0, one per token")
+        streamed(lone_events, 16)
+        ttft = [f * 1e3 for _, f, _ in streams]
+        per_tok = [(t_last - f) * 1e3 / (NEW - 1) for _, f, t_last in streams]
+        ttft_ms = {"p50": pct(ttft, 0.5), "p95": pct(ttft, 0.95), "max": max(ttft)}
+        per_token_ms = {"p50": pct(per_tok, 0.5), "p95": pct(per_tok, 0.95)}
+        if first["ids"] != second["ids"]:
+            raise AssertionError(f"{label}: the same greedy prompt gave different tokens")
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if not (health.get("ok") and health.get("ready")):
+            raise AssertionError(f"/healthz: {health}")
+        log(f"launches over the {label} serve run: " + json.dumps(
+            {kernels[key].name: n for key, n in counts.items()}))
+        emitted = st_mid["emitted_tokens"] - st0["emitted_tokens"]
+        k_used = {k: n - st0["dispatches_by_k"].get(k, 0)
+                  for k, n in st_mid["dispatches_by_k"].items()}
+        # decode steps issued over the counted run: each runs every layer once
+        steps_issued = sum(k * (n - st0["dispatches_by_k"].get(k, 0))
+                           for k, n in st1["dispatches_by_k"].items())
+        log(f"{label} serve: {len(bodies)} concurrent SSE requests (100-500 prompt tokens, "
+            f"3 sampled) in {wall:.2f} s, {emitted} tokens ({emitted / wall:.1f} tok/s); "
+            f"client TTFT over these {len(bodies)}: p50 {ttft_ms['p50']:.1f} ms, p95 "
+            f"{ttft_ms['p95']:.1f} ms (sorted: {[round(x, 1) for x in sorted(ttft)]}); lone "
+            f"SSE TTFT {ttft_lone * 1e3:.1f} ms; per-token p50 {per_token_ms['p50']:.3f} ms; "
+            f"K rungs used (dispatches per K): {json.dumps(k_used)}; repeat prompt "
+            f"identical; healthz ok and ready")
+
+        # an elastic engine shrinks back to its floor at an idle boundary: let
+        # it, so that the steady run below decodes 8 rows
+        t_idle = time.perf_counter()
+        while len(eng._host) != eng.slots and time.perf_counter() - t_idle < 10:
+            time.sleep(0.05)
+        # decode ms per step with all 8 slots live: 8 requests of 100 prompt
+        # tokens, each streaming into a tap that stamps the host time the
+        # engine hands it a token (at a dispatch readback).  The window runs
+        # from the readback that gives the last of them its first token to
+        # the readback that gives one of them its last; the consumer blocks
+        # in queue.get, so it takes no interpreter time from the engine loop
+        sink: "queue.Queue" = queue.Queue()
+        futs8 = [service.submit(p, NEW, stream=Tap(i, sink))
+                 for i, p in enumerate(steady_prompts)]
+        seen: dict = {}
+        ended = 0
+        while ended < BATCH:
+            i, t, item = sink.get(timeout=180)
+            if item is None:
+                ended += 1
+            else:
+                seen.setdefault(i, []).append((t, item["step"]))
+        for f in futs8:
+            f.result(timeout=180)
+        t_a, s_a = max(ev[0] for ev in seen.values())       # the last first token
+        t_b, s_b = min(ev[-1] for ev in seen.values())      # the first last token
+        if len(seen) != BATCH or s_b <= s_a:
+            raise AssertionError(f"no window with all {BATCH} slots decoding: {s_a}, {s_b}")
+        steady_ms = (t_b - t_a) * 1e3 / (s_b - s_a)
+        log(f"{label} decode at {BATCH} live slots: {steady_ms:.3f} ms/step "
+            f"({BATCH * 1e3 / steady_ms:.1f} tok/s; {s_b - s_a} steps in "
+            f"{(t_b - t_a) * 1e3:.1f} ms, K {eng.stats()['k_ladder']} ladder)")
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=10)
+        return dict(wall=wall, emitted=emitted, ttft_ms=ttft_ms, per_token_ms=per_token_ms,
+                    ttft_lone=ttft_lone, steady_ms=steady_ms, k_used=k_used, counts=counts,
+                    st0=st0, st1=st1, ids=ids, first=first["ids"], steps_issued=steps_issued)
+
+    dense_run = engine_serve(service, "engine")
+    counts = dense_run["counts"]
+    for key in kernels:
+        if (counts[key] <= 0) != (key not in dense_keys):
+            raise AssertionError(f"{kernels[key].name}: {counts[key]} launches on the dense "
+                                 "engine path")
+    wall, emitted, ttft_ms = dense_run["wall"], dense_run["emitted"], dense_run["ttft_ms"]
+    per_token_ms, ttft_lone = dense_run["per_token_ms"], dense_run["ttft_lone"]
+    steady_ms, k_used = dense_run["steady_ms"], dense_run["k_used"]
+    st0, st1 = dense_run["st0"], dense_run["st1"]
 
     # ---- 7. engine parity: an admission chunk at index 256, 8 per-row-cursor steps
     log("phase engine parity")
@@ -806,7 +975,8 @@ def main() -> int:
 
     adm_chunk_ms, per_chunk = chunk_ms()
     # the summary weighs the B1, B2 and B4 shapes by these calls
-    expected = {"B1": sum(b1_prefill.values()), "B2": 1, "B3": 0, "B4": layers, "B5": 0}
+    expected = {"B1": sum(b1_prefill.values()), "B2": 1, "B3": 0, "B4": layers, "B5": 0,
+                "B6": 0, "B7": 0, "B8": 0}
     if per_chunk != expected:
         raise AssertionError(f"launches per admission chunk {per_chunk}, expected {expected}")
     share = {"B1": total(by_shape("B1", b1_prefill, CHUNK))["ms"],
@@ -818,7 +988,115 @@ def main() -> int:
                                       for key, v in share.items()))
     service.close()
 
-    # ---- 8. summary
+    del service, model, eng
+    torch.cuda.empty_cache()
+
+    # ---- 8. paged engine serve: --kv-layout paged, the same model and traffic
+    log("phase paged engine serve")
+    from mlcomp_tpu_torch.engine import DecodeEngine
+
+    t0 = time.perf_counter()
+    engine_kw = dict(prompt_buckets=(PROMPT,), max_new_cap=NEW, prefill_chunk=CHUNK,
+                     steps_per_dispatch="adaptive")
+    serve_kw = dict(params=params, device="cuda", quantize="kernel", batch_sizes=(1, BATCH),
+                    prompt_buckets=(PROMPT,), max_new_buckets=(NEW,), prefill_chunk=CHUNK)
+    # the CLI's default buckets give 128-slot pages; this single bucket would
+    # give 256, so the page size is passed as the CLI user passes it
+    pservice = load_service(CFG, kv_layout="paged", kv_page_tokens=page_t, **serve_kw)
+    peng = pservice.engine
+    pool0 = peng.stats()["kv_pool"]
+    if (peng.kv_layout != "paged" or peng.max_slots != 4 * BATCH
+            or pool0["page_tokens"] != page_t
+            or pool0["max_pages_per_slot"] != da.pick_buffer_len(peng.l_buf, heads, dh) // page_t):
+        raise AssertionError(f"not the paged engine asked for: {peng.stats()}")
+    log(f"load_service (paged): {time.perf_counter() - t0:.2f} s; {pool0['pages_total']} pages "
+        f"of {pool0['page_bytes']} bytes (+2 reserved), {pool0['max_pages_per_slot']} per row; "
+        f"max_slots {peng.max_slots}")
+    paged_run = engine_serve(pservice, "paged engine")
+    pcounts = paged_run["counts"]
+    for key in kernels:
+        if (pcounts[key] > 0) != (key not in ("B3", "B7", "B8")):
+            raise AssertionError(f"{kernels[key].name}: {pcounts[key]} launches on the paged "
+                                 "engine path (B6 must replace B3 in every decode step)")
+    if pcounts["B6"] != layers * paged_run["steps_issued"]:
+        raise AssertionError(f"B6 launched {pcounts['B6']} times for "
+                             f"{paged_run['steps_issued']} decode steps of {layers} layers")
+    pst = peng.stats()
+    ppool = pst["kv_pool"]
+    elastic = {"slots_scaled": pst["slots_scaled"], "peak_live_slots": pst["peak_live_slots"],
+               "live_slots_after": pst["live_slots"], "max_slots": pst["max_slots"]}
+    log(f"paged engine: peak pages used {ppool['peak_pages_used']} of {ppool['pages_total']}; "
+        f"pages allocated lazily {pst['kv_pages_lazy_allocated']}; decode page failures "
+        f"{pst['kv_decode_page_failures']}; elastic slots {json.dumps(elastic)}")
+    pservice.close()
+
+    # greedy tokens against the dense engine's on the same requests, in a run
+    # that keeps the slot count (and so every kernel's row count) at 8
+    eq = DecodeEngine(pservice.model, slots=BATCH, kv_layout="paged", kv_page_tokens=page_t,
+                      max_slots=BATCH, **engine_kw)
+    try:
+        futs = [eq.submit(b["prompt"], NEW, temperature=b.get("temperature", 0.0),
+                          top_p=b.get("top_p")) for b in bodies]
+        futs.append(eq.submit(alone, NEW))
+        eq_ids = [f.result(timeout=300)["ids"] for f in futs]
+        if eq.stats()["peak_live_slots"] != BATCH:
+            raise AssertionError("the equality run changed its slot count")
+    finally:
+        eq.close()
+    greedy = [i for i, b in enumerate(bodies) if "temperature" not in b]
+    want = [dense_run["ids"][i] for i in greedy] + [dense_run["first"]]
+    got = [eq_ids[i] for i in greedy] + [eq_ids[-1]]
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"paged greedy tokens differ from the dense engine's in "
+                             f"requests {bad}")
+    sampled_equal = sum(eq_ids[i] == dense_run["ids"][i] for i in range(len(bodies))
+                        if i not in greedy)
+    elastic_equal = sum(paged_run["ids"][i] == dense_run["ids"][i] for i in greedy)
+    log(f"paged == dense: {len(got)} greedy requests equal at 8 slots (sampled, keyed by "
+        f"request ids that differ between the runs: {sampled_equal} of "
+        f"{len(bodies) - len(greedy)} equal); in the elastic run {elastic_equal} of "
+        f"{len(greedy)} greedy requests equal the dense engine's")
+    del pservice, peng, eq
+    torch.cuda.empty_cache()
+
+    # ---- 9. bf16-KV paged engine: each layer's K and V gathered through B8
+    log("phase bf16-KV paged engine")
+    cfg16 = {**CFG, "kv_quant": False}
+    svc16 = load_service(cfg16, kv_layout="paged", kv_page_tokens=page_t, max_slots=BATCH,
+                         **serve_kw)
+    dense16 = DecodeEngine(svc16.model, slots=BATCH, **engine_kw)
+    few = [bodies[i]["prompt"] for i in greedy[:4]]
+    n16 = 32
+    try:
+        svc16.generate(warm, 2)
+        for k in kernels.values():
+            k.reset()
+        s16_0 = svc16.engine.stats()
+        t0 = time.perf_counter()
+        ids16 = [f.result(timeout=300)["ids"] for f in [svc16.submit(p, n16) for p in few]]
+        wall16 = time.perf_counter() - t0
+        counts16 = {key: k.launches for key, k in kernels.items()}
+        s16_1 = svc16.engine.stats()
+        dense_ids16 = [f.result(timeout=300)["ids"]
+                       for f in [dense16.submit(p, n16) for p in few]]
+    finally:
+        dense16.close()
+        svc16.close()
+    steps16 = sum(k * (n - s16_0["dispatches_by_k"].get(k, 0))
+                  for k, n in s16_1["dispatches_by_k"].items())
+    if counts16["B8"] != 2 * layers * steps16 or counts16["B8"] <= 0:
+        raise AssertionError(f"B8 launched {counts16['B8']} times for {steps16} decode steps")
+    if counts16["B3"] or counts16["B6"]:
+        raise AssertionError(f"an int8-KV kernel ran on the bf16-KV path: {counts16}")
+    if ids16 != dense_ids16:
+        raise AssertionError("bf16-KV paged tokens differ from the dense bf16-KV engine's")
+    log(f"bf16-KV paged engine: {len(few)} greedy requests of {n16} tokens in {wall16:.2f} s, "
+        f"equal to the dense bf16-KV engine's; launches {json.dumps(counts16)}")
+    del svc16, dense16
+    torch.cuda.empty_cache()
+
+    # ---- 10. summary
     # each kernel's work in one decode step at B=8 (B1, B2, B3), in one
     # 8x512 prefill (B5) or in one admission chunk at index 256 (B4); B1's
     # prefill share rides along under "prefill"
@@ -830,13 +1108,25 @@ def main() -> int:
         "B4": ("admission chunk (1, 256) at cache index 256: every layer",
                [(kernels["B4"].rows[0], per_chunk["B4"])]),
         "B5": ("prefill 8x512: every layer", [(kernels["B5"].rows[0], pre_n["B5"])]),
+        "B6": ("paged decode step: every layer", [(kernels["B6"].rows[0], layers)]),
+        "B7": ("8 rows x 32 queries through the table, one call (the paged verify shape; "
+               "served with speculation, not yet)", [(kernels["B7"].rows[0], 1)]),
+        "B8": ("bf16-KV paged decode step: K and V of every layer",
+               [(kernels["B8"].rows[0], 2 * layers)]),
     }
+    # each kernel's launches over its own path's run
+    path_counts = {**{key: counts[key] for key in dense_keys},
+                   "B6": pcounts["B6"], "B7": pcounts["B7"], "B8": counts16["B8"]}
+    paths = {**{key: "dense engine serve" for key in dense_keys},
+             "B6": "paged engine serve", "B7": "paged engine serve",
+             "B8": "bf16-KV paged engine"}
     entries = []
     for key, (label, weighted) in scopes.items():
         k = kernels[key]
         entry = {
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": counts[key], "launches_window_path": window_counts[key],
+            "launches": path_counts[key], "path": paths[key],
+            "launches_window_path": window_counts[key],
             "max_abs_err": max(r["max_abs_err"] for r in k.rows),
             "err_over_limit": max(r["err_over_limit"] for r in k.rows),
             "scope": label, **total(weighted),
@@ -853,6 +1143,9 @@ def main() -> int:
         if key == "B4":
             entry["verify_width"] = {"scope": "8 rows x 32 queries, one call",
                                      **total([(kernels["B4"].rows[1], 1)])}
+        if key == "B7":
+            entry["admission_shape"] = {"scope": "(1, 256) chunk at cache index 256, one call",
+                                        **total([(kernels["B7"].rows[1], 1)])}
         entries.append(entry)
     log(json.dumps({"serve": {
         "prefill_ms": pre_s * 1e3, "decode_ms_per_step": step_ms,
@@ -872,6 +1165,24 @@ def main() -> int:
         "admission_chunk_kernel_ms": share, "launches_per_admission_chunk": per_chunk,
         "parity_chunk_max_abs_logit_err": chunk_dlog, "parity_chunk_agreement": chunk_agree,
         "parity_cursor_max_abs_logit_err": cur_dlog, "parity_cursor_agreement": cur_agree,
+        "card": smi}}))
+    prun = paged_run
+    log(json.dumps({"paged_engine": {
+        "requests": len(bodies), "wall_s": prun["wall"], "emitted_tokens": prun["emitted"],
+        "tok_s": prun["emitted"] / prun["wall"], "ttft_ms_loaded": prun["ttft_ms"],
+        "per_token_ms_loaded": prun["per_token_ms"], "lone_sse_ttft_ms": prun["ttft_lone"] * 1e3,
+        "decode_ms_per_step_8_slots": prun["steady_ms"],
+        "decode_tok_s_8_slots": BATCH * 1e3 / prun["steady_ms"], "k_rungs_used": prun["k_used"],
+        "launches": pcounts, "peak_pages_used": ppool["peak_pages_used"],
+        "pages_total": ppool["pages_total"], "page_bytes": ppool["page_bytes"],
+        "kv_pages_lazy_allocated": pst["kv_pages_lazy_allocated"],
+        "kv_decode_page_failures": pst["kv_decode_page_failures"], "elastic": elastic,
+        "greedy_equal_dense_at_8_slots": len(got), "elastic_greedy_equal_dense": elastic_equal,
+        "dense_engine_same_call": {"decode_ms_per_step_8_slots": steady_ms,
+                                   "tok_s": emitted / wall, "ttft_ms_loaded": ttft_ms,
+                                   "lone_sse_ttft_ms": ttft_lone * 1e3},
+        "bf16_kv": {"requests": len(few), "new_tokens": n16, "wall_s": wall16,
+                    "launches": counts16, "equal_dense": True},
         "card": smi}}))
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -59,6 +59,10 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         engine_pipeline_depth=args.engine_pipeline_depth,
         engine_fused_admission=False if args.engine_staged_admission else None,
         dispatch_stall_timeout=args.dispatch_stall_timeout or None,
+        kv_layout=args.kv_layout,
+        kv_page_tokens=args.kv_page_tokens,
+        kv_pages=args.kv_pages,
+        max_slots=args.max_slots,
     )
     serve_http(service, args.host, args.port, model_name=str(model_cfg.get("name", "model")))
     return 0
@@ -120,6 +124,22 @@ def main(argv=None) -> int:
                     " dispatch stuck longer fails its requests, flips /healthz"
                     " to 503 and allows one restart of a dead loop; 0"
                     " disables the watchdog")
+    sv.add_argument("--kv-layout", default="dense", choices=("dense", "paged"),
+                    help="continuous batcher: device KV layout.  'paged' keeps the KV"
+                    " cache as fixed-size pages read through per-slot page tables"
+                    " (mlcomp_tpu_torch/kvpool): length is paid per page, admission waits"
+                    " for FREE PAGES instead of reserving a worst-case row, and the slot"
+                    " count grows up to --max-slots under queued traffic.  The same tokens"
+                    " as 'dense' (the default)")
+    sv.add_argument("--kv-page-tokens", type=int, default=None,
+                    help="paged KV: tokens per page (default: the gcd of the buckets'"
+                    " prefill chunk widths; must divide every chunk width)")
+    sv.add_argument("--kv-pages", type=int, default=None,
+                    help="paged KV: physical pages including the 2 reserved (default:"
+                    " the dense layout's KV bytes)")
+    sv.add_argument("--max-slots", type=int, default=None,
+                    help="paged KV: elastic slot-count cap (default 4x the largest"
+                    " --batch-sizes entry)")
     sv.add_argument("--request-timeout", type=float, default=600.0)
     sv.set_defaults(fn=_cmd_serve)
     args = p.parse_args(argv)

@@ -1,11 +1,16 @@
 // Flash decode over an int8 KV cache: one query per row (B3) and S chunk
-// queries per row (B4), one kernel body for both.
+// queries per row (B4), over a dense cache or through a page table (B6,
+// B7), one kernel body for all four.
 //
-// Replaces two Pallas kernels of mlcomp_tpu/ops/pallas/decode_attention.py
-// (both built on `_flash_block_update` and `_flash_finalize`):
+// Replaces four Pallas kernels of mlcomp_tpu/ops/pallas/decode_attention.py
+// (all built on `_flash_block_update` and `_flash_finalize`):
 //   - `_kernel` (`decode_attention`): q (B, H, dh), one query per row;
 //   - `_kernel_chunk` (`decode_attention_chunk`, decode_attention.py:323):
-//     q (B, S, H, dh), query j of row b attends [kv_start[b], kv_stop0[b] + j).
+//     q (B, S, H, dh), query j of row b attends [kv_start[b], kv_stop0[b] + j);
+//   - `_paged_kernel` (`paged_decode_attention`, :957) and
+//     `_paged_kernel_chunk` (`paged_decode_attention_chunk`, :1169): the
+//     same two through a (B, MP) page table over (P, Hkv, T, dh) int8
+//     pages and (P, Hkv, 1, T) bf16 scale pages.
 //
 //     out[b, j, h, :] = softmax_i(q[b, j, h] . k8[b, hkv, i] * scale * ks[b, hkv, i])
 //                       @ (v8[b, hkv, i] * vs[b, hkv, i])   for i in [lo_b, stop0_b + j)
@@ -33,11 +38,25 @@
 // step is 128 CTAs on 132 SMs; the admission chunk is 32 tiles x 16 heads
 // = 512 CTAs.
 //
+// Paging is addressing only.  Slot i of (row b, KV head h) lives at
+// (b * Hkv + h) * L + i in the dense cache and at
+// (table[b, i / T] * Hkv + h) * T + i % T in the pages, for values and
+// scales alike.  Each block first resolves its 128 slots' addresses into
+// shared memory (one table read per slot, only for slots below the tile's
+// stop, so table columns past the window are never read), then runs the
+// same loads, reductions and roundings as the dense case: paged equals
+// dense bit for bit on the same bytes, for any T.  The TPU kernel's page
+// DMA schedules are VMEM plumbing and have no counterpart here.
+//
 // Arithmetic follows the TPU kernel, in its order: logits are (q . k) *
 // scale * ks with q in bf16, k int8 (exact in bf16) and f32 sums; masked
 // slots are -1e30; p = exp(s - m_new), forced to 0 while the row has seen
 // no live slot; the V scale folds into p, which rounds to bf16 before it
 // multiplies V; the end divides by l, and l == 0 (an empty window) gives 0.
+// A masked slot's p * vs is SELECTED to 0, never multiplied: a masked
+// slot inside a live block still loads whatever its page holds (a retired
+// row's writes, a freed page's old bytes), and 0 x a non-finite scale
+// would poison the sum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,9 +83,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // smem layout (bytes, all 16-aligned): qs R*dh f32 | kb BLK*(dh+16) i8 |
-// vb BLK*dh i8 | ksc BLK f32 | vsc BLK f32 | pv R*BLK f32 | red 2*4 f32
+// vb BLK*dh i8 | ksc BLK f32 | vsc BLK f32 | pv R*BLK f32 | red 2*4 f32 |
+// addr BLK i64
 //
 // q (B, S, H, dh); out (B, S, H, dh); grid (tiles of MAX_R rows, Hkv, B).
+// table == nullptr: k8/v8 (B, Hkv, L, dh), ks/vs (B, Hkv, 1, L).
+// Otherwise table (B, MP) int32, k8/v8 (P, Hkv, T, dh), ks/vs
+// (P, Hkv, 1, T), and L = MP * T.
 __global__ void __launch_bounds__(THREADS)
 attend_kernel(const __nv_bfloat16* __restrict__ q,
               const int8_t* __restrict__ k8,
@@ -75,8 +98,9 @@ attend_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ vs,
               const int* __restrict__ kv_start,
               const int* __restrict__ kv_stop0,
+              const int* __restrict__ table,
               __nv_bfloat16* __restrict__ out,
-              int S, int H, int Hkv, int L, int dh, float scale) {
+              int S, int H, int Hkv, int L, int dh, int MP, int T, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / Hkv;
   const int kstride = dh + 16;     // padded K rows: conflict-free 16 B reads
@@ -87,6 +111,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q,
   float* vsc = ksc + BLK;
   float* pv = vsc + BLK;
   float* red = pv + MAX_R * BLK;
+  long long* addr = reinterpret_cast<long long*>(red + 8);  // slot -> row index
 
   const int r0 = blockIdx.x * MAX_R;           // first row of this tile
   const int hk = blockIdx.y;
@@ -126,22 +151,33 @@ attend_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int j0 = (lo / BLK) * BLK; j0 < hi_max; j0 += BLK) {
     __syncthreads();  // the previous block's smem reads are done
+    {
+      // this block's slot addresses (rows of dh values, and scale indices)
+      const int i = j0 + t;
+      const bool in = i < hi_max;
+      long long a = -1;
+      if (in) {
+        a = table == nullptr
+                ? (long long)(row_base + i)
+                : ((long long)table[(size_t)b * MP + i / T] * Hkv + hk) * T + i % T;
+      }
+      addr[t] = a;
+      ksc[t] = in ? __bfloat162float(ks[a]) : 0.f;
+      vsc[t] = in ? __bfloat162float(vs[a]) : 0.f;
+    }
+    __syncthreads();
     const int vec = dh / 16;
     for (int i = t; i < BLK * vec; i += THREADS) {
       const int j = i / vec;
       const int c = (i - j * vec) * 16;
       int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
-      if (j0 + j < hi_max) {
-        kv = __ldg(reinterpret_cast<const int4*>(k8 + (row_base + j0 + j) * dh + c));
-        vv = __ldg(reinterpret_cast<const int4*>(v8 + (row_base + j0 + j) * dh + c));
+      const long long a = addr[j];
+      if (a >= 0) {
+        kv = __ldg(reinterpret_cast<const int4*>(k8 + a * dh + c));
+        vv = __ldg(reinterpret_cast<const int4*>(v8 + a * dh + c));
       }
       *reinterpret_cast<int4*>(kb + j * kstride + c) = kv;
       *reinterpret_cast<int4*>(vb + j * dh + c) = vv;
-    }
-    {
-      const bool in = j0 + t < hi_max;
-      ksc[t] = in ? __bfloat162float(ks[row_base + j0 + t]) : 0.f;
-      vsc[t] = in ? __bfloat162float(vs[row_base + j0 + t]) : 0.f;
     }
     __syncthreads();
 
@@ -175,7 +211,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q,
       alpha[r] = expf(m[r] - m_new);
       l[r] = alpha[r] * l[r] + bs;
       m[r] = m_new;
-      pv[r * BLK + t] = __bfloat162float(__float2bfloat16(p * vsc[t]));
+      pv[r * BLK + t] = live ? __bfloat162float(__float2bfloat16(p * vsc[t])) : 0.f;
       __syncthreads();  // red is reused by the next row; pv complete
     }
 #pragma unroll
@@ -209,10 +245,10 @@ attend_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 int launch(const void* q, const void* k8, const void* ks, const void* v8, const void* vs,
-           const void* kv_start, const void* kv_stop0, void* out, int B, int S, int H,
-           int Hkv, int L, int dh, float scale, void* stream) {
+           const void* kv_start, const void* kv_stop0, const void* table, void* out, int B,
+           int S, int H, int Hkv, int L, int dh, int MP, int T, float scale, void* stream) {
   const int smem = MAX_R * dh * 4 + BLK * (dh + 16) + BLK * dh + 2 * BLK * 4 +
-                   MAX_R * BLK * 4 + 8 * 4;
+                   MAX_R * BLK * 4 + 8 * 4 + BLK * 8;
   cudaFuncSetAttribute(attend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int rows = S * (H / Hkv);
   dim3 grid((rows + MAX_R - 1) / MAX_R, Hkv, B);
@@ -220,8 +256,8 @@ int launch(const void* q, const void* k8, const void* ks, const void* v8, const 
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k8),
       static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(v8),
       static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(kv_start),
-      static_cast<const int*>(kv_stop0), static_cast<__nv_bfloat16*>(out), S, H, Hkv,
-      L, dh, scale);
+      static_cast<const int*>(kv_stop0), static_cast<const int*>(table),
+      static_cast<__nv_bfloat16*>(out), S, H, Hkv, L, dh, MP, T, scale);
   return (int)cudaGetLastError();
 }
 
@@ -238,8 +274,21 @@ int decode_attention_chunk_launch(const void* q, const void* k8, const void* ks,
                                   const void* kv_start, const void* kv_stop0,
                                   void* out, int B, int S, int H, int Hkv, int L,
                                   int dh, float scale, void* stream) {
-  return launch(q, k8, ks, v8, vs, kv_start, kv_stop0, out, B, S, H, Hkv, L, dh, scale,
-                stream);
+  return launch(q, k8, ks, v8, vs, kv_start, kv_stop0, nullptr, out, B, S, H, Hkv, L, dh,
+                0, 1, scale, stream);
+}
+
+// The same through a page table: k8/v8 pages (P, Hkv, T, dh) int8, ks/vs
+// pages (P, Hkv, 1, T) bf16, table (B, MP) int32 of physical page ids;
+// the cache length is MP * T.  Returns cudaGetLastError().
+int paged_decode_attention_chunk_launch(const void* q, const void* k8, const void* ks,
+                                        const void* v8, const void* vs,
+                                        const void* kv_start, const void* kv_stop0,
+                                        const void* table, void* out, int B, int S, int H,
+                                        int Hkv, int MP, int T, int dh, float scale,
+                                        void* stream) {
+  return launch(q, k8, ks, v8, vs, kv_start, kv_stop0, table, out, B, S, H, Hkv, MP * T,
+                dh, MP, T, scale, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
-"""Continuous-batching decode engine, dense KV layout: the counterpart of
-mlcomp_tpu/engine.py (``DecodeEngine``).
+"""Continuous-batching decode engine: the counterpart of
+mlcomp_tpu/engine.py (``DecodeEngine``), with the dense and the paged KV
+layouts.
 
-- A fixed pool of ``slots`` decode rows shares one (slots, L) KV cache;
-  per-row cache cursors (``cache_cursor``, models/transformer.py) let every
-  row sit at its own depth.  Each dispatch runs K single-token steps for
-  every slot; a row that hits EOS or its budget stops emitting ON THE
+- A fixed pool of ``slots`` decode rows shares one (slots, L) KV cache
+  (``kv_layout="dense"``); per-row cache cursors (``cache_cursor``,
+  models/transformer.py) let every row sit at its own depth.  Each
+  dispatch runs K single-token steps for every slot; a row that hits EOS
+  or its budget stops emitting ON THE
   DEVICE (its later steps are masked and its cursor freezes), so the host
   reads one packed (3, K, slots) buffer back per dispatch.
 - A new request PREFILLS in chunks of ``prefill_chunk`` tokens against its
@@ -28,21 +30,32 @@ mlcomp_tpu/engine.py (``DecodeEngine``).
 - Requests carry deadlines and a cancel handle; a watchdog thread fails
   the waiters of a dispatch stuck past ``dispatch_stall_timeout`` and
   restarts a dead drive loop once on a fresh device state.
+- ``kv_layout="paged"`` (mlcomp_tpu_torch/kvpool) keeps the KV cache as
+  pages of ``kv_page_tokens`` slots addressed through a (slots, max_pages)
+  int32 table.  An insert writes the prefilled row into the slot's
+  private pages; decode pages are allocated lazily as cursors approach
+  them; admission waits for free pages at the request's initial need; a
+  request whose worst case exceeds the pool fails with ``NoFreePages``;
+  the live slot count grows by doubling (up to ``max_slots``) under
+  queued traffic when pages allow and shrinks back at quiesce.  The int8
+  family attends through the table (B6); the bf16 family over each
+  layer's gathered view (B8).  Tokens equal the dense layout's.
 
 PyTorch runs eagerly, so the JAX package's jitted, donated programs
 become Python code that launches into preallocated device tensors updated
 in place.  The static buffers leave room to capture one CUDA graph per K
 rung; none is captured yet.
 
-Not in this engine (the JAX engine has them; see ROADMAP.md): paged KV,
-speculative dispatch, prefix caches, meshes and distributed gangs,
-prefill-only export, elastic slots, the flight recorder, metrics and
-device profiling, fault injection.
+Not in this engine (the JAX engine has them; see ROADMAP.md): speculative
+dispatch, prefix caches and the device prefix-page registry, meshes and
+distributed gangs, prefill-only export and handoff import, the flight
+recorder, metrics and device profiling, fault injection.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 import queue
 import threading
 import time
@@ -55,6 +68,14 @@ import numpy as np
 import torch
 
 from mlcomp_tpu_torch.dispatch_control import DEFAULT_LADDER, AdaptiveKController
+from mlcomp_tpu_torch.kvpool import (
+    GRAVE_PAGE,
+    RESERVED_PAGES,
+    NoFreePages,
+    PagedKV,
+    PagedLayout,
+    PagePool,
+)
 from mlcomp_tpu_torch.models.generation import sample_token_rowwise_keyed
 from mlcomp_tpu_torch.serve import (
     _bucket,
@@ -100,13 +121,18 @@ def _set_result(fut: Future, result) -> None:
 class _Slot:
     """The host mirror of a decoding row: its request and what it emitted."""
 
-    __slots__ = ("req", "remaining", "emitted", "t_first")
+    __slots__ = ("req", "remaining", "emitted", "t_first", "cursor", "span_end",
+                 "alloc_upto")
 
-    def __init__(self, req, remaining):
+    def __init__(self, req, remaining, cursor):
         self.req = req
         self.remaining = remaining    # tokens still allowed
         self.emitted: List[Tuple[int, float]] = []
         self.t_first: Optional[float] = None   # host time the first token landed
+        self.cursor = cursor          # next cache slot the row writes (host view)
+        # paged: the row's write span end and the slots its pages cover
+        self.span_end: Optional[int] = None
+        self.alloc_upto: Optional[int] = None
 
 
 class _Admission:
@@ -131,10 +157,10 @@ class _Admission:
 class _Inflight:
     """An issued dispatch whose tokens are not read yet."""
 
-    __slots__ = ("host", "event", "t_issue")
+    __slots__ = ("host", "event", "t_issue", "k")
 
-    def __init__(self, host, event, t_issue):
-        self.host, self.event, self.t_issue = host, event, t_issue
+    def __init__(self, host, event, t_issue, k):
+        self.host, self.event, self.t_issue, self.k = host, event, t_issue, k
 
 
 class DecodeEngine:
@@ -161,6 +187,10 @@ class DecodeEngine:
         pipeline_depth: Optional[int] = None,
         dispatch_stall_timeout: Optional[float] = None,
         fused_admission: Optional[bool] = None,
+        kv_layout: str = "dense",
+        kv_page_tokens: Optional[int] = None,
+        kv_pages: Optional[int] = None,
+        max_slots: Optional[int] = None,
     ):
         self.model = model
         self.device = torch.device(model.device)
@@ -202,15 +232,29 @@ class DecodeEngine:
         self.l_buf = self.prompt_buckets[-1] + self.max_new_cap + 1
         self.vocab = int(model.vocab_size)
         self._cuda = self.device.type == "cuda"
+        self.kv_layout = str(kv_layout)
+        if self.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}")
+        self._pool: Optional[PagePool] = None
+        self._layout: Optional[PagedLayout] = None
+        self.max_slots = self.slots
+        if self.kv_layout == "dense":
+            if max_slots is not None and int(max_slots) != self.slots:
+                raise ValueError("elastic slots (max_slots) need kv_layout='paged'; the dense "
+                                 "layout reserves worst-case KV per slot at construction")
+            if kv_page_tokens is not None or kv_pages is not None:
+                raise ValueError("kv_page_tokens / kv_pages only apply to kv_layout='paged'")
 
         with torch.inference_mode():
-            self._d = self._fresh_dstate()
             # the admission's (1, L) cache and the packed-token rings are
             # static: allocated once, reused by every admission / dispatch
             self._adm_cache = model.init_cache(1, self.l_buf)
+            if self.kv_layout == "paged":
+                self._init_pool(kv_page_tokens, kv_pages, max_slots)
+            self._d = self._fresh_dstate()
             kmax = max(self.k_ladder)
             ring = self.pipeline_depth + 1
-            n = 3 * kmax * self.slots
+            n = 3 * kmax * self.max_slots
             self._ring_dev = [torch.zeros(n, device=self.device) for _ in range(ring)]
             self._ring_host = [torch.zeros(n, pin_memory=self._cuda) for _ in range(ring)]
         self._ring_i = 0
@@ -230,6 +274,11 @@ class DecodeEngine:
             "admissions_overlapped": 0, "deadline_exceeded": 0, "cancelled": 0,
             "watchdog_stalls": 0, "watchdog_restarts": 0, "dispatch_k_changes": 0,
         }
+        if self._pool is not None:
+            # elastic resizes, pages allocated as cursors crossed page
+            # boundaries, and rows failed by a dry pool at such a crossing
+            self._stats.update(slots_scaled=0, peak_live_slots=self.slots,
+                               kv_pages_lazy_allocated=0, kv_decode_page_failures=0)
         self._dispatches_by_k: Dict[int, int] = {}
         self._inflight: Deque[_Inflight] = deque()
         self._pstats = {"issued": 0, "hidden_ms": 0.0, "wait_ms": 0.0,
@@ -256,14 +305,57 @@ class DecodeEngine:
                                               name="engine-watchdog")
             self._watchdog.start()
 
+    def _init_pool(self, kv_page_tokens, kv_pages, max_slots) -> None:
+        """The paged layout and its pool: page size from the admission
+        geometry, the default budget the dense layout's KV bytes (``slots``
+        worst-case rows of pages), ``max_slots`` 4 x ``slots``."""
+        t = self._page_quantum(kv_page_tokens)
+        layout = PagedLayout(self._adm_cache, self.l_buf, t)
+        if kv_pages is None:
+            kv_pages = RESERVED_PAGES + self.slots * layout.max_pages
+        layout.num_pages = int(kv_pages)
+        if layout.num_pages - RESERVED_PAGES < layout.max_pages:
+            raise ValueError(f"kv_pages={kv_pages} cannot hold even one worst-case request "
+                             f"({layout.max_pages} pages of {t} tokens + {RESERVED_PAGES} "
+                             "reserved)")
+        self.max_slots = 4 * self.slots if max_slots is None else int(max_slots)
+        if self.max_slots < self.slots:
+            raise ValueError(f"max_slots={max_slots} below slots={self.slots}")
+        self._layout = layout
+        self._pool = PagePool(layout, max_slots=self.max_slots)
+
+    def _page_quantum(self, kv_page_tokens) -> int:
+        """The page size: the gcd of every bucket's chunk width when
+        ``kv_page_tokens`` is unset, else the explicit value, which must
+        tile every chunk (chunk-aligned prefix boundaries land on page
+        boundaries)."""
+        widths = {self._chunk_width(s) for s in self.prompt_buckets}
+        t = math.gcd(*widths) if kv_page_tokens is None else int(kv_page_tokens)
+        bad = sorted(c for c in widths if t < 1 or c % t)
+        if bad:
+            raise ValueError(f"kv_page_tokens={t} must divide every prefill chunk width "
+                             f"(got chunk(s) {bad})")
+        return t
+
     def _fresh_dstate(self) -> Dict[str, Any]:
         """ALL decode state lives on the device, preallocated and updated in
         place; the host keeps a _Slot mirror for futures, streams and
-        emitted tokens.  A watchdog restart rebuilds it from scratch."""
-        ns, dev, v = self.slots, self.device, self.vocab
+        emitted tokens.  A watchdog restart rebuilds it from scratch.  The
+        paged layout keeps its KV in slot-count-independent pages and a
+        (slots, max_pages) table, every row on the graveyard at first (an
+        unused row's frozen-cursor write must never land on the shared
+        zero page)."""
+        if self._layout is None:
+            kv = {"cache": self.model.init_cache(self.slots, self.l_buf)}
+        else:
+            kv = {"pages": self._layout.fresh_pages(self.device)}
+        return {**kv, **self._fresh_rows(self.slots)}
+
+    def _fresh_rows(self, ns: int) -> Dict[str, torch.Tensor]:
+        """The per-slot device state of ``ns`` inactive rows."""
+        dev, v = self.device, self.vocab
         i32, i64, f32 = torch.int32, torch.int64, torch.float32
-        return {
-            "cache": self.model.init_cache(ns, self.l_buf),
+        rows = {
             "last_logits": torch.zeros((ns, v), dtype=f32, device=dev),
             "presence": torch.zeros((ns, v), dtype=torch.bool, device=dev),
             "cursors": torch.zeros((ns,), dtype=i32, device=dev),
@@ -281,6 +373,10 @@ class DecodeEngine:
             # rseed[r], p) — never by dispatch grouping
             "rseed": torch.zeros((ns,), dtype=i64, device=dev),
         }
+        if self._layout is not None:
+            rows["table"] = torch.full((ns, self._layout.max_pages), GRAVE_PAGE, dtype=i32,
+                                       device=dev)
+        return rows
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         """Host -> device without a stream sync: through pinned memory on a
@@ -408,7 +504,7 @@ class DecodeEngine:
         p = dict(self._pstats)  # snapshot: the loop thread mutates it
         done = self._stats["dispatches"]
         busy = p["hidden_ms"] + p["wait_ms"]
-        return {
+        out = {
             **self._stats,
             "queue_depth": self._queue.qsize() + len(self._pending),
             "active_slots": sum(1 for s in self._host if s is not None),
@@ -419,6 +515,7 @@ class DecodeEngine:
             "dispatches_by_k": dict(self._dispatches_by_k),
             "prefill_chunk": self.prefill_chunk,
             "fused_admission": self.fused_admission,
+            "kv_layout": self.kv_layout,
             "healthy": self.healthy,
             "watchdog": {
                 "dispatch_stall_timeout_s": self.dispatch_stall_timeout,
@@ -443,6 +540,11 @@ class DecodeEngine:
                 "per_token_ms": self._percentiles(self._lat_tok),
             },
         }
+        if self._pool is not None:
+            out["live_slots"] = len(self._host)
+            out["max_slots"] = self.max_slots
+            out["kv_pool"] = self._pool_stats()
+        return out
 
     def close(self, timeout: Optional[float] = 60.0) -> None:
         """Stop the loop thread, then fail everything still in flight.  Shared
@@ -519,7 +621,9 @@ class DecodeEngine:
         emitting and its cursor freezes; the state comes back with it
         inactive.  Nothing here waits for the device."""
         d = self._d
-        rows = torch.arange(self.slots, device=self.device)
+        rows = torch.arange(len(self._host), device=self.device)
+        cache = d["cache"] if self._layout is None else PagedKV(
+            self._layout, d["pages"], d["table"])
         # host-side verdicts on work the steps may skip: the host view
         # holds every row the device may still have live
         reqs = [sl.req for sl in self._host if sl is not None]
@@ -543,7 +647,7 @@ class DecodeEngine:
             d["remaining"].copy_(torch.where(live, d["remaining"] - 1, d["remaining"]))
             done_now = live & ((tok == d["eos"]) | (d["remaining"] <= 0))
             logits = self.model(tok[:, None], positions=d["positions"][:, None],
-                                cache=d["cache"], last_only=True,
+                                cache=cache, last_only=True,
                                 cache_cursor=d["cursors"], kv_start=d["kv_start"])
             d["last_logits"].copy_(logits[:, -1])
             d["cursors"].copy_(torch.where(live, d["cursors"] + 1, d["cursors"]))
@@ -621,9 +725,13 @@ class DecodeEngine:
         s_bucket, n_ids = adm.s_bucket, len(req["ids"])
         slot = self._host.index(None)
         d = self._d
-        for dst, src in zip(d["cache"].layers, self._adm_cache.layers):
-            for name, t in vars(dst).items():
-                t[slot].copy_(getattr(src, name)[0])
+        span = None
+        if self._pool is None:
+            for dst, src in zip(d["cache"].layers, self._adm_cache.layers):
+                for name, t in vars(dst).items():
+                    t[slot].copy_(getattr(src, name)[0])
+        else:
+            span = self._insert_pages(slot, s_bucket, n_ids, req["n_new"])
         d["last_logits"][slot].copy_(adm.last_logits[0])
         d["presence"][slot].zero_()
         if req["repetition_penalty"] != 1.0:
@@ -635,17 +743,201 @@ class DecodeEngine:
                            ("rp", req["repetition_penalty"]), ("rseed", req["rid"])):
             d[key][slot] = value
         d["active"][slot] = True
-        self._host[slot] = _Slot(req, remaining=req["n_new"])
+        sl = _Slot(req, remaining=req["n_new"], cursor=s_bucket)
+        if span is not None:
+            sl.span_end, sl.alloc_upto = span
+        self._host[slot] = sl
+
+    # ------------------------------------------------------------ paging
+
+    def _insert_pages(self, slot: int, s_bucket: int, n_ids: int, n_new: int):
+        """The paged insert: compose the slot's table row (NULL for pad and
+        beyond-allocation pages, private pages for the prefill span plus
+        one dispatch of lookahead), write the admission cache into those
+        pages only (everything else routes to GRAVE), then flip the
+        slot's device table row.  All or nothing: ``NoFreePages`` here
+        (lazy growth of the running rows took the pages the gate saw)
+        fails the joiner and leaks nothing.  Returns the row's (span end,
+        page-aligned allocated end)."""
+        pool = self._pool
+        start_pad, span_end = self._slot_span(s_bucket, n_ids, n_new)
+        alloc_end = self._alloc_end(s_bucket, span_end)
+        row, mask, _ = pool.build_slot_row(start_pad, span_end, alloc_end=alloc_end)
+        try:
+            wsel = np.where(mask, row, GRAVE_PAGE).astype(np.int32)
+            self._layout.insert_rows(self._d["pages"], self._upload(wsel), self._adm_cache)
+            self._d["table"][slot].copy_(self._upload(row))
+        except Exception:
+            pool.release_row(row)
+            raise
+        pool.commit_slot_row(slot, row)
+        t = pool.page_tokens
+        return span_end, -(-alloc_end // t) * t
+
+    def _slot_span(self, s_bucket: int, n_ids: int, n_new: int) -> Tuple[int, int]:
+        """A slot's WRITE span in cache-slot coordinates: from the left-pad
+        boundary to the budget plus the scratch slot a retired row's frozen
+        cursor still writes.  Pages wholly inside the pad prefix (or past
+        the span) map NULL and cost nothing."""
+        return s_bucket - n_ids, s_bucket + int(n_new) + 1
+
+    def _alloc_end(self, s_bucket: int, span_end: int) -> int:
+        """The span the INSERT backs with pages: the prefill plus one
+        dispatch of decode lookahead; the rest is allocated lazily."""
+        return min(span_end, s_bucket + self.steps_per_dispatch + 1)
+
+    def _req_span(self, req: Dict[str, Any]) -> Tuple[int, int, int]:
+        s_bucket = self._bucket(len(req["ids"]))
+        start_pad, span_end = self._slot_span(s_bucket, len(req["ids"]), req["n_new"])
+        return s_bucket, start_pad, span_end
+
+    def _pages_worst(self, req: Dict[str, Any]) -> int:
+        """Pages a request can occupy at most: what must fit the whole pool
+        for it to be servable at all."""
+        _, start_pad, span_end = self._req_span(req)
+        return self._pool.pages_needed(start_pad, span_end)
+
+    def _pages_initial(self, req: Dict[str, Any]) -> int:
+        """Pages a request needs AT ADMISSION (prefill plus one dispatch of
+        lookahead): the admission gate's currency.  The pool overcommits
+        against decode budgets; a dry pool at a later page crossing is a
+        bounded failure of the starved row."""
+        s_bucket, start_pad, span_end = self._req_span(req)
+        return self._pool.pages_needed(start_pad, self._alloc_end(s_bucket, span_end))
+
+    def _pop_admittable(self) -> Optional[Dict[str, Any]]:
+        """The FIFO head of the pending requests if it can be admitted now.
+        Dense: always.  Paged: its initial pages must be free, else it
+        waits (rows retiring free pages; FIFO order is kept), and a
+        request whose worst case exceeds the whole pool fails at once."""
+        if self._pool is None:
+            return self._pending.popleft()
+        req = self._pending[0]
+        worst = self._pages_worst(req)
+        total = self._pool.alloc.total_pages
+        if worst > total:
+            self._pending.popleft()
+            self._fail_queued(req, NoFreePages(
+                f"request needs {worst} pages worst-case; the pool holds {total} (raise "
+                "kv_pages or shrink the request)"))
+            return None
+        if self._pages_initial(req) > self._pool.alloc.free_pages:
+            return None
+        return self._pending.popleft()
+
+    def _lazy_extend_tick(self) -> None:
+        """Before each issue, make every live row's pages cover the slots
+        the dispatches in flight and the one about to go out can write:
+        ``cursor + lookahead``, capped at the row's span, where in-flight
+        dispatches count at the K they were issued with.  A dry pool fails
+        only the starved row, typed (``NoFreePages``); its pages free and
+        the others decode on.  One table upload for all rows that grew."""
+        if self._pool is None:
+            return
+        pool = self._pool
+        t = pool.page_tokens
+        lookahead = sum(inf.k for inf in self._inflight) + self.steps_per_dispatch + 1
+        grew = False
+        for i, sl in enumerate(self._host):
+            if sl is None or sl.span_end is None:
+                continue
+            target = min(sl.span_end, sl.cursor + lookahead)
+            if target <= sl.alloc_upto:
+                continue
+            p0, p1 = sl.alloc_upto // t, -(-target // t)
+            try:
+                pool.extend_slot_row(i, p0, p1)
+            except NoFreePages:
+                self._stats["kv_decode_page_failures"] += 1
+                err = NoFreePages(
+                    f"KV page pool exhausted mid-decode: slot {i} needed {p1 - p0} page(s) "
+                    f"at cursor {sl.cursor} (lazy decode allocation overcommits the pool; "
+                    "raise kv_pages or lower concurrency)")
+                # device first, then host, as the deadline/cancel retirement
+                self._d["active"][i] = False
+                self._d["remaining"][i] = 0
+                self._finish(i, error=err)
+                self._release_slot_pages(i)
+                continue
+            self._stats["kv_pages_lazy_allocated"] += p1 - p0
+            sl.alloc_upto = p1 * t
+            grew = True
+        if grew:
+            # stream-ordered behind the dispatches in flight, which read the
+            # old rows (their lookahead was covered when they were issued)
+            self._d["table"].copy_(self._upload(pool.tables[: len(self._host)]))
+
+    def _release_slot_pages(self, slot: int) -> None:
+        """Live-path slot teardown (paged): the device table row goes to
+        the graveyard (stream-ordered behind the dispatches in flight and
+        ahead of any insert that reuses the pages), then the host releases
+        the row's page references.  Teardown and restart rebuild the
+        state and ``pool.reset()`` instead."""
+        if self._pool is None:
+            return
+        self._d["table"][slot].fill_(GRAVE_PAGE)
+        self._pool.free_slot(slot)
+
+    def _scale_slots(self, ns2: int) -> None:
+        """Resize the live slot count (the caller drained the pipeline:
+        in-flight readbacks are shaped at the old width).  New rows start
+        inactive on the graveyard; a shrink runs only at full quiesce."""
+        ns = len(self._host)
+        if ns2 == ns:
+            return
+        self._busy_since = time.perf_counter()
+        try:
+            fresh = self._fresh_rows(max(ns2 - ns, 0))
+            for key, t in fresh.items():
+                old = self._d[key]
+                self._d[key] = torch.cat([old, t]) if ns2 > ns else old[:ns2].contiguous()
+        finally:
+            self._busy_since = None
+        if ns2 > ns:
+            self._host.extend([None] * (ns2 - ns))
+        else:
+            self._host = self._host[:ns2]
+        self._stats["slots_scaled"] += 1
+        self._stats["peak_live_slots"] = max(self._stats["peak_live_slots"], ns2)
+
+    def _elastic_tick(self) -> None:
+        """Elastic slots (paged): GROW by doubling, up to ``max_slots``,
+        when traffic queues behind a full slot pool and the head request
+        fits the free pages; SHRINK back to ``slots`` at full quiesce."""
+        ns = len(self._host)
+        if (self._adm is None and self._pending and None not in self._host
+                and ns < self.max_slots):
+            if self._pages_initial(self._pending[0]) <= self._pool.alloc.free_pages:
+                self._drain_inflight()
+                self._scale_slots(min(self.max_slots, ns * 2))
+        elif (ns > self.slots and self._adm is None and not self._pending
+                and not self._inflight and all(s is None for s in self._host)):
+            self._scale_slots(self.slots)
+
+    def _pool_stats(self) -> Dict[str, Any]:
+        """The pool's stats, with the read race of an HTTP thread handled:
+        the pool is loop-owned and its scans walk dicts the loop resizes."""
+        for _ in range(3):
+            try:
+                return self._pool.stats()
+            except RuntimeError:
+                continue
+        a = self._pool.alloc
+        return {"pages_total": a.total_pages, "pages_free": a.free_pages,
+                "pages_used": a.used_pages, **a.counters}
 
     def _issue_dispatch(self, fused: Optional[_Admission] = None) -> None:
         """Issue ONE dispatch and return without waiting for it: K decode
         steps, then the non-blocking readback of their packed tokens behind
         a CUDA event.  ``fused`` issues the admission's next chunk right
         behind the steps, with no host sync in between."""
-        k = self.steps_per_dispatch
-        n = 3 * k * self.slots
-        dev = self._ring_dev[self._ring_i][:n].view(3, k, self.slots)
-        host = self._ring_host[self._ring_i][:n].view(3, k, self.slots)
+        # lazy page growth first: this dispatch and those in flight must
+        # find every slot they can write backed by a page
+        self._lazy_extend_tick()
+        k, ns = self.steps_per_dispatch, len(self._host)
+        n = 3 * k * ns
+        dev = self._ring_dev[self._ring_i][:n].view(3, k, ns)
+        host = self._ring_host[self._ring_i][:n].view(3, k, ns)
         self._ring_i = (self._ring_i + 1) % len(self._ring_dev)
         self._busy_since = time.perf_counter()
         event = None
@@ -663,7 +955,7 @@ class DecodeEngine:
                 self._stats["fused_chunks"] += 1
         finally:
             self._busy_since = None
-        self._inflight.append(_Inflight(host, event, time.perf_counter()))
+        self._inflight.append(_Inflight(host, event, time.perf_counter(), k))
         self._dispatches_by_k[k] = self._dispatches_by_k.get(k, 0) + 1
         p = self._pstats
         p["issued"] += 1
@@ -706,9 +998,11 @@ class DecodeEngine:
                 if sl.req["stream"] is not None:
                     sl.req["stream"].put({"token": tok, "logprob": round(lp, 5),
                                           "step": self.step_count})
+                sl.cursor += 1
                 sl.remaining -= 1
                 if sl.remaining <= 0 or tok == sl.req["eos_id"]:
                     self._finish(i)
+                    self._release_slot_pages(i)
 
     def _drain_inflight(self) -> None:
         while self._inflight:
@@ -826,6 +1120,7 @@ class DecodeEngine:
             self._d["active"][i] = False
             self._d["remaining"][i] = 0
             self._finish(i, error=err)
+            self._release_slot_pages(i)
 
     def _adaptive_tick(self) -> None:
         """One controller decision per boundary; a switch retargets the next
@@ -845,8 +1140,10 @@ class DecodeEngine:
         one chunk (fused behind this boundary's dispatch when rows are
         decoding, staged otherwise), and insert a finished one.  Returns
         True when a fused dispatch was issued."""
+        req = None
         if self._adm is None and None in self._host and self._pending:
-            req = self._pending.popleft()
+            req = self._pop_admittable()
+        if req is not None:
             if not self.fused_admission:
                 self._drain_inflight()
             try:
@@ -891,6 +1188,8 @@ class DecodeEngine:
                         and all(s is None for s in self._host))
                 self._boundary_maintenance(block_s=0.2 if idle else 0.0)
                 self._adaptive_tick()
+                if self._pool is not None:
+                    self._elastic_tick()
                 issued = self._admission_tick()
                 if not issued and any(s is not None for s in self._host):
                     self._issue_dispatch()
@@ -980,6 +1279,9 @@ class DecodeEngine:
         self._busy_since = None
         with torch.inference_mode():
             self._d = self._fresh_dstate()
+        if self._pool is not None:
+            # fresh zero pages: every host-side mapping is stale
+            self._pool.reset()
         self._stats["watchdog_restarts"] += 1
         self._exit_loop.clear()
         self._broken = None

@@ -15,6 +15,13 @@ cache (B, Hkv, L, dhp) with (B, Hkv, 1, L) bf16 scales, dh zero-padded to
 128 and L from ``pick_buffer_len`` (the JAX package's shapes), read by the
 CUDA flash-decode kernels.
 
+The continuous engine's paged layout passes a ``kvpool.attn.PagedKV`` in
+place of the ``DecodeCache``: the new K/V go straight into their pages
+(the same ``index_copy_`` writes through other indices), the int8 family
+attends through the page table (the paged kernels, B6/B7) and the bf16
+family over each layer's gathered dense view (B8).  Paged attention runs
+only with per-row cursors.
+
 Two write contracts, as in the JAX package:
 
 - a global index (``cache.index``, a host integer the caller may set):
@@ -37,11 +44,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mlcomp_tpu_torch.kvpool.attn import PagedKV, PagedLayer
 from mlcomp_tpu_torch.models import MODELS
 from mlcomp_tpu_torch.ops.attention import dot_product_attention
 from mlcomp_tpu_torch.ops.cuda.decode_attention import (
     decode_attention,
     decode_attention_chunk,
+    paged_decode_attention,
+    paged_decode_attention_chunk,
     pick_buffer_len,
     quantize_kv,
 )
@@ -248,19 +258,26 @@ class SelfAttention(nn.Module):
             torch.zeros(scales, dtype=torch.bfloat16, device=device),
         )
 
-    def _decode_attention(self, q, k, v, c: KVCache, i: int, kv_mask, kv_start, cursor):
+    def _decode_attention(self, q, k, v, c, i: int, kv_mask, kv_start, cursor):
         """Dense-cache decode: write K/V (in place) at slot ``i`` or at each
         row's cursor, attend under a slot <= own-slot mask.  A global-index
         prefill at ``i == 0`` attends the fresh K/V directly (causal, left
-        pads as a ``kv_start`` window), which keeps the flash path."""
+        pads as a ``kv_start`` window), which keeps the flash path.  Paged
+        (``c`` a ``PagedLayer``): the cursor writes land in the pages and
+        the mask covers each layer's gathered dense view."""
         s = q.shape[1]
-        l_buf = c.k.shape[1]
         if cursor is not None:
-            feats = c.k.shape[2] * c.k.shape[3]
-            c.k.view(-1, feats).index_copy_(0, cursor.flat, k.reshape(-1, feats))
-            c.v.view(-1, feats).index_copy_(0, cursor.flat, v.reshape(-1, feats))
-            mask = _causal_mask(cursor.q_slots, l_buf, kv_mask, kv_start)
-            return dot_product_attention(q, c.k, c.v, mask=mask)
+            store = c.pages if isinstance(c, PagedLayer) else c
+            feats = store.k.shape[2] * store.k.shape[3]
+            store.k.view(-1, feats).index_copy_(0, cursor.flat, k.reshape(-1, feats))
+            store.v.view(-1, feats).index_copy_(0, cursor.flat, v.reshape(-1, feats))
+            if isinstance(c, PagedLayer):
+                k_all, v_all = c.gather_dense("k"), c.gather_dense("v")
+            else:
+                k_all, v_all = c.k, c.v
+            mask = _causal_mask(cursor.q_slots, k_all.shape[1], kv_mask, kv_start)
+            return dot_product_attention(q, k_all, v_all, mask=mask)
+        l_buf = c.k.shape[1]
         c.k[:, i: i + s] = k
         c.v[:, i: i + s] = v
         if s > 1 and i == 0:
@@ -269,27 +286,31 @@ class SelfAttention(nn.Module):
         mask = _causal_mask(q_slots, l_buf, kv_mask, kv_start)
         return dot_product_attention(q, c.k, c.v, mask=mask)
 
-    def _decode_attention_quant(self, q, k, v, c: QuantKVCache, i: int, kv_start, cursor):
+    def _decode_attention_quant(self, q, k, v, c, i: int, kv_start, cursor):
         """int8-cache decode: quantize the new K/V per (slot, head) and
         write values and bf16 scales (in place) at slot ``i`` or at each
         row's cursor.  One new token per row runs the flash-decode kernel
         over the row's window ``[kv_start, own slot + 1)``; a chunk (S > 1)
         runs the chunk kernel, query j stopping at ``own slot + j + 1``.
         A global-index prefill at ``i == 0`` attends the fresh K/V through
-        the flash-attention kernel instead."""
+        the flash-attention kernel instead.  Paged (``c`` a ``PagedLayer``):
+        the same writes land in the pages and the paged kernels read them
+        through the table."""
+        paged = isinstance(c, PagedLayer)
+        store = c.pages if paged else c
         s, dh = k.shape[1], k.shape[3]
-        dhp = c.kq.shape[-1]
+        dhp = store.kq.shape[-1]
         pad = (0, dhp - dh)
         kq, ks_ = quantize_kv(F.pad(k, pad) if dhp != dh else k)
         vq, vs_ = quantize_kv(F.pad(v, pad) if dhp != dh else v)
-        ks_, vs_ = ks_.to(c.ks.dtype), vs_.to(c.vs.dtype)
+        ks_, vs_ = ks_.to(store.ks.dtype), vs_.to(store.vs.dtype)
         if cursor is not None:
             # kq (B, S, Hkv, dhp) and ks_ (B, S, Hkv) flatten in the order of
             # cursor.flat
-            c.kq.view(-1, dhp).index_copy_(0, cursor.flat, kq.reshape(-1, dhp))
-            c.vq.view(-1, dhp).index_copy_(0, cursor.flat, vq.reshape(-1, dhp))
-            c.ks.view(-1).index_copy_(0, cursor.flat, ks_.reshape(-1))
-            c.vs.view(-1).index_copy_(0, cursor.flat, vs_.reshape(-1))
+            store.kq.view(-1, dhp).index_copy_(0, cursor.flat, kq.reshape(-1, dhp))
+            store.vq.view(-1, dhp).index_copy_(0, cursor.flat, vq.reshape(-1, dhp))
+            store.ks.view(-1).index_copy_(0, cursor.flat, ks_.reshape(-1))
+            store.vs.view(-1).index_copy_(0, cursor.flat, vs_.reshape(-1))
             stop0 = cursor.stop0
         else:
             c.kq[:, :, i: i + s] = kq.transpose(1, 2)
@@ -300,6 +321,17 @@ class SelfAttention(nn.Module):
                 return dot_product_attention(q, k, v, causal=True, kv_start=kv_start)
             stop0 = i + 1
         qp = F.pad(q, pad) if dhp != dh else q
+        if paged:
+            pages = (store.kq, store.ks, store.vq, store.vs)
+            if s == 1:
+                out = paged_decode_attention(qp[:, 0].contiguous(), *pages, c.kernel_table(),
+                                             kv_start=kv_start, kv_stop=stop0,
+                                             scale=1.0 / math.sqrt(dh))
+                return out[..., :dh][:, None]
+            out = paged_decode_attention_chunk(qp.contiguous(), *pages, c.kernel_table(),
+                                               kv_start=kv_start, kv_stop0=stop0,
+                                               scale=1.0 / math.sqrt(dh))
+            return out[..., :dh]
         if s == 1:
             out = decode_attention(qp[:, 0].contiguous(), c.kq, c.ks, c.vq, c.vs,
                                    kv_start=kv_start, kv_stop=stop0,
@@ -454,7 +486,8 @@ class TransformerLM(nn.Module):
             self.emb.q8 = self.emb.scale = None
 
     def forward(self, ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                cache: Optional[DecodeCache] = None, kv_mask: Optional[torch.Tensor] = None,
+                cache: "Optional[DecodeCache | PagedKV]" = None,
+                kv_mask: Optional[torch.Tensor] = None,
                 last_only: bool = False, cache_cursor: Optional[torch.Tensor] = None,
                 kv_start: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits (B, S, V) f32, or (B, 1, V) with ``last_only``.  With a
@@ -462,7 +495,8 @@ class TransformerLM(nn.Module):
         cursor), and the valid slots are ``kv_mask`` (B, max_len; False =
         left padding) or the window start ``kv_start`` (B,).  Without
         ``cache_cursor`` the new K/V go to ``cache.index`` and the index
-        advances by S; with it (B,) each row writes at its own cursor."""
+        advances by S; with it (B,) each row writes at its own cursor.  A
+        ``PagedKV`` cache needs ``cache_cursor``."""
         b, s = ids.shape
         if positions is None:
             if cache is not None:
@@ -472,10 +506,17 @@ class TransformerLM(nn.Module):
             # left padding makes the invalid slots a prefix: a window start is exact
             kv_start = torch.argmax(kv_mask.int(), dim=1).int()
         h = self.emb(ids.long())
-        index = cache.index if cache is not None else 0
-        cursor = None
-        if cache_cursor is not None:
-            cursor = RowCursors.of(cache_cursor, s, cache.layers[0])
+        index, cursor = 0, None
+        if isinstance(cache, PagedKV):
+            if cache_cursor is None:
+                raise NotImplementedError(
+                    "paged attention runs only under per-row cursors (the engine's "
+                    "decode dispatch); admission prefills use a dense (1, L) cache")
+            cursor = cache.cursors(cache_cursor, s)
+        elif cache is not None:
+            index = cache.index
+            if cache_cursor is not None:
+                cursor = RowCursors.of(cache_cursor, s, cache.layers[0])
         for li, layer in enumerate(self.layers):
             h = layer(h, positions, None if cache is None else cache.layers[li], index,
                       kv_mask, kv_start, self.fold_norms, cursor)

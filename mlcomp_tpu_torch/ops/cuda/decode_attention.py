@@ -1,12 +1,16 @@
 """Flash decode over an int8 KV cache (csrc/decode_attention.cu): one query
 per row (:func:`decode_attention`) or S chunk queries per row
-(:func:`decode_attention_chunk`), and the cache helpers that fix its layout.
+(:func:`decode_attention_chunk`), each also through a page table
+(:func:`paged_decode_attention`, :func:`paged_decode_attention_chunk`),
+and the cache helpers that fix its layout.
 
 The counterpart of mlcomp_tpu/ops/pallas/decode_attention.py: the cache is
 (B, Hkv, L, dh) int8 values with (B, Hkv, 1, L) bf16 per-(slot, head)
 scales, L from :func:`pick_buffer_len` and dh zero-padded to 128, exactly
-the JAX package's shapes.  A CUDA tensor launches the kernel; a CPU tensor
-takes the plain version beside it.
+the JAX package's shapes; its pages are (P, Hkv, T, dh) and (P, Hkv, 1, T)
+tiles of it (``kvpool/layout.py``).  All four run one kernel body, so a
+paged call equals the dense call on the same bytes bit for bit.  A CUDA
+tensor launches the kernel; a CPU tensor takes the plain version beside it.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ CHUNK_MAX_SQ = 32
 
 launches = 0
 chunk_launches = 0
+paged_launches = 0
+paged_chunk_launches = 0
 
 
 def auto_block_kv(l_buf: int, h_kv: int, dh: int) -> int:
@@ -89,11 +95,48 @@ def decode_attention_chunk_plain(q, k8, ks, v8, vs, kv_start, kv_stop0, scale):
     m = s.amax(-1, keepdim=True)
     p = torch.where(live & (m > NEG_INF / 2), torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(-1, keepdim=True)
-    pv = (p * vs.float()[:, :, :, None]).to(q.dtype).float()
+    # a masked slot's p * vs is selected to 0, never multiplied: its scale
+    # may be anything a page held
+    pv = torch.where(live, p * vs.float()[:, :, :, None], torch.zeros_like(p))
+    pv = pv.to(q.dtype).float()
     acc = torch.einsum("bgsrl,bgld->bsgrd", pv, v8.float())
     l = l[..., 0].permute(0, 2, 1, 3)[..., None]        # (B, S, Hkv, rep, 1)
     out = acc / torch.where(l == 0, torch.ones_like(l), l)
     return out.to(q.dtype).reshape(b, s_q, h, dh)
+
+
+def pages_to_dense(kq_pages, ks_pages, vq_pages, vs_pages, table):
+    """The dense (B, Hkv, MP * T, dh) cache and (B, Hkv, 1, MP * T) scales
+    that a (B, MP) table maps out of (P, Hkv, T, dh) and (P, Hkv, 1, T)
+    pages: a pure gather."""
+    idx = table.long()
+    b, mp = idx.shape
+
+    def vals(pg):
+        _, h_kv, t, dh = pg.shape
+        return pg[idx].permute(0, 2, 1, 3, 4).reshape(b, h_kv, mp * t, dh)
+
+    def scales(pg):
+        _, h_kv, _, t = pg.shape
+        return pg[idx].permute(0, 2, 3, 1, 4).reshape(b, h_kv, 1, mp * t)
+
+    return vals(kq_pages), scales(ks_pages), vals(vq_pages), scales(vs_pages)
+
+
+def paged_decode_attention_plain(q, kq_pages, ks_pages, vq_pages, vs_pages, table,
+                                 kv_start, kv_stop, scale):
+    """Plain version of the paged single-query kernel: gather, then
+    :func:`decode_attention_plain`."""
+    dense = pages_to_dense(kq_pages, ks_pages, vq_pages, vs_pages, table)
+    return decode_attention_plain(q, *dense, kv_start, kv_stop, scale)
+
+
+def paged_decode_attention_chunk_plain(q, kq_pages, ks_pages, vq_pages, vs_pages, table,
+                                       kv_start, kv_stop0, scale):
+    """Plain version of the paged chunk kernel: gather, then
+    :func:`decode_attention_chunk_plain`."""
+    dense = pages_to_dense(kq_pages, ks_pages, vq_pages, vs_pages, table)
+    return decode_attention_chunk_plain(q, *dense, kv_start, kv_stop0, scale)
 
 
 def _rows(x: Union[None, int, torch.Tensor], b: int, default: int, device) -> torch.Tensor:
@@ -121,6 +164,24 @@ def _check_cache(q, k8, ks, v8, vs, h: int, dh: int) -> None:
         )
 
 
+def _check_pages(q, kq, ks, vq, vs, table, h: int) -> None:
+    """The page layout checks both paged wrappers share."""
+    _, h_kv, t, dh = kq.shape
+    if vq.shape != kq.shape:
+        raise ValueError(f"K/V page shapes differ: {tuple(kq.shape)} vs {tuple(vq.shape)}")
+    want = (kq.shape[0], h_kv, 1, t)
+    if ks.shape != want or vs.shape != want:
+        raise ValueError(f"scale pages must be {want}; got ks {tuple(ks.shape)}, "
+                         f"vs {tuple(vs.shape)}")
+    if table.dim() != 2 or table.shape[0] != q.shape[0]:
+        raise ValueError(f"table must be (B, MP) with B = {q.shape[0]}; got {tuple(table.shape)}")
+    if h % h_kv:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
+    if q.shape[-1] != dh or dh % LANES:
+        raise NotImplementedError(f"q head dim {q.shape[-1]} must equal the page head dim "
+                                  f"{dh}, a multiple of {LANES}")
+
+
 def _check_launch(what: str, q, k8, ks, v8, vs, dh: int) -> None:
     """The CUDA kernel's operand contract (the plain version takes more)."""
     if q.device.type != "cuda":
@@ -136,26 +197,47 @@ def _check_launch(what: str, q, k8, ks, v8, vs, dh: int) -> None:
             raise ValueError(f"{what} operands must be contiguous and on one device")
 
 
-def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale):
+def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale, table=None):
     """The chunk kernel's checks and launch on a CUDA ``q`` (B, S, H, dh),
-    or its plain version on a CPU one; both wrappers go through here."""
+    or its plain version on a CPU one; every wrapper goes through here.
+    With ``table`` the cache operands are pages and the cache length is
+    MP * T."""
     b, s_q, h, dh = q.shape
-    _check_cache(q, k8, ks, v8, vs, h, dh)
-    l_buf, h_kv = k8.shape[2], k8.shape[1]
+    if table is None:
+        _check_cache(q, k8, ks, v8, vs, h, dh)
+        h_kv, l_buf = k8.shape[1], k8.shape[2]
+    else:
+        _check_pages(q, k8, ks, v8, vs, table, h)
+        h_kv, l_buf = k8.shape[1], table.shape[1] * k8.shape[2]
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     start = _rows(kv_start, b, 0, q.device)
     stop0 = _rows(kv_stop0, b, l_buf - s_q + 1, q.device)
     if q.device.type == "cpu":
+        if table is not None:
+            return paged_decode_attention_chunk_plain(q, k8, ks, v8, vs, table, start, stop0,
+                                                      scale)
         return decode_attention_chunk_plain(q, k8, ks, v8, vs, start, stop0, scale)
     _check_launch(what, q, k8, ks, v8, vs, dh)
     out = torch.empty_like(q)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = build.function("decode_attention", "decode_attention_chunk_launch",
-                            [p] * 8 + [i] * 6 + [ctypes.c_float, p])
-    err = launch(
-        *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, out)),
-        b, s_q, h, h_kv, l_buf, dh, scale, build.stream_ptr(q.device),
-    )
+    if table is None:
+        launch = build.function("decode_attention", "decode_attention_chunk_launch",
+                                [p] * 8 + [i] * 6 + [ctypes.c_float, p])
+        err = launch(
+            *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, out)),
+            b, s_q, h, h_kv, l_buf, dh, scale, build.stream_ptr(q.device),
+        )
+    else:
+        if table.device != q.device or table.dtype != torch.int32:
+            raise TypeError(f"{what}: the table must be int32 on {q.device}")
+        table = table.contiguous()
+        launch = build.function("decode_attention", "paged_decode_attention_chunk_launch",
+                                [p] * 9 + [i] * 7 + [ctypes.c_float, p])
+        err = launch(
+            *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, table, out)),
+            b, s_q, h, h_kv, table.shape[1], k8.shape[2], dh, scale,
+            build.stream_ptr(q.device),
+        )
     build.check(err, what)
     return out
 
@@ -193,4 +275,38 @@ def decode_attention_chunk(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
     out = _attend("decode_attention_chunk", q, k8, ks, v8, vs, kv_start, kv_stop0, scale)
     if q.device.type == "cuda":
         chunk_launches += 1
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, kq_pages: torch.Tensor, ks_pages: torch.Tensor,
+                           vq_pages: torch.Tensor, vs_pages: torch.Tensor,
+                           table: torch.Tensor, kv_start=None, kv_stop=None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`decode_attention` reading the cache through a page table:
+    q (B, H, dh); kq/vq pages (P, Hkv, T, dh) int8; ks/vs pages
+    (P, Hkv, 1, T) bf16; ``table`` (B, MP) int32 maps row b's logical page
+    j (slots [j * T, (j + 1) * T)) to a physical page.  Any T: the cache
+    length is MP * T.  Windows and output as the dense call, bit for bit
+    on the same bytes.  Counted in ``paged_launches``."""
+    global paged_launches
+    out = _attend("paged_decode_attention", q[:, None], kq_pages, ks_pages, vq_pages,
+                  vs_pages, kv_start, kv_stop, scale, table=table)
+    if q.device.type == "cuda":
+        paged_launches += 1
+    return out[:, 0]
+
+
+def paged_decode_attention_chunk(q: torch.Tensor, kq_pages: torch.Tensor,
+                                 ks_pages: torch.Tensor, vq_pages: torch.Tensor,
+                                 vs_pages: torch.Tensor, table: torch.Tensor,
+                                 kv_start=None, kv_stop0=None,
+                                 scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`decode_attention_chunk` through a page table: q (B, S, H, dh),
+    query j attending ``[kv_start, kv_stop0 + j)``; pages and table as
+    :func:`paged_decode_attention`.  Counted in ``paged_chunk_launches``."""
+    global paged_chunk_launches
+    out = _attend("paged_decode_attention_chunk", q, kq_pages, ks_pages, vq_pages, vs_pages,
+                  kv_start, kv_stop0, scale, table=table)
+    if q.device.type == "cuda":
+        paged_chunk_launches += 1
     return out

@@ -6,6 +6,10 @@ Two batchers, picked by ``GenerationService(batcher=)``:
   (``engine.DecodeEngine``).  Requests join a running decode at a dispatch
   boundary, finished rows free their slot at once, tokens stream as they
   land, and requests carry deadlines and can be cancelled.
+  ``kv_layout="paged"`` keeps its KV cache in pages (``kvpool``):
+  admission waits for free pages, the slot count is elastic up to
+  ``max_slots``, and ``/stats`` carries the pool's counters under
+  ``engine.kv_pool``.
 - ``"window"``: requests that arrive within a short window and share a
   ``max_new`` bucket decode together through one
   ``models.generation.generate`` call: prompts left-pad into a length
@@ -113,7 +117,9 @@ class GenerationService:
     (int8 weights consumed by the CUDA int8 matmul).  The weights load into
     ``model`` on its device.  The continuous engine takes ``batch_sizes[-1]``
     slots, the prompt buckets, ``max_new_buckets[-1]`` as its budget cap,
-    and the engine knobs (``steps_per_dispatch`` default ``"adaptive"``)."""
+    and the engine knobs (``steps_per_dispatch`` default ``"adaptive"``;
+    ``kv_layout``, ``kv_page_tokens``, ``kv_pages`` and ``max_slots`` for
+    the paged layout, ``max_slots`` defaulting to 4 x the slots)."""
 
     def __init__(
         self,
@@ -138,6 +144,10 @@ class GenerationService:
         engine_pipeline_depth: Optional[int] = None,
         engine_fused_admission: Optional[bool] = None,
         dispatch_stall_timeout: Optional[float] = None,
+        kv_layout: str = "dense",
+        kv_page_tokens: Optional[int] = None,
+        kv_pages: Optional[int] = None,
+        max_slots: Optional[int] = None,
     ):
         from mlcomp_tpu_torch.models.generation import prep_decode_variables
         from mlcomp_tpu_torch.ops.quant import quantize_params
@@ -151,6 +161,10 @@ class GenerationService:
                 or (engine_pipeline_depth is not None and int(engine_pipeline_depth) > 1)):
             raise ValueError("engine_pipeline_depth > 1 and engine_fused_admission need "
                              "the continuous batcher")
+        if batcher == "window" and (kv_layout != "dense" or kv_page_tokens is not None
+                                    or kv_pages is not None or max_slots is not None):
+            raise ValueError("kv_layout / kv_page_tokens / kv_pages / max_slots need the "
+                             "continuous batcher (only the slot engine owns a device KV pool)")
         self.batcher = batcher
         self.model = model
         self.batch_sizes = tuple(sorted(batch_sizes))
@@ -193,6 +207,8 @@ class GenerationService:
                 prefill_chunk=prefill_chunk, pipeline_depth=engine_pipeline_depth,
                 fused_admission=engine_fused_admission,
                 dispatch_stall_timeout=dispatch_stall_timeout,
+                kv_layout=kv_layout, kv_page_tokens=kv_page_tokens, kv_pages=kv_pages,
+                max_slots=max_slots,
             )
         else:
             self._gen = torch.Generator(device=model.device).manual_seed(seed)

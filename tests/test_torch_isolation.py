@@ -24,6 +24,12 @@ def _modules():
     )
 
 
+def test_the_module_walk_covers_the_kvpool_copies():
+    mods = _modules()
+    for name in ("allocator", "pool", "layout", "attn"):
+        assert f"mlcomp_tpu_torch.kvpool.{name}" in mods
+
+
 def test_import_leaves_jax_out_of_the_process():
     code = (
         "import importlib, sys\n"
@@ -40,7 +46,8 @@ def test_import_leaves_jax_out_of_the_process():
     assert out.stdout.strip() == "", f"the port pulled in: {out.stdout.strip()}"
 
 
-@pytest.mark.parametrize("module", ["mlcomp_tpu_torch.engine", "mlcomp_tpu_torch.dispatch_control"])
+@pytest.mark.parametrize("module", ["mlcomp_tpu_torch.engine", "mlcomp_tpu_torch.dispatch_control",
+                                    "mlcomp_tpu_torch.kvpool"])
 def test_engine_modules_alone_leave_jax_out(module):
     code = (
         f"import sys, {module}\n"
@@ -74,7 +81,7 @@ def test_kernel_sources_are_in_the_package():
     from mlcomp_tpu_torch.ops.cuda import build
 
     stems = {p.stem for p in build._sources()}
-    assert {"quant_matmul", "decode_attention", "flash_attention"} <= stems
+    assert {"quant_matmul", "decode_attention", "flash_attention", "page_gather"} <= stems
     for src in build._sources():
         head = src.read_text().split("#include")[0]
         # each source says what it replaces, what bounds it, and its design

@@ -226,3 +226,90 @@ def _to_jnp(tree):
     if isinstance(tree, dict):
         return {k: _to_jnp(v) for k, v in tree.items()}
     return jnp.asarray(tree)
+
+
+def _paged(rng, b, h_kv, l_buf, dh, t, last_slot):
+    """A shuffled page pool holding each row's window and NULL (page 0)
+    past it: (kq, ks, vq, vs) pages, the (B, MP) table, and the same bytes
+    laid out densely.  Page 1 (the graveyard) holds non-finite scales that
+    no table entry maps."""
+    mp = l_buf // t
+    k8, ks = _quant_cache(rng, b, h_kv, l_buf, dh)
+    v8, vs = _quant_cache(rng, b, h_kv, l_buf, dh)
+    n_pages = 2 + b * mp + 3
+    table = (rng.permutation(n_pages - 2)[: b * mp] + 2).astype(np.int32).reshape(b, mp)
+    kq_p = np.zeros((n_pages, h_kv, t, dh), np.int8)
+    vq_p = np.zeros_like(kq_p)
+    ks_p = np.zeros((n_pages, h_kv, 1, t), np.float32)
+    vs_p = np.zeros_like(ks_p)
+    ks_p[1], vs_p[1] = np.nan, np.inf
+    for r in range(b):
+        for j in range(mp):
+            if j * t > last_slot[r]:
+                table[r, j] = 0
+                continue
+            p, sl = table[r, j], slice(j * t, (j + 1) * t)
+            kq_p[p], vq_p[p] = k8[r, :, sl], v8[r, :, sl]
+            ks_p[p], vs_p[p] = ks[r, :, :, sl], vs[r, :, :, sl]
+    pages = (kq_p, ks_p, vq_p, vs_p)
+    dense = da.pages_to_dense(*(_t(x) for x in pages), _t(table))
+    return pages, table, [x.numpy() for x in dense]
+
+
+@pytest.mark.parametrize("t", [64, 128])
+@pytest.mark.parametrize("s_q", [1, 5, da.CHUNK_MAX_SQ + 8])
+def test_paged_decode_attention_matches_pallas(t, s_q):
+    """B6 (S = 1) and B7 against the JAX paged kernels in interpret mode:
+    L = 256, GQA rep 2, shuffled physical pages, NULL pages past each
+    row's window, per-row windows (row 2's are empty).  The port's paged
+    plain version equals its dense plain version on the same bytes
+    exactly."""
+    rng = np.random.default_rng(200 + t + s_q)
+    b, h, h_kv, l_buf, dh = 3, 4, 2, 256, 128
+    start = np.array([0, 17, 100], np.int32)
+    stop0 = np.array([l_buf - s_q + 1, 30, 100 - s_q + 1], np.int32)
+    pages, table, dense = _paged(rng, b, h_kv, l_buf, dh, t, stop0 + s_q - 2)
+    q = _bf16_np(rng.normal(size=(b, s_q, h, dh)).astype(np.float32))
+    jp = (jnp.asarray(pages[0]), jnp.asarray(pages[1], jnp.bfloat16),
+          jnp.asarray(pages[2]), jnp.asarray(pages[3], jnp.bfloat16))
+    tp = (_t(pages[0]), _t(pages[1], torch.bfloat16), _t(pages[2]), _t(pages[3], torch.bfloat16))
+    td = (_t(dense[0]), _t(dense[1], torch.bfloat16), _t(dense[2]), _t(dense[3], torch.bfloat16))
+    if s_q == 1:
+        ref = jda.paged_decode_attention(
+            jnp.asarray(q[:, 0], jnp.bfloat16), *jp, jnp.asarray(table),
+            kv_start=jnp.asarray(start), kv_stop=jnp.asarray(stop0), scale=0.1)[:, None]
+        out = da.paged_decode_attention(_t(q[:, 0], torch.bfloat16), *tp, _t(table),
+                                        _t(start), _t(stop0), scale=0.1)[:, None]
+        plain = da.decode_attention(_t(q[:, 0], torch.bfloat16), *td, _t(start), _t(stop0),
+                                    scale=0.1)[:, None]
+    else:
+        ref = jda.paged_decode_attention_chunk(
+            jnp.asarray(q, jnp.bfloat16), *jp, jnp.asarray(table),
+            kv_start=jnp.asarray(start), kv_stop0=jnp.asarray(stop0), scale=0.1)
+        out = da.paged_decode_attention_chunk(_t(q, torch.bfloat16), *tp, _t(table),
+                                              _t(start), _t(stop0), scale=0.1)
+        plain = da.decode_attention_chunk(_t(q, torch.bfloat16), *td, _t(start), _t(stop0),
+                                          scale=0.1)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s_q, h, dh)
+    # paging is addressing only: the same bytes give the same bits
+    assert torch.equal(out, plain)
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.all(out[2].float().numpy() == 0) and np.all(ref[2] == 0)
+    assert torch.isfinite(out.float()).all()
+    # B3's tolerance, for B3's reason: p rounds to bf16 before P V on both
+    # sides against another running max, and the output rounds to bf16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_paged_decode_attention_checks_its_pages():
+    q = torch.zeros(2, 4, 128, dtype=torch.bfloat16)
+    kq = torch.zeros(5, 2, 8, 128, dtype=torch.int8)
+    sc = torch.zeros(5, 2, 1, 8, dtype=torch.bfloat16)
+    table = torch.zeros(2, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="scale pages must be"):
+        da.paged_decode_attention(q, kq, sc[:, :, :, :4], kq, sc, table)
+    with pytest.raises(ValueError, match=r"table must be \(B, MP\)"):
+        da.paged_decode_attention(q, kq, sc, kq, sc, table[:1])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        da.paged_decode_attention(q.to("meta"), kq.to("meta"), sc.to("meta"), kq.to("meta"),
+                                  sc.to("meta"), table.to("meta"))

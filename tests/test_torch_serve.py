@@ -249,3 +249,81 @@ def test_sse_stream_healthz_and_drain(continuous):
         httpd.shutdown()
         httpd.server_close()
         t.join(timeout=10)
+
+
+def test_paged_service_serves_the_dense_tokens_and_reports_pages(continuous):
+    kw = {k: v for k, v in PORT_KW.items() if k not in ("batcher", "batch_window_ms")}
+    paged = load_service(CFG, params=TREE, device="cpu", kv_layout="paged", kv_page_tokens=4,
+                         max_slots=4, **kw)
+    httpd = make_http_server(paged, "127.0.0.1", 0, model_name="tiny")
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        prompts = [[3, 14, 15, 92, 65, 35], [9] * 12, [1, 2, 3]]
+        futs = [paged.submit(p, 6, logprobs=True) for p in prompts]
+        got = [f.result(timeout=600) for f in futs]
+        want = [continuous.submit(p, 6, logprobs=True).result(timeout=600) for p in prompts]
+        assert [(g["ids"], g["logprobs"]) for g in got] == [(w["ids"], w["logprobs"])
+                                                           for w in want]
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            st = json.loads(r.read())["engine"]
+        assert st["kv_layout"] == "paged" and st["max_slots"] == 4
+        pool = st["kv_pool"]
+        assert pool["page_tokens"] == 4 and pool["allocs"] > 0
+        assert pool["pages_total"] == pool["pages_free"] + pool["pages_used"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=10)
+        paged.close()
+
+
+def test_paged_arguments_need_the_paged_continuous_engine():
+    kw = {k: v for k, v in PORT_KW.items() if k not in ("batcher", "batch_window_ms")}
+    # the dense engine rejects them, as the JAX engine does
+    with pytest.raises(ValueError, match="kv_layout='paged'"):
+        load_service(CFG, params=TREE, device="cpu", kv_pages=64, **kw)
+    with pytest.raises(ValueError, match="max_slots"):
+        load_service(CFG, params=TREE, device="cpu", max_slots=16, **kw)
+    with pytest.raises(ValueError, match="continuous batcher"):
+        load_service(CFG, params=TREE, device="cpu", kv_layout="paged", **PORT_KW)
+
+
+def test_cli_paged_flags_reach_the_engine(tmp_path, monkeypatch, continuous):
+    """``serve --kv-layout paged --kv-page-tokens --kv-pages --max-slots``
+    builds the paged engine, which serves the dense engine's tokens;
+    ``--max-slots`` defaults to 4 x the largest batch size."""
+    import yaml
+
+    import mlcomp_tpu_torch.serve as serve_mod
+    from mlcomp_tpu_torch.cli import main
+
+    built, served = [], []
+    real = serve_mod.load_service
+
+    def load(model_cfg, ckpt_path=None, **kw):
+        svc = real(model_cfg, params=TREE, device="cpu", **kw)
+        built.append(svc)
+        return svc
+
+    def serve_once(svc, host, port, model_name):
+        served.append(svc.generate([3, 14, 15, 92, 65, 35], 6)["ids"])
+        svc.close()
+
+    monkeypatch.setattr(serve_mod, "load_service", load)
+    monkeypatch.setattr(serve_mod, "serve_http", serve_once)
+    cfg = tmp_path / "m.yml"
+    cfg.write_text(yaml.safe_dump({"model": {k: v for k, v in CFG.items() if k != "kv_quant"}}))
+    base = ["serve", "--model", str(cfg), "--ckpt", "w.npz", "--kv-quant", "--quantize",
+            "kernel", "--batch-sizes", "1,2,4", "--prompt-buckets", "8,16",
+            "--max-new-buckets", "4,8", "--kv-layout", "paged"]
+    assert main(base + ["--kv-page-tokens", "4", "--kv-pages", "40", "--max-slots", "6"]) == 0
+    assert main(base) == 0
+    st = [svc.stats()["engine"] for svc in built]
+    assert [s["kv_layout"] for s in st] == ["paged", "paged"]
+    assert st[0]["max_slots"] == 6 and st[0]["kv_pool"]["page_tokens"] == 4
+    assert st[0]["kv_pool"]["pages_total"] == 38
+    assert st[1]["max_slots"] == 16 and st[1]["kv_pool"]["page_tokens"] == 8
+    want = continuous.generate([3, 14, 15, 92, 65, 35], 6)["ids"]
+    assert served == [want, want]
