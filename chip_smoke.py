@@ -29,11 +29,27 @@ without printing a result:
    decode ms per step at 8 live slots, tok/s and the K rungs used.
 7. engine parity: a (1, 256) admission chunk at cache index 256 and 8
    per-row-cursor decode steps, kernels against plain versions.
-8. summary: a ``kernels`` JSON line, then, last, the device line.
+8. paged engine serve (``kv_layout="paged"``) and 9. the bf16-KV paged
+   engine.
+10. train: configs/multihost_lm.yml's 1.2B transformer_lm (hidden 2048, 16
+   layers, vocab 32000, bf16, adafactor with warmup_cosine) through
+   ``mlcomp_tpu_torch.cli dag``, in-process, cut to one card (2 sequences
+   of 4096 tokens per step, 6 steps); the flash forward and the backward
+   kernels must launch 16 times per step; ms per step, tok/s, MFU and
+   peak memory.
+11. train parity: one step's loss and gradient norm with the kernels and
+   with their plain versions; one profiled step (device time by kernel).
+12. summary: ``serve``, ``engine``, ``paged_engine``, ``train`` and
+   ``kernels`` JSON lines, then, last, the device line.
+
+The kernel phase (3) also holds the flash-attention backward (B9-B11) at
+the training shape, a GQA shape, BERT finetune's shape and a windowed
+shape.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import queue
@@ -44,6 +60,7 @@ import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from pathlib import Path
 
 import torch
 
@@ -54,6 +71,9 @@ CFG = {
 }
 SEED = 0
 BATCH, PROMPT, NEW, CHUNK = 8, 512, 128, 256
+# the train phase: one card's share of configs/multihost_lm.yml's batch
+# (16 sequences over dp 8), and the steps after the first that it times
+TRAIN_BATCH, TRAIN_STEPS = 2, 5
 
 # data-sheet peaks (dense): memory bytes/s, bf16 tensor FLOP/s
 PEAKS = {
@@ -98,6 +118,30 @@ def time_ms(fns, iters=20, warmup=3):
 
 def copies_for(nbytes: int) -> int:
     return max(2, math.ceil(160e6 / max(nbytes, 1)))
+
+
+# the TPU grid of each backward row: B9 _flash_bwd's rectangular grid,
+# B10 _flash_bwd_tri, B11 _flash_bwd_bsched
+GRID_KEYS = {"rect": "B9", "tri": "B10", "bsched": "B11"}
+
+
+def bwd_grid(causal: bool, windowed: bool, s_k: int) -> str:
+    """The TPU grid ``_flash_bwd`` (mlcomp_tpu/ops/pallas/flash_attention.py)
+    runs for such a call at its default settings: ``"tri"`` for causal
+    attention without windows, ``"bsched"`` for non-causal windowed
+    attention over more than one KV block, else the rectangular grid
+    ``"rect"``.  A ragged S counts as windowed: the JAX wrapper pads it
+    through the window machinery.  The port runs one CUDA implementation
+    for all three; this only labels its rows and launches."""
+    s_kp = -(-s_k // 128) * 128
+    bounded = windowed or s_kp != s_k
+    if causal and not bounded:
+        return "tri"
+    if bounded and not causal:
+        block_kv = next(bk for bk in (512, 256, 128) if s_kp % bk == 0)
+        if s_kp // block_kv > 1:
+            return "bsched"
+    return "rect"
 
 
 class Kernel:
@@ -167,6 +211,16 @@ def main() -> int:
                      "paged_chunk_launches"),
         "B8": Kernel("page_gather", "mlcomp_tpu_torch/csrc/page_gather.cu",
                      "mlcomp_tpu/kvpool/layout.py:384", pgm),
+        # the flash backward: one CUDA implementation (delta, dq, dk/dv) for
+        # the three TPU grids.  Each row reads the dq kernel's counter (one
+        # launch per backward, as delta's and dk/dv's); the train phase gives
+        # its path's launches to the grid that bwd_grid names for its calls
+        "B9": Kernel("flash_attention_bwd", "mlcomp_tpu_torch/csrc/flash_attention_bwd.cu",
+                     "mlcomp_tpu/ops/pallas/flash_attention.py:639", fa, "bwd_dq_launches"),
+        "B10": Kernel("flash_attention_bwd", "mlcomp_tpu_torch/csrc/flash_attention_bwd.cu",
+                      "mlcomp_tpu/ops/pallas/flash_attention.py:738", fa, "bwd_dq_launches"),
+        "B11": Kernel("flash_attention_bwd", "mlcomp_tpu_torch/csrc/flash_attention_bwd.cu",
+                      "mlcomp_tpu/ops/pallas/flash_attention.py:787", fa, "bwd_dq_launches"),
     }
     # the kernels the dense paths run (B1-B5) and those of the paged paths
     dense_keys = ("B1", "B2", "B3", "B4", "B5")
@@ -374,6 +428,23 @@ def main() -> int:
                torch.randint(PROMPT, PROMPT + NEW - 32, (BATCH,), generator=g, device=dev,
                              dtype=torch.int32))
 
+    def fwd_held(label, q, k, v, causal, sc, lo, hi, out, lse):
+        """B5's (out, lse) against its plain version on the same inputs:
+        out within 2^-7 (|ref| + ref_abs), ref_abs the plain version on |v|;
+        lse within 1e-3 on rows with a live key; a row without one outputs
+        0.  Returns (max error, max error / limit, lse error)."""
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal, sc, lo, hi)
+        err, ratio = held(f"flash_attention {label}", out, ref,
+                          fa.flash_attention_plain(q, k, v.abs(), causal, sc, lo, hi)[0])
+        live_rows = ref_lse > -1e29
+        lse_err = (lse - ref_lse).abs()[live_rows].max().item()
+        if lse_err > 1e-3:
+            raise AssertionError(f"flash_attention {label} lse: max error {lse_err} > 1e-3")
+        if not bool((out.float().transpose(1, 2)[~live_rows] == 0).all()):
+            raise AssertionError(f"flash_attention {label}: a row with no live key must "
+                                 "output 0")
+        return err, ratio, lse_err
+
     # B5: the prefill, causal, left padding as kv_start
     pads = torch.randint(0, PROMPT - 100, (BATCH,), generator=g, device=dev, dtype=torch.int32)
     qkv = [[torch.randn(BATCH, PROMPT, heads, dh, generator=g, device=dev).bfloat16()
@@ -381,15 +452,7 @@ def main() -> int:
     fq, fk, fv = qkv[0]
     out, lse = fa.flash_attention_fwd(fq, fk, fv, True, scale, pads)
     hi = torch.full_like(pads, PROMPT)
-    ref, ref_lse = fa.flash_attention_plain(fq, fk, fv, True, scale, pads, hi)
-    err, ratio = held("flash_attention", out, ref,
-                      fa.flash_attention_plain(fq, fk, fv.abs(), True, scale, pads, hi)[0])
-    live_rows = ref_lse > -1e29
-    lse_err = (lse - ref_lse).abs()[live_rows].max().item()
-    if lse_err > 1e-3:
-        raise AssertionError(f"flash_attention lse: max error {lse_err} > 1e-3")
-    if not bool((out.float().transpose(1, 2)[~live_rows] == 0).all()):
-        raise AssertionError("flash_attention: a row with no live key must output 0")
+    err, ratio, lse_err = fwd_held("prefill", fq, fk, fv, True, scale, pads, hi, out, lse)
     kms = time_ms([lambda t=t: fa.flash_attention_fwd(t[0], t[1], t[2], True, scale, pads)
                    for t in qkv])
     pms = time_ms([lambda t=t: fa.flash_attention_plain(t[0], t[1], t[2], True, scale, pads, hi)
@@ -542,6 +605,164 @@ def main() -> int:
                       library_ms=lms, **bound_of(2 * moved + gtable.numel() * 4, 0))
     del pools, gout
     torch.cuda.empty_cache()
+
+    # B9, B10, B11: the flash-attention backward (delta, dq, dk/dv) against
+    # its plain version, on the kernel forward's (out, lse).  The three TPU
+    # grids are one CUDA implementation; each case is the shape that the
+    # JAX package would send to its grid: (a) LM training, causal (B10's
+    # triangular grid); (c) the same with GQA (B10); (b) BERT finetune's
+    # batch (configs/bert_finetune.yml: 32 x 128, models/bert.py's 12 heads
+    # of 64) with per-row key-padding windows and one empty row, one KV
+    # block (B9's rectangular grid); (d) key-padding windows over 2048 keys
+    # (B11's compacted grid).  Tolerance, element by element:
+    # |kernel - plain| <= 2^-7 (|ref| + ref_abs), ref_abs the sum of the
+    # absolute terms behind each gradient: sum_k p (|dp| + |delta|) scale |k|
+    # for dq, the same over queries with |q| for dk, sum_q p |dO| for dv.
+    # Both sides round ds (or p) to bf16 before the product, where the two
+    # can land one bf16 step apart (2^-8 of the term), and round the output
+    # (2^-8 of it); f32 sums in other orders add ~2^-20.  A missed mask, a
+    # wrong tile or a lost GQA head moves a gradient by whole terms.
+    def bwd_abs(q, k, v, out, lse, do, causal, sc, lo, hi):
+        b, s_q, h, d = q.shape
+        s_k, h_kv = k.shape[1], k.shape[2]
+        rep = h // h_kv
+        qg = q.float().reshape(b, s_q, h_kv, rep, d)
+        dog = do.float().reshape(b, s_q, h_kv, rep, d)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(b, h_kv, rep, s_q)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * sc
+        cols = torch.arange(s_k, device=dev)
+        live = ((cols[None] >= lo[:, None]) & (cols[None] < hi[:, None]))[:, None, None, None]
+        if causal:
+            live = live & (torch.arange(s_q, device=dev)[:, None] >= cols[None])
+        p = torch.where(live, torch.exp(s - lse.reshape(b, h_kv, rep, s_q)[..., None]),
+                        torch.zeros_like(s))
+        del s
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
+        w = p * (dp.abs() + delta.abs()[..., None]) * sc
+        del dp
+        dq = torch.einsum("bgrqk,bkgd->bqgrd", w, k.float().abs()).reshape(b, s_q, h, d)
+        dk = torch.einsum("bgrqk,bqgrd->bkgd", w, qg.abs())
+        dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog.abs())
+        return dq, dk, dv
+
+    def bwd_case(key, label, b, s, h, h_kv, d, causal, lo=None, hi=None, fwd_row=False):
+        sc = 1.0 / math.sqrt(d)
+        nbytes_in = (2 * b * s * h + 2 * b * s * h_kv) * d * 2
+        sets = []
+        for _ in range(copies_for(nbytes_in)):
+            t = [torch.randn(b, s, hh, d, generator=g, device=dev).bfloat16()
+                 for hh in (h, h_kv, h_kv, h)]
+            out_, lse_ = fa.flash_attention_fwd(t[0], t[1], t[2], causal, sc, lo, hi)
+            sets.append((*t, out_, lse_))
+        bq, bk, bv, bdo, bout, blse = sets[0]
+        lo_t = fa._window(lo, b, 0, dev)
+        hi_t = fa._window(hi, b, s, dev)
+        # the forward whose (out, lse) the backward takes, at this shape
+        f_err, f_ratio, f_lse_err = fwd_held(label, bq, bk, bv, causal, sc, lo_t, hi_t,
+                                             bout, blse)
+        torch.cuda.empty_cache()
+        got = fa.flash_attention_bwd(bq, bk, bv, bout, blse, bdo, causal, sc, lo, hi)
+        ref = fa.flash_attention_bwd_plain(bq, bk, bv, bout, blse, bdo, causal, sc, lo_t, hi_t)
+        absr = bwd_abs(bq, bk, bv, bout, blse, bdo, causal, sc, lo_t, hi_t)
+        errs, ratios = [], []
+        for n, a, r, ra in zip(("dq", "dk", "dv"), got, ref, absr):
+            if not bool(torch.isfinite(a.float()).all()):
+                raise AssertionError(f"flash_attention_bwd {label}: non-finite {n}")
+            e, rt = held(f"flash_attention_bwd {label} {n}", a, r, ra)
+            errs.append(e)
+            ratios.append(rt)
+        if lo is not None and hi is not None:
+            empty = (hi_t <= lo_t).nonzero().flatten().tolist()
+            for row in empty:
+                if any(bool(x[row].float().abs().max() != 0) for x in got):
+                    raise AssertionError(f"flash_attention_bwd {label}: the empty row {row} "
+                                         "has non-zero gradients")
+        del got, ref, absr
+        torch.cuda.empty_cache()
+        win = lo is not None or hi is not None
+        kms = time_ms([lambda t=t: fa.flash_attention_bwd(t[0], t[1], t[2], t[4], t[5], t[3],
+                                                          causal, sc, lo, hi)
+                       for t in sets], iters=10, warmup=2)
+        pms = time_ms([lambda t=t: fa.flash_attention_bwd_plain(t[0], t[1], t[2], t[4], t[5],
+                                                                t[3], causal, sc, lo_t, hi_t)
+                       for t in sets[:1]], iters=2, warmup=1)
+        # yardstick: SDPA forward+backward minus its forward, on bf16 copies
+        # in its (B, H, S, D) layout with the KV heads repeated for GQA
+        rep = h // h_kv
+        mask = None
+        if win:
+            cols = torch.arange(s, device=dev)
+            mask = ((cols[None] >= lo_t[:, None]) & (cols[None] < hi_t[:, None]))[:, None, None]
+        lib = []
+        for t in sets[:2]:
+            lq = t[0].transpose(1, 2).contiguous().requires_grad_()
+            lk = t[1].repeat_interleave(rep, 2).transpose(1, 2).contiguous().requires_grad_()
+            lv = t[2].repeat_interleave(rep, 2).transpose(1, 2).contiguous().requires_grad_()
+            lib.append((lq, lk, lv, t[3].transpose(1, 2).contiguous()))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def lib_fb(x):
+            o = sdpa(x[0], x[1], x[2], attn_mask=mask, is_causal=causal and mask is None,
+                     scale=sc)
+            o.backward(x[3])
+
+        def lib_f(x):
+            with torch.no_grad():
+                sdpa(x[0], x[1], x[2], attn_mask=mask, is_causal=causal and mask is None,
+                     scale=sc)
+
+        lms = (time_ms([lambda x=x: lib_fb(x) for x in lib], iters=10, warmup=2)
+               - time_ms([lambda x=x: lib_f(x) for x in lib], iters=10, warmup=2))
+        del lib
+        n_live = (hi_t - lo_t).clamp_min(0).long()
+        if causal:
+            pairs = b * s * (s + 1) // 2
+        else:
+            pairs = int((n_live * s).sum().item())
+        # q, k, v, out, dO, lse and the windows read once; dq, dk, dv written
+        qb, kb = b * s * h * d * 2, b * s * h_kv * d * 2
+        nbytes = 4 * qb + 4 * kb + b * h * s * 4 + b * 8
+        row_grid = bwd_grid(causal, win, s)
+        if GRID_KEYS[row_grid] != key:
+            raise AssertionError(f"{label}: the JAX package runs its {row_grid} grid, not {key}")
+        row = dict(case=label, b=b, s=s, h=h, h_kv=h_kv, dh=d, causal=causal, windowed=win,
+                   grid=row_grid, live_pairs=pairs, fwd_max_abs_err=f_err,
+                   fwd_err_over_limit=f_ratio, max_abs_err=max(errs),
+                   err_over_limit=max(ratios), ms=kms, plain_ms=pms, library_ms=lms,
+                   **bound_of(nbytes, 10 * pairs * h * d))
+        kernels[key].add(**row)
+        if fwd_row:
+            # B5 at the training shape: the forward of this case
+            fk = time_ms([lambda t=t: fa.flash_attention_fwd(t[0], t[1], t[2], causal, sc)
+                          for t in sets], iters=10, warmup=2)
+            fp = time_ms([lambda t=t: fa.flash_attention_plain(t[0], t[1], t[2], causal, sc,
+                                                               lo_t, hi_t)
+                          for t in sets[:1]], iters=2, warmup=1)
+            fl = time_ms([lambda x=x: lib_f(x) for x in
+                          [(t[0].transpose(1, 2), t[1].transpose(1, 2), t[2].transpose(1, 2))
+                           for t in sets[:2]]], iters=10, warmup=2)
+            # q, k, v read once; out and lse written
+            fbytes = (2 * b * s * h + 2 * b * s * h_kv) * d * 2 + b * h * s * 4
+            kernels["B5"].add(case="training shape " + label, b=b, s=s, h=h, dh=d,
+                              live_pairs=pairs, max_abs_err=f_err, err_over_limit=f_ratio,
+                              lse_err=f_lse_err, ms=fk,
+                              plain_ms=fp, library_ms=fl,
+                              **bound_of(fbytes, 4 * pairs * h * d))
+        del sets
+        torch.cuda.empty_cache()
+
+    bwd_case("B10", "(a) LM training 2x4096, causal", 2, 4096, heads, heads, dh, True,
+             fwd_row=True)
+    bwd_case("B10", "(c) GQA 2x4096, 16 q heads on 4 kv heads, causal", 2, 4096, heads,
+             heads // 4, dh, True)
+    bert_stop = torch.randint(16, 129, (32,), generator=g, device=dev, dtype=torch.int32)
+    bert_stop[5] = 0                                        # an all-pad row
+    bwd_case("B9", "(b) BERT finetune 32x128, 12 heads of 64, key padding", 32, 128, 12, 12,
+             64, False, torch.zeros(32, dtype=torch.int32, device=dev), bert_stop)
+    w_lo = torch.randint(0, 512, (4,), generator=g, device=dev, dtype=torch.int32)
+    w_hi = w_lo + torch.randint(256, 1536, (4,), generator=g, device=dev, dtype=torch.int32)
+    bwd_case("B11", "(d) 4x2048 key-padding windows, non-causal", 4, 2048, heads, heads, dh,
+             False, w_lo, w_hi)
 
     # ---- 4. window serve
     log("phase window serve")
@@ -976,7 +1197,7 @@ def main() -> int:
     adm_chunk_ms, per_chunk = chunk_ms()
     # the summary weighs the B1, B2 and B4 shapes by these calls
     expected = {"B1": sum(b1_prefill.values()), "B2": 1, "B3": 0, "B4": layers, "B5": 0,
-                "B6": 0, "B7": 0, "B8": 0}
+                "B6": 0, "B7": 0, "B8": 0, "B9": 0, "B10": 0, "B11": 0}
     if per_chunk != expected:
         raise AssertionError(f"launches per admission chunk {per_chunk}, expected {expected}")
     share = {"B1": total(by_shape("B1", b1_prefill, CHUNK))["ms"],
@@ -1015,7 +1236,7 @@ def main() -> int:
     paged_run = engine_serve(pservice, "paged engine")
     pcounts = paged_run["counts"]
     for key in kernels:
-        if (pcounts[key] > 0) != (key not in ("B3", "B7", "B8")):
+        if (pcounts[key] > 0) != (key not in ("B3", "B7", "B8", "B9", "B10", "B11")):
             raise AssertionError(f"{kernels[key].name}: {pcounts[key]} launches on the paged "
                                  "engine path (B6 must replace B3 in every decode step)")
     if pcounts["B6"] != layers * paged_run["steps_issued"]:
@@ -1096,7 +1317,237 @@ def main() -> int:
     del svc16, dense16
     torch.cuda.empty_cache()
 
-    # ---- 10. summary
+    # ---- 10. train: configs/multihost_lm.yml's model through `cli dag`
+    log("phase train")
+    import tempfile
+
+    import yaml
+
+    from mlcomp_tpu_torch import cli as port_cli
+    from mlcomp_tpu_torch.db.store import Store
+    from mlcomp_tpu_torch.io.checkpoint import latest_step
+
+    with open(Path(__file__).resolve().parent / "configs" / "multihost_lm.yml") as f:
+        dag_cfg = yaml.safe_load(f)
+    task = dag_cfg["executors"]["pretrain"]
+    targs = task["args"]
+    tmp_train = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    # the single-chip cuts of the shipped config; widths, data, optimizer,
+    # schedule and loss stay as shipped
+    cuts = {
+        "resources": f"{task['resources']} -> {{'chips': 1}} (one card: no hosts, no gang)",
+        "mesh": f"{targs.get('mesh')} -> none (one card's share of dp 8)",
+        "batch_size": f"{targs['data']['train']['batch_size']} -> {TRAIN_BATCH} (16 over dp 8: "
+                      f"one chip's share)",
+        "n": f"{targs['data']['train']['n']} -> {TRAIN_BATCH * (TRAIN_STEPS + 1)} "
+             f"({TRAIN_STEPS + 1} steps of one epoch)",
+        "epochs": f"{targs['epochs']} -> 1",
+        "storage": f"model storage -> {tmp_train}/storage",
+    }
+    task["resources"] = {"chips": 1}
+    targs.pop("mesh", None)
+    targs["data"]["train"]["batch_size"] = TRAIN_BATCH
+    targs["data"]["train"]["n"] = TRAIN_BATCH * (TRAIN_STEPS + 1)
+    targs["epochs"] = 1
+    targs["storage_root"] = f"{tmp_train}/storage"
+    # host spans of every data fetch and step (instrumentation, not a cut)
+    targs["trace"] = {"path": f"{tmp_train}/trace.json"}
+    train_yaml = f"{tmp_train}/multihost_lm_1chip.yml"
+    with open(train_yaml, "w") as f:
+        yaml.safe_dump(dag_cfg, f)
+    mcfg = targs["model"]
+    seq = targs["data"]["train"]["seq_len"]
+    n_steps = TRAIN_STEPS + 1
+    log("train cuts of configs/multihost_lm.yml: " + json.dumps(cuts))
+    train_keys = ("B9", "B10", "B11")
+    # every attention call of the LM's training forward is causal with no
+    # windows at one S: its backward launches are those of this grid
+    train_grid = GRID_KEYS[bwd_grid(True, False, seq)]
+    bwd_counters = ("bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches")
+    for k in kernels.values():
+        k.reset()
+    for c in bwd_counters:
+        setattr(fa, c, 0)
+    # the serving phases' weights are not needed any more: the peak below
+    # is the train run's on top of what the process still holds
+    del params, serve_kw
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = port_cli.main(["dag", train_yaml, "--db", f"{tmp_train}/db.sqlite",
+                        "--workdir", tmp_train, "--device", "cuda"])
+    train_wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    train_counts = {key: k.launches for key, k in kernels.items()}
+    for key in train_keys:
+        train_counts[key] = train_counts[key] if key == train_grid else 0
+    bwd_counts = {c: getattr(fa, c) for c in bwd_counters}
+    store = Store(f"{tmp_train}/db.sqlite")
+    try:
+        rows = store.task_rows(1)
+        losses_ = store.metric_series(rows[0]["id"], "train/loss")
+    finally:
+        store.close()
+    if rc != 0 or rows[0]["status"] != "success":
+        raise AssertionError(f"train task: rc {rc}, {rows[0]['status']}: {rows[0]['error']}")
+    ckpt_dir = f"{tmp_train}/storage/lm/multihost_lm/pretrain/checkpoints"
+    if latest_step(ckpt_dir) != n_steps:
+        raise AssertionError(f"no checkpoint at step {n_steps} under {ckpt_dir}")
+    layers_t = mcfg["layers"]
+    want = {"B5": layers_t * n_steps, **{k: 0 for k in train_keys},
+            train_grid: layers_t * n_steps}
+    if {k: train_counts[k] for k in want} != want or any(
+            v != layers_t * n_steps for v in bwd_counts.values()):
+        raise AssertionError(f"train launches {train_counts} {bwd_counts}: want {want} and "
+                             f"{layers_t} backward launches of each kernel per step")
+    if any(train_counts[k] for k in kernels if k not in want):
+        raise AssertionError(f"a serving kernel ran on the train path: {train_counts}")
+    if not losses_ or not all(math.isfinite(v) for _, v in losses_):
+        # the epoch's loss is the mean of every step's: finite only if each is
+        raise AssertionError(f"non-finite train loss: {losses_}")
+    with open(f"{tmp_train}/trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    steps_ev = sorted((e for e in events if e.get("name") == "step" and e.get("ph") == "X"),
+                      key=lambda e: e["ts"])
+    epoch_ev = [e for e in events if e.get("name") == "train_epoch" and e.get("ph") == "X"]
+    if len(steps_ev) != n_steps or len(epoch_ev) != 1:
+        raise AssertionError(f"trace: {len(steps_ev)} step spans, {len(epoch_ev)} epochs")
+    # from the second step's start to the epoch's end, which follows the
+    # host's read of the summed losses (every step done on the card)
+    epoch_end = epoch_ev[0]["ts"] + epoch_ev[0]["dur"]
+    train_step_ms = (epoch_end - steps_ev[1]["ts"]) / 1e3 / (n_steps - 1)
+    first_train_step_ms = (steps_ev[1]["ts"] - steps_ev[0]["ts"]) / 1e3
+    tokens = TRAIN_BATCH * seq
+    hidden_t, mlp_t, vocab_t = mcfg["hidden"], mcfg.get("mlp_dim") or 4 * mcfg["hidden"], \
+        mcfg["vocab_size"]
+    heads_t = mcfg["heads"]
+    dh_t = hidden_t // heads_t
+    matmul_params = layers_t * (4 * hidden_t * hidden_t + 3 * hidden_t * mlp_t) + hidden_t * vocab_t
+    causal_pairs = TRAIN_BATCH * seq * (seq + 1) // 2
+    step_flops = 6 * matmul_params * tokens + 12 * causal_pairs * heads_t * dh_t * layers_t
+    mfu = step_flops / (train_step_ms / 1e3) / flops
+    b10a, b5t = kernels["B10"].rows[0], kernels["B5"].rows[-1]
+    per_step_kernel_ms = {"B5 flash_attention_fwd": b5t["ms"] * layers_t,
+                          "B10 flash_attention_bwd (delta + dq + dk/dv)": b10a["ms"] * layers_t}
+    train_result = {
+        "config": "configs/multihost_lm.yml", "cuts": cuts, "steps": n_steps,
+        "tokens_per_step": tokens, "ms_per_step": train_step_ms, "first_train_step_ms": first_train_step_ms,
+        "tok_s": tokens / (train_step_ms / 1e3), "mfu": mfu,
+        "mfu_formula": f"(6 x {matmul_params} matmul params x {tokens} tokens + 12 x "
+                       f"{causal_pairs} causal pairs x {heads_t} heads x {dh_t} dh x "
+                       f"{layers_t} layers) / step time / {flops / 1e12} TFLOP/s bf16",
+        "step_flops": step_flops, "max_memory_allocated_gb": peak_gb,
+        "allocated_before_gb": held_gb,
+        "losses": [v for _, v in losses_], "launches": train_counts, "bwd_launches": bwd_counts,
+        "kernel_ms_per_step_from_kernel_phase": per_step_kernel_ms, "dag_wall_s": train_wall,
+        "card": smi,
+    }
+    log(f"train: {n_steps} steps of {TRAIN_BATCH}x{seq} tokens through `cli dag`: "
+        f"{train_step_ms:.1f} ms/step after the first ({first_train_step_ms:.1f} ms), "
+        f"{tokens / (train_step_ms / 1e3):.0f} tok/s, MFU {mfu:.4f}; peak "
+        f"{peak_gb:.2f} GB ({held_gb:.2f} GB held before the run); epoch loss {losses_}; launches {json.dumps(train_counts)} "
+        f"{json.dumps(bwd_counts)}; checkpoint at step {n_steps}")
+    torch.cuda.empty_cache()
+
+    # ---- 11. train parity and where a step's device time goes: one step's
+    # loss and global gradient norm from the same seed and batch, with the
+    # kernels and with their plain versions (full depth and width; the
+    # plain attention's S x S intermediates live one layer at a time).
+    # Tolerances: the two differ by bf16 roundings inside attention (one
+    # bf16 step of some p, ds and outputs), carried through 16 layers:
+    # loss within 1e-3 relative, gradient norm within 2%.  A wrong kernel
+    # moves the loss by far more than that.
+    log("phase train parity")
+    from mlcomp_tpu_torch.train.loop import Trainer
+
+    pcfg = {k: v for k, v in targs.items() if k not in ("trace", "storage_root", "project",
+                                                       "dag_name")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(pcfg, device="cuda")
+    x_par = torch.randint(1, mcfg["vocab_size"], (TRAIN_BATCH, seq), generator=g, device=dev)
+
+    def loss_and_gnorm():
+        for p_ in trainer.state.params.values():
+            p_.grad = None
+        out_ = trainer.model(x_par)
+        loss_ = trainer.loss_fn(out_, {"x": x_par})
+        loss_.backward()
+        gn = torch.sqrt(sum((p_.grad.float() ** 2).sum() for p_ in trainer.state.params.values()))
+        res = (loss_.item(), gn.item())
+        for p_ in trainer.state.params.values():
+            p_.grad = None
+        return res
+
+    l_k, g_k = loss_and_gnorm()
+    saved_fa = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+
+    def plain_fwd(q, k, v, causal=False, scale=None, kv_start=None, kv_stop=None):
+        b_, s_k = q.shape[0], k.shape[1]
+        return fa.flash_attention_plain(q, k, v, causal, scale, fa._window(kv_start, b_, 0, dev),
+                                        fa._window(kv_stop, b_, s_k, dev))
+
+    def plain_bwd(q, k, v, out, lse, do, causal, scale, kv_start=None, kv_stop=None,
+                  g_lse=None):
+        b_, s_k = q.shape[0], k.shape[1]
+        return fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale,
+                                            fa._window(kv_start, b_, 0, dev),
+                                            fa._window(kv_stop, b_, s_k, dev), g_lse)
+
+    fa.flash_attention_fwd, fa.flash_attention_bwd = plain_fwd, plain_bwd
+    try:
+        l_p, g_p = loss_and_gnorm()
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = saved_fa
+    log(f"train parity: loss {l_k:.6f} (kernels) vs {l_p:.6f} (plain); gradient norm "
+        f"{g_k:.6f} vs {g_p:.6f}")
+    if not (math.isfinite(l_k) and math.isfinite(g_k)) or abs(l_k - l_p) > 1e-3 * abs(l_p) \
+            or abs(g_k - g_p) > 0.02 * g_p:
+        raise AssertionError(f"train parity: loss {l_k} vs {l_p}, grad norm {g_k} vs {g_p}")
+
+    # one profiled train step (after a warm one): device time by kernel and
+    # the card's busy share of the step's wall.  torch.profiler is a
+    # measurement here, not part of the path: if it cannot trace the card,
+    # the breakdown is recorded as not measured and the run goes on
+    batch_p = {"x": x_par}
+    trainer._train_step(trainer.state, batch_p)
+    torch.cuda.synchronize()
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer._train_step(trainer.state, batch_p)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name = {}
+        for evt in prof.key_averages():
+            if getattr(evt, "device_type", None) != DeviceType.CUDA:
+                continue
+            us = getattr(evt, "device_time_total", None)
+            us = getattr(evt, "cuda_time_total", 0.0) if us is None else us
+            # a kernel's name without its namespace and argument list
+            name = evt.key.replace("(anonymous namespace)::", "").split("(")[0][:96]
+            by_name[name] = by_name.get(name, 0.0) + us
+        busy_ms = sum(by_name.values()) / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        profile_result = {
+            "wall_ms": prof_wall_ms,
+            "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+            "device_idle_share": (1 - busy_ms / prof_wall_ms) if busy_ms > 0 else "not measured",
+            "our_kernels_ms": {n: us / 1e3 for n, us in by_name.items() if "flash_" in n},
+            "top_ms": {n: us / 1e3 for n, us in top},
+        }
+    except Exception as e:  # noqa: BLE001 - the breakdown is optional, the path is not
+        profile_result = {"not measured": f"{type(e).__name__}: {e}"}
+    log("profiled train step: " + json.dumps(profile_result))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- 12. summary
     # each kernel's work in one decode step at B=8 (B1, B2, B3), in one
     # 8x512 prefill (B5) or in one admission chunk at index 256 (B4); B1's
     # prefill share rides along under "prefill"
@@ -1113,13 +1564,21 @@ def main() -> int:
                "served with speculation, not yet)", [(kernels["B7"].rows[0], 1)]),
         "B8": ("bf16-KV paged decode step: K and V of every layer",
                [(kernels["B8"].rows[0], 2 * layers)]),
+        "B9": ("BERT finetune backward 32x128, 12 heads of 64, key padding, one call (the JAX "
+               "package's rectangular grid; not on the LM train path)",
+               [(kernels["B9"].rows[0], 1)]),
+        "B10": ("train step 2x4096: every layer's backward (delta, dq, dk/dv), causal",
+                [(kernels["B10"].rows[0], layers)]),
+        "B11": ("4x2048 key-padding windows backward, one call (the JAX package's compacted "
+                "grid; not on the LM train path)", [(kernels["B11"].rows[0], 1)]),
     }
     # each kernel's launches over its own path's run
     path_counts = {**{key: counts[key] for key in dense_keys},
-                   "B6": pcounts["B6"], "B7": pcounts["B7"], "B8": counts16["B8"]}
+                   "B6": pcounts["B6"], "B7": pcounts["B7"], "B8": counts16["B8"],
+                   **{key: train_counts[key] for key in train_keys}}
     paths = {**{key: "dense engine serve" for key in dense_keys},
              "B6": "paged engine serve", "B7": "paged engine serve",
-             "B8": "bf16-KV paged engine"}
+             "B8": "bf16-KV paged engine", **{key: "train (cli dag)" for key in train_keys}}
     entries = []
     for key, (label, weighted) in scopes.items():
         k = kernels[key]
@@ -1140,6 +1599,13 @@ def main() -> int:
         if key == "B2":
             entry["admission_chunk"] = {"scope": "admission chunk (1, 256): last_only lm_head",
                                         **total(by_shape("B2", {(hidden, vocab): 1}, 1))}
+        if key == "B5":
+            entry["launches_train_path"] = train_counts["B5"]
+            entry["train_step"] = {"scope": "train step 2x4096: every layer's forward, causal",
+                                   **total([(kernels["B5"].rows[-1], layers)])}
+        if key == "B10":
+            entry["gqa"] = {"scope": "2x4096, 16 q heads on 4 kv heads, causal, one call",
+                            **total([(kernels["B10"].rows[1], 1)])}
         if key == "B4":
             entry["verify_width"] = {"scope": "8 rows x 32 queries, one call",
                                      **total([(kernels["B4"].rows[1], 1)])}
@@ -1184,6 +1650,10 @@ def main() -> int:
         "bf16_kv": {"requests": len(few), "new_tokens": n16, "wall_s": wall16,
                     "launches": counts16, "equal_dense": True},
         "card": smi}}))
+    log(json.dumps({"train": {**train_result, "parity": {
+        "loss_kernels": l_k, "loss_plain": l_p, "grad_norm_kernels": g_k,
+        "grad_norm_plain": g_p, "tolerance": "loss 1e-3 relative, gradient norm 2%"},
+        "profiled_step": profile_result}}))
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,19 @@
-"""Command line of the port: ``python -m mlcomp_tpu_torch.cli serve ...``.
+"""Command line of the port: ``python -m mlcomp_tpu_torch.cli <command>``.
 
-One command, ``serve``, with the JAX CLI's flag names.  ``--ckpt`` names
-a ``.npz`` params tree (``io.weights.save_npz``).  It serves on the GPU.
+Two commands, with the JAX CLI's flag names:
+
+- ``serve``: an LM over HTTP on the GPU; ``--ckpt`` names a ``.npz``
+  params tree (``io.weights.save_npz``).
+- ``dag <yaml>``: run a DAG locally (supervisor and in-process workers,
+  ``scheduler/local.run_dag_local``); its tasks run on ``--device``
+  (default ``cuda``; a train task without a card fails rather than run on
+  the CPU).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -21,6 +28,18 @@ def _steps_per_dispatch(value: str):
     if k < 1:
         raise argparse.ArgumentTypeError(f"steps per dispatch must be >= 1, got {k}")
     return k
+
+
+def _cmd_dag(args: argparse.Namespace) -> int:
+    from mlcomp_tpu_torch.scheduler.local import run_dag_local
+
+    results = run_dag_local(
+        args.config, workers=args.workers, db_path=args.db, workdir=args.workdir,
+        device=args.device,
+    )
+    bad = {n: s.value for n, s in results.items() if s.value != "success"}
+    print(json.dumps({n: s.value for n, s in results.items()}, indent=2))
+    return 1 if bad else 0
 
 
 def _cmd_serve(args: argparse.Namespace) -> int:
@@ -142,6 +161,17 @@ def main(argv=None) -> int:
                     " --batch-sizes entry)")
     sv.add_argument("--request-timeout", type=float, default=600.0)
     sv.set_defaults(fn=_cmd_serve)
+
+    d = sub.add_parser("dag", help="run a DAG locally (in-process scheduler)")
+    d.add_argument("config")
+    d.add_argument("--workers", type=int, default=1)
+    d.add_argument("--db", default=None,
+                   help="persist the run's store here (default: a temp dir)")
+    d.add_argument("--workdir", default=".")
+    d.add_argument("--device", default="cuda",
+                   help="torch device the tasks run on (default cuda; 'cpu' runs the"
+                   " kernels' plain versions on the CPU)")
+    d.set_defaults(fn=_cmd_dag)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -19,9 +19,10 @@ import torch
 
 from mlcomp_tpu_torch.ops.quant import as_tensor, is_quantized_leaf, tree_map_with_path
 
-def from_flax_params(tree) -> Dict[str, torch.Tensor]:
+def from_flax_params(tree, fold: bool = True) -> Dict[str, torch.Tensor]:
     """Flatten a flax-layout params tree (plain or quantized) into the
-    port's state: ``<module path>/kernel`` as a folded (m, n) tensor, or
+    port's state: ``<module path>/kernel`` as a folded (m, n) tensor (in
+    its flax shape with ``fold=False``, the training layout), or
     ``<module path>/q8`` (m, n) int8 and ``<module path>/scale`` (n,) f32
     for an int8 leaf; ``emb/embedding`` or ``emb/q8``+``emb/scale``;
     norm scales as they are."""
@@ -47,7 +48,7 @@ def from_flax_params(tree) -> Dict[str, torch.Tensor]:
             state[f"{key}/q8"] = q.reshape(m, -1)
             state[f"{key}/scale"] = as_tensor(leaf["q8_scale"]).reshape(-1)
         else:
-            state[f"{key}/kernel"] = q.reshape(m, -1)
+            state[f"{key}/kernel"] = q.reshape(m, -1) if fold else q
 
     tree_map_with_path(visit, tree)
     return state

@@ -3,9 +3,14 @@ mlcomp_tpu/models/transformer.py (``transformer_lm``).
 
 Pre-norm RMSNorm blocks, RoPE, GQA, SiLU-gated MLP, an f32 logits head.
 Weights load from the JAX package's parameter tree
-(``io.weights.from_flax_params``): projections hold the folded 2-D
-kernel, and kernel-consumable int8 leaves load as
-:class:`~mlcomp_tpu_torch.ops.quant.Int8Linear`.
+(``io.weights.from_flax_params``): for serving, projections hold the
+folded 2-D kernel as a buffer, and kernel-consumable int8 leaves load as
+:class:`~mlcomp_tpu_torch.ops.quant.Int8Linear`.  For training
+(``load_state(..., train=True)``) every projection kernel, norm scale and
+the embedding is an f32 ``nn.Parameter`` in its flax shape, and compute
+casts to ``dtype`` as flax's ``DenseGeneral(dtype=...)`` does;
+``forward(ids)`` without a cache is the training forward, whose attention
+is differentiable through the flash kernels' backward.
 
 Decoding runs against an explicit :class:`DecodeCache` that the caller
 allocates (``init_cache``) and passes to every forward; the model writes
@@ -91,8 +96,9 @@ class RMSNorm(nn.Module):
 class Dense(nn.Module):
     """``y = x @ kernel`` contracting the trailing ``n_contract`` axes of x
     (flax ``Dense``/``DenseGeneral`` semantics: inputs and kernel cast to
-    ``dtype``).  The kernel is held folded, (m, n); it is set by
-    ``TransformerLM.load_state``."""
+    ``dtype``).  The kernel is set by ``TransformerLM.load_state``: folded
+    (m, n) for serving, or in its flax shape for training (contracted axes
+    first, output axes last), read here as its (m, n) view."""
 
     def __init__(self, feats: Tuple[int, ...], n_contract: int, dtype: torch.dtype):
         super().__init__()
@@ -103,7 +109,8 @@ class Dense(nn.Module):
         if norm is not None:
             x = norm(x)
         lead = x.shape[: x.dim() - self.n_contract]
-        y = x.reshape(-1, self.kernel.shape[0]).to(self.dtype) @ self.kernel.to(self.dtype)
+        kernel = self.kernel.reshape(-1, math.prod(self.feats))
+        y = x.reshape(-1, kernel.shape[0]).to(self.dtype) @ kernel.to(self.dtype)
         return y.reshape(*lead, *self.feats)
 
 
@@ -405,10 +412,19 @@ class TransformerLM(nn.Module):
                  heads: int = 8, kv_heads: Optional[int] = None,
                  mlp_dim: Optional[int] = None, dtype: str = "bfloat16",
                  kv_quant: bool = False, decode_fused: bool = False,
-                 head_dtype: str = "float32", device=None):
+                 head_dtype: str = "float32", remat: bool = False,
+                 fused_loss: bool = False, fused_loss_chunk: Optional[int] = None,
+                 seq_parallel: "bool | str" = False, device=None):
         super().__init__()
         if dtype not in _DTYPES or head_dtype not in _DTYPES:
             raise ValueError(f"dtype/head_dtype must be one of {sorted(_DTYPES)}")
+        for key, on in (("remat", remat), ("fused_loss", fused_loss),
+                        ("fused_loss_chunk", fused_loss_chunk is not None),
+                        ("seq_parallel", seq_parallel)):
+            if on:
+                raise NotImplementedError(
+                    f"transformer_lm {key}: not ported to mlcomp_tpu_torch yet (ROADMAP A11, "
+                    "A12)")
         self.vocab_size, self.hidden, self.heads = vocab_size, hidden, heads
         self.kv_heads = kv_heads or heads
         self.mlp_dim = mlp_dim or hidden * 4
@@ -455,14 +471,27 @@ class TransformerLM(nn.Module):
             out.append((layer.norm, (pre, "RMSNorm_0", "scale")))
         return out
 
-    def load_state(self, state: dict) -> None:
+    def load_state(self, state: dict, train: bool = False) -> None:
         """Load a flat state from ``io.weights.from_flax_params``: keys are
         flax paths joined by ``/``; a projection whose state holds ``q8``
-        becomes an :class:`Int8Linear`, any other a :class:`Dense`."""
+        becomes an :class:`Int8Linear`, any other a :class:`Dense`.  With
+        ``train`` every kernel, norm scale and the embedding become f32
+        ``nn.Parameter``s (load the state with ``fold=False`` so that they
+        keep their flax shapes, which the optimizer's factoring reads)."""
         dev = self.device
+        if train and self.decode_fused:
+            raise ValueError("decode_fused is a serving layout; train the unfused model")
+
+        def value(t):
+            # a training parameter owns its storage: it is updated in place,
+            # and the caller's tree (numpy arrays, say) must not change
+            return nn.Parameter(t.to(dev, torch.float32, copy=True)) if train else t.to(dev)
+
         for owner, name, path in self.linears():
             key = "/".join(path[:-1])
             cur = getattr(owner, name)
+            if train and f"{key}/q8" in state:
+                raise ValueError(f"{key}: int8 weights cannot be trained")
             if f"{key}/q8" in state:
                 setattr(owner, name, Int8Linear(
                     state[f"{key}/q8"].to(dev).contiguous(),
@@ -473,17 +502,32 @@ class TransformerLM(nn.Module):
             else:
                 dense = cur if isinstance(cur, Dense) else Dense(
                     cur.feats, cur.n_contract, cur.out_dtype)
-                dense.kernel = state[f"{key}/kernel"].to(dev)
+                dense.kernel = value(state[f"{key}/kernel"])
                 setattr(owner, name, dense)
         for norm, path in self.norms():
-            norm.scale = state["/".join(path)].to(dev).float()
-        if "emb/q8" in state:
+            norm.scale = value(state["/".join(path)].float())
+        if train:
+            self.emb.weight = value(state["emb/embedding"])
+            self.emb.q8 = self.emb.scale = None
+        elif "emb/q8" in state:
             self.emb.q8 = state["emb/q8"].to(dev)
             self.emb.scale = state["emb/scale"].to(dev).float()
             self.emb.weight = None
         else:
             self.emb.weight = state["emb/embedding"].to(dev)
             self.emb.q8 = self.emb.scale = None
+
+    def flax_params(self) -> "dict[str, torch.Tensor]":
+        """Every weight by its flax path (``DecoderLayer_0/attn/q/kernel``,
+        ``emb/embedding``, ``RMSNorm_0/scale``): the trainer's parameter
+        tree, in the JAX package's names and (after a training load) its
+        shapes."""
+        out = {"emb/embedding": self.emb.weight}
+        for owner, name, path in self.linears():
+            out["/".join(path)] = getattr(owner, name).kernel
+        for norm, path in self.norms():
+            out["/".join(path)] = norm.scale
+        return out
 
     def forward(self, ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 cache: "Optional[DecodeCache | PagedKV]" = None,

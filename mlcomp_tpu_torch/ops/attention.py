@@ -1,9 +1,10 @@
 """Attention dispatch: one call site for the models.
 
 The counterpart of mlcomp_tpu/ops/attention.py.  Without a dense mask a
-CUDA tensor runs the flash-attention kernel (ops/cuda/flash_attention.py)
-and a CPU tensor its plain version; a dense mask always takes
-:func:`reference_attention`, as in the JAX package.
+CUDA tensor runs the flash-attention kernels (ops/cuda/flash_attention.py)
+and a CPU tensor their plain versions, differentiable on both through the
+kernels' backward; a dense mask always takes :func:`reference_attention`,
+as in the JAX package.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""The port stands alone: ``mlcomp_tpu_torch`` imports neither JAX, flax
-nor anything of ``mlcomp_tpu``; chip_smoke.py refuses to run without a
-card."""
+"""The port stands alone: ``mlcomp_tpu_torch`` imports neither JAX, flax,
+optax, orbax nor anything of ``mlcomp_tpu``; chip_smoke.py refuses to run
+without a card."""
 
 import ast
 import os
@@ -30,13 +30,24 @@ def test_the_module_walk_covers_the_kvpool_copies():
         assert f"mlcomp_tpu_torch.kvpool.{name}" in mods
 
 
+def test_the_module_walk_covers_the_training_slice():
+    mods = set(_modules())
+    for name in ("train.loop", "train.optim", "train.losses", "train.metrics", "train.state",
+                 "data.loader", "data.datasets", "io.checkpoint", "io.storage", "io.sync",
+                 "dag.parser", "dag.graph", "dag.schema", "db.store", "scheduler.worker",
+                 "scheduler.child", "scheduler.local", "scheduler.supervisor",
+                 "executors.base", "executors.basic", "executors.train", "utils.trace",
+                 "utils.config", "utils.faults", "utils.preempt", "obs.metrics"):
+        assert f"mlcomp_tpu_torch.{name}" in mods, name
+
+
 def test_import_leaves_jax_out_of_the_process():
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-        " 'mlcomp_tpu'))\n"
+        " 'optax', 'orbax', 'mlcomp_tpu'))\n"
         "print(','.join(bad))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -47,12 +58,14 @@ def test_import_leaves_jax_out_of_the_process():
 
 
 @pytest.mark.parametrize("module", ["mlcomp_tpu_torch.engine", "mlcomp_tpu_torch.dispatch_control",
-                                    "mlcomp_tpu_torch.kvpool"])
+                                    "mlcomp_tpu_torch.kvpool", "mlcomp_tpu_torch.train.loop",
+                                    "mlcomp_tpu_torch.scheduler.local",
+                                    "mlcomp_tpu_torch.executors.train"])
 def test_engine_modules_alone_leave_jax_out(module):
     code = (
         f"import sys, {module}\n"
         "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
-        " 'flax', 'mlcomp_tpu'))))\n"
+        " 'flax', 'optax', 'orbax', 'mlcomp_tpu'))))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -73,7 +86,7 @@ def test_no_jax_or_mlcomp_tpu_imports_in_the_source():
                 continue
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "flax", "mlcomp_tpu", "optax"), (
+                assert root not in ("jax", "jaxlib", "flax", "mlcomp_tpu", "optax", "orbax"), (
                     f"{path.relative_to(REPO)}:{node.lineno} imports {name}")
 
 
@@ -81,7 +94,8 @@ def test_kernel_sources_are_in_the_package():
     from mlcomp_tpu_torch.ops.cuda import build
 
     stems = {p.stem for p in build._sources()}
-    assert {"quant_matmul", "decode_attention", "flash_attention", "page_gather"} <= stems
+    assert {"quant_matmul", "decode_attention", "flash_attention", "flash_attention_bwd",
+            "page_gather"} <= stems
     for src in build._sources():
         head = src.read_text().split("#include")[0]
         # each source says what it replaces, what bounds it, and its design
