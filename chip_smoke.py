@@ -42,9 +42,12 @@ without printing a result:
 12. summary: ``serve``, ``engine``, ``paged_engine``, ``train`` and
    ``kernels`` JSON lines, then, last, the device line.
 
-The kernel phase (3) also holds the flash-attention backward (B9-B11) at
-the training shape, a GQA shape, BERT finetune's shape and a windowed
-shape.
+The kernel phase (3) also holds the flash-attention backward (B9-B11), and
+the forward (B5) whose (out, lse) it takes, at the training shape, a GQA
+shape, BERT finetune's shape, a windowed shape and a ragged GQA shape; at
+each, a second forward and backward on the same inputs must give the same
+bits.  Before it, one line gives each flash kernel's registers, shared
+memory, spills and CTAs per SM.
 """
 
 from __future__ import annotations
@@ -119,6 +122,15 @@ def time_ms(fns, iters=20, warmup=3):
 def copies_for(nbytes: int) -> int:
     return max(2, math.ceil(160e6 / max(nbytes, 1)))
 
+
+# the flash kernels' case labels: rows are picked by these, not by position
+PREFILL_CASE = "prefill 8x512, causal, left padding"
+CASE_A = "(a) LM training 2x4096, causal"
+CASE_B = "(b) BERT finetune 32x128, 12 heads of 64, key padding"
+CASE_C = "(c) GQA 2x4096, 16 q heads on 4 kv heads, causal"
+CASE_D = "(d) 4x2048 key-padding windows, non-causal"
+CASE_E = "(e) ragged 3x1000, 16 q heads on 8 kv heads, causal, left padding"
+TRAIN_B5_CASE = "training shape " + CASE_A
 
 # the TPU grid of each backward row: B9 _flash_bwd's rectangular grid,
 # B10 _flash_bwd_tri, B11 _flash_bwd_bsched
@@ -244,6 +256,10 @@ def main() -> int:
         agg["calls"] = sum(c for _, c in weighted)
         return agg
 
+    # each flash kernel's registers, shared memory, spills and CTAs per SM
+    flash_resources = fa.resources()
+    log("flash kernel resources: " + json.dumps(flash_resources))
+
     # ---- 3. kernels against their plain versions
     log("phase kernels")
     # tolerance, element by element: |kernel - plain| <= 2^-7 (|ref| + ref_abs).
@@ -282,6 +298,10 @@ def main() -> int:
     b2_step = {(hidden, qkv_n): layers, (hidden, 2 * mlp): layers, (hidden, vocab): 1}
     b1_prefill = {(hidden, qkv_n): layers, (hidden, 2 * mlp): layers, (mlp, hidden): layers,
                   (hidden, hidden): layers}
+
+    def row_of(key, case):
+        """The row of kernel ``key`` measured for the case labelled ``case``."""
+        return next(r for r in kernels[key].rows if r.get("case") == case)
 
     def by_shape(key, shapes, n_rows):
         rows = {(r["d"], r["n"]): r for r in kernels[key].rows if r["rows"] == n_rows}
@@ -462,18 +482,14 @@ def main() -> int:
     tq = [[x.transpose(1, 2).contiguous() for x in t] for t in qkv[:2]]
     lms = time_ms([lambda t=t: torch.nn.functional.scaled_dot_product_attention(
         t[0], t[1], t[2], attn_mask=fmask, scale=scale) for t in tq])
-    n_live = (PROMPT - pads).long()
-    live_rows_n = int(n_live.sum().item())
-    pairs = int((n_live * (n_live + 1) // 2).sum().item())
     # q, k and v of the live rows only (a row before kv_start is never
     # read); the whole output (dead rows are written as 0) and lse; pads
-    nbytes = (3 * live_rows_n * heads * dh * 2 + BATCH * PROMPT * heads * dh * 2
-              + BATCH * heads * PROMPT * 4 + BATCH * 4)
-    ops = 4 * pairs * heads * dh
-    kernels["B5"].add(b=BATCH, s=PROMPT, h=heads, dh=dh, live_rows=live_rows_n,
-                      live_pairs=pairs, max_abs_err=err, err_over_limit=ratio,
-                      lse_err=lse_err, ms=kms, plain_ms=pms, library_ms=lms,
-                      **bound_of(nbytes, ops))
+    work = fa.flash_work(BATCH, PROMPT, PROMPT, heads, heads, dh, True, pads)
+    kernels["B5"].add(case=PREFILL_CASE, b=BATCH, s=PROMPT, h=heads, dh=dh,
+                      live_rows=work["live_rows"], live_pairs=work["live_pairs"],
+                      max_abs_err=err, err_over_limit=ratio, lse_err=lse_err, ms=kms,
+                      plain_ms=pms, library_ms=lms,
+                      **bound_of(work["fwd_bytes"], work["fwd_ops"]))
     del qkv, tq
     torch.cuda.empty_cache()
 
@@ -662,6 +678,15 @@ def main() -> int:
                                              bout, blse)
         torch.cuda.empty_cache()
         got = fa.flash_attention_bwd(bq, bk, bv, bout, blse, bdo, causal, sc, lo, hi)
+        # deterministic: a second run on the same inputs gives the same bits
+        again = fa.flash_attention_bwd(bq, bk, bv, bout, blse, bdo, causal, sc, lo, hi)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {label}: two runs on the same inputs "
+                                 "differ")
+        out2, lse2 = fa.flash_attention_fwd(bq, bk, bv, causal, sc, lo, hi)
+        if not (torch.equal(out2, bout) and torch.equal(lse2, blse)):
+            raise AssertionError(f"flash_attention {label}: two runs on the same inputs differ")
+        del again, out2, lse2
         ref = fa.flash_attention_bwd_plain(bq, bk, bv, bout, blse, bdo, causal, sc, lo_t, hi_t)
         absr = bwd_abs(bq, bk, bv, bout, blse, bdo, causal, sc, lo_t, hi_t)
         errs, ratios = [], []
@@ -671,7 +696,7 @@ def main() -> int:
             e, rt = held(f"flash_attention_bwd {label} {n}", a, r, ra)
             errs.append(e)
             ratios.append(rt)
-        if lo is not None and hi is not None:
+        if lo is not None or hi is not None:
             empty = (hi_t <= lo_t).nonzero().flatten().tolist()
             for row in empty:
                 if any(bool(x[row].float().abs().max() != 0) for x in got):
@@ -693,6 +718,8 @@ def main() -> int:
         if win:
             cols = torch.arange(s, device=dev)
             mask = ((cols[None] >= lo_t[:, None]) & (cols[None] < hi_t[:, None]))[:, None, None]
+            if causal:
+                mask = mask & (cols[:, None] >= cols[None, :])
         lib = []
         for t in sets[:2]:
             lq = t[0].transpose(1, 2).contiguous().requires_grad_()
@@ -714,22 +741,19 @@ def main() -> int:
         lms = (time_ms([lambda x=x: lib_fb(x) for x in lib], iters=10, warmup=2)
                - time_ms([lambda x=x: lib_f(x) for x in lib], iters=10, warmup=2))
         del lib
-        n_live = (hi_t - lo_t).clamp_min(0).long()
-        if causal:
-            pairs = b * s * (s + 1) // 2
-        else:
-            pairs = int((n_live * s).sum().item())
-        # q, k, v, out, dO, lse and the windows read once; dq, dk, dv written
-        qb, kb = b * s * h * d * 2, b * s * h_kv * d * 2
-        nbytes = 4 * qb + 4 * kb + b * h * s * 4 + b * 8
+        # q, out and dO of the live rows, k and v of the live keys, lse and
+        # the windows read once; dq, dk, dv written
+        work = fa.flash_work(b, s, s, h, h_kv, d, causal, lo, hi)
+        pairs = work["live_pairs"]
         row_grid = bwd_grid(causal, win, s)
         if GRID_KEYS[row_grid] != key:
             raise AssertionError(f"{label}: the JAX package runs its {row_grid} grid, not {key}")
         row = dict(case=label, b=b, s=s, h=h, h_kv=h_kv, dh=d, causal=causal, windowed=win,
-                   grid=row_grid, live_pairs=pairs, fwd_max_abs_err=f_err,
+                   grid=row_grid, live_pairs=pairs, bit_equal_reruns=True,
+                   fwd_max_abs_err=f_err,
                    fwd_err_over_limit=f_ratio, max_abs_err=max(errs),
                    err_over_limit=max(ratios), ms=kms, plain_ms=pms, library_ms=lms,
-                   **bound_of(nbytes, 10 * pairs * h * d))
+                   **bound_of(work["bwd_bytes"], work["bwd_ops"]))
         kernels[key].add(**row)
         if fwd_row:
             # B5 at the training shape: the forward of this case
@@ -741,28 +765,28 @@ def main() -> int:
             fl = time_ms([lambda x=x: lib_f(x) for x in
                           [(t[0].transpose(1, 2), t[1].transpose(1, 2), t[2].transpose(1, 2))
                            for t in sets[:2]]], iters=10, warmup=2)
-            # q, k, v read once; out and lse written
-            fbytes = (2 * b * s * h + 2 * b * s * h_kv) * d * 2 + b * h * s * 4
             kernels["B5"].add(case="training shape " + label, b=b, s=s, h=h, dh=d,
                               live_pairs=pairs, max_abs_err=f_err, err_over_limit=f_ratio,
                               lse_err=f_lse_err, ms=fk,
                               plain_ms=fp, library_ms=fl,
-                              **bound_of(fbytes, 4 * pairs * h * d))
+                              **bound_of(work["fwd_bytes"], work["fwd_ops"]))
         del sets
         torch.cuda.empty_cache()
 
-    bwd_case("B10", "(a) LM training 2x4096, causal", 2, 4096, heads, heads, dh, True,
-             fwd_row=True)
-    bwd_case("B10", "(c) GQA 2x4096, 16 q heads on 4 kv heads, causal", 2, 4096, heads,
-             heads // 4, dh, True)
+    bwd_case("B10", CASE_A, 2, 4096, heads, heads, dh, True, fwd_row=True)
+    bwd_case("B10", CASE_C, 2, 4096, heads, heads // 4, dh, True)
     bert_stop = torch.randint(16, 129, (32,), generator=g, device=dev, dtype=torch.int32)
     bert_stop[5] = 0                                        # an all-pad row
-    bwd_case("B9", "(b) BERT finetune 32x128, 12 heads of 64, key padding", 32, 128, 12, 12,
-             64, False, torch.zeros(32, dtype=torch.int32, device=dev), bert_stop)
+    bwd_case("B9", CASE_B, 32, 128, 12, 12, 64, False, torch.zeros(32, dtype=torch.int32, device=dev), bert_stop)
     w_lo = torch.randint(0, 512, (4,), generator=g, device=dev, dtype=torch.int32)
     w_hi = w_lo + torch.randint(256, 1536, (4,), generator=g, device=dev, dtype=torch.int32)
-    bwd_case("B11", "(d) 4x2048 key-padding windows, non-causal", 4, 2048, heads, heads, dh,
-             False, w_lo, w_hi)
+    bwd_case("B11", CASE_D, 4, 2048, heads, heads, dh, False, w_lo, w_hi)
+    # a ragged GQA shape that no tile size divides, with left padding and
+    # one row padded to its end (no live key): the JAX package pads S to
+    # 1024 through the window machinery, so its rectangular grid (B9)
+    e_lo = torch.randint(0, 301, (3,), generator=g, device=dev, dtype=torch.int32)
+    e_lo[2] = 1000
+    bwd_case("B9", CASE_E, 3, 1000, heads, heads // 2, dh, True, e_lo)
 
     # ---- 4. window serve
     log("phase window serve")
@@ -1425,10 +1449,10 @@ def main() -> int:
     heads_t = mcfg["heads"]
     dh_t = hidden_t // heads_t
     matmul_params = layers_t * (4 * hidden_t * hidden_t + 3 * hidden_t * mlp_t) + hidden_t * vocab_t
-    causal_pairs = TRAIN_BATCH * seq * (seq + 1) // 2
+    causal_pairs = fa.flash_work(TRAIN_BATCH, seq, seq, heads_t, heads_t, dh_t, True)["live_pairs"]
     step_flops = 6 * matmul_params * tokens + 12 * causal_pairs * heads_t * dh_t * layers_t
     mfu = step_flops / (train_step_ms / 1e3) / flops
-    b10a, b5t = kernels["B10"].rows[0], kernels["B5"].rows[-1]
+    b10a, b5t = row_of("B10", CASE_A), row_of("B5", TRAIN_B5_CASE)
     per_step_kernel_ms = {"B5 flash_attention_fwd": b5t["ms"] * layers_t,
                           "B10 flash_attention_bwd (delta + dq + dk/dv)": b10a["ms"] * layers_t}
     train_result = {
@@ -1508,41 +1532,44 @@ def main() -> int:
         raise AssertionError(f"train parity: loss {l_k} vs {l_p}, grad norm {g_k} vs {g_p}")
 
     # one profiled train step (after a warm one): device time by kernel and
-    # the card's busy share of the step's wall.  torch.profiler is a
-    # measurement here, not part of the path: if it cannot trace the card,
-    # the breakdown is recorded as not measured and the run goes on
+    # the card's busy share of the step's wall.  The flash kernels' share
+    # of the step is what this profile is for, so a profile without device
+    # time for them fails the run
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     batch_p = {"x": x_par}
     trainer._train_step(trainer.state, batch_p)
     torch.cuda.synchronize()
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer._train_step(trainer.state, batch_p)
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name = {}
-        for evt in prof.key_averages():
-            if getattr(evt, "device_type", None) != DeviceType.CUDA:
-                continue
-            us = getattr(evt, "device_time_total", None)
-            us = getattr(evt, "cuda_time_total", 0.0) if us is None else us
-            # a kernel's name without its namespace and argument list
-            name = evt.key.replace("(anonymous namespace)::", "").split("(")[0][:96]
-            by_name[name] = by_name.get(name, 0.0) + us
-        busy_ms = sum(by_name.values()) / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        profile_result = {
-            "wall_ms": prof_wall_ms,
-            "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
-            "device_idle_share": (1 - busy_ms / prof_wall_ms) if busy_ms > 0 else "not measured",
-            "our_kernels_ms": {n: us / 1e3 for n, us in by_name.items() if "flash_" in n},
-            "top_ms": {n: us / 1e3 for n, us in top},
-        }
-    except Exception as e:  # noqa: BLE001 - the breakdown is optional, the path is not
-        profile_result = {"not measured": f"{type(e).__name__}: {e}"}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._train_step(trainer.state, batch_p)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        us = getattr(evt, "cuda_time_total", 0.0) if us is None else us
+        # a kernel's name without its namespace and argument list
+        name = evt.key.replace("(anonymous namespace)::", "").split("(")[0][:96]
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3
+    ours = {n: us / 1e3 for n, us in by_name.items() if "flash_" in n}
+    want_flash = ("flash_fwd_kernel", "flash_bwd_delta_kernel", "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv_kernel")
+    if busy_ms <= 0 or any(not any(w in n and t > 0 for n, t in ours.items())
+                           for w in want_flash):
+        raise AssertionError(f"profiled train step: no device time for the flash kernels "
+                             f"(busy {busy_ms} ms; flash kernels {ours})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    profile_result = {
+        "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / prof_wall_ms,
+        "our_kernels_ms": ours, "our_kernels_share_of_busy": sum(ours.values()) / busy_ms,
+        "top_ms": {n: us / 1e3 for n, us in top},
+    }
     log("profiled train step: " + json.dumps(profile_result))
     del trainer
     torch.cuda.empty_cache()
@@ -1558,7 +1585,7 @@ def main() -> int:
         "B3": ("decode step: every layer", [(kernels["B3"].rows[0], per_step["B3"])]),
         "B4": ("admission chunk (1, 256) at cache index 256: every layer",
                [(kernels["B4"].rows[0], per_chunk["B4"])]),
-        "B5": ("prefill 8x512: every layer", [(kernels["B5"].rows[0], pre_n["B5"])]),
+        "B5": ("prefill 8x512: every layer", [(row_of("B5", PREFILL_CASE), pre_n["B5"])]),
         "B6": ("paged decode step: every layer", [(kernels["B6"].rows[0], layers)]),
         "B7": ("8 rows x 32 queries through the table, one call (the paged verify shape; "
                "served with speculation, not yet)", [(kernels["B7"].rows[0], 1)]),
@@ -1566,11 +1593,11 @@ def main() -> int:
                [(kernels["B8"].rows[0], 2 * layers)]),
         "B9": ("BERT finetune backward 32x128, 12 heads of 64, key padding, one call (the JAX "
                "package's rectangular grid; not on the LM train path)",
-               [(kernels["B9"].rows[0], 1)]),
+               [(row_of("B9", CASE_B), 1)]),
         "B10": ("train step 2x4096: every layer's backward (delta, dq, dk/dv), causal",
-                [(kernels["B10"].rows[0], layers)]),
+                [(row_of("B10", CASE_A), layers)]),
         "B11": ("4x2048 key-padding windows backward, one call (the JAX package's compacted "
-                "grid; not on the LM train path)", [(kernels["B11"].rows[0], 1)]),
+                "grid; not on the LM train path)", [(row_of("B11", CASE_D), 1)]),
     }
     # each kernel's launches over its own path's run
     path_counts = {**{key: counts[key] for key in dense_keys},
@@ -1602,10 +1629,13 @@ def main() -> int:
         if key == "B5":
             entry["launches_train_path"] = train_counts["B5"]
             entry["train_step"] = {"scope": "train step 2x4096: every layer's forward, causal",
-                                   **total([(kernels["B5"].rows[-1], layers)])}
+                                   **total([(row_of("B5", TRAIN_B5_CASE), layers)])}
         if key == "B10":
             entry["gqa"] = {"scope": "2x4096, 16 q heads on 4 kv heads, causal, one call",
-                            **total([(kernels["B10"].rows[1], 1)])}
+                            **total([(row_of("B10", CASE_C), 1)])}
+        if key == "B9":
+            entry["ragged"] = {"scope": "3x1000, 16 q heads on 8 kv heads, causal, left "
+                                        "padding, one call", **total([(row_of("B9", CASE_E), 1)])}
         if key == "B4":
             entry["verify_width"] = {"scope": "8 rows x 32 queries, one call",
                                      **total([(kernels["B4"].rows[1], 1)])}
@@ -1654,7 +1684,7 @@ def main() -> int:
         "loss_kernels": l_k, "loss_plain": l_p, "grad_norm_kernels": g_k,
         "grad_norm_plain": g_p, "tolerance": "loss 1e-3 relative, gradient norm 2%"},
         "profiled_step": profile_result}}))
-    log(json.dumps({"kernels": entries}))
+    log(json.dumps({"kernels": entries, "flash_resources": flash_resources}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

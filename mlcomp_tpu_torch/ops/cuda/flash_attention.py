@@ -109,6 +109,61 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[..., :d], lse
 
 
+def flash_work(b: int, s_q: int, s_k: int, h: int, h_kv: int, d: int, causal: bool,
+               kv_start=None, kv_stop=None) -> dict:
+    """The work behind the flash kernels' bounds for one call on these
+    inputs: ``live_pairs``, the (batch, query, key) pairs of the causal-and-
+    window mask; ``live_rows``, the (batch, query) rows with a live key;
+    ``live_keys``, the (batch, key) positions inside ``[kv_start, kv_stop)``;
+    the forward's operations (4 x pairs x H x dh: q.k and p.v) and bytes
+    (q of live rows, k/v of live keys read once; out and lse written) and
+    the backward's (10 x pairs x H x dh: q.k and dO.v recomputed, dq, dk
+    and dv; q/out/dO of live rows and k/v of live keys read, lse read, dq,
+    dk and dv written).  Windows given add 4 bytes per batch row each."""
+    lo = _window(kv_start, b, 0, "cpu").long().clamp(0, s_k)
+    hi = _window(kv_stop, b, s_k, "cpu").long().clamp(0, s_k)
+    width = (hi - lo).clamp_min(0)
+    if causal:
+        rows = torch.arange(s_q)
+        per_row = (torch.minimum(hi[:, None], rows[None] + 1) - lo[:, None]).clamp_min(0)
+    else:
+        per_row = width[:, None].expand(b, s_q)
+    pairs = int(per_row.sum())
+    live_rows = int((per_row > 0).sum())
+    live_keys = int(width.sum())
+    win_bytes = 4 * b * ((kv_start is not None) + (kv_stop is not None))
+    return dict(
+        live_pairs=pairs, live_rows=live_rows, live_keys=live_keys,
+        fwd_ops=4 * pairs * h * d, bwd_ops=10 * pairs * h * d,
+        fwd_bytes=(live_rows * h + 2 * live_keys * h_kv) * d * 2 + b * s_q * h * d * 2
+        + b * h * s_q * 4 + win_bytes,
+        bwd_bytes=(3 * live_rows * h + 2 * live_keys * h_kv) * d * 2
+        + (b * s_q * h + 2 * b * s_k * h_kv) * d * 2 + b * h * s_q * 4 + win_bytes,
+    )
+
+
+RESOURCE_FIELDS = ("regs", "static_smem", "dynamic_smem", "local_bytes", "threads",
+                   "ctas_per_sm")
+
+
+def resources() -> dict:
+    """Each flash kernel's resources on the card, from ``cudaFuncGetAttributes``
+    and the occupancy calculator: {"fwd" | "bwd_delta" | "bwd_dq" |
+    "bwd_dkv": {field: int for RESOURCE_FIELDS}}.  ``local_bytes`` is the
+    per-thread local memory (register spills)."""
+    out = {}
+    for stem, fn, names in (("flash_attention", "flash_fwd_resources", ("fwd",)),
+                            ("flash_attention_bwd", "flash_bwd_resources",
+                             ("bwd_delta", "bwd_dq", "bwd_dkv"))):
+        buf = (ctypes.c_int * (len(RESOURCE_FIELDS) * len(names)))()
+        query = build.function(stem, fn, [ctypes.c_void_p])
+        build.check(query(ctypes.addressof(buf)), f"{stem} resources")
+        n = len(RESOURCE_FIELDS)
+        for i, name in enumerate(names):
+            out[name] = dict(zip(RESOURCE_FIELDS, buf[n * i:n * (i + 1)]))
+    return out
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale, kv_start, kv_stop,
                               g_lse=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward with the kernels' semantics and
