@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): asynchronous copies into
+// (flash_attention.cu, flash_attention_bwd.cu) and the int8 matmul's tiled
+// path (quant_matmul.cu): asynchronous copies into
 // 128-byte-swizzled shared-memory tiles, wgmma shared-memory descriptors,
 // and the warpgroup matrix products in inline PTX (sm_90a only).
 //

@@ -110,6 +110,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
+RESOURCE_FIELDS = ("regs", "static_smem", "dynamic_smem", "local_bytes", "threads",
+                   "ctas_per_sm")
+
+
+def resources(stem: str, name: str, kernels) -> dict:
+    """The resources of ``kernels`` (names, in the order the C function
+    ``name`` of ``lib<stem>.so`` fills them, six ints each from
+    ``cudaFuncGetAttributes`` and the occupancy calculator): {kernel:
+    {field: int for RESOURCE_FIELDS}}.  ``local_bytes`` is the per-thread
+    local memory (register spills)."""
+    n = len(RESOURCE_FIELDS)
+    buf = (ctypes.c_int * (n * len(kernels)))()
+    query = function(stem, name, [ctypes.c_void_p])
+    check(query(ctypes.addressof(buf)), f"{stem} resources")
+    return {k: dict(zip(RESOURCE_FIELDS, buf[n * i:n * (i + 1)])) for i, k in enumerate(kernels)}
+
+
 def stream_ptr(device) -> int:
     import torch
 

@@ -142,26 +142,12 @@ def flash_work(b: int, s_q: int, s_k: int, h: int, h_kv: int, d: int, causal: bo
     )
 
 
-RESOURCE_FIELDS = ("regs", "static_smem", "dynamic_smem", "local_bytes", "threads",
-                   "ctas_per_sm")
-
-
 def resources() -> dict:
-    """Each flash kernel's resources on the card, from ``cudaFuncGetAttributes``
-    and the occupancy calculator: {"fwd" | "bwd_delta" | "bwd_dq" |
-    "bwd_dkv": {field: int for RESOURCE_FIELDS}}.  ``local_bytes`` is the
-    per-thread local memory (register spills)."""
-    out = {}
-    for stem, fn, names in (("flash_attention", "flash_fwd_resources", ("fwd",)),
-                            ("flash_attention_bwd", "flash_bwd_resources",
-                             ("bwd_delta", "bwd_dq", "bwd_dkv"))):
-        buf = (ctypes.c_int * (len(RESOURCE_FIELDS) * len(names)))()
-        query = build.function(stem, fn, [ctypes.c_void_p])
-        build.check(query(ctypes.addressof(buf)), f"{stem} resources")
-        n = len(RESOURCE_FIELDS)
-        for i, name in enumerate(names):
-            out[name] = dict(zip(RESOURCE_FIELDS, buf[n * i:n * (i + 1)]))
-    return out
+    """Each flash kernel's resources on the card (``build.resources``):
+    {"fwd" | "bwd_delta" | "bwd_dq" | "bwd_dkv": {field: int}}."""
+    return {**build.resources("flash_attention", "flash_fwd_resources", ("fwd",)),
+            **build.resources("flash_attention_bwd", "flash_bwd_resources",
+                              ("bwd_delta", "bwd_dq", "bwd_dkv"))}
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale, kv_start, kv_stop,

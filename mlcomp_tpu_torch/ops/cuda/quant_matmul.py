@@ -10,6 +10,7 @@ same arithmetic in plain PyTorch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -20,6 +21,11 @@ GEMV_ROWS = 64        # rows at or below which the decode kernel runs
 _GEMV_COLS = 128
 _TARGET_CTAS = 264    # two waves of 132 SMs for the decode kernel
 _MAX_X_STAGE = 16384  # floats of staged x per CTA (64 KB)
+# the tiled path (csrc/quant_matmul.cu, qmm_wgmma_kernel): output tile,
+# depth of one step, and the fewest steps a D slice may hold
+GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
+MIN_SLICE_STEPS = 2
+SMS = 132             # the H100's SMs
 
 launches = 0        # kernel launches without the norm prologue (B1)
 norm_launches = 0   # kernel launches with the norm prologue (B2)
@@ -52,13 +58,45 @@ def _splits(rows: int, d: int, n: int) -> int:
     return min((s for s in valid if s >= target), default=valid[-1])
 
 
+@functools.lru_cache(maxsize=None)
+def _gemm_splits(rows: int, d: int, n: int) -> int:
+    tiles = -(-rows // GEMM_BM) * (n // GEMM_BN)
+    steps = d // GEMM_BK
+    fits = [s for s in range(1, steps // MIN_SLICE_STEPS + 1)
+            if steps % s == 0 and tiles * s <= SMS]
+    return max(fits, default=1)
+
+
+def plan(rows: int, d: int, n: int) -> dict:
+    """The tiled path's grid for ``rows`` > GEMV_ROWS: 128 x 128 output
+    tiles, and, where fewer tiles than SMs, D split into ``splits`` slices
+    of whole 64-deep steps: the most slices (of at least MIN_SLICE_STEPS
+    steps) that still give every CTA an SM of its own.  Past one CTA an
+    SM a split only adds partial sums to write and add (measured on the
+    H100: qkv at 256 rows takes longer split in two, 192 CTAs, than whole,
+    96).  Returns {"tiles", "splits", "ctas", "d_chunk", "steps"}:
+    ``steps`` per slice."""
+    tiles = -(-rows // GEMM_BM) * (n // GEMM_BN)
+    splits = _gemm_splits(rows, d, n)
+    return dict(tiles=tiles, splits=splits, ctas=tiles * splits, d_chunk=d // splits,
+                steps=d // GEMM_BK // splits)
+
+
+def resources() -> dict:
+    """The tiled path's kernel ("gemm") and the split pass ("reduce") on the
+    card (``build.resources``): {name: {field: int}}."""
+    return build.resources("quant_matmul", "qmm_resources", ("gemm", "reduce"))
+
+
 def quant_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
                  norm_scale: Optional[torch.Tensor] = None,
                  norm_eps: float = 1e-6) -> torch.Tensor:
     """x (R, D) bf16; q8 (D, N) int8; scale (N,) f32; ``norm_scale`` (D,)
     f32 folds ``rmsnorm(x)`` into the prologue (R <= 64; x then arrives
     un-normed, bf16 or f32).  Returns (R, N) bf16.  D and N must be
-    multiples of 128."""
+    multiples of 128.  Up to GEMV_ROWS rows the decode kernel runs, above
+    them the wgmma tiles on :func:`plan`'s grid; either adds its D slices
+    in a second pass when it splits D."""
     global launches, norm_launches
     r, d = x.shape
     d2, n = q8.shape
@@ -87,12 +125,10 @@ def quant_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("quant_matmul operands must be contiguous and on one device")
     out = torch.empty((r, n), dtype=torch.bfloat16, device=x.device)
-    splits, chunk, partial = 1, d, None
-    if r <= GEMV_ROWS:
-        splits = _splits(r, d, n)
-        chunk = d // splits
-        if splits > 1:
-            partial = torch.empty((splits, r, n), dtype=torch.float32, device=x.device)
+    splits = _splits(r, d, n) if r <= GEMV_ROWS else _gemm_splits(r, d, n)
+    chunk, partial = d // splits, None
+    if splits > 1:
+        partial = torch.empty((splits, r, n), dtype=torch.float32, device=x.device)
     p, i = ctypes.c_void_p, ctypes.c_int
     launch = build.function("quant_matmul", "qmm_launch",
                             [p, p, p, p, ctypes.c_float, p, p, i, i, i, i, i, i, p])

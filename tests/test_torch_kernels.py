@@ -38,6 +38,10 @@ def _bf16_np(a):
 @pytest.mark.parametrize("rows,d,n,norm", [
     (8, 256, 384, False), (3, 128, 256, False), (72, 256, 128, False),
     (8, 256, 384, True), (3, 128, 256, True),
+    # the tiled path's row counts: one padded 128-row tile (65), a ragged
+    # second tile (130), two whole tiles (256); the planner splits D = 256
+    # into two slices at each
+    (65, 256, 384, False), (130, 256, 384, False), (256, 256, 384, False),
 ])
 def test_quant_matmul_matches_pallas(rows, d, n, norm):
     rng = np.random.default_rng(rows * 7 + d + n)
