@@ -19,7 +19,13 @@ without printing a result:
    row counts, must give the same bits on a second run and prints its grid
    (CTAs, D splits); its device time from torch.profiler is taken after
    the train phase (11), where the profiler cannot touch the serving
-   phases' host timings.
+   phases' host timings.  The chunk decode (B4, and B7 through a page
+   table) is held at the admission chunk (1, 256), the 8 x 32 verify
+   width, a GQA chunk at a ragged S, head dim 256, and windows that start
+   mid-block with one row's window empty: each prints the route its
+   ``chunk_plan`` picks, must give the same bits on a rerun, and B7 must
+   equal B4 bit for bit; their device times (torch.profiler) come after
+   the train phase too.
 4. window serve: the 1.2B all-int8 transformer_lm (int8 weights through
    the int8 matmul, int8 KV cache, fused qkv/gate_up, 16 layers, random
    weights from a seed) behind the HTTP server on 127.0.0.1 through the
@@ -31,7 +37,8 @@ without printing a result:
    default continuous batcher (8 slots, prompt bucket 512, 128 new tokens,
    prefill chunk 256, adaptive K, pipeline depth 2, fused admission):
    concurrent greedy and sampled requests of 100-500 prompt tokens, one
-   SSE stream, a repeated greedy prompt; every kernel must launch; TTFT,
+   SSE stream, a repeated greedy prompt; every kernel must launch, and
+   every chunk launch must take the tensor-core body; TTFT,
    decode ms per step at 8 live slots, tok/s and the K rungs used.  Lone
    TTFT and decode ms per step are medians over three requests or runs,
    each with its spread and the host's load average.
@@ -54,8 +61,9 @@ The kernel phase (3) also holds the flash-attention backward (B9-B11), and
 the forward (B5) whose (out, lse) it takes, at the training shape, a GQA
 shape, BERT finetune's shape, a windowed shape and a ragged GQA shape; at
 each, a second forward and backward on the same inputs must give the same
-bits.  Before it, two lines give each flash kernel's and the int8
-matmul's tiled path's registers, shared memory, spills and CTAs per SM.
+bits.  Before it, three lines give each flash kernel's, the int8
+matmul's tiled path's and the two decode bodies' registers, shared
+memory, spills and CTAs per SM.
 """
 
 from __future__ import annotations
@@ -289,6 +297,8 @@ def main() -> int:
     log("flash kernel resources: " + json.dumps(flash_resources))
     qmm_resources = qm.resources()
     log("quant_matmul resources: " + json.dumps(qmm_resources))
+    da_resources = da.resources()
+    log("decode_attention resources: " + json.dumps(da_resources))
 
     # ---- 3. kernels against their plain versions
     log("phase kernels")
@@ -456,59 +466,104 @@ def main() -> int:
     del caches, dq
     torch.cuda.empty_cache()
 
-    # B4: an admission chunk (1, 256) at cache index 256 of a 512-token
-    # prompt with left padding (window [pad, 512)), and a verify-width
-    # chunk S = 32 of 8 rows at per-row cursors
-    def chunk_case(b, s_q, starts, stop0):
-        cache_bytes = 2 * b * heads * l_buf * dh
-        cs = []
-        for _ in range(copies_for(cache_bytes)):
-            k8, ks = da.quantize_kv(torch.randn(b, l_buf, heads, dh, generator=g, device=dev))
-            v8, vs = da.quantize_kv(torch.randn(b, l_buf, heads, dh, generator=g, device=dev))
-            cs.append((k8.transpose(1, 2).contiguous(),
-                       ks.transpose(1, 2)[:, :, None].bfloat16().contiguous(),
-                       v8.transpose(1, 2).contiguous(),
-                       vs.transpose(1, 2)[:, :, None].bfloat16().contiguous()))
-        qc = torch.randn(b, s_q, heads, dh, generator=g, device=dev).bfloat16()
-        k8, ks, v8, vs = cs[0]
-        outc = da.decode_attention_chunk(qc, k8, ks, v8, vs, starts, stop0, scale)
-        err, ratio = held(f"decode_attention_chunk {b}x{s_q}", outc,
-                          da.decode_attention_chunk_plain(qc, k8, ks, v8, vs, starts, stop0, scale),
-                          da.decode_attention_chunk_plain(qc, k8, ks, v8.abs(), vs, starts,
-                                                          stop0, scale))
-        del k8, ks, v8, vs
-        kms = time_ms([lambda c=c: da.decode_attention_chunk(qc, *c, starts, stop0, scale)
-                       for c in cs])
-        pms = time_ms([lambda c=c: da.decode_attention_chunk_plain(qc, *c, starts, stop0, scale)
-                       for c in cs[:2]], iters=1, warmup=1)
-        slots = torch.arange(l_buf, device=dev)
-        qstop = stop0[:, None] + torch.arange(s_q, device=dev)[None]            # (B, S)
-        cmask = ((slots[None, None] >= starts[:, None, None])
-                 & (slots[None, None] < qstop[..., None]))[:, None]          # (B, 1, S, L)
-        dq = [((c[0].float() * c[1].float().transpose(2, 3)).bfloat16(),
-               (c[2].float() * c[3].float().transpose(2, 3)).bfloat16()) for c in cs[:2]]
-        qt = qc.transpose(1, 2)
-        lms = time_ms([lambda kv=kv: torch.nn.functional.scaled_dot_product_attention(
-            qt, kv[0], kv[1], attn_mask=cmask, scale=scale) for kv in dq])
-        # keys each query attends, summed; the K/V window a row reads once
+    def quant_cache(b, h_kv=heads, d=dh, length=None):
+        """A (B, Hkv, L, d) int8 K/V cache of random rows, with its scales."""
+        length = length or l_buf
+        k8, ks = da.quantize_kv(torch.randn(b, length, h_kv, d, generator=g, device=dev))
+        v8, vs = da.quantize_kv(torch.randn(b, length, h_kv, d, generator=g, device=dev))
+        return (k8.transpose(1, 2).contiguous(),
+                ks.transpose(1, 2)[:, :, None].bfloat16().contiguous(),
+                v8.transpose(1, 2).contiguous(),
+                vs.transpose(1, 2)[:, :, None].bfloat16().contiguous())
+
+    def sdpa_operands(cache, h, starts, stop0, s_q):
+        """The library yardstick's operands: bf16 K and V dequantized from
+        the int8 cache (each KV head repeated for its G query heads) and
+        the chunk's boolean mask (B, 1, S, L)."""
+        rep = h // cache[0].shape[1]
+        kv = [(x.float() * sc_.float().transpose(2, 3)).bfloat16().repeat_interleave(rep, 1)
+              for x, sc_ in ((cache[0], cache[1]), (cache[2], cache[3]))]
+        slots = torch.arange(cache[0].shape[2], device=dev)
+        qstop = stop0[:, None] + torch.arange(s_q, device=dev)[None]             # (B, S)
+        mask = ((slots[None, None] >= starts[:, None, None])
+                & (slots[None, None] < qstop[..., None]))[:, None]           # (B, 1, S, L)
+        return kv[0], kv[1], mask
+
+    def chunk_work(b, s_q, h, h_kv, d, starts, stop0, extra_bytes=0):
+        """(live pairs, window slots, bound) of a chunk call: q in and out
+        back, each (row, KV head)'s K/V window and its scales read once,
+        the window bounds; 4 operations per live (query head, slot) pair
+        and head dim."""
+        qstop = stop0[:, None] + torch.arange(s_q, device=dev)[None]
         pairs = int((qstop - starts[:, None]).clamp_min(0).sum().item())
         window = int((stop0 + s_q - 1 - starts).clamp_min(0).sum().item())
-        nbytes = (2 * qc.numel() * 2 + window * heads * (2 * dh + 2 * 2) + b * 8)
-        ops = 4 * pairs * heads * dh
-        kernels["B4"].add(b=b, s=s_q, h=heads, h_kv=heads, l_buf=l_buf, dh=dh,
-                          live_pairs=pairs, window_slots=window, max_abs_err=err,
-                          err_over_limit=ratio, ms=kms, plain_ms=pms, library_ms=lms,
-                          **bound_of(nbytes, ops))
+        nbytes = 2 * b * s_q * h * d * 2 + window * h_kv * (2 * d + 2 * 2) + b * 8 + extra_bytes
+        return pairs, window, bound_of(nbytes, 4 * pairs * h * d)
+
+    # every B4 and B7 case's operands (one copy), for their device times
+    # from torch.profiler after the serving phases
+    chunk_inputs = []
+
+    # B4: an admission chunk (1, 256) at cache index 256 of a 512-token
+    # prompt with left padding (window [pad, 512)), and a verify-width
+    # chunk S = 32 of 8 rows at per-row cursors (the first two rows, which
+    # the summary reads); then a GQA chunk at a ragged S, head dim 256, and
+    # windows that start mid-block with one row's window empty.  Each case
+    # prints its chunk_plan route and must give the same bits on a rerun
+    def chunk_case(b, s_q, starts, stop0, h=heads, h_kv=heads, d=dh, length=None, case=None):
+        length = length or l_buf
+        case = case or f"{b}x{s_q}"
+        sc_ = 1.0 / math.sqrt(d)
+        plan = da.chunk_plan(s_q, h, h_kv, b, d)
+        log(f"  B4 {case}: chunk_plan {json.dumps(plan)}")
+        cs = [quant_cache(b, h_kv, d, length)
+              for _ in range(copies_for(2 * b * h_kv * length * d))]
+        qc = torch.randn(b, s_q, h, d, generator=g, device=dev).bfloat16()
+        k8, ks, v8, vs = cs[0]
+        outc = da.decode_attention_chunk(qc, k8, ks, v8, vs, starts, stop0, sc_)
+        err, ratio = held(f"decode_attention_chunk {case}", outc,
+                          da.decode_attention_chunk_plain(qc, k8, ks, v8, vs, starts, stop0, sc_),
+                          da.decode_attention_chunk_plain(qc, k8, ks, v8.abs(), vs, starts,
+                                                          stop0, sc_))
+        if not torch.equal(da.decode_attention_chunk(qc, k8, ks, v8, vs, starts, stop0, sc_), outc):
+            raise AssertionError(f"decode_attention_chunk {case}: two runs on the same inputs "
+                                 "differ")
+        del k8, ks, v8, vs
+        kms = time_ms([lambda c=c: da.decode_attention_chunk(qc, *c, starts, stop0, sc_)
+                       for c in cs])
+        pms = time_ms([lambda c=c: da.decode_attention_chunk_plain(qc, *c, starts, stop0, sc_)
+                       for c in cs[:2]], iters=1, warmup=1)
+        dq = [sdpa_operands(c, h, starts, stop0, s_q) for c in cs[:2]]
+        qt = qc.transpose(1, 2)
+        lms = time_ms([lambda kv=kv: torch.nn.functional.scaled_dot_product_attention(
+            qt, kv[0], kv[1], attn_mask=kv[2], scale=sc_) for kv in dq])
+        pairs, window, bound = chunk_work(b, s_q, h, h_kv, d, starts, stop0)
+        kernels["B4"].add(case=case, route=plan["body"], ctas=plan["ctas"], b=b, s=s_q, h=h,
+                          h_kv=h_kv, l_buf=length, dh=d, live_pairs=pairs, window_slots=window,
+                          max_abs_err=err, err_over_limit=ratio, bit_equal_rerun=True, ms=kms,
+                          plain_ms=pms, library_ms=lms, **bound)
+        chunk_inputs.append(("B4", kernels["B4"].rows[-1], qc, cs[0], starts, stop0, sc_))
         del cs, dq
         torch.cuda.empty_cache()
 
     adm_pad = 100
-    chunk_case(1, CHUNK, torch.tensor([adm_pad], dtype=torch.int32, device=dev),
-               torch.tensor([CHUNK + 1], dtype=torch.int32, device=dev))
-    chunk_case(BATCH, 32, torch.randint(0, 100, (BATCH,), generator=g, device=dev,
-                                        dtype=torch.int32),
-               torch.randint(PROMPT, PROMPT + NEW - 32, (BATCH,), generator=g, device=dev,
-                             dtype=torch.int32))
+    i32 = dict(dtype=torch.int32, device=dev)
+    chunk_case(1, CHUNK, torch.tensor([adm_pad], **i32), torch.tensor([CHUNK + 1], **i32))
+    chunk_case(BATCH, 32, torch.randint(0, 100, (BATCH,), generator=g, **i32),
+               torch.randint(PROMPT, PROMPT + NEW - 32, (BATCH,), generator=g, **i32))
+    # the extra cases (B7 repeats them through the page table)
+    extra_chunks = [
+        dict(case="GQA 2x37, 16 q heads on 4 kv heads", b=2, s_q=37, h=heads, h_kv=4,
+             starts=torch.tensor([37, 200], **i32), stop0=torch.tensor([300, 500], **i32)),
+        dict(case="dh 256 2x48, 8 q heads on 4 kv heads", b=2, s_q=48, h=8, h_kv=4, d=256,
+             length=512, starts=torch.tensor([3, 130], **i32),
+             stop0=torch.tensor([200, 400], **i32)),
+        dict(case="windows from mid-block 4x40, row 3 empty", b=4, s_q=40,
+             starts=torch.tensor([37, 100, 250, 300], **i32),
+             stop0=torch.tensor([120, 300, 400, 200], **i32)),
+    ]
+    for kw in extra_chunks:
+        chunk_case(**kw)
 
     def fwd_held(label, q, k, v, causal, sc, lo, hi, out, lse):
         """B5's (out, lse) against its plain version on the same inputs:
@@ -587,11 +642,17 @@ def main() -> int:
         dense = tuple(t.contiguous() for t in da.pages_to_dense(*pages, table))
         return tuple(pages), table, dense
 
-    def paged_case(key, twin, qp, cache, starts, stop0):
+    def paged_case(key, twin, qp, cache, starts, stop0, case=None):
         """B6 (q (B, H, dh)) or B7 (q (B, S, H, dh)) against B3 / B4 on the
-        same bytes (bit for bit) and against its plain version (2^-7 rule)."""
+        same bytes (bit for bit), against its plain version (2^-7 rule) and
+        against itself on a rerun (bit for bit)."""
         single = qp.dim() == 3
         b, s_q = qp.shape[0], 1 if single else qp.shape[1]
+        h, d, h_kv = qp.shape[-2], qp.shape[-1], cache[0].shape[1]
+        case = case or f"{b}x{s_q}"
+        sc_ = 1.0 / math.sqrt(d)
+        plan = da.chunk_plan(s_q, h, h_kv, b, d)
+        log(f"  {key} {case}: chunk_plan {json.dumps(plan)}")
         pages, table, dense = paginate(cache, stop0 + s_q - 2)
         if single:
             kern, plain, twin_fn = (da.paged_decode_attention, da.paged_decode_attention_plain,
@@ -600,65 +661,59 @@ def main() -> int:
             kern, plain, twin_fn = (da.paged_decode_attention_chunk,
                                     da.paged_decode_attention_chunk_plain,
                                     da.decode_attention_chunk)
-        out = kern(qp, *pages, table, starts, stop0, scale)
-        if not torch.equal(out, twin_fn(qp, *dense, starts, stop0, scale)):
-            raise AssertionError(f"{kernels[key].name} differs from {twin} on the same bytes")
+        out = kern(qp, *pages, table, starts, stop0, sc_)
+        if not torch.equal(out, twin_fn(qp, *dense, starts, stop0, sc_)):
+            raise AssertionError(f"{kernels[key].name} {case} differs from {twin} on the same "
+                                 "bytes")
+        if not torch.equal(out, kern(qp, *pages, table, starts, stop0, sc_)):
+            raise AssertionError(f"{kernels[key].name} {case}: two runs on the same inputs differ")
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"{kernels[key].name}: non-finite output")
         kq, ks, vq, vs = pages
-        err, ratio = held(f"{kernels[key].name} {b}x{s_q}", out,
-                          plain(qp, kq, ks, vq, vs, table, starts, stop0, scale),
-                          plain(qp, kq, ks, vq.abs(), vs, table, starts, stop0, scale))
+        err, ratio = held(f"{kernels[key].name} {case}", out,
+                          plain(qp, kq, ks, vq, vs, table, starts, stop0, sc_),
+                          plain(qp, kq, ks, vq.abs(), vs, table, starts, stop0, sc_))
         copies = [pages] + [tuple(t.clone() for t in pages)
                             for _ in range(copies_for(sum(t.nbytes for t in pages)) - 1)]
-        kms = time_ms([lambda c=c: kern(qp, *c, table, starts, stop0, scale) for c in copies])
-        pms = time_ms([lambda c=c: plain(qp, *c, table, starts, stop0, scale)
+        kms = time_ms([lambda c=c: kern(qp, *c, table, starts, stop0, sc_) for c in copies])
+        pms = time_ms([lambda c=c: plain(qp, *c, table, starts, stop0, sc_)
                        for c in copies[:2]], iters=1, warmup=1)
         # yardstick: SDPA on a bf16 copy gathered through the table
-        l_b = dense[0].shape[2]
-        slots = torch.arange(l_b, device=dev)
-        qstop = stop0[:, None] + torch.arange(s_q, device=dev)[None]
-        cmask = ((slots[None, None] >= starts[:, None, None])
-                 & (slots[None, None] < qstop[..., None]))[:, None]
-        dq = ((dense[0].float() * dense[1].float().transpose(2, 3)).bfloat16(),
-              (dense[2].float() * dense[3].float().transpose(2, 3)).bfloat16())
+        dk, dv, cmask = sdpa_operands(dense, h, starts, stop0, s_q)
         qt = (qp[:, None] if single else qp).transpose(1, 2)
         lms = time_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, dq[0], dq[1], attn_mask=cmask, scale=scale)])
-        pairs = int((qstop - starts[:, None]).clamp_min(0).sum().item())
-        window = int((stop0 + s_q - 1 - starts).clamp_min(0).sum().item())
-        # q in, out back, the live K/V window and its scales once, the table
-        # and the window bounds
-        nbytes = (2 * qp.numel() * 2 + window * heads * (2 * dh + 2 * 2) + table.numel() * 4
-                  + b * 8)
-        kernels[key].add(b=b, s=s_q, h=heads, h_kv=heads, page_tokens=page_t,
-                         pages_per_row=table.shape[1], live_pairs=pairs, window_slots=window,
-                         max_abs_err=err, err_over_limit=ratio, ms=kms, plain_ms=pms,
-                         library_ms=lms, **bound_of(nbytes, 4 * pairs * heads * dh))
-        del copies, dq
+            qt, dk, dv, attn_mask=cmask, scale=sc_)])
+        # ... and the table
+        pairs, window, bound = chunk_work(b, s_q, h, h_kv, d, starts, stop0,
+                                          extra_bytes=table.numel() * 4)
+        kernels[key].add(case=case, route=plan["body"], ctas=plan["ctas"], b=b, s=s_q, h=h,
+                         h_kv=h_kv, dh=d, page_tokens=page_t, pages_per_row=table.shape[1],
+                         live_pairs=pairs, window_slots=window, max_abs_err=err,
+                         err_over_limit=ratio, bit_equal_rerun=True, ms=kms, plain_ms=pms,
+                         library_ms=lms, **bound)
+        if not single:
+            chunk_inputs.append((key, kernels[key].rows[-1], qp, (pages, table), starts, stop0,
+                                 sc_))
+        del copies, dk, dv
         torch.cuda.empty_cache()
 
-    def quant_cache(b):
-        k8, ks = da.quantize_kv(torch.randn(b, l_buf, heads, dh, generator=g, device=dev))
-        v8, vs = da.quantize_kv(torch.randn(b, l_buf, heads, dh, generator=g, device=dev))
-        return (k8.transpose(1, 2).contiguous(),
-                ks.transpose(1, 2)[:, :, None].bfloat16().contiguous(),
-                v8.transpose(1, 2).contiguous(),
-                vs.transpose(1, 2)[:, :, None].bfloat16().contiguous())
-
     # B6 at the decode step's windows (B3's), B7 at the verify width and
-    # at the admission chunk (B4's two cases)
+    # at the admission chunk (B4's first two cases), then at B4's extra
+    # cases
     paged_case("B6", "decode_attention", q, quant_cache(BATCH), starts, stops)
     paged_case("B7", "decode_attention_chunk",
                torch.randn(BATCH, 32, heads, dh, generator=g, device=dev).bfloat16(),
-               quant_cache(BATCH), torch.randint(0, 100, (BATCH,), generator=g, device=dev,
-                                                 dtype=torch.int32),
-               torch.randint(PROMPT, PROMPT + NEW - 32, (BATCH,), generator=g, device=dev,
-                             dtype=torch.int32))
+               quant_cache(BATCH), torch.randint(0, 100, (BATCH,), generator=g, **i32),
+               torch.randint(PROMPT, PROMPT + NEW - 32, (BATCH,), generator=g, **i32))
     paged_case("B7", "decode_attention_chunk",
                torch.randn(1, CHUNK, heads, dh, generator=g, device=dev).bfloat16(),
-               quant_cache(1), torch.tensor([adm_pad], dtype=torch.int32, device=dev),
-               torch.tensor([CHUNK + 1], dtype=torch.int32, device=dev))
+               quant_cache(1), torch.tensor([adm_pad], **i32), torch.tensor([CHUNK + 1], **i32))
+    for kw in extra_chunks:
+        h, d = kw.get("h", heads), kw.get("d", dh)
+        paged_case("B7", "decode_attention_chunk",
+                   torch.randn(kw["b"], kw["s_q"], h, d, generator=g, device=dev).bfloat16(),
+                   quant_cache(kw["b"], kw.get("h_kv", heads), d, kw.get("length")),
+                   kw["starts"], kw["stop0"], case=kw["case"])
 
     # B8: one layer's K (or V) gather of the bf16-KV paged engine's decode
     # step: 8 rows x 6 pages of (128, 16, 128) bf16 from a 50-page pool
@@ -1133,6 +1188,7 @@ def main() -> int:
         post({"prompt": warm, "max_new_tokens": 2})   # warm the allocator
         for k in kernels.values():
             k.reset()
+        da.chunk_tc_launches = 0
         st0 = eng.stats()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(bodies)) as ex:
@@ -1148,6 +1204,7 @@ def main() -> int:
         ttft_lone = {"median": lone_ms[len(lone_ms) // 2], "spread": [lone_ms[0], lone_ms[-1]],
                      "n": len(lone_ms), "loadavg": list(os.getloadavg())}
         counts = {key: k.launches for key, k in kernels.items()}
+        chunk_tc = da.chunk_tc_launches
         st1 = eng.stats()
         ids = []
         for events, _, _ in streams:
@@ -1230,11 +1287,21 @@ def main() -> int:
         server.join(timeout=10)
         return dict(wall=wall, emitted=emitted, ttft_ms=ttft_ms, per_token_ms=per_token_ms,
                     ttft_lone=ttft_lone, steady_ms=steady_ms, steady=steady, k_used=k_used,
-                    counts=counts,
+                    counts=counts, chunk_tc=chunk_tc,
                     st0=st0, st1=st1, ids=ids, first=first["ids"], steps_issued=steps_issued)
+
+    def chunks_on_tensor_cores(run, label):
+        """Every chunk launch of an engine run (B4 and B7: its admission
+        chunks, S > 1) took the tensor-core body."""
+        c = run["counts"]
+        if c["B4"] <= 0 or run["chunk_tc"] != c["B4"] + c["B7"]:
+            raise AssertionError(f"{label}: {run['chunk_tc']} tensor-core body launches for "
+                                 f"{c['B4']} B4 and {c['B7']} B7 launches")
+        log(f"{label}: all {run['chunk_tc']} chunk launches on the tensor-core body")
 
     dense_run = engine_serve(service, "engine")
     counts = dense_run["counts"]
+    chunks_on_tensor_cores(dense_run, "engine")
     for key in kernels:
         if (counts[key] <= 0) != (key not in dense_keys):
             raise AssertionError(f"{kernels[key].name}: {counts[key]} launches on the dense "
@@ -1290,6 +1357,7 @@ def main() -> int:
             cache.index = CHUNK
             for k in kernels.values():
                 k.reset()
+            da.chunk_tc_launches = 0
             torch.cuda.synchronize()
             t = time.perf_counter()
             model(chunk_ids[:, CHUNK:], positions=chunk_pos[:, CHUNK:], cache=cache,
@@ -1297,9 +1365,13 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t) * 1e3)
             launched = launched or {key: k.launches for key, k in kernels.items()}
-        return min(walls), launched
+            if da.chunk_tc_launches != launched["B4"]:
+                raise AssertionError(f"admission chunk: {da.chunk_tc_launches} tensor-core body "
+                                     f"launches for {launched['B4']} B4 launches")
+        return sorted(walls), launched
 
-    adm_chunk_ms, per_chunk = chunk_ms()
+    chunk_walls, per_chunk = chunk_ms()
+    adm_chunk_ms = chunk_walls[0]
     # the summary weighs the B1, B2 and B4 shapes by these calls
     expected = {"B1": sum(b1_prefill.values()), "B2": 1, "B3": 0, "B4": layers, "B5": 0,
                 "B6": 0, "B7": 0, "B8": 0, "B9": 0, "B10": 0, "B11": 0}
@@ -1309,7 +1381,8 @@ def main() -> int:
              "B2": total(by_shape("B2", {(hidden, vocab): 1}, 1))["ms"],
              "B4": kernels["B4"].rows[0]["ms"] * per_chunk["B4"]}
     b4_chunk_ms = share["B4"]
-    log(f"admission chunk (1, 256) at index 256: {adm_chunk_ms:.3f} ms wall (best of 5); "
+    log(f"admission chunk (1, 256) at index 256: {adm_chunk_ms:.3f} ms wall (best of 5; "
+        f"all five {[round(w, 3) for w in chunk_walls]}); "
         f"of it, in ms: " + ", ".join(f"{key} {v:.3f} ({100 * v / adm_chunk_ms:.1f}%)"
                                       for key, v in share.items()))
     service.close()
@@ -1340,6 +1413,7 @@ def main() -> int:
         f"max_slots {peng.max_slots}")
     paged_run = engine_serve(pservice, "paged engine")
     pcounts = paged_run["counts"]
+    chunks_on_tensor_cores(paged_run, "paged engine")
     for key in kernels:
         if (pcounts[key] > 0) != (key not in ("B3", "B7", "B8", "B9", "B10", "B11")):
             raise AssertionError(f"{kernels[key].name}: {pcounts[key]} launches on the paged "
@@ -1667,6 +1741,32 @@ def main() -> int:
                      library_device_ms=device_ms([lambda w=w: torch.matmul(x, w) for w in wb]))
             del x, ws, wb
     torch.cuda.empty_cache()
+    # B4 and B7 per case: device time of the kernel and of SDPA on the
+    # bf16 copy, operands cycled past the L2 as in the kernel phase
+    for key, r, qc, operands, c_start, c_stop0, sc_ in chunk_inputs:
+        if key == "B4":
+            cs = [operands] + [tuple(x.clone() for x in operands)
+                               for _ in range(copies_for(sum(x.nbytes for x in operands)) - 1)]
+            fns = [lambda c=c: da.decode_attention_chunk(qc, *c, c_start, c_stop0, sc_)
+                   for c in cs]
+            dense_c = operands
+        else:
+            pages, table = operands
+            cs = [pages] + [tuple(x.clone() for x in pages)
+                            for _ in range(copies_for(sum(x.nbytes for x in pages)) - 1)]
+            fns = [lambda c=c: da.paged_decode_attention_chunk(qc, *c, table, c_start, c_stop0,
+                                                               sc_) for c in cs]
+            dense_c = da.pages_to_dense(*pages, table)
+        dk, dv, cmask = sdpa_operands(dense_c, qc.shape[2], c_start, c_stop0, qc.shape[1])
+        qt = qc.transpose(1, 2)
+        r.update(device_ms=device_ms(fns), library_device_ms=device_ms(
+            [lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, dk, dv, attn_mask=cmask, scale=sc_)]))
+        log(f"  {key} {r['case']}: device {r['device_ms']:.4f} ms (SDPA "
+            f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f}")
+        del cs, fns, dk, dv
+    chunk_inputs.clear()
+    torch.cuda.empty_cache()
 
     # ---- 12. summary
     # each kernel's work in one decode step at B=8 (B1, B2, B3), in one
@@ -1745,6 +1845,13 @@ def main() -> int:
         if key == "B7":
             entry["admission_shape"] = {"scope": "(1, 256) chunk at cache index 256, one call",
                                         **total([(kernels["B7"].rows[1], 1)])}
+        if key in ("B4", "B7"):
+            # every case, one call each: its body, grid and device time
+            entry["cases"] = [
+                {f: r[f] for f in ("case", "route", "ctas", "ms", "ms_spread", "device_ms",
+                                   "bound_ms", "bound_by", "library_ms", "library_device_ms",
+                                   "plain_ms", "err_over_limit")}
+                for r in kernels[key].rows]
         entries.append(entry)
     log(json.dumps({"serve": {
         "prefill_ms": pre_s * 1e3, "decode_ms_per_step": step_ms,
@@ -1761,7 +1868,9 @@ def main() -> int:
         "prefill_chunks": st1["prefill_chunks"] - st0["prefill_chunks"],
         "pipeline": st1["pipeline"], "launches": counts,
         "b4_launches_per_admission_chunk": per_chunk["B4"],
-        "admission_chunk_ms": adm_chunk_ms, "b4_ms_per_admission_chunk": b4_chunk_ms,
+        "chunk_tc_launches": dense_run["chunk_tc"],
+        "admission_chunk_ms": adm_chunk_ms, "admission_chunk_ms_walls": chunk_walls,
+        "b4_ms_per_admission_chunk": b4_chunk_ms,
         "admission_chunk_kernel_ms": share, "launches_per_admission_chunk": per_chunk,
         "parity_chunk_max_abs_logit_err": chunk_dlog, "parity_chunk_agreement": chunk_agree,
         "parity_cursor_max_abs_logit_err": cur_dlog, "parity_cursor_agreement": cur_agree,
@@ -1774,7 +1883,8 @@ def main() -> int:
         "decode_ms_per_step_8_slots": prun["steady_ms"],
         "decode_ms_per_step_8_slots_windows": prun["steady"],
         "decode_tok_s_8_slots": BATCH * 1e3 / prun["steady_ms"], "k_rungs_used": prun["k_used"],
-        "launches": pcounts, "peak_pages_used": ppool["peak_pages_used"],
+        "launches": pcounts, "chunk_tc_launches": paged_run["chunk_tc"],
+        "peak_pages_used": ppool["peak_pages_used"],
         "pages_total": ppool["pages_total"], "page_bytes": ppool["page_bytes"],
         "kv_pages_lazy_allocated": pst["kv_pages_lazy_allocated"],
         "kv_decode_page_failures": pst["kv_decode_page_failures"], "elastic": elastic,
@@ -1790,7 +1900,8 @@ def main() -> int:
         "grad_norm_plain": g_p, "tolerance": "loss 1e-3 relative, gradient norm 2%"},
         "profiled_step": profile_result}}))
     log(json.dumps({"kernels": entries, "flash_resources": flash_resources,
-                    "quant_matmul_resources": qmm_resources}))
+                    "quant_matmul_resources": qmm_resources,
+                    "decode_attention_resources": da_resources}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

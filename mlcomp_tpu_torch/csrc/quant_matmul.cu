@@ -207,21 +207,6 @@ constexpr int B_BYTES = BK * BN * 2;          // 16 KB bf16, K-major, swizzled
 // the ring, two bf16 weight tiles, alignment: 105 KB, two CTAs an SM
 constexpr int GEMM_SMEM = STAGES * (X_BYTES + Q_BYTES) + 2 * B_BYTES + 1024;
 
-// two int8 weights (bytes `sel` picks from w) -> their exact bf16 pair.
-// __byte_perm builds the bf16 words 0x43bb (bb the byte): exponent of 128
-// with the byte's low 7 bits as mantissa, 128 + (v & 127), and the byte's
-// sign bit as the exponent's last bit.  Masking that bit off leaves
-// 128 + (v & 127); it picks the offset to take away: 128 (v >= 0) or 256
-// (v < 0, where v & 127 = v + 128).  Every step is exact.
-__device__ __forceinline__ uint32_t bf16x2_of_int8(uint32_t w, uint32_t sel) {
-  const uint32_t s = __byte_perm(w, 0x43434343u, sel);
-  const uint32_t mag = s & 0xFF7FFF7Fu;                  // 128 + (v & 127)
-  const uint32_t off = (s & 0x00800080u) | 0xC300C300u;  // -128 or -256
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(mag), "r"(0x3F803F80u), "r"(off));
-  return d;
-}
-
 // grid (N / 128, ceil(rows / 128), splits); each CTA sums `steps` steps of
 // 64 from D row split * steps * 64.  partial == null: out = bf16(acc *
 // scale); else the f32 sums go to partial[split] for qmm_reduce_kernel.
@@ -278,7 +263,8 @@ qmm_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   // 8 (l % 8) .. + 7 of the four columns from n = 16 w + 4 (l / 8):
   // thirty-two lanes read distinct banks, and each eight store eight
   // distinct chunks of one column.  A byte permute interleaves rows k and
-  // k + 1 (two columns a word), then each pair converts as above.
+  // k + 1 (two columns a word), then each pair converts exactly
+  // (wgmma.cuh's bf16x2_of_int8).
   const int cj = lane & 7;
   const int cn = (wg * 4 + warp) * 16 + (lane >> 3) * 4;
   auto convert_step = [&](int t) {

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu) and the int8 matmul's tiled
-// path (quant_matmul.cu): asynchronous copies into
-// 128-byte-swizzled shared-memory tiles, wgmma shared-memory descriptors,
-// and the warpgroup matrix products in inline PTX (sm_90a only).
+// (flash_attention.cu, flash_attention_bwd.cu), the int8 matmul's tiled
+// path (quant_matmul.cu) and the int8-KV chunk decode (decode_attention.cu):
+// asynchronous copies into 128-byte-swizzled shared-memory tiles, wgmma
+// shared-memory descriptors, the exact int8 -> bf16 conversion, and the
+// warpgroup matrix products in inline PTX (sm_90a only).
 //
 // Tile layout.  A (rows x 128) bf16 tile of a head-dim-128 tensor lives in
 // shared memory as two column blocks of (rows x 64): block c holds head
@@ -73,6 +74,12 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrive at barrier `id` without waiting (the producer side of a
+// producer/consumer hand-off; `threads` counts both sides)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -103,6 +110,7 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lead_bytes
 }
 
 // K-major operand: 16-column step k (0..7) of a (rows x 128) swizzled tile
+// (0..15 of a (rows x 256) one: four column blocks)
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows, int k) {
   return make_desc(tile + (k >> 2) * rows * 128 + (k & 3) * 32, 16, 1024);
 }
@@ -141,6 +149,23 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two int8 values (bytes `sel` picks from w) -> their exact bf16 pair:
+// 0x4140 gives bytes 0 and 1 of w, 0x4342 bytes 2 and 3 (the lower byte in
+// the lower half).
+// __byte_perm builds the bf16 words 0x43bb (bb the byte): exponent of 128
+// with the byte's low 7 bits as mantissa, 128 + (v & 127), and the byte's
+// sign bit as the exponent's last bit.  Masking that bit off leaves
+// 128 + (v & 127); it picks the offset to take away: 128 (v >= 0) or 256
+// (v < 0, where v & 127 = v + 128).  Every step is exact.
+__device__ __forceinline__ uint32_t bf16x2_of_int8(uint32_t w, uint32_t sel) {
+  const uint32_t s = __byte_perm(w, 0x43434343u, sel);
+  const uint32_t mag = s & 0xFF7FFF7Fu;                  // 128 + (v & 127)
+  const uint32_t off = (s & 0x00800080u) | 0xC300C300u;  // -128 or -256
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(mag), "r"(0x3F803F80u), "r"(off));
+  return d;
 }
 
 // D (64 x 64, f32, registers) (+)= A (64 x 16, shared, K-major) . B (64 x 16,

@@ -8,9 +8,12 @@ The counterpart of mlcomp_tpu/ops/pallas/decode_attention.py: the cache is
 (B, Hkv, L, dh) int8 values with (B, Hkv, 1, L) bf16 per-(slot, head)
 scales, L from :func:`pick_buffer_len` and dh zero-padded to 128, exactly
 the JAX package's shapes; its pages are (P, Hkv, T, dh) and (P, Hkv, 1, T)
-tiles of it (``kvpool/layout.py``).  All four run one kernel body, so a
-paged call equals the dense call on the same bytes bit for bit.  A CUDA
-tensor launches the kernel; a CPU tensor takes the plain version beside it.
+tiles of it (``kvpool/layout.py``).  Two kernel bodies serve the four,
+picked by :func:`chunk_plan`: a single query (S = 1) runs on the CUDA
+cores, a chunk (S > 1) on the tensor cores; each reads the dense cache or
+the pages, so a paged call equals the dense call on the same bytes bit for
+bit.  A CUDA tensor launches a kernel; a CPU tensor takes the plain
+version beside it.
 """
 
 from __future__ import annotations
@@ -32,10 +35,40 @@ KV_BLOCK_BUDGET = 2 * 1024 * 1024 + 128 * 1024
 # covers any S in one launch, with the same per-query result.
 CHUNK_MAX_SQ = 32
 
+# query rows per CTA of the two bodies (csrc/decode_attention.cu): the
+# CUDA-core one takes up to 8, the tensor-core one wgmma's 64
+SIMT_ROWS = 8
+TC_ROWS = 64
+
 launches = 0
 chunk_launches = 0
 paged_launches = 0
 paged_chunk_launches = 0
+# launches of the tensor-core body, by any of the four wrappers
+chunk_tc_launches = 0
+
+
+def chunk_plan(s_q: int, h: int, h_kv: int, b: int, dh: int) -> dict:
+    """The body and grid a launch of ``s_q`` queries per row takes, for
+    every wrapper: rows r = j * G + g (G = h / h_kv) of one (batch row, KV
+    head) share a CTA.  One query per row (B3, B6, and a one-query chunk)
+    keeps the CUDA-core body (``"simt"``, 8-row tiles), so a one-query
+    chunk equals the single-query decode bit for bit; a chunk (S > 1: B4,
+    B7) takes the tensor-core body (``"wgmma"``, 64-row tiles).  Returns
+    {"body", "rows_per_cta", "tiles", "ctas"}."""
+    if h % h_kv or dh not in (128, 256) or s_q < 1:
+        raise ValueError(f"no kernel for s_q {s_q}, h {h}, h_kv {h_kv}, dh {dh}")
+    body, per = ("simt", SIMT_ROWS) if s_q == 1 else ("wgmma", TC_ROWS)
+    tiles = -(-s_q * (h // h_kv) // per)
+    return {"body": body, "rows_per_cta": per, "tiles": tiles, "ctas": tiles * h_kv * b}
+
+
+def resources() -> dict:
+    """Registers, shared memory, spills and CTAs per SM of the CUDA-core
+    body (at dh 128) and of the tensor-core body at dh 128 and 256, on the
+    card (``build.resources``): {name: {field: int}}."""
+    return build.resources("decode_attention", "decode_attention_resources",
+                           ("simt", "wgmma_dh128", "wgmma_dh256"))
 
 
 def auto_block_kv(l_buf: int, h_kv: int, dh: int) -> int:
@@ -198,10 +231,11 @@ def _check_launch(what: str, q, k8, ks, v8, vs, dh: int) -> None:
 
 
 def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale, table=None):
-    """The chunk kernel's checks and launch on a CUDA ``q`` (B, S, H, dh),
-    or its plain version on a CPU one; every wrapper goes through here.
-    With ``table`` the cache operands are pages and the cache length is
-    MP * T."""
+    """The checks and the launch of :func:`chunk_plan`'s body on a CUDA
+    ``q`` (B, S, H, dh), or the plain version on a CPU one; every wrapper
+    goes through here.  With ``table`` the cache operands are pages and the
+    cache length is MP * T."""
+    global chunk_tc_launches
     b, s_q, h, dh = q.shape
     if table is None:
         _check_cache(q, k8, ks, v8, vs, h, dh)
@@ -218,13 +252,14 @@ def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale, table=None)
                                                       scale)
         return decode_attention_chunk_plain(q, k8, ks, v8, vs, start, stop0, scale)
     _check_launch(what, q, k8, ks, v8, vs, dh)
+    tc = chunk_plan(s_q, h, h_kv, b, dh)["body"] == "wgmma"
     out = torch.empty_like(q)
     p, i = ctypes.c_void_p, ctypes.c_int
     if table is None:
         launch = build.function("decode_attention", "decode_attention_chunk_launch",
-                                [p] * 8 + [i] * 6 + [ctypes.c_float, p])
+                                [i] + [p] * 8 + [i] * 6 + [ctypes.c_float, p])
         err = launch(
-            *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, out)),
+            int(tc), *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, out)),
             b, s_q, h, h_kv, l_buf, dh, scale, build.stream_ptr(q.device),
         )
     else:
@@ -232,13 +267,15 @@ def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale, table=None)
             raise TypeError(f"{what}: the table must be int32 on {q.device}")
         table = table.contiguous()
         launch = build.function("decode_attention", "paged_decode_attention_chunk_launch",
-                                [p] * 9 + [i] * 7 + [ctypes.c_float, p])
+                                [i] + [p] * 9 + [i] * 7 + [ctypes.c_float, p])
         err = launch(
-            *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, table, out)),
+            int(tc), *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, table, out)),
             b, s_q, h, h_kv, table.shape[1], k8.shape[2], dh, scale,
             build.stream_ptr(q.device),
         )
     build.check(err, what)
+    if tc:
+        chunk_tc_launches += 1
     return out
 
 

@@ -115,19 +115,39 @@ def test_decode_attention_matches_pallas(h, h_kv, q_dtype):
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("s_q", [1, 5, da.CHUNK_MAX_SQ + 8])
-def test_decode_attention_chunk_matches_pallas(s_q):
-    """B4 against JAX ``decode_attention_chunk`` in interpret mode: GQA rep
-    2, per-row windows, query j stopping at ``kv_stop0 + j``.  S = 40 takes
-    the TPU's query-tiled route (two sweeps of CHUNK_MAX_SQ); the port
-    covers it in one call.  Row 2's windows are all empty and give 0."""
+# (S, H, Hkv, windows): the windows of rows 0-2 are the whole buffer, a
+# short one from slot 17 and an empty one; "mid" starts every window inside
+# a 64-slot block of the card's tensor-core body and keeps row 2's empty
+CHUNK_CASES = [
+    pytest.param(1, 4, 2, "base", id="1"),
+    pytest.param(5, 4, 2, "base", id="5"),
+    pytest.param(da.CHUNK_MAX_SQ + 8, 4, 2, "base", id="40"),
+    # the card check's GQA case: G = 4 at a ragged S
+    pytest.param(37, 8, 2, "mid", id="gqa4-37-midblock"),
+]
+
+
+def _chunk_windows(windows, s_q, l_buf):
+    if windows == "mid":
+        return (np.array([37, 70, 200], np.int32),
+                np.array([l_buf - s_q + 1, 150, 200 - s_q + 1], np.int32))
+    return (np.array([0, 17, 100], np.int32),
+            np.array([l_buf - s_q + 1, 30, 100 - s_q + 1], np.int32))
+
+
+@pytest.mark.parametrize("s_q,h,h_kv,windows", CHUNK_CASES)
+def test_decode_attention_chunk_matches_pallas(s_q, h, h_kv, windows):
+    """B4 against JAX ``decode_attention_chunk`` in interpret mode: GQA (rep
+    2, or 4 in the card check's case), per-row windows, query j stopping at
+    ``kv_stop0 + j``.  S = 37 and 40 take the TPU's query-tiled route (two
+    sweeps of CHUNK_MAX_SQ); the port covers them in one call.  Row 2's
+    windows are all empty and give 0."""
     rng = np.random.default_rng(100 + s_q)
-    b, h, h_kv, l_buf, dh = 3, 4, 2, 256, 128
+    b, l_buf, dh = 3, 256, 128
     k8, ks = _quant_cache(rng, b, h_kv, l_buf, dh)
     v8, vs = _quant_cache(rng, b, h_kv, l_buf, dh)
     q = _bf16_np(rng.normal(size=(b, s_q, h, dh)).astype(np.float32))
-    start = np.array([0, 17, 100], np.int32)
-    stop0 = np.array([l_buf - s_q + 1, 30, 100 - s_q + 1], np.int32)
+    start, stop0 = _chunk_windows(windows, s_q, l_buf)
     ref = jda.decode_attention_chunk(
         jnp.asarray(q, jnp.bfloat16), jnp.asarray(k8), jnp.asarray(ks, jnp.bfloat16),
         jnp.asarray(v8), jnp.asarray(vs, jnp.bfloat16),
@@ -261,17 +281,16 @@ def _paged(rng, b, h_kv, l_buf, dh, t, last_slot):
 
 
 @pytest.mark.parametrize("t", [64, 128])
-@pytest.mark.parametrize("s_q", [1, 5, da.CHUNK_MAX_SQ + 8])
-def test_paged_decode_attention_matches_pallas(t, s_q):
+@pytest.mark.parametrize("s_q,h,h_kv,windows", CHUNK_CASES)
+def test_paged_decode_attention_matches_pallas(t, s_q, h, h_kv, windows):
     """B6 (S = 1) and B7 against the JAX paged kernels in interpret mode:
-    L = 256, GQA rep 2, shuffled physical pages, NULL pages past each
-    row's window, per-row windows (row 2's are empty).  The port's paged
-    plain version equals its dense plain version on the same bytes
-    exactly."""
+    L = 256, GQA (rep 2, or 4 in the card check's case), shuffled physical
+    pages, NULL pages past each row's window, per-row windows (row 2's are
+    empty).  The port's paged plain version equals its dense plain version
+    on the same bytes exactly."""
     rng = np.random.default_rng(200 + t + s_q)
-    b, h, h_kv, l_buf, dh = 3, 4, 2, 256, 128
-    start = np.array([0, 17, 100], np.int32)
-    stop0 = np.array([l_buf - s_q + 1, 30, 100 - s_q + 1], np.int32)
+    b, l_buf, dh = 3, 256, 128
+    start, stop0 = _chunk_windows(windows, s_q, l_buf)
     pages, table, dense = _paged(rng, b, h_kv, l_buf, dh, t, stop0 + s_q - 2)
     q = _bf16_np(rng.normal(size=(b, s_q, h, dh)).astype(np.float32))
     jp = (jnp.asarray(pages[0]), jnp.asarray(pages[1], jnp.bfloat16),

@@ -104,7 +104,7 @@ def test_split_slices_summed_in_order_match_the_plain_version(rows, d, n):
 
 
 def _bf16x2_of_int8(word, sel):
-    """numpy replay of quant_matmul.cu's bf16x2_of_int8 on uint32 words."""
+    """numpy replay of wgmma.cuh's bf16x2_of_int8 on uint32 words."""
     def byte(i):
         return (word >> (8 * i)) & 0xFF if i < 4 else np.uint32(0x43)
     s = np.zeros_like(word)
