@@ -15,11 +15,17 @@ without printing a result:
    PyTorch library call's (a yardstick only; the port never calls it) and
    the card's bound for the same work.  Every time is a median over five
    windows of CUDA events, with its fastest and slowest window beside it.
-   The int8 matmul's tiled path (more than 64 rows) is also held at ragged
-   row counts, must give the same bits on a second run and prints its grid
-   (CTAs, D splits); its device time from torch.profiler is taken after
-   the train phase (11), where the profiler cannot touch the serving
-   phases' host timings.  The chunk decode (B4, and B7 through a page
+   The int8 matmul (B1, and B2 with its RMSNorm prologue) must give the
+   same bits on a second run at every shape and prints its grid: the
+   decode path (64 rows or fewer, one launch of the tensor-core kernel)
+   its ``gemv_plan`` cluster and CTAs, at the decode step's shapes at 8
+   rows, the admission chunk's 1-row lm_head, 32 and 64 rows at every
+   decode shape, ragged 3, 13 and 57 rows and an f32 x for the norm; the
+   tiled path (more than 64 rows) its CTAs and D splits, also at ragged
+   row counts.  Their device times from torch.profiler, and one profiled
+   decode step of the engine's model (which fails if it holds a
+   qmm_reduce_kernel), are taken after the train phase (11), where the
+   profiler cannot touch the serving phases' host timings.  The chunk decode (B4, and B7 through a page
    table) is held at the admission chunk (1, 256), the 8 x 32 verify
    width, a GQA chunk at a ragged S, head dim 256, and windows that start
    mid-block with one row's window empty: each prints the route its
@@ -53,7 +59,9 @@ without printing a result:
    kernels must launch 16 times per step; ms per step, tok/s, MFU and
    peak memory.
 11. train parity: one step's loss and gradient norm with the kernels and
-   with their plain versions; one profiled step (device time by kernel).
+   with their plain versions; one profiled step (device time by kernel);
+   then the kernels' torch.profiler device times (B1, B2, B4, B7) and one
+   profiled decode step.
 12. summary: ``serve``, ``engine``, ``paged_engine``, ``train`` and
    ``kernels`` JSON lines, then, last, the device line.
 
@@ -62,8 +70,8 @@ the forward (B5) whose (out, lse) it takes, at the training shape, a GQA
 shape, BERT finetune's shape, a windowed shape and a ragged GQA shape; at
 each, a second forward and backward on the same inputs must give the same
 bits.  Before it, three lines give each flash kernel's, the int8
-matmul's tiled path's and the two decode bodies' registers, shared
-memory, spills and CTAs per SM.
+matmul's (tiled path, split pass, decode kernel) and the two decode
+bodies' registers, shared memory, spills and CTAs per SM.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ import json
 import math
 import os
 import queue
+import re
 import subprocess
 import sys
 import threading
@@ -344,7 +353,10 @@ def main() -> int:
         return next(r for r in kernels[key].rows if r.get("case") == case)
 
     def by_shape(key, shapes, n_rows):
-        rows = {(r["d"], r["n"]): r for r in kernels[key].rows if r["rows"] == n_rows}
+        """The timed bf16-x rows of kernel ``key`` at ``n_rows`` rows, each
+        with its calls in ``shapes``."""
+        rows = {(r["d"], r["n"]): r for r in kernels[key].rows
+                if r["rows"] == n_rows and "ms" in r and r.get("x") != "f32"}
         return [(rows[s], c) for s, c in shapes.items()]
 
     def device_ms(fns, iters=20):
@@ -361,28 +373,39 @@ def main() -> int:
         return sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
                    for e in prof.key_averages()) / iters / 1e3
 
-    def qmm_operands(rows, d, n, copies):
-        """x, ``copies`` int8 weights (cycled past the L2) and a scale."""
-        q8 = torch.randint(-127, 128, (d, n), generator=g, device=dev, dtype=torch.int8)
-        sc = torch.rand(n, generator=g, device=dev) / (127 * math.sqrt(d))
-        x = torch.randn(rows, d, generator=g, device=dev).bfloat16()
+    def qmm_operands(rows, d, n, copies, x_f32=False, gen=g):
+        """x (bf16, or f32 for the norm prologue of an f32 model), ``copies``
+        int8 weights (cycled past the L2) and a scale."""
+        q8 = torch.randint(-127, 128, (d, n), generator=gen, device=dev, dtype=torch.int8)
+        sc = torch.rand(n, generator=gen, device=dev) / (127 * math.sqrt(d))
+        x = torch.randn(rows, d, generator=gen, device=dev)
+        x = x if x_f32 else x.bfloat16()
         return x, [q8] + [q8.clone() for _ in range(copies - 1)], sc
 
-    def qmm_case(rows, d, n, norm, timed=True):
-        x, ws, sc = qmm_operands(rows, d, n, copies_for(d * n) if timed else 1)
+    def qmm_case(rows, d, n, norm, timed=True, x_f32=False, gen=g):
+        x, ws, sc = qmm_operands(rows, d, n, copies_for(d * n) if timed else 1, x_f32, gen)
         q8 = ws[0]
-        gn = torch.rand(d, generator=g, device=dev) + 0.5 if norm else None
-        name = f"quant_matmul{'_norm' if norm else ''} {rows}x{d}x{n}"
+        gn = torch.rand(d, generator=gen, device=dev) + 0.5 if norm else None
+        name = f"quant_matmul{'_norm' if norm else ''} {rows}x{d}x{n}{' f32 x' if x_f32 else ''}"
         out = qm.quant_matmul(x, q8, sc, norm_scale=gn)
         err, ratio = held(name, out, qm.quant_matmul_plain(x, q8, sc, norm_scale=gn),
                           qm.quant_matmul_plain(x.abs(), q8.abs(), sc, norm_scale=gn))
         row = dict(rows=rows, d=d, n=n, max_abs_err=err, err_over_limit=ratio)
+        if x_f32:
+            row["x"] = "f32"
+        # the same bits from a second run, and the grid: the tiled path's
+        # plan above 64 rows, the decode kernel's gemv_plan at or below
+        if not torch.equal(qm.quant_matmul(x, q8, sc, norm_scale=gn), out):
+            raise AssertionError(f"{name}: two runs on the same inputs differ")
+        row["bit_equal_rerun"] = True
         if rows > qm.GEMV_ROWS:
-            # the tiled path: its grid, and the same bits from a second run
-            if not torch.equal(qm.quant_matmul(x, q8, sc), out):
-                raise AssertionError(f"{name}: two runs on the same inputs differ")
             pl = qm.plan(rows, d, n)
-            row.update(ctas=pl["ctas"], splits=pl["splits"], bit_equal_rerun=True)
+            row.update(ctas=pl["ctas"], splits=pl["splits"])
+        else:
+            pl = qm.gemv_plan(rows, d, n)
+            row.update(ctas=pl["ctas"], cluster=pl["cluster"], rows_padded=pl["rows_padded"])
+            log(f"  {name}: gemv_plan cluster {pl['cluster']}, {pl['ctas']} CTAs, rows padded "
+                f"to {pl['rows_padded']}; err/limit {ratio:.4f}, bit-equal rerun")
         if not timed:
             return row
         kms = time_ms([lambda w=w: qm.quant_matmul(x, w, sc, norm_scale=gn) for w in ws])
@@ -909,6 +932,22 @@ def main() -> int:
     e_lo[2] = 1000
     bwd_case("B9", CASE_E, 3, 1000, heads, heads // 2, dh, True, e_lo)
 
+    # B1/B2's decode path at the paged engine's 32 slots and at its most
+    # rows (64), both kernels at every decode shape; ragged row counts
+    # inside a row tile (3, 13, 57); the norm prologue on an f32 model's x.
+    # Last in the phase, with a generator of their own, so that every other
+    # case runs on the inputs and in the order it ran before they were added
+    gq = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for rows in (32, qm.GEMV_ROWS):
+        for d, n in d_shapes:
+            kernels["B1"].add(**qmm_case(rows, d, n, False, timed=rows == 32, gen=gq))
+            kernels["B2"].add(**qmm_case(rows, d, n, True, timed=rows == 32, gen=gq))
+    for rows, (d, n) in ((3, (hidden, qkv_n)), (13, (mlp, hidden)), (57, (hidden, 2 * mlp))):
+        kernels["B1"].add(**qmm_case(rows, d, n, False, timed=False, gen=gq))
+        kernels["B2"].add(**qmm_case(rows, hidden, n, True, timed=False, gen=gq))
+    kernels["B2"].add(**qmm_case(BATCH, hidden, qkv_n, True, timed=False, x_f32=True, gen=gq))
+    torch.cuda.empty_cache()
+
     # ---- 4. window serve
     log("phase window serve")
     from mlcomp_tpu_torch.io.weights import init_params
@@ -1387,6 +1426,10 @@ def main() -> int:
                                       for key, v in share.items()))
     service.close()
 
+    # the model and the decode step's inputs, kept for one decode step's
+    # torch.profiler trace after the train phase (a trace taken now would
+    # slow the later host-bound phases)
+    step_model, step_l_buf = model, eng.l_buf
     del service, model, eng
     torch.cuda.empty_cache()
 
@@ -1729,17 +1772,73 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
-    # B1's tiled path at the prefill's and the admission chunk's rows:
-    # device time of the kernel and of bf16 torch.matmul from torch.profiler.
+    # B1 and B2 at every timed shape (the decode path's rows, the tiled
+    # path's prefill and admission-chunk rows): device time of the kernel
+    # and of bf16 torch.matmul (on the normed x for B2) from torch.profiler.
     # Measured last, so that the profiler's tracing stays out of the
     # serving phases' host timings
-    for r in kernels["B1"].rows:
-        if r["rows"] in (CHUNK, BATCH * PROMPT):
-            x, ws, sc = qmm_operands(r["rows"], r["d"], r["n"], copies_for(r["d"] * r["n"]))
+    for key in ("B1", "B2"):
+        for r in kernels[key].rows:
+            if "ms" not in r:
+                continue
+            x, ws, sc = qmm_operands(r["rows"], r["d"], r["n"], copies_for(r["d"] * r["n"]),
+                                     gen=gq)
+            gn = None
+            xl = x
+            if key == "B2":
+                gn = torch.rand(r["d"], generator=gq, device=dev) + 0.5
+                x32 = x.float()
+                xl = (x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + 1e-6) * gn).bfloat16()
             wb = [(w.float() * sc).bfloat16() for w in ws[:2]]
-            r.update(device_ms=device_ms([lambda w=w: qm.quant_matmul(x, w, sc) for w in ws]),
-                     library_device_ms=device_ms([lambda w=w: torch.matmul(x, w) for w in wb]))
-            del x, ws, wb
+            r.update(device_ms=device_ms([lambda w=w: qm.quant_matmul(x, w, sc, norm_scale=gn)
+                                          for w in ws]),
+                     library_device_ms=device_ms([lambda w=w: torch.matmul(xl, w) for w in wb]))
+            if r["rows"] <= qm.GEMV_ROWS:
+                log(f"  {key} {r['rows']}x{r['d']}x{r['n']}: device {r['device_ms']:.4f} ms "
+                    f"(torch.matmul {r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f}, "
+                    f"cluster {r['cluster']}")
+            del x, ws, wb, xl
+    torch.cuda.empty_cache()
+
+    # one decode step of the dense engine's model at 8 rows (per-row
+    # cursors, as the engine steps), profiled: the int8 matmul's kernels
+    # by name.  Every product is one launch of the decode kernel: the step
+    # fails if it holds a qmm_reduce_kernel.  B2 is the kernel's norm-
+    # prologue instantiation (template argument NORM = true)
+    with torch.inference_mode():
+        cache = step_model.init_cache(BATCH, step_l_buf)
+        positions = torch.clamp(torch.cumsum(pmask.int(), 1) - 1, min=0)
+        step_model(prompts, positions=positions, cache=cache, kv_start=starts8, last_only=True)
+
+        def decode_step(j):
+            step_model(forced[:, j: j + 1], positions=(pos0 + j)[:, None], cache=cache,
+                       kv_start=starts8, cache_cursor=cur0 + j, last_only=True)
+
+        decode_step(0)
+        torch.cuda.synchronize()
+        qm.launches = qm.norm_launches = 0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            decode_step(1)
+            torch.cuda.synchronize()
+    step_qmm = {"B1": {"launches": 0, "device_ms": 0.0}, "B2": {"launches": 0, "device_ms": 0.0}}
+    reduce_launches = 0
+    for evt in prof.key_averages():
+        if "qmm_reduce_kernel" in evt.key:
+            reduce_launches += evt.count
+        m = re.search(r"qmm_gemv_tc_kernel<[^,]+, (true|false), ", evt.key)
+        if m:
+            part = step_qmm["B2" if m.group(1) == "true" else "B1"]
+            part["launches"] += evt.count
+            us = getattr(evt, "device_time_total", None)
+            part["device_ms"] += (getattr(evt, "cuda_time_total", 0.0) if us is None else us) / 1e3
+    want = {"B1": sum(b1_step.values()), "B2": sum(b2_step.values())}
+    if (reduce_launches or {k: v["launches"] for k, v in step_qmm.items()} != want
+            or (qm.launches, qm.norm_launches) != (want["B1"], want["B2"])):
+        raise AssertionError(f"profiled decode step: {reduce_launches} qmm_reduce_kernel "
+                             f"launches, decode-kernel launches {step_qmm} (counters "
+                             f"{qm.launches}, {qm.norm_launches}); want {want} and no reduce")
+    log("profiled decode step (8 rows): " + json.dumps(step_qmm) + "; no qmm_reduce_kernel")
+    del step_model, cache, prof
     torch.cuda.empty_cache()
     # B4 and B7 per case: device time of the kernel and of SDPA on the
     # bf16 copy, operands cycled past the L2 as in the kernel phase
@@ -1827,8 +1926,26 @@ def main() -> int:
                                    "library_device_ms")} | {"share_of_bound": r["bound_ms"] / r["ms"]}
                 for r in kernels["B1"].rows if r["rows"] in (CHUNK, BATCH * PROMPT)]
         if key == "B2":
-            entry["admission_chunk"] = {"scope": "admission chunk (1, 256): last_only lm_head",
-                                        **total(by_shape("B2", {(hidden, vocab): 1}, 1))}
+            weighted = by_shape("B2", {(hidden, vocab): 1}, 1)
+            entry["admission_chunk"] = {
+                "scope": "admission chunk (1, 256): last_only lm_head", **total(weighted),
+                **{f: sum(r[f] * c for r, c in weighted)
+                   for f in ("device_ms", "library_device_ms")}}
+        if key in ("B1", "B2"):
+            # the decode path: device time (torch.profiler) of one decode
+            # step's calls at 8 rows, per shape and as the profiled step
+            # read it; and every timed shape of 64 rows or fewer
+            weighted = by_shape(key, b1_step if key == "B1" else b2_step, BATCH)
+            entry["decode_step"] = {
+                "scope": label, "device_ms": sum(r["device_ms"] * c for r, c in weighted),
+                "library_device_ms": sum(r["library_device_ms"] * c for r, c in weighted),
+                "bound_ms": total(weighted)["bound_ms"],
+                "profiled_step": step_qmm[key]}
+            entry["gemv"] = [
+                {f: r[f] for f in ("rows", "d", "n", "cluster", "ctas", "ms", "ms_spread",
+                                   "device_ms", "bound_ms", "bound_by", "library_ms",
+                                   "library_device_ms", "err_over_limit")}
+                for r in kernels[key].rows if r["rows"] <= qm.GEMV_ROWS and "ms" in r]
         if key == "B5":
             entry["launches_train_path"] = train_counts["B5"]
             entry["train_step"] = {"scope": "train step 2x4096: every layer's forward, causal",
@@ -1900,6 +2017,8 @@ def main() -> int:
         "grad_norm_plain": g_p, "tolerance": "loss 1e-3 relative, gradient norm 2%"},
         "profiled_step": profile_result}}))
     log(json.dumps({"kernels": entries, "flash_resources": flash_resources,
+                    "profiled_decode_step": {"quant_matmul": step_qmm,
+                                             "qmm_reduce_kernel_launches": reduce_launches},
                     "quant_matmul_resources": qmm_resources,
                     "decode_attention_resources": da_resources}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu), the int8 matmul's tiled
-// path (quant_matmul.cu) and the int8-KV chunk decode (decode_attention.cu):
+// (flash_attention.cu, flash_attention_bwd.cu), the int8 matmul
+// (quant_matmul.cu) and the int8-KV chunk decode (decode_attention.cu):
 // asynchronous copies into 128-byte-swizzled shared-memory tiles, wgmma
-// shared-memory descriptors, the exact int8 -> bf16 conversion, and the
-// warpgroup matrix products in inline PTX (sm_90a only).
+// shared-memory descriptors, the exact int8 -> bf16 conversion, the
+// warpgroup matrix products and the warp-level mma.sync product, and the
+// thread-block-cluster primitives (rank, barrier, distributed shared
+// memory) in inline PTX (sm_90a only).
 //
 // Tile layout.  A (rows x 128) bf16 tile of a head-dim-128 tensor lives in
 // shared memory as two column blocks of (rows x 64): block c holds head
@@ -202,6 +204,64 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint3
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// D (16 x 8, f32) += A (16 x 16, bf16) . B (16 x 8, bf16), one warp
+// (mma.sync m16n8k16).  Lane l (g = l / 4, c = l % 4) holds a = {A[g][2c..],
+// A[g + 8][2c..], A[g][2c + 8..], A[g + 8][2c + 8..]} (two bf16 a register,
+// the lower column in the lower half), b = {B[2c..][g], B[2c + 8..][g]} and
+// d = {D[g][2c], D[g][2c + 1], D[g + 8][2c], D[g + 8][2c + 1]}.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// this CTA's rank in its cluster, and the cluster's size (1 and 1 outside
+// a cluster launch)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster: shared-memory writes before it
+// are visible to reads after it, through distributed shared memory too
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// every thread of every CTA of the cluster, ordering nothing: a CTA that
+// waits here knows that the others have done what came before (their
+// reads of its shared memory, whose values they have used), without
+// waiting for its own or their global stores to be performed
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  asm volatile(
+      "barrier.cluster.arrive.relaxed.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// 16 bytes of CTA `rank`'s shared memory at the address that `addr` has in
+// this CTA's
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 }  // namespace hopper

@@ -18,9 +18,12 @@ import torch
 from mlcomp_tpu_torch.ops.cuda import build
 
 GEMV_ROWS = 64        # rows at or below which the decode kernel runs
-_GEMV_COLS = 128
-_TARGET_CTAS = 264    # two waves of 132 SMs for the decode kernel
-_MAX_X_STAGE = 16384  # floats of staged x per CTA (64 KB)
+# the decode path (csrc/quant_matmul.cu, qmm_gemv_tc_kernel): output
+# features a CTA, depth of one step, the row tiles (mma's N) that rows pad
+# to, and the cluster sizes it takes (up to the portable 8)
+GEMV_BN, GEMV_KS = 128, 128
+GEMV_ROW_TILES = (8, 16, 32, 64)
+GEMV_CLUSTERS = (1, 2, 4, 8)
 # the tiled path (csrc/quant_matmul.cu, qmm_wgmma_kernel): output tile,
 # depth of one step, and the fewest steps a D slice may hold
 GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
@@ -47,15 +50,25 @@ def quant_matmul_plain(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
     return (acc * scale.float()).bfloat16()
 
 
-def _splits(rows: int, d: int, n: int) -> int:
-    """D-split count for the decode kernel: enough CTAs to cover the SMs
-    twice, a D slice that is a multiple of 32 rows and whose staged x fits
-    shared memory."""
-    target = -(-_TARGET_CTAS // (n // _GEMV_COLS))
-    valid = [s for s in range(1, d // 32 + 1)
-             if d % s == 0 and (d // s) % 32 == 0
-             and rows * (d // s) <= _MAX_X_STAGE]
-    return min((s for s in valid if s >= target), default=valid[-1])
+@functools.lru_cache(maxsize=None)
+def gemv_plan(rows: int, d: int, n: int) -> dict:
+    """The decode kernel's grid for ``rows`` <= GEMV_ROWS: 128-feature
+    output tiles, rows padded to the next of GEMV_ROW_TILES, and, where the
+    tiles leave SMs idle, D split over the CTAs of one thread-block cluster
+    (one launch: the cluster adds its slices through distributed shared
+    memory).  The cluster is the largest of GEMV_CLUSTERS that divides
+    D's 128-deep steps and keeps the grid within one wave of
+    two CTAs an SM (the kernel's shared memory leaves room for two); no
+    split where the tiles alone fill the card.  Returns {"rows_padded",
+    "tiles", "cluster", "ctas", "d_chunk", "steps"}: ``steps`` per CTA."""
+    tiles = n // GEMV_BN
+    steps = d // GEMV_KS
+    cluster = 1
+    if tiles < SMS:
+        cluster = max(c for c in GEMV_CLUSTERS if steps % c == 0 and tiles * c <= 2 * SMS)
+    return dict(rows_padded=next(t for t in GEMV_ROW_TILES if t >= rows), tiles=tiles,
+                cluster=cluster, ctas=tiles * cluster, d_chunk=d // cluster,
+                steps=steps // cluster)
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,9 +96,13 @@ def plan(rows: int, d: int, n: int) -> dict:
 
 
 def resources() -> dict:
-    """The tiled path's kernel ("gemm") and the split pass ("reduce") on the
-    card (``build.resources``): {name: {field: int}}."""
-    return build.resources("quant_matmul", "qmm_resources", ("gemm", "reduce"))
+    """The tiled path's kernel ("gemm"), its split pass ("reduce") and the
+    decode kernel at 8 rows ("gemv", "gemv_norm") and at 64 rows ("gemv_64",
+    "gemv_norm_f32_64": the norm prologue on f32 x) on the card
+    (``build.resources``): {name: {field: int}}."""
+    return build.resources("quant_matmul", "qmm_resources",
+                           ("gemm", "reduce", "gemv", "gemv_norm", "gemv_64",
+                            "gemv_norm_f32_64"))
 
 
 def quant_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
@@ -94,9 +111,9 @@ def quant_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
     """x (R, D) bf16; q8 (D, N) int8; scale (N,) f32; ``norm_scale`` (D,)
     f32 folds ``rmsnorm(x)`` into the prologue (R <= 64; x then arrives
     un-normed, bf16 or f32).  Returns (R, N) bf16.  D and N must be
-    multiples of 128.  Up to GEMV_ROWS rows the decode kernel runs, above
-    them the wgmma tiles on :func:`plan`'s grid; either adds its D slices
-    in a second pass when it splits D."""
+    multiples of 128.  Up to GEMV_ROWS rows the decode kernel runs on
+    :func:`gemv_plan`'s grid, one launch; above them the wgmma tiles on
+    :func:`plan`'s grid, whose D slices a second pass adds."""
     global launches, norm_launches
     r, d = x.shape
     d2, n = q8.shape
@@ -122,13 +139,17 @@ def quant_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
         raise TypeError(f"norm_scale must be f32; got {norm_scale.dtype}")
     tensors = [x, q8, scale] + ([norm_scale] if norm_scale is not None else [])
     for t in tensors:
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError("quant_matmul operands must be contiguous and on one device")
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("quant_matmul operands must be contiguous, 16-byte aligned "
+                             "and on one device")
     out = torch.empty((r, n), dtype=torch.bfloat16, device=x.device)
-    splits = _splits(r, d, n) if r <= GEMV_ROWS else _gemm_splits(r, d, n)
-    chunk, partial = d // splits, None
-    if splits > 1:
-        partial = torch.empty((splits, r, n), dtype=torch.float32, device=x.device)
+    partial = None
+    if r <= GEMV_ROWS:
+        splits = gemv_plan(r, d, n)["cluster"]
+    else:
+        splits = _gemm_splits(r, d, n)
+        if splits > 1:
+            partial = torch.empty((splits, r, n), dtype=torch.float32, device=x.device)
     p, i = ctypes.c_void_p, ctypes.c_int
     launch = build.function("quant_matmul", "qmm_launch",
                             [p, p, p, p, ctypes.c_float, p, p, i, i, i, i, i, i, p])
@@ -136,7 +157,7 @@ def quant_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
         x.data_ptr(), q8.data_ptr(), scale.data_ptr(),
         norm_scale.data_ptr() if norm_scale is not None else None, norm_eps,
         partial.data_ptr() if partial is not None else None, out.data_ptr(),
-        r, d, n, splits, chunk, int(x.dtype == torch.float32), build.stream_ptr(x.device),
+        r, d, n, splits, d // splits, int(x.dtype == torch.float32), build.stream_ptr(x.device),
     )
     build.check(err, "quant_matmul")
     if norm_scale is None:

@@ -42,17 +42,25 @@ def _bf16_np(a):
     # second tile (130), two whole tiles (256); the planner splits D = 256
     # into two slices at each
     (65, 256, 384, False), (130, 256, 384, False), (256, 256, 384, False),
+    # the norm prologue over the widest folded row (d = 2048) at one row
+    # (the admission chunk's last_only head), a ragged 33 and the most
+    # rows it takes; "f32" feeds it an f32 model's un-normed x
+    (1, 2048, 256, True), (33, 2048, 128, True), (64, 2048, 128, True),
+    (8, 2048, 256, "f32"),
 ])
 def test_quant_matmul_matches_pallas(rows, d, n, norm):
     rng = np.random.default_rng(rows * 7 + d + n)
-    x = _bf16_np(rng.normal(size=(rows, d)).astype(np.float32))
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    x_f32 = norm == "f32"
+    if not x_f32:
+        x = _bf16_np(x)
     q8 = rng.integers(-127, 128, size=(d, n)).astype(np.int8)
     sc = (rng.random(n) * 0.02).astype(np.float32)
     g = (rng.random(d) + 0.5).astype(np.float32) if norm else None
-    ref = j_qmm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(q8), jnp.asarray(sc),
-                norm_scale=None if g is None else jnp.asarray(g),
-                norm_dtype=jnp.bfloat16 if norm else None)
-    out = quant_matmul(_t(x, torch.bfloat16), _t(q8), _t(sc),
+    ref = j_qmm(jnp.asarray(x, jnp.float32 if x_f32 else jnp.bfloat16), jnp.asarray(q8),
+                jnp.asarray(sc), norm_scale=None if g is None else jnp.asarray(g),
+                norm_dtype=(jnp.float32 if x_f32 else jnp.bfloat16) if norm else None)
+    out = quant_matmul(_t(x, torch.float32 if x_f32 else torch.bfloat16), _t(q8), _t(sc),
                        norm_scale=None if g is None else _t(g))
     assert out.dtype == torch.bfloat16 and out.shape == (rows, n)
     ref = np.asarray(ref.astype(jnp.float32))
