@@ -25,13 +25,22 @@ without printing a result:
    row counts.  Their device times from torch.profiler, and one profiled
    decode step of the engine's model (which fails if it holds a
    qmm_reduce_kernel), are taken after the train phase (11), where the
-   profiler cannot touch the serving phases' host timings.  The chunk decode (B4, and B7 through a page
+   profiler cannot touch the serving phases' host timings.  The
+   single-query decode (B3, and B6 through a page table: the split body,
+   each window over a thread-block cluster) is held at the decode step
+   (8 rows), one lone request (a 460-slot window), GQA 16 on 4, head dim
+   256, the paged engine's 32 live slots and windows inside cluster
+   shares with one row empty: each prints its ``chunk_plan`` (cluster,
+   CTAs), must give the same bits on a rerun, B6 must equal B3 and a
+   one-query chunk B3 bit for bit.  The chunk decode (B4, and B7 through a page
    table) is held at the admission chunk (1, 256), the 8 x 32 verify
    width, a GQA chunk at a ragged S, head dim 256, and windows that start
    mid-block with one row's window empty: each prints the route its
    ``chunk_plan`` picks, must give the same bits on a rerun, and B7 must
-   equal B4 bit for bit; their device times (torch.profiler) come after
-   the train phase too.
+   equal B4 bit for bit.  The page gather (B8) must equal pages[table] on
+   a bf16 K leaf, an int8 code leaf and a bf16 scale leaf.  The device
+   times (torch.profiler) of B3, B4, B6, B7 and B8 and of their library
+   calls come after the train phase too.
 4. window serve: the 1.2B all-int8 transformer_lm (int8 weights through
    the int8 matmul, int8 KV cache, fused qkv/gate_up, 16 layers, random
    weights from a seed) behind the HTTP server on 127.0.0.1 through the
@@ -43,8 +52,9 @@ without printing a result:
    default continuous batcher (8 slots, prompt bucket 512, 128 new tokens,
    prefill chunk 256, adaptive K, pipeline depth 2, fused admission):
    concurrent greedy and sampled requests of 100-500 prompt tokens, one
-   SSE stream, a repeated greedy prompt; every kernel must launch, and
-   every chunk launch must take the tensor-core body; TTFT,
+   SSE stream, a repeated greedy prompt; every kernel must launch, every
+   chunk launch must take the tensor-core body and every single-query
+   launch the split body; TTFT,
    decode ms per step at 8 live slots, tok/s and the K rungs used.  Lone
    TTFT and decode ms per step are medians over three requests or runs,
    each with its spread and the host's load average.
@@ -60,8 +70,11 @@ without printing a result:
    peak memory.
 11. train parity: one step's loss and gradient norm with the kernels and
    with their plain versions; one profiled step (device time by kernel);
-   then the kernels' torch.profiler device times (B1, B2, B4, B7) and one
-   profiled decode step.
+   then the kernels' torch.profiler device times (B1-B4, B6-B8) and one
+   profiled decode step of the dense engine's model and the same step
+   through pages: each must run its attention as 16 launches of the split
+   body (no launch of the old ``attend_kernel``), and the paged step's
+   logits must equal the dense step's bit for bit.
 12. summary: ``serve``, ``engine``, ``paged_engine``, ``train`` and
    ``kernels`` JSON lines, then, last, the device line.
 
@@ -457,7 +470,11 @@ def main() -> int:
                        vs.transpose(1, 2)[:, :, None].bfloat16().contiguous()))
     q = torch.randn(BATCH, heads, dh, generator=g, device=dev).bfloat16()
     scale = 1.0 / math.sqrt(dh)
+    b3_plan = da.chunk_plan(1, heads, heads, BATCH, dh, l_buf)
+    log(f"  B3 {BATCH}x1: chunk_plan {json.dumps(b3_plan)}")
     out = da.decode_attention(q, *caches[0], starts, stops, scale)
+    if not torch.equal(da.decode_attention(q, *caches[0], starts, stops, scale), out):
+        raise AssertionError("decode_attention: two runs on the same inputs differ")
     k8, ks, v8, vs = caches[0]
     err, ratio = held("decode_attention", out,
                       da.decode_attention_plain(q, k8, ks, v8, vs, starts, stops, scale),
@@ -478,9 +495,12 @@ def main() -> int:
     # window only; the window bounds
     nbytes = q.numel() * 2 * 2 + live * heads * (2 * dh + 2 * 2) + BATCH * 8
     ops = 4 * live * heads * dh
-    kernels["B3"].add(b=BATCH, h=heads, h_kv=heads, l_buf=l_buf, dh=dh, live_slots=live,
-                      max_abs_err=err, err_over_limit=ratio, ms=kms, plain_ms=pms,
-                      library_ms=lms, **bound_of(nbytes, ops))
+    kernels["B3"].add(case=f"{BATCH}x1", route=b3_plan["body"], cluster=b3_plan["cluster"],
+                      ctas=b3_plan["ctas"], b=BATCH, h=heads, h_kv=heads, l_buf=l_buf, dh=dh,
+                      live_slots=live, max_abs_err=err, err_over_limit=ratio,
+                      bit_equal_rerun=True, ms=kms, plain_ms=pms, library_ms=lms,
+                      **bound_of(nbytes, ops))
+    chunk_inputs_b3 = ("B3", kernels["B3"].rows[-1], q, caches[0], starts, stops, scale)
     # the one-query chunk is the single-query decode: the same kernel body
     one = da.decode_attention_chunk(q[:, None], *caches[0], starts, stops, scale)[:, 0]
     torch.cuda.synchronize()
@@ -489,11 +509,11 @@ def main() -> int:
     del caches, dq
     torch.cuda.empty_cache()
 
-    def quant_cache(b, h_kv=heads, d=dh, length=None):
+    def quant_cache(b, h_kv=heads, d=dh, length=None, gen=g):
         """A (B, Hkv, L, d) int8 K/V cache of random rows, with its scales."""
         length = length or l_buf
-        k8, ks = da.quantize_kv(torch.randn(b, length, h_kv, d, generator=g, device=dev))
-        v8, vs = da.quantize_kv(torch.randn(b, length, h_kv, d, generator=g, device=dev))
+        k8, ks = da.quantize_kv(torch.randn(b, length, h_kv, d, generator=gen, device=dev))
+        v8, vs = da.quantize_kv(torch.randn(b, length, h_kv, d, generator=gen, device=dev))
         return (k8.transpose(1, 2).contiguous(),
                 ks.transpose(1, 2)[:, :, None].bfloat16().contiguous(),
                 v8.transpose(1, 2).contiguous(),
@@ -523,9 +543,9 @@ def main() -> int:
         nbytes = 2 * b * s_q * h * d * 2 + window * h_kv * (2 * d + 2 * 2) + b * 8 + extra_bytes
         return pairs, window, bound_of(nbytes, 4 * pairs * h * d)
 
-    # every B4 and B7 case's operands (one copy), for their device times
-    # from torch.profiler after the serving phases
-    chunk_inputs = []
+    # every B3, B4, B6 and B7 case's operands (one copy), for their device
+    # times from torch.profiler after the serving phases
+    chunk_inputs = [chunk_inputs_b3]
 
     # B4: an admission chunk (1, 256) at cache index 256 of a 512-token
     # prompt with left padding (window [pad, 512)), and a verify-width
@@ -537,7 +557,7 @@ def main() -> int:
         length = length or l_buf
         case = case or f"{b}x{s_q}"
         sc_ = 1.0 / math.sqrt(d)
-        plan = da.chunk_plan(s_q, h, h_kv, b, d)
+        plan = da.chunk_plan(s_q, h, h_kv, b, d, length)
         log(f"  B4 {case}: chunk_plan {json.dumps(plan)}")
         cs = [quant_cache(b, h_kv, d, length)
               for _ in range(copies_for(2 * b * h_kv * length * d))]
@@ -641,14 +661,14 @@ def main() -> int:
     # dense kernel on the same bytes laid out densely, bit for bit.
     page_t = 128
 
-    def paginate(cache, last):
+    def paginate(cache, last, gen=g):
         """pages (kq, ks, vq, vs) and a (B, MP) table holding the rows of a
         dense cache up to slot ``last[b]``; the dense cache of those bytes"""
         k8, ks, v8, vs = cache
         b, h_kv, l_b, d = k8.shape
         mp = l_b // page_t
         n_pages = 2 + b * mp
-        table = (torch.randperm(n_pages - 2, generator=g, device=dev)[: b * mp] + 2).view(b, mp)
+        table = (torch.randperm(n_pages - 2, generator=gen, device=dev)[: b * mp] + 2).view(b, mp)
         live = torch.arange(mp, device=dev)[None] * page_t <= last[:, None]
         table = torch.where(live, table, torch.zeros_like(table)).int().contiguous()
         pages = []
@@ -674,7 +694,7 @@ def main() -> int:
         h, d, h_kv = qp.shape[-2], qp.shape[-1], cache[0].shape[1]
         case = case or f"{b}x{s_q}"
         sc_ = 1.0 / math.sqrt(d)
-        plan = da.chunk_plan(s_q, h, h_kv, b, d)
+        plan = da.chunk_plan(s_q, h, h_kv, b, d, cache[0].shape[2])
         log(f"  {key} {case}: chunk_plan {json.dumps(plan)}")
         pages, table, dense = paginate(cache, stop0 + s_q - 2)
         if single:
@@ -709,14 +729,13 @@ def main() -> int:
         # ... and the table
         pairs, window, bound = chunk_work(b, s_q, h, h_kv, d, starts, stop0,
                                           extra_bytes=table.numel() * 4)
-        kernels[key].add(case=case, route=plan["body"], ctas=plan["ctas"], b=b, s=s_q, h=h,
+        kernels[key].add(case=case, route=plan["body"], cluster=plan["cluster"],
+                         ctas=plan["ctas"], b=b, s=s_q, h=h,
                          h_kv=h_kv, dh=d, page_tokens=page_t, pages_per_row=table.shape[1],
                          live_pairs=pairs, window_slots=window, max_abs_err=err,
                          err_over_limit=ratio, bit_equal_rerun=True, ms=kms, plain_ms=pms,
                          library_ms=lms, **bound)
-        if not single:
-            chunk_inputs.append((key, kernels[key].rows[-1], qp, (pages, table), starts, stop0,
-                                 sc_))
+        chunk_inputs.append((key, kernels[key].rows[-1], qp, (pages, table), starts, stop0, sc_))
         del copies, dk, dv
         torch.cuda.empty_cache()
 
@@ -724,6 +743,81 @@ def main() -> int:
     # at the admission chunk (B4's first two cases), then at B4's extra
     # cases
     paged_case("B6", "decode_attention", q, quant_cache(BATCH), starts, stops)
+
+    # B3 and B6 at the single-query body's other shapes, on a generator of
+    # their own (every earlier case keeps its inputs): one lone request, GQA,
+    # head dim 256, the paged engine's 32 live slots, and windows that start
+    # and stop inside a cluster share with one row empty.  Each case prints
+    # its plan (cluster, CTAs); B3 and B6 are held against their plain
+    # versions (2^-7 rule), B6 must equal B3 on the same bytes, a one-query
+    # chunk must equal B3 and a rerun the first run, bit for bit, and an
+    # empty row gives 0.  Their device times come after the train phase
+    gs = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def single_case(case, b, starts_, stops_, h=heads, h_kv=heads, d=dh, length=None):
+        length = length or l_buf
+        sc_ = 1.0 / math.sqrt(d)
+        plan = da.chunk_plan(1, h, h_kv, b, d, length)
+        log(f"  B3/B6 {case}: chunk_plan {json.dumps(plan)}")
+        cache = quant_cache(b, h_kv, d, length, gen=gs)
+        qq = torch.randn(b, h, d, generator=gs, device=dev).bfloat16()
+        pages, table, dense = paginate(cache, stops_ - 1, gen=gs)
+        k8_, ks_, v8_, vs_ = dense
+        kq_, kps, vq_, vps = pages
+        runs = {
+            "B3": (lambda: da.decode_attention(qq, *dense, starts_, stops_, sc_),
+                   da.decode_attention_plain(qq, *dense, starts_, stops_, sc_),
+                   da.decode_attention_plain(qq, k8_, ks_, v8_.abs(), vs_, starts_, stops_, sc_),
+                   dense, 0),
+            "B6": (lambda: da.paged_decode_attention(qq, *pages, table, starts_, stops_, sc_),
+                   da.paged_decode_attention_plain(qq, *pages, table, starts_, stops_, sc_),
+                   da.paged_decode_attention_plain(qq, kq_, kps, vq_.abs(), vps, table, starts_,
+                                                   stops_, sc_),
+                   (pages, table), table.numel() * 4),
+        }
+        outs = {}
+        for key, (run_k, ref, ref_abs, operands, extra) in runs.items():
+            out_k = run_k()
+            err_k, ratio_k = held(f"{kernels[key].name} {case}", out_k, ref, ref_abs)
+            if not torch.equal(run_k(), out_k):
+                raise AssertionError(f"{kernels[key].name} {case}: two runs on the same inputs "
+                                     "differ")
+            empty = (stops_ <= starts_).nonzero().flatten().tolist()
+            if any(bool(out_k[r].float().abs().max() != 0) for r in empty):
+                raise AssertionError(f"{kernels[key].name} {case}: an empty window must give 0")
+            outs[key] = out_k
+            pairs, window, bound = chunk_work(b, 1, h, h_kv, d, starts_, stops_,
+                                              extra_bytes=extra)
+            kernels[key].add(case=case, route=plan["body"], cluster=plan["cluster"],
+                             ctas=plan["ctas"], b=b, h=h, h_kv=h_kv, dh=d, l_buf=length,
+                             live_pairs=pairs, max_abs_err=err_k, err_over_limit=ratio_k,
+                             bit_equal_rerun=True, **bound)
+            chunk_inputs.append((key, kernels[key].rows[-1], qq, operands, starts_, stops_,
+                                 sc_))
+        if not torch.equal(outs["B6"], outs["B3"]):
+            raise AssertionError(f"paged_decode_attention {case} differs from decode_attention "
+                                 "on the same bytes")
+        one_q = da.decode_attention_chunk(qq[:, None], *dense, starts_, stops_, sc_)[:, 0]
+        torch.cuda.synchronize()
+        if not torch.equal(one_q, outs["B3"]):
+            raise AssertionError(f"decode_attention_chunk {case} at S = 1 differs from "
+                                 "decode_attention")
+        log(f"  B3/B6 {case}: B6 == B3, one-query chunk == B3, reruns bit-equal")
+        torch.cuda.empty_cache()
+
+    i32s = dict(dtype=torch.int32, device=dev)
+    single_case("1x1 lone request, window 460", 1, torch.tensor([40], **i32s),
+                torch.tensor([500], **i32s))
+    single_case(f"GQA {BATCH}x1, 16 q heads on 4 kv heads", BATCH,
+                torch.randint(0, PROMPT - 100, (BATCH,), generator=gs, **i32s),
+                torch.full((BATCH,), PROMPT + NEW // 2, **i32s), h_kv=heads // 4)
+    single_case("dh 256 2x1, 8 q heads on 4 kv heads", 2, torch.tensor([3, 130], **i32s),
+                torch.tensor([200, 400], **i32s), h=8, h_kv=4, d=256, length=512)
+    single_case("32x1, the paged engine's 32 live slots", 4 * BATCH,
+                torch.randint(0, PROMPT - 100, (4 * BATCH,), generator=gs, **i32s),
+                torch.randint(PROMPT - 60, PROMPT + NEW, (4 * BATCH,), generator=gs, **i32s))
+    single_case("4x1, windows inside cluster shares, row 3 empty", 4,
+                torch.tensor([37, 100, 250, 300], **i32s), torch.tensor([120, 301, 411, 200], **i32s))
     paged_case("B7", "decode_attention_chunk",
                torch.randn(BATCH, 32, heads, dh, generator=g, device=dev).bfloat16(),
                quant_cache(BATCH), torch.randint(0, 100, (BATCH,), generator=g, **i32),
@@ -756,10 +850,27 @@ def main() -> int:
     flat_idx = gtable.view(-1).long()
     lms = time_ms([lambda p=p: torch.index_select(p, 0, flat_idx) for p in pools])
     moved = gout.nbytes
-    kernels["B8"].add(s=BATCH, mp=gtable.shape[1], page_bytes=pools[0][0].nbytes,
+    kernels["B8"].add(case=f"bf16 K leaf {BATCH}x{gtable.shape[1]}", s=BATCH,
+                      mp=gtable.shape[1], page_bytes=pools[0][0].nbytes,
                       max_abs_err=0.0, err_over_limit=0.0, ms=kms, plain_ms=pms,
                       library_ms=lms, **bound_of(2 * moved + gtable.numel() * 4, 0))
+    # its operands (one copy), for its device time after the serving phases
+    gather_inputs = [(kernels["B8"].rows[-1], pools[0], gtable)]
     del pools, gout
+    # the int8-KV family's leaves through the same table: a code leaf
+    # (Hkv, T, dh) int8 and a scale leaf (Hkv, 1, T) bf16, exact as well
+    for leaf, shape, dtype in (("int8 code leaf", (heads, page_t, dh), torch.int8),
+                               ("bf16 scale leaf", (heads, 1, page_t), torch.bfloat16)):
+        pool = (torch.randn((n_pool,) + shape, generator=gs, device=dev) * 40).to(dtype)
+        got = pgm.page_gather(pool, gtable)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pool[gtable.long()]):
+            raise AssertionError(f"page_gather differs from pages[table] on the {leaf}")
+        kernels["B8"].add(case=f"{leaf} {BATCH}x{gtable.shape[1]}", s=BATCH,
+                          mp=gtable.shape[1], page_bytes=pool[0].nbytes, max_abs_err=0.0,
+                          err_over_limit=0.0, **bound_of(2 * got.nbytes + gtable.numel() * 4, 0))
+        gather_inputs.append((kernels["B8"].rows[-1], pool, gtable))
+        del got
     torch.cuda.empty_cache()
 
     # B9, B10, B11: the flash-attention backward (delta, dq, dk/dv) against
@@ -1227,7 +1338,7 @@ def main() -> int:
         post({"prompt": warm, "max_new_tokens": 2})   # warm the allocator
         for k in kernels.values():
             k.reset()
-        da.chunk_tc_launches = 0
+        da.chunk_tc_launches = da.split_launches = 0
         st0 = eng.stats()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(bodies)) as ex:
@@ -1243,7 +1354,7 @@ def main() -> int:
         ttft_lone = {"median": lone_ms[len(lone_ms) // 2], "spread": [lone_ms[0], lone_ms[-1]],
                      "n": len(lone_ms), "loadavg": list(os.getloadavg())}
         counts = {key: k.launches for key, k in kernels.items()}
-        chunk_tc = da.chunk_tc_launches
+        chunk_tc, split = da.chunk_tc_launches, da.split_launches
         st1 = eng.stats()
         ids = []
         for events, _, _ in streams:
@@ -1326,17 +1437,23 @@ def main() -> int:
         server.join(timeout=10)
         return dict(wall=wall, emitted=emitted, ttft_ms=ttft_ms, per_token_ms=per_token_ms,
                     ttft_lone=ttft_lone, steady_ms=steady_ms, steady=steady, k_used=k_used,
-                    counts=counts, chunk_tc=chunk_tc,
+                    counts=counts, chunk_tc=chunk_tc, split=split,
                     st0=st0, st1=st1, ids=ids, first=first["ids"], steps_issued=steps_issued)
 
     def chunks_on_tensor_cores(run, label):
         """Every chunk launch of an engine run (B4 and B7: its admission
-        chunks, S > 1) took the tensor-core body."""
+        chunks, S > 1) took the tensor-core body, and every single-query
+        launch (B3 or B6) the split body."""
         c = run["counts"]
         if c["B4"] <= 0 or run["chunk_tc"] != c["B4"] + c["B7"]:
             raise AssertionError(f"{label}: {run['chunk_tc']} tensor-core body launches for "
                                  f"{c['B4']} B4 and {c['B7']} B7 launches")
         log(f"{label}: all {run['chunk_tc']} chunk launches on the tensor-core body")
+        # ... and every single-query launch (B3 or B6) the split body
+        if run["split"] <= 0 or run["split"] != c["B3"] + c["B6"]:
+            raise AssertionError(f"{label}: {run['split']} split-body launches for {c['B3']} B3 "
+                                 f"and {c['B6']} B6 launches")
+        log(f"{label}: all {run['split']} single-query launches on the split body")
 
     dense_run = engine_serve(service, "engine")
     counts = dense_run["counts"]
@@ -1804,22 +1921,57 @@ def main() -> int:
     # cursors, as the engine steps), profiled: the int8 matmul's kernels
     # by name.  Every product is one launch of the decode kernel: the step
     # fails if it holds a qmm_reduce_kernel.  B2 is the kernel's norm-
-    # prologue instantiation (template argument NORM = true)
+    # prologue instantiation (template argument NORM = true).  Then the same
+    # step through 128-slot pages holding the same state (PagedKV, as the
+    # paged engine steps), profiled too: each step's attention is 16
+    # launches of the split single-query body (B3, then B6), its device time
+    # by kernel name; the old body's name must not appear, and the paged
+    # step's logits must equal the dense step's bit for bit
+    from mlcomp_tpu_torch.kvpool import PagedKV, PagedLayout
+
+    def attention_by_name(prof_):
+        split_ = {"launches": 0, "device_ms": 0.0}
+        old_ = 0
+        for evt in prof_.key_averages():
+            if re.search(r"\battend_kernel\b", evt.key):
+                old_ += evt.count
+            if "attend_split_kernel" in evt.key:
+                split_["launches"] += evt.count
+                us = getattr(evt, "device_time_total", None)
+                split_["device_ms"] += (getattr(evt, "cuda_time_total", 0.0) if us is None
+                                        else us) / 1e3
+        return split_, old_
+
     with torch.inference_mode():
         cache = step_model.init_cache(BATCH, step_l_buf)
         positions = torch.clamp(torch.cumsum(pmask.int(), 1) - 1, min=0)
         step_model(prompts, positions=positions, cache=cache, kv_start=starts8, last_only=True)
 
-        def decode_step(j):
-            step_model(forced[:, j: j + 1], positions=(pos0 + j)[:, None], cache=cache,
-                       kv_start=starts8, cache_cursor=cur0 + j, last_only=True)
+        def decode_step(j, c=cache):
+            return step_model(forced[:, j: j + 1], positions=(pos0 + j)[:, None], cache=c,
+                              kv_start=starts8, cache_cursor=cur0 + j, last_only=True)
 
         decode_step(0)
+        layout = PagedLayout(cache, step_l_buf, page_t)
+        layout.num_pages = 2 + BATCH * layout.max_pages
+        step_pages = layout.fresh_pages(dev)
+        step_table = (torch.randperm(BATCH * layout.max_pages, generator=gs, device=dev)
+                      + 2).view(BATCH, -1).int()
+        layout.scatter(step_pages, step_table, cache)
+        paged_kv = PagedKV(layout, step_pages, step_table)
         torch.cuda.synchronize()
         qm.launches = qm.norm_launches = 0
+        da.launches = da.paged_launches = da.split_launches = 0
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            decode_step(1)
+            dense_logits = decode_step(1)
             torch.cuda.synchronize()
+        qmm_counts = (qm.launches, qm.norm_launches)
+        dense_attn = (da.launches, da.paged_launches, da.split_launches)
+        da.launches = da.paged_launches = da.split_launches = 0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as pprof:
+            paged_logits = decode_step(1, paged_kv)
+            torch.cuda.synchronize()
+        paged_attn = (da.launches, da.paged_launches, da.split_launches)
     step_qmm = {"B1": {"launches": 0, "device_ms": 0.0}, "B2": {"launches": 0, "device_ms": 0.0}}
     reduce_launches = 0
     for evt in prof.key_averages():
@@ -1833,31 +1985,49 @@ def main() -> int:
             part["device_ms"] += (getattr(evt, "cuda_time_total", 0.0) if us is None else us) / 1e3
     want = {"B1": sum(b1_step.values()), "B2": sum(b2_step.values())}
     if (reduce_launches or {k: v["launches"] for k, v in step_qmm.items()} != want
-            or (qm.launches, qm.norm_launches) != (want["B1"], want["B2"])):
+            or qmm_counts != (want["B1"], want["B2"])):
         raise AssertionError(f"profiled decode step: {reduce_launches} qmm_reduce_kernel "
                              f"launches, decode-kernel launches {step_qmm} (counters "
-                             f"{qm.launches}, {qm.norm_launches}); want {want} and no reduce")
+                             f"{qmm_counts}); want {want} and no reduce")
     log("profiled decode step (8 rows): " + json.dumps(step_qmm) + "; no qmm_reduce_kernel")
-    del step_model, cache, prof
+    step_attn = {}
+    for key, prof_, counters, want_counters in (
+            ("B3", prof, dense_attn, (layers, 0, layers)),
+            ("B6", pprof, paged_attn, (0, layers, layers))):
+        split_, old_ = attention_by_name(prof_)
+        if old_ or split_["launches"] != layers or counters != want_counters:
+            raise AssertionError(f"profiled {key} decode step: {split_} split-body launches, "
+                                 f"{old_} of the old attend_kernel, counters (launches, "
+                                 f"paged_launches, split_launches) {counters}; want "
+                                 f"{layers} split launches and {want_counters}")
+        step_attn[key] = split_
+    if not torch.equal(paged_logits, dense_logits):
+        raise AssertionError("profiled decode step: the paged step's logits differ from the "
+                             "dense step's")
+    log("profiled decode step (8 rows), attention by kernel name: " + json.dumps(step_attn)
+        + "; no attend_kernel; paged logits == dense logits")
+    del step_model, cache, prof, pprof, paged_kv, step_pages
     torch.cuda.empty_cache()
-    # B4 and B7 per case: device time of the kernel and of SDPA on the
-    # bf16 copy, operands cycled past the L2 as in the kernel phase
+    # B3, B4, B6 and B7 per case: device time of the kernel and of SDPA on
+    # the bf16 copy, operands cycled past the L2 as in the kernel phase
+    wrappers = {"B3": da.decode_attention, "B4": da.decode_attention_chunk,
+                "B6": da.paged_decode_attention, "B7": da.paged_decode_attention_chunk}
     for key, r, qc, operands, c_start, c_stop0, sc_ in chunk_inputs:
-        if key == "B4":
+        fn = wrappers[key]
+        if key in ("B3", "B4"):
             cs = [operands] + [tuple(x.clone() for x in operands)
                                for _ in range(copies_for(sum(x.nbytes for x in operands)) - 1)]
-            fns = [lambda c=c: da.decode_attention_chunk(qc, *c, c_start, c_stop0, sc_)
-                   for c in cs]
+            fns = [lambda c=c: fn(qc, *c, c_start, c_stop0, sc_) for c in cs]
             dense_c = operands
         else:
             pages, table = operands
             cs = [pages] + [tuple(x.clone() for x in pages)
                             for _ in range(copies_for(sum(x.nbytes for x in pages)) - 1)]
-            fns = [lambda c=c: da.paged_decode_attention_chunk(qc, *c, table, c_start, c_stop0,
-                                                               sc_) for c in cs]
+            fns = [lambda c=c: fn(qc, *c, table, c_start, c_stop0, sc_) for c in cs]
             dense_c = da.pages_to_dense(*pages, table)
-        dk, dv, cmask = sdpa_operands(dense_c, qc.shape[2], c_start, c_stop0, qc.shape[1])
-        qt = qc.transpose(1, 2)
+        qs = qc[:, None] if key in ("B3", "B6") else qc
+        dk, dv, cmask = sdpa_operands(dense_c, qs.shape[2], c_start, c_stop0, qs.shape[1])
+        qt = qs.transpose(1, 2)
         r.update(device_ms=device_ms(fns), library_device_ms=device_ms(
             [lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, dk, dv, attn_mask=cmask, scale=sc_)]))
@@ -1865,6 +2035,17 @@ def main() -> int:
             f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f}")
         del cs, fns, dk, dv
     chunk_inputs.clear()
+    # B8: device time of the gather and of index_select on the same leaf
+    for r, pool, table in gather_inputs:
+        pools = [pool] + [pool.clone() for _ in range(copies_for(pool.nbytes) - 1)]
+        flat_idx = table.view(-1).long()
+        r.update(device_ms=device_ms([lambda p=p: pgm.page_gather(p, table) for p in pools]),
+                 library_device_ms=device_ms([lambda p=p: torch.index_select(p, 0, flat_idx)
+                                              for p in pools]))
+        log(f"  B8 {r['case']}: device {r['device_ms']:.4f} ms (index_select "
+            f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f}")
+        del pools
+    gather_inputs.clear()
     torch.cuda.empty_cache()
 
     # ---- 12. summary
@@ -1910,6 +2091,10 @@ def main() -> int:
             "err_over_limit": max(r["err_over_limit"] for r in k.rows),
             "scope": label, **total(weighted),
         }
+        if all("device_ms" in r for r, _ in weighted):
+            # device time (torch.profiler) over the same scope
+            entry.update({f: sum(r[f] * c for r, c in weighted)
+                          for f in ("device_ms", "library_device_ms")})
         if key == "B1":
             for part, n_rows, scope in (
                     ("prefill", BATCH * PROMPT, "prefill 8x512: all four projections of every layer"),
@@ -1962,12 +2147,12 @@ def main() -> int:
         if key == "B7":
             entry["admission_shape"] = {"scope": "(1, 256) chunk at cache index 256, one call",
                                         **total([(kernels["B7"].rows[1], 1)])}
-        if key in ("B4", "B7"):
+        if key in ("B3", "B4", "B6", "B7", "B8"):
             # every case, one call each: its body, grid and device time
             entry["cases"] = [
-                {f: r[f] for f in ("case", "route", "ctas", "ms", "ms_spread", "device_ms",
-                                   "bound_ms", "bound_by", "library_ms", "library_device_ms",
-                                   "plain_ms", "err_over_limit")}
+                {f: r[f] for f in ("case", "route", "cluster", "ctas", "ms", "ms_spread",
+                                   "device_ms", "bound_ms", "bound_by", "library_ms",
+                                   "library_device_ms", "plain_ms", "err_over_limit") if f in r}
                 for r in kernels[key].rows]
         entries.append(entry)
     log(json.dumps({"serve": {
@@ -2018,7 +2203,8 @@ def main() -> int:
         "profiled_step": profile_result}}))
     log(json.dumps({"kernels": entries, "flash_resources": flash_resources,
                     "profiled_decode_step": {"quant_matmul": step_qmm,
-                                             "qmm_reduce_kernel_launches": reduce_launches},
+                                             "qmm_reduce_kernel_launches": reduce_launches,
+                                             "attention": step_attn},
                     "quant_matmul_resources": qmm_resources,
                     "decode_attention_resources": da_resources}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

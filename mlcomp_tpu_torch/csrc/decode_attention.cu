@@ -16,69 +16,77 @@
 //     out[b, j, h, :] = softmax_i(q[b, j, h] . k8[b, hkv, i] * scale * ks[b, hkv, i])
 //                       @ (v8[b, hkv, i] * vs[b, hkv, i])   for i in [lo_b, stop0_b + j)
 //
-// What bounds it on an H100: bytes.  Each CTA reads the int8 K/V of its
-// row's live window once and does a few FLOPs per byte.  A decode step
-// (B3) reads the whole live window of every row; an admission chunk (B4,
-// q (1, 256, 16, 128) against a 768-slot cache) reads ~0.13 MB of K/V
-// per head and does ~0.8 GFLOP in all: microseconds of work, so at that
-// shape launch latency and the CTA's serial block loop bound it.
+// What bounds it on an H100: bytes.  Each (row, KV head) reads the int8 K/V
+// of its live window once and does a few FLOPs per byte.  A decode step
+// (B3) reads the whole live window of every row: at 8 rows x 16 KV heads
+// of dh 128 and windows of ~370 slots, ~12 MB, ~4 us at 3.35 TB/s.  An
+// admission chunk (B4, q (1, 256, 16, 128) against a 768-slot cache) reads
+// ~0.13 MB of K/V per head and does ~0.8 GFLOP in all: microseconds of
+// work, so at that shape launch latency and the CTA's serial block loop
+// bound it.
 //
-// The design: a query ROW is one (query j, group head g) pair, r = j * G +
-// g with G = H / Hkv, so the G heads sharing a KV head sit side by side.  A
-// CTA takes a tile of rows of one (batch row, KV head) and walks only the KV
-// blocks that intersect the tile's live range [kv_start, max stop).  Each
-// row keeps its own online softmax (m, l, acc) in f32 and its own causal
-// stop.  The query tiles are a grid axis, so ONE launch covers any S: the
-// TPU sweeps 32 queries per pallas_call because of VMEM, which is no
-// contract of the result, since each query's window and arithmetic do not
-// depend on the tile it rides in.  Two bodies, picked by the wrapper's
-// `chunk_plan`:
+// The design: a query ROW is one (query j, group head g) pair, r = j * G
+// + g with G = H / Hkv, so the G heads sharing a KV head sit side by side.
+// Two bodies, picked by the wrapper's `chunk_plan`:
 //
-// - `attend_kernel` (S = 1: B3, B6, and a one-query chunk): tiles of up to
-//   8 rows, 128 slots of K and V at a time staged through shared memory
-//   with 16-byte loads, products on the CUDA cores (one thread a slot for
-//   q . k, one a head dim for p . v).  At B = 8, Hkv = 16 a decode step is
-//   128 CTAs on 132 SMs.  A one-query chunk equals the single-query decode
-//   bit for bit: it is the same launch.
+// - `attend_split_kernel` (S = 1: B3, B6, and a one-query chunk, which
+//   equals the single-query decode bit for bit: it is the same launch).  A
+//   thread-block cluster of C CTAs (the plan's `cluster`, 1-8, from the
+//   shapes alone, so dense and paged calls split alike) takes the R <= 8
+//   rows of one (batch row, KV head); each CTA derives on the device its
+//   own contiguous share of the 32-slot blocks that meet the window, so
+//   that a decode step at 8 rows (128 (row, head) pairs) or one lone
+//   request (16) still spreads over the card.  Inside a CTA each of its 4
+//   warps takes every 4th block of the share and runs its own online
+//   softmax over them with no CTA-wide barrier: a cp.async ring of raw
+//   int8 K and V blocks per warp (two stages, bytes in flight from the
+//   kernel's first cycles), slot addresses and scales resolved one ring
+//   ahead in registers, the page table read once per page of the share
+//   into shared memory; q . k one slot a lane, p V four head dims a lane,
+//   both on the CUDA cores (at G = 1 a KV head has one query row: nothing
+//   to fill a tensor core with), int8 converted to f32 by a byte permute
+//   and one subtraction.  At the end the warps' and CTAs' (m, l, acc)
+//   meet in one merge, in rank then warp order, through distributed shared
+//   memory.  No atomics, no second launch.
 // - `attend_tc_kernel` (S > 1: B4, B7): tiles of 64 rows on the tensor
 //   cores (wgmma.cuh).  The (1, 256) admission chunk is 4 tiles x 16 heads
-//   = 64 CTAs, each reading its K/V window once per 64 rows (the CUDA-core
-//   body read it once per 8: 512 CTAs).  A CTA is two warpgroups.  The
-//   producer brings each block of 64 slots' raw int8 K and V by cp.async
-//   (two blocks ahead), converts them to bf16 (exact) into one of two
-//   buffers of 128-byte-swizzled tiles, K and V alike one slot a row, with
-//   the block's scales beside them, and hands the buffer over by a named
-//   barrier.  The consumer runs S = Q K^T as a wgmma m64n64k16 (Q and K
-//   K-major), the online softmax on the accumulator layout (exp on the
-//   SFU; the mask only on blocks that cross a window edge or a causal
-//   stop), rounds p * vs to bf16 in registers as the A operand of O += P V
-//   (V read MN-major, the transpose bit), keeps O (64 x dh, f32) in
-//   registers, and hands the buffer back.  Conversion of block n + 1 thus
-//   runs beside the products and softmax of block n.  Head dims 128 and 256
-//   are template instances.  Slot addresses (a page-table read) and scales
-//   run ahead of the copies in registers, so no read stalls the block loop.
+//   = 64 CTAs, each reading its K/V window once per 64 rows.  A CTA is two
+//   warpgroups.  The producer brings each block of 64 slots' raw int8 K
+//   and V by cp.async (two blocks ahead), converts them to bf16 (exact)
+//   into one of two buffers of 128-byte-swizzled tiles, K and V alike one
+//   slot a row, with the block's scales beside them, and hands the buffer
+//   over by a named barrier.  The consumer runs S = Q K^T as a wgmma
+//   m64n64k16 (Q and K K-major), the online softmax on the accumulator
+//   layout (exp on the SFU; the mask only on blocks that cross a window
+//   edge or a causal stop), rounds p * vs to bf16 in registers as the A
+//   operand of O += P V (V read MN-major, the transpose bit), keeps O
+//   (64 x dh, f32) in registers, and hands the buffer back.  Conversion of
+//   block n + 1 thus runs beside the products and softmax of block n.  Head
+//   dims 128 and 256 are template instances.  Slot addresses (a page-table
+//   read) and scales run ahead of the copies in registers, so no read
+//   stalls the block loop.
 //
 // Paging is addressing only.  Slot i of (row b, KV head h) lives at
 // (b * Hkv + h) * L + i in the dense cache and at
 // (table[b, i / T] * Hkv + h) * T + i % T in the pages, for values and
-// scales alike.  Each block first resolves its slots' addresses (one
-// table read per slot, only for slots inside the tile's live range, so
-// table columns past the window are never read; slots outside it are
-// zero-filled in both layouts), then runs the same loads, reductions and
-// roundings as the dense case: paged equals dense bit for bit on the same
-// bytes, for any T.  The TPU kernel's page DMA schedules are VMEM plumbing
-// and have no counterpart here.
+// scales alike.  Both bodies resolve these addresses only for slots inside
+// the live range (table columns past the window are never read; slots
+// outside it are zero-filled in both layouts), then run the same loads,
+// reductions and roundings as the dense case: paged equals dense bit for
+// bit on the same bytes, for any T.  The TPU kernel's page DMA schedules
+// are VMEM plumbing and have no counterpart here.
 //
 // Arithmetic follows the TPU kernel, in its order: logits are (q . k) *
-// scale * ks with q in bf16, k int8 (exact in bf16) and f32 sums; masked
-// slots are -1e30; p = exp(s - m_new), forced to 0 while the row has seen
-// no live slot; the V scale folds into p, which rounds to bf16 before it
-// multiplies V; l sums the unscaled p; the end divides by l, and l == 0
-// (an empty window) gives 0.  The two bodies sum in different orders (the
-// card check is the 2^-7 (|ref| + ref_abs) rule); neither uses atomics,
-// so a rerun gives the same bits.
+// scale * ks with q in bf16, k int8 (exact) and f32 sums; masked slots are
+// -1e30; p = exp(s - m_new), forced to 0 while the row has seen no live
+// slot; the V scale folds into p, which rounds to bf16 before it multiplies
+// V; l sums the unscaled p; the end divides by l, and l == 0 (an empty
+// window) gives 0.  The bodies sum in other orders than the plain version
+// (the single-query one also rounds p * vs against its share's running
+// max; the card check is the 2^-7 (|ref| + ref_abs) rule); neither uses
+// atomics, so a rerun gives the same bits.
 // A masked slot's p * vs is SELECTED to 0, never multiplied: a masked
-// slot inside a live block still loads whatever its page holds (a retired
+// slot inside a live block may load whatever its page holds (a retired
 // row's writes, a freed page's old bytes), and 0 x a non-finite scale
 // would poison the sum.
 
@@ -86,15 +94,38 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int BLK = 128;          // slots per staged block (one per thread)
-constexpr int MAX_R = 8;          // query rows per CTA
-constexpr int MAX_DH = 256;
 constexpr float NEG_INF = -1e30f;
+
+// ---- S = 1: the single-query body (B3, B6, and a one-query chunk) --------
+
+constexpr int SPLIT_WARPS = 4;   // the merge reads a row's four (m, l) as one float4
+constexpr int SPLIT_THREADS = 32 * SPLIT_WARPS;
+constexpr int SPLIT_SLOTS = 32;   // slots a warp takes at a time: one a lane
+constexpr int MAX_CLUSTER = 8;
+
+// shared memory (bytes): each warp's ring of two stages of (32 raw int8 K
+// rows | 32 raw int8 V rows) | q (R x DH f32) | each warp's running max and
+// sum per row (2 x R x 4 f32) | each cluster rank's merged partial, acc (R x
+// DH f32) then (m, l, -, -) per row (R x 4 f32), filled in rank 0 | the
+// share's page ids (paged only)
+template <int DH>
+struct SplitSmem {
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE = 2 * SPLIT_SLOTS * DH;
+  static constexpr int RING = SPLIT_WARPS * STAGES * STAGE;
+  // one rank's merged partial, in floats
+  __host__ __device__ static constexpr int part(int rows) { return rows * (DH + 4); }
+  static constexpr int bytes(int rows, int cluster, int pages) {
+    return RING + rows * DH * 4 + 2 * SPLIT_WARPS * rows * 4 + cluster * part(rows) * 4 +
+           pages * 4;
+  }
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -108,165 +139,329 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// smem layout (bytes, all 16-aligned): qs R*dh f32 | kb BLK*(dh+16) i8 |
-// vb BLK*dh i8 | ksc BLK f32 | vsc BLK f32 | pv R*BLK f32 | red 2*4 f32 |
-// addr BLK i64
-//
-// q (B, S, H, dh); out (B, S, H, dh); grid (tiles of MAX_R rows, Hkv, B).
-// table == nullptr: k8/v8 (B, Hkv, L, dh), ks/vs (B, Hkv, 1, L).
-// Otherwise table (B, MP) int32, k8/v8 (P, Hkv, T, dh), ks/vs
-// (P, Hkv, 1, T), and L = MP * T.
-__global__ void __launch_bounds__(THREADS)
-attend_kernel(const __nv_bfloat16* __restrict__ q,
-              const int8_t* __restrict__ k8,
-              const __nv_bfloat16* __restrict__ ks,
-              const int8_t* __restrict__ v8,
-              const __nv_bfloat16* __restrict__ vs,
-              const int* __restrict__ kv_start,
-              const int* __restrict__ kv_stop0,
-              const int* __restrict__ table,
-              __nv_bfloat16* __restrict__ out,
-              int S, int H, int Hkv, int L, int dh, int MP, int T, float scale) {
+// four int8 values (the bytes of w, lowest first) -> exact f32: byte b + 128
+// becomes the low mantissa byte of 2^23 (a byte permute), and a subtraction
+// takes 2^23 + 128 away
+__device__ __forceinline__ void f32x4_of_int8(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+}
+
+// the split arrive and wait of a cluster barrier (every thread of every
+// CTA), and a 16-byte store into CTA `rank`'s shared memory at the address
+// `addr` has in this CTA's
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f4(uint32_t addr, uint32_t rank, float4 v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// 16-byte chunk c of raw K row r sits at chunk (c & ~7) | ((c ^ r) & 7) of
+// the row: the 8 lanes of a quarter warp, each reading chunk c of its own
+// row, then meet distinct banks
+__device__ __forceinline__ int k_chunk(int c, int r) { return (c & ~7) | ((c ^ r) & 7); }
+
+// grid (tiles x cluster, Hkv, B), launched as clusters of (cluster, 1, 1):
+// CTA rank c of a cluster takes the c-th contiguous share of the 32-slot
+// blocks that meet the window [kv_start, min(kv_stop0, L)) of its (batch
+// row, KV head), for the R query rows r0 .. r0 + R - 1 of that KV head
+// (rows past G are computed on zero q and never stored).  Operands as
+// `launch` (S = 1).
+template <int DH, int R>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+attend_split_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k8,
+                    const __nv_bfloat16* __restrict__ ks, const int8_t* __restrict__ v8,
+                    const __nv_bfloat16* __restrict__ vs, const int* __restrict__ kv_start,
+                    const int* __restrict__ kv_stop0, const int* __restrict__ table,
+                    __nv_bfloat16* __restrict__ out, int H, int Hkv, int L, int MP, int T,
+                    float scale) {
+  using namespace hopper;
+  using Sm = SplitSmem<DH>;
+  constexpr int STAGES = Sm::STAGES;
+  constexpr int CH = DH / 16;       // 16-byte chunks a slot row
+  constexpr int NV = DH / 128;      // 4-dim groups a lane owns in P V
+  constexpr int QPT = R * DH / SPLIT_THREADS;   // q values a thread stages
   extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + Sm::RING);
+  float* ml_m = qs + R * DH;                 // [row][warp]
+  float* ml_l = ml_m + R * SPLIT_WARPS;
+  float* cpart = ml_l + R * SPLIT_WARPS;     // [rank][Sm::part(R)]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = (int)cluster_rank(), ranks = (int)cluster_size();
+  int* pg = reinterpret_cast<int*>(cpart + ranks * Sm::part(R));
+  // every CTA of the cluster has started before any writes into another's
+  // shared memory: this arrive's wait comes before the merge
+  if (ranks > 1) cluster_arrive_relaxed();
+  const int r0 = (blockIdx.x / ranks) * R;
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int G = H / Hkv;
-  const int kstride = dh + 16;     // padded K rows: conflict-free 16 B reads
-  float* qs = reinterpret_cast<float*>(smem);
-  int8_t* kb = reinterpret_cast<int8_t*>(qs + MAX_R * dh);
-  int8_t* vb = kb + BLK * kstride;
-  float* ksc = reinterpret_cast<float*>(vb + BLK * dh);
-  float* vsc = ksc + BLK;
-  float* pv = vsc + BLK;
-  float* red = pv + MAX_R * BLK;
-  long long* addr = reinterpret_cast<long long*>(red + 8);  // slot -> row index
+  const int rows = min(R, G - r0);
+  // q first (rows past G read row r0 and are zeroed when staged)
+  __nv_bfloat16 qv[QPT];
+#pragma unroll
+  for (int k = 0; k < QPT; ++k) {
+    const int i = tid + k * SPLIT_THREADS, r = i / DH;
+    qv[k] = q[((size_t)b * H + hk * G + r0 + (r < rows ? r : 0)) * DH + i % DH];
+  }
 
-  const int r0 = blockIdx.x * MAX_R;           // first row of this tile
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int R = min(MAX_R, S * G - r0);        // rows in this tile
-  const int t = threadIdx.x;
-  const int warp = t >> 5;
-  const int lane = t & 31;
-
+  // this CTA's share of the window's blocks, from the window alone
   const int lo = max(kv_start[b], 0);
-  const int stop0 = kv_stop0[b];
-  int hi[MAX_R];
-  int hi_max = 0;
-#pragma unroll
-  for (int r = 0; r < MAX_R; ++r) {
-    hi[r] = (r < R) ? min(stop0 + (r0 + r) / G, L) : 0;
-    hi_max = max(hi_max, hi[r]);
+  const int hi = min(kv_stop0[b], L);
+  const int kb0 = lo / SPLIT_SLOTS;
+  const int nblk = hi > lo ? (hi + SPLIT_SLOTS - 1) / SPLIT_SLOTS - kb0 : 0;
+  const int c0 = kb0 + rank * nblk / ranks, c1 = kb0 + (rank + 1) * nblk / ranks;
+  // the live slots of the share, and (paged) its pages, read once each
+  const int s_lo = max(c0 * SPLIT_SLOTS, lo), s_hi = min(c1 * SPLIT_SLOTS, hi);
+  const int p0 = table != nullptr && s_hi > s_lo ? s_lo / T : 0;
+  if (table != nullptr) {
+    const int np = s_hi > s_lo ? (s_hi - 1) / T - p0 + 1 : 0;
+    for (int i = tid; i < np; i += SPLIT_THREADS) pg[i] = __ldg(table + (size_t)b * MP + p0 + i);
+    __syncthreads();
   }
+  const size_t dense_base = ((size_t)b * Hkv + hk) * L;
+  // the cache row of slot i (values and scales alike), -1 outside the share
+  auto resolve = [&](int i) -> int {
+    if (i < s_lo || i >= s_hi) return -1;
+    if (table == nullptr) return (int)(dense_base + i);
+    const int p = i / T;
+    return (pg[p - p0] * Hkv + hk) * T + (i - p * T);
+  };
 
-  for (int i = t; i < R * dh; i += THREADS) {
-    const int row = r0 + i / dh;
-    const int j = row / G, g = row - (row / G) * G;
-    qs[i] = __bfloat162float(q[(((size_t)b * S + j) * H + hk * G + g) * dh + i % dh]);
-  }
-
-  const size_t row_base = ((size_t)b * Hkv + hk) * L;  // slot 0 of this (b, hkv)
-  const int ndim = dh / THREADS;                       // output dims per thread
-  float acc[MAX_R][MAX_DH / THREADS];
-  float m[MAX_R], l[MAX_R];
+  // this warp's blocks: c0 + warp, c0 + warp + 4, ...; block n of the warp
+  // goes to stage n % STAGES of its ring
+  const int nw = c1 - c0 > warp ? (c1 - c0 - warp + SPLIT_WARPS - 1) / SPLIT_WARPS : 0;
+  unsigned char* ring = smem + warp * STAGES * Sm::STAGE;
+  const uint32_t ring_s = smem_u32(ring);
+  // issue block n's K and V rows (lane l resolved slot l; rows outside the
+  // share zero-filled) and load its scales for this lane's slot, kept raw
+  // until the block is computed (a slot off the window loads row 0's and
+  // is selected away then), so that nothing here waits for a load
+  auto issue = [&](int n, __nv_bfloat16& ksv, __nv_bfloat16& vsv) {
+    if (n >= nw) return;
+    const int a = resolve((c0 + warp + n * SPLIT_WARPS) * SPLIT_SLOTS + lane);
+    const uint32_t kd = ring_s + (n % STAGES) * Sm::STAGE, vd = kd + SPLIT_SLOTS * DH;
 #pragma unroll
-  for (int r = 0; r < MAX_R; ++r) {
+    for (int it = 0; it < CH; ++it) {
+      const int u = lane + 32 * it, r = u / CH, c = u % CH;
+      const int ra = __shfl_sync(0xffffffffu, a, r);
+      const bool valid = ra >= 0;
+      const size_t off = valid ? (size_t)ra * DH + c * 16 : 0;
+      cp_async_16(kd + r * DH + k_chunk(c, r) * 16, k8 + off, valid);
+      cp_async_16(vd + r * DH + c * 16, v8 + off, valid);
+    }
+    ksv = ks[a >= 0 ? a : 0];
+    vsv = vs[a >= 0 ? a : 0];
+  };
+
+  __nv_bfloat16 ksr[STAGES], vsr[STAGES];   // scales of blocks n .. n + STAGES - 1
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    issue(s, ksr[s], vsr[s]);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int k = 0; k < QPT; ++k) {
+    const int i = tid + k * SPLIT_THREADS;
+    qs[i] = i / DH < rows ? __bfloat162float(qv[k]) : 0.f;
+  }
+  __syncthreads();
+
+  float m[R], l[R], acc[R][4 * NV];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < MAX_DH / THREADS; ++i) acc[r][i] = 0.f;
+    for (int e = 0; e < 4 * NV; ++e) acc[r][e] = 0.f;
   }
 
-  for (int j0 = (lo / BLK) * BLK; j0 < hi_max; j0 += BLK) {
-    __syncthreads();  // the previous block's smem reads are done
-    {
-      // this block's slot addresses (rows of dh values, and scale indices)
-      const int i = j0 + t;
-      const bool in = i < hi_max;
-      long long a = -1;
-      if (in) {
-        a = table == nullptr
-                ? (long long)(row_base + i)
-                : ((long long)table[(size_t)b * MP + i / T] * Hkv + hk) * T + i % T;
-      }
-      addr[t] = a;
-      ksc[t] = in ? __bfloat162float(ks[a]) : 0.f;
-      vsc[t] = in ? __bfloat162float(vs[a]) : 0.f;
-    }
-    __syncthreads();
-    const int vec = dh / 16;
-    for (int i = t; i < BLK * vec; i += THREADS) {
-      const int j = i / vec;
-      const int c = (i - j * vec) * 16;
-      int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
-      const long long a = addr[j];
-      if (a >= 0) {
-        kv = __ldg(reinterpret_cast<const int4*>(k8 + a * dh + c));
-        vv = __ldg(reinterpret_cast<const int4*>(v8 + a * dh + c));
-      }
-      *reinterpret_cast<int4*>(kb + j * kstride + c) = kv;
-      *reinterpret_cast<int4*>(vb + j * dh + c) = vv;
-    }
-    __syncthreads();
+  for (int n = 0; n < nw; ++n) {
+    // block n has landed for every lane, and every lane is done with block
+    // n - 1, whose stage takes block n + STAGES - 1: asking for every block
+    // at the start only delays the first (measured on an H100)
+    cp_async_wait<STAGES - 2>();
+    __syncwarp();
+    issue(n + STAGES - 1, ksr[STAGES - 1], vsr[STAGES - 1]);
+    cp_async_commit();
+    const unsigned char* kst = ring + (n % STAGES) * Sm::STAGE;
+    const unsigned char* vst = kst + SPLIT_SLOTS * DH;
+    const int slot = (c0 + warp + n * SPLIT_WARPS) * SPLIT_SLOTS + lane;
+    const bool live = slot >= lo && slot < hi;
 
-    const int slot = j0 + t;
-    float alpha[MAX_R];
+    // q . k, one slot a lane: NP independent sums a row (head dims 4v ..
+    // 4v + 3 of every 16 into sum v % NP), so that the FMA chains overlap,
+    // added in a fixed order at the end
+    constexpr int NP = R >= 4 ? 1 : 4 / R;
+    float part[R][NP];
 #pragma unroll
-    for (int r = 0; r < MAX_R; ++r) {
-      if (r >= R) break;
-      const bool live = slot >= lo && slot < hi[r];
-      float dot = 0.f;
-      const float* qr = qs + r * dh;
-      for (int d = 0; d < dh; d += 16) {
-        const int4 raw = *reinterpret_cast<const int4*>(kb + t * kstride + d);
-        const int8_t* kk = reinterpret_cast<const int8_t*>(&raw);
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int e = 0; e < 16; ++e) dot = fmaf(qr[d + e], (float)kk[e], dot);
+      for (int i = 0; i < NP; ++i) part[r][i] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < CH; ++c) {
+      const uint4 w = *reinterpret_cast<const uint4*>(kst + lane * DH + k_chunk(c, lane) * 16);
+      float kf[16];
+      f32x4_of_int8(w.x, kf);
+      f32x4_of_int8(w.y, kf + 4);
+      f32x4_of_int8(w.z, kf + 8);
+      f32x4_of_int8(w.w, kf + 12);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4* qr = reinterpret_cast<const float4*>(qs + r * DH + c * 16);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const float4 qv = qr[v];
+          float& d = part[r][v % NP];
+          d = fmaf(qv.x, kf[4 * v], d);
+          d = fmaf(qv.y, kf[4 * v + 1], d);
+          d = fmaf(qv.z, kf[4 * v + 2], d);
+          d = fmaf(qv.w, kf[4 * v + 3], d);
+        }
       }
-      float s = (dot * scale) * ksc[t];
-      s = live ? s : NEG_INF;
-      // block max over the 128 slots
-      float bm = warp_max(s);
-      if (lane == 0) red[warp] = bm;
-      __syncthreads();
-      bm = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-      const float m_new = fmaxf(m[r], bm);
-      const float p = (m_new > NEG_INF / 2) ? expf(s - m_new) : 0.f;
-      float bs = warp_sum(p);
-      if (lane == 0) red[4 + warp] = bs;
-      __syncthreads();
-      bs = (red[4] + red[5]) + (red[6] + red[7]);
-      alpha[r] = expf(m[r] - m_new);
-      l[r] = alpha[r] * l[r] + bs;
+    }
+    float dot[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (NP == 4) {
+        dot[r] = (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]);
+      } else if constexpr (NP == 2) {
+        dot[r] = part[r][0] + part[r][1];
+      } else {
+        dot[r] = part[r][0];
+      }
+    }
+
+    // the warp's online softmax: logits (q . k) * scale * ks, -1e30 off the
+    // window; p zero while the row has seen no live slot; p * vs selected
+    // to 0 off the window and rounded to bf16; l of the unscaled p, kept
+    // per lane and summed once at the end
+    float pv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float s = live ? (dot[r] * scale) * __bfloat162float(ksr[0]) : NEG_INF;
+      const float m_new = fmaxf(m[r], warp_max(s));
+      const float p = m_new > NEG_INF / 2 ? expf(s - m_new) : 0.f;
+      const float alpha = expf(m[r] - m_new);
       m[r] = m_new;
-      pv[r * BLK + t] = live ? __bfloat162float(__float2bfloat16(p * vsc[t])) : 0.f;
-      __syncthreads();  // red is reused by the next row; pv complete
+      l[r] = alpha * l[r] + p;
+      pv[r] = live ? __bfloat162float(__float2bfloat16(p * __bfloat162float(vsr[0]))) : 0.f;
+#pragma unroll
+      for (int e = 0; e < 4 * NV; ++e) acc[r][e] *= alpha;
     }
+
+    // p V: this lane's head dims 4 lane .. 4 lane + 3 (+ 128 at dh 256),
+    // the block's slots in order
+#pragma unroll 4
+    for (int j = 0; j < SPLIT_SLOTS; ++j) {
+      float pj[R];
 #pragma unroll
-    for (int r = 0; r < MAX_R; ++r) {
-      if (r >= R) break;
-      const float* pr = pv + r * BLK;
+      for (int r = 0; r < R; ++r) pj[r] = __shfl_sync(0xffffffffu, pv[r], j);
 #pragma unroll
-      for (int i = 0; i < MAX_DH / THREADS; ++i) {
-        if (i >= ndim) break;
-        const int d = t + i * THREADS;
-        float dv = 0.f;
-        for (int j = 0; j < BLK; ++j) dv = fmaf(pr[j], (float)vb[j * dh + d], dv);
-        acc[r][i] = acc[r][i] * alpha[r] + dv;
+      for (int h = 0; h < NV; ++h) {
+        float vf[4];
+        f32x4_of_int8(*reinterpret_cast<const uint32_t*>(vst + j * DH + 128 * h + 4 * lane), vf);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][4 * h + e] = fmaf(pj[r], vf[e], acc[r][4 * h + e]);
       }
     }
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      ksr[s] = ksr[s + 1];
+      vsr[s] = vsr[s + 1];
+    }
+  }
+  cp_async_wait<0>();   // no copy lands in the ring after this
+  __syncwarp();
+
+  // this warp's partial: (m, l) per row beside the other warps', acc (R x
+  // DH f32) over its own ring
+  float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float lr = warp_sum(l[r]);
+    if (lane == 0) {
+      ml_m[r * SPLIT_WARPS + warp] = m[r];
+      ml_l[r * SPLIT_WARPS + warp] = lr;
+    }
+#pragma unroll
+    for (int h = 0; h < NV; ++h)
+      *reinterpret_cast<float4*>(part + r * DH + 128 * h + 4 * lane) =
+          make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2], acc[r][4 * h + 3]);
   }
 
+  // The merge: m = max m_i, l = sum e^(m_i - m) l_i, acc = sum e^(m_i - m)
+  // acc_i, first over the CTA's warps in order, each rank storing its
+  // result into its slot of rank 0's shared memory (distributed shared
+  // memory: stores, so no round trip), then, after one cluster barrier,
+  // over the ranks in order by rank 0, which writes the output.  An empty
+  // share (m -1e30, l 0, acc 0) adds 0; an empty window gives l == 0 and
+  // so 0.
+  __syncthreads();
+  if (ranks > 1) cluster_wait();
+  const uint32_t mine = smem_u32(cpart + rank * Sm::part(R));
+  for (int u = tid; u < rows * (DH / 4); u += SPLIT_THREADS) {
+    const int r = u / (DH / 4), d = 4 * (u % (DH / 4));
+    const float4 mm = *reinterpret_cast<const float4*>(ml_m + r * SPLIT_WARPS);
+    const float4 ll = *reinterpret_cast<const float4*>(ml_l + r * SPLIT_WARPS);
+    const float mw[4] = {mm.x, mm.y, mm.z, mm.w}, lw[4] = {ll.x, ll.y, ll.z, ll.w};
+    const float mc = fmaxf(fmaxf(mw[0], mw[1]), fmaxf(mw[2], mw[3]));
+    float lc = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int r = 0; r < MAX_R; ++r) {
-    if (r >= R) break;
-    const int row = r0 + r;
-    const int j = row / G, g = row - (row / G) * G;
-    const float lr = (l[r] == 0.f) ? 1.f : l[r];
-#pragma unroll
-    for (int i = 0; i < MAX_DH / THREADS; ++i) {
-      if (i >= ndim) break;
-      const int d = t + i * THREADS;
-      out[(((size_t)b * S + j) * H + hk * G + g) * dh + d] = __float2bfloat16(acc[r][i] / lr);
+    for (int w = 0; w < SPLIT_WARPS; ++w) {
+      const float f = expf(mw[w] - mc);
+      const float4 a = *reinterpret_cast<const float4*>(
+          smem + w * STAGES * Sm::STAGE + (r * DH + d) * 4);
+      lc += f * lw[w];
+      o.x += f * a.x;
+      o.y += f * a.y;
+      o.z += f * a.z;
+      o.w += f * a.w;
     }
+    st_cluster_f4(mine + (r * DH + d) * 4, 0, o);
+    if (d == 0) st_cluster_f4(mine + (R * DH + 4 * r) * 4, 0, make_float4(mc, lc, 0.f, 0.f));
+  }
+  if (ranks > 1) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
+  if (rank != 0) return;
+  for (int u = tid; u < rows * (DH / 4); u += SPLIT_THREADS) {
+    const int r = u / (DH / 4), d = 4 * (u % (DH / 4));
+    float mx = NEG_INF;
+    for (int p = 0; p < ranks; ++p) mx = fmaxf(mx, cpart[p * Sm::part(R) + R * DH + 4 * r]);
+    float ls = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = 0; p < ranks; ++p) {
+      const float* pp = cpart + p * Sm::part(R);
+      const float f = expf(pp[R * DH + 4 * r] - mx);
+      const float4 a = *reinterpret_cast<const float4*>(pp + r * DH + d);
+      ls += f * pp[R * DH + 4 * r + 1];
+      o.x += f * a.x;
+      o.y += f * a.y;
+      o.z += f * a.z;
+      o.w += f * a.w;
+    }
+    const float inv = ls == 0.f ? 1.f : ls;
+    *reinterpret_cast<uint2*>(out + ((size_t)b * H + hk * G + r0 + r) * DH + d) =
+        make_uint2(pack_bf16(o.x / inv, o.y / inv), pack_bf16(o.z / inv, o.w / inv));
   }
 }
 
@@ -358,7 +553,7 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[32], uint32_t (&pa)[16]
   for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + ps[i];
 }
 
-// grid (ceil(S * G / 64), Hkv, B), 256 threads.  Operands as attend_kernel.
+// grid (ceil(S * G / 64), Hkv, B), 256 threads.  Operands as `launch` takes them.
 // Warpgroup 0 consumes: its products, online softmax and output rows.
 // Warpgroup 1 produces, one block ahead, into two buffers: thread t copies
 // (cp.async, two blocks ahead), converts and scales slot row t / 2 of each
@@ -595,9 +790,79 @@ attend_tc_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__
   }
 }
 
-int attend_smem(int dh) {
-  return MAX_R * dh * 4 + BLK * (dh + 16) + BLK * dh + 2 * BLK * 4 + MAX_R * BLK * 4 + 8 * 4 +
-         BLK * 8;
+// the dynamic shared memory a kernel may ask for, set once per kernel and
+// device (a per-call cudaFuncSetAttribute costs host time on every launch)
+constexpr int SMEM_LIMIT = 232448;
+
+cudaError_t allow_smem_once(const void* kernel, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
+
+// the pages a CTA's share can span: ceil(ceil(L / 32) / cluster) blocks
+int split_pages(int L, int MP, int T, int cluster) {
+  const int blocks = (L + SPLIT_SLOTS - 1) / SPLIT_SLOTS;
+  const int share = (blocks + cluster - 1) / cluster * SPLIT_SLOTS;
+  const int pages = (share + T - 1) / T + 1;
+  return pages < MP ? pages : MP;
+}
+
+template <int DH, int R>
+cudaError_t launch_split(int cluster, cudaStream_t st, const void* q, const void* k8,
+                         const void* ks, const void* v8, const void* vs, const void* kv_start,
+                         const void* kv_stop0, const void* table, void* out, int B, int H,
+                         int Hkv, int L, int MP, int T, float scale) {
+  static std::atomic<unsigned long long> ready{0};
+  auto kernel = attend_split_kernel<DH, R>;
+  cudaError_t err = allow_smem_once((const void*)kernel, ready);
+  if (err != cudaSuccess) return err;
+  const int tiles = (H / Hkv + R - 1) / R;
+  const int pages = table != nullptr ? split_pages(L, MP, T, cluster) : 0;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * cluster, Hkv, B);
+  cfg.blockDim = dim3(SPLIT_THREADS);
+  cfg.dynamicSmemBytes = SplitSmem<DH>::bytes(R, cluster, pages);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k8),
+      static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(v8),
+      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(kv_start),
+      static_cast<const int*>(kv_stop0), static_cast<const int*>(table),
+      static_cast<__nv_bfloat16*>(out), H, Hkv, L, MP, T, scale);
+}
+
+// rows per CTA: G rounded up to 1, 2, 4 or 8 (above 8, tiles of 8)
+template <int DH>
+cudaError_t launch_split_rows(int cluster, cudaStream_t st, const void* q, const void* k8,
+                              const void* ks, const void* v8, const void* vs,
+                              const void* kv_start, const void* kv_stop0, const void* table,
+                              void* out, int B, int H, int Hkv, int L, int MP, int T,
+                              float scale) {
+  const int G = H / Hkv;
+  if (G <= 1)
+    return launch_split<DH, 1>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out,
+                               B, H, Hkv, L, MP, T, scale);
+  if (G <= 2)
+    return launch_split<DH, 2>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out,
+                               B, H, Hkv, L, MP, T, scale);
+  if (G <= 4)
+    return launch_split<DH, 4>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out,
+                               B, H, Hkv, L, MP, T, scale);
+  return launch_split<DH, 8>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out, B,
+                             H, Hkv, L, MP, T, scale);
 }
 
 template <int DH>
@@ -615,37 +880,34 @@ void launch_tc(dim3 grid, cudaStream_t st, const void* q, const void* k8, const 
       static_cast<__nv_bfloat16*>(out), S, H, Hkv, L, MP, T, scale);
 }
 
-// `tc` picks the body: 0 the CUDA-core one (8-row tiles), 1 the tensor-core
-// one (64-row tiles, dh 128 or 256)
-int launch(int tc, const void* q, const void* k8, const void* ks, const void* v8,
+// `cluster` picks the body: 0 the tensor-core one (64-row tiles, dh 128 or
+// 256, any S); 1, 2, 4 or 8 the single-query one (S = 1) with each window
+// split over a cluster of that many CTAs
+int launch(int cluster, const void* q, const void* k8, const void* ks, const void* v8,
            const void* vs, const void* kv_start, const void* kv_stop0, const void* table,
            void* out, int B, int S, int H, int Hkv, int L, int dh, int MP, int T, float scale,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = S * (H / Hkv);
-  if (tc) {
-    dim3 grid((rows + TC_ROWS - 1) / TC_ROWS, Hkv, B);
+  if (dh != 128 && dh != 256) return (int)cudaErrorInvalidValue;
+  if (cluster == 0) {
+    dim3 grid((S * (H / Hkv) + TC_ROWS - 1) / TC_ROWS, Hkv, B);
     if (dh == 128) {
       launch_tc<128>(grid, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out, S, H, Hkv, L,
                      MP, T, scale);
-    } else if (dh == 256) {
+    } else {
       launch_tc<256>(grid, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out, S, H, Hkv, L,
                      MP, T, scale);
-    } else {
-      return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
   }
-  const int smem = attend_smem(dh);
-  cudaFuncSetAttribute(attend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid((rows + MAX_R - 1) / MAX_R, Hkv, B);
-  attend_kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k8),
-      static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(v8),
-      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(kv_start),
-      static_cast<const int*>(kv_stop0), static_cast<const int*>(table),
-      static_cast<__nv_bfloat16*>(out), S, H, Hkv, L, dh, MP, T, scale);
-  return (int)cudaGetLastError();
+  if (S != 1 || cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      dh == 128 ? launch_split_rows<128>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0,
+                                         table, out, B, H, Hkv, L, MP, T, scale)
+                : launch_split_rows<256>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0,
+                                         table, out, B, H, Hkv, L, MP, T, scale);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -654,47 +916,55 @@ extern "C" {
 
 // q (B, S, H, dh) bf16, query j attending [kv_start, kv_stop0 + j);
 // k8/v8 (B, Hkv, L, dh) int8; ks/vs (B, Hkv, 1, L) bf16; kv_start/kv_stop0
-// (B,) int32; out (B, S, H, dh) bf16; dh 128 or 256; `tc` as `launch`.
-// The single-query decode is S = 1 on the CUDA-core body.  Returns
-// cudaGetLastError().
-int decode_attention_chunk_launch(int tc, const void* q, const void* k8, const void* ks,
+// (B,) int32; out (B, S, H, dh) bf16; dh 128 or 256; `cluster` as
+// `launch` (0: the tensor-core body; 1-8: the single-query body, S = 1).
+// Returns cudaGetLastError().
+int decode_attention_chunk_launch(int cluster, const void* q, const void* k8, const void* ks,
                                   const void* v8, const void* vs,
                                   const void* kv_start, const void* kv_stop0,
                                   void* out, int B, int S, int H, int Hkv, int L,
                                   int dh, float scale, void* stream) {
-  return launch(tc, q, k8, ks, v8, vs, kv_start, kv_stop0, nullptr, out, B, S, H, Hkv, L, dh,
-                0, 1, scale, stream);
+  return launch(cluster, q, k8, ks, v8, vs, kv_start, kv_stop0, nullptr, out, B, S, H, Hkv, L,
+                dh, 0, 1, scale, stream);
 }
 
 // The same through a page table: k8/v8 pages (P, Hkv, T, dh) int8, ks/vs
 // pages (P, Hkv, 1, T) bf16, table (B, MP) int32 of physical page ids;
 // the cache length is MP * T.  Returns cudaGetLastError().
-int paged_decode_attention_chunk_launch(int tc, const void* q, const void* k8, const void* ks,
-                                        const void* v8, const void* vs,
+int paged_decode_attention_chunk_launch(int cluster, const void* q, const void* k8,
+                                        const void* ks, const void* v8, const void* vs,
                                         const void* kv_start, const void* kv_stop0,
                                         const void* table, void* out, int B, int S, int H,
                                         int Hkv, int MP, int T, int dh, float scale,
                                         void* stream) {
-  return launch(tc, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out, B, S, H, Hkv, MP * T,
-                dh, MP, T, scale, stream);
+  return launch(cluster, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out, B, S, H, Hkv,
+                MP * T, dh, MP, T, scale, stream);
 }
 
-// Resources of the CUDA-core body (at dh 128) and of the tensor-core body
-// at dh 128 and 256, six ints each: registers per thread, static shared
-// bytes, dynamic shared bytes, local (spill) bytes per thread, threads per
-// CTA, CTAs per SM.  Returns the first CUDA error.
+// Resources of the single-query body (dh 128 at G = 1 and G = 4, dh 256 at
+// G = 2; dense, so no page ids) and of the tensor-core body at dh 128 and
+// 256, six ints each: registers per thread, static shared bytes, dynamic
+// shared bytes, local (spill) bytes per thread, threads per CTA, CTAs per
+// SM.  Returns the first CUDA error.
 int decode_attention_resources(int* res) {
-  cudaFuncSetAttribute(attend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       attend_smem(128));
+  static std::atomic<unsigned long long> r1{0}, r4{0}, r2{0};
+  const void* fns[5] = {(const void*)attend_split_kernel<128, 1>,
+                        (const void*)attend_split_kernel<128, 4>,
+                        (const void*)attend_split_kernel<256, 2>,
+                        (const void*)attend_tc_kernel<128>, (const void*)attend_tc_kernel<256>};
+  const int threads[5] = {SPLIT_THREADS, SPLIT_THREADS, SPLIT_THREADS, TC_THREADS, TC_THREADS};
+  const int smem[5] = {SplitSmem<128>::bytes(1, 2, 0), SplitSmem<128>::bytes(4, 4, 0),
+                       SplitSmem<256>::bytes(2, 4, 0), TcSmem<128>::BYTES, TcSmem<256>::BYTES};
+  std::atomic<unsigned long long>* ready[3] = {&r1, &r4, &r2};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = allow_smem_once(fns[i], *ready[i]);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaFuncSetAttribute(attend_tc_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        TcSmem<128>::BYTES);
   cudaFuncSetAttribute(attend_tc_kernel<256>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        TcSmem<256>::BYTES);
-  const void* fns[3] = {(const void*)attend_kernel, (const void*)attend_tc_kernel<128>,
-                        (const void*)attend_tc_kernel<256>};
-  const int threads[3] = {THREADS, TC_THREADS, TC_THREADS};
-  const int smem[3] = {attend_smem(128), TcSmem<128>::BYTES, TcSmem<256>::BYTES};
-  for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < 5; ++i) {
     cudaFuncAttributes a;
     cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
     if (err != cudaSuccess) return (int)err;

@@ -10,10 +10,11 @@ scales, L from :func:`pick_buffer_len` and dh zero-padded to 128, exactly
 the JAX package's shapes; its pages are (P, Hkv, T, dh) and (P, Hkv, 1, T)
 tiles of it (``kvpool/layout.py``).  Two kernel bodies serve the four,
 picked by :func:`chunk_plan`: a single query (S = 1) runs on the CUDA
-cores, a chunk (S > 1) on the tensor cores; each reads the dense cache or
-the pages, so a paged call equals the dense call on the same bytes bit for
-bit.  A CUDA tensor launches a kernel; a CPU tensor takes the plain
-version beside it.
+cores with each window split over a thread-block cluster, a chunk (S > 1)
+on the tensor cores; each reads the dense cache or the pages, and the plan
+depends on the shapes alone, so a paged call equals the dense call on the
+same bytes bit for bit.  A CUDA tensor launches a kernel; a CPU tensor
+takes the plain version beside it.
 """
 
 from __future__ import annotations
@@ -36,39 +37,73 @@ KV_BLOCK_BUDGET = 2 * 1024 * 1024 + 128 * 1024
 CHUNK_MAX_SQ = 32
 
 # query rows per CTA of the two bodies (csrc/decode_attention.cu): the
-# CUDA-core one takes up to 8, the tensor-core one wgmma's 64
+# CUDA-core one takes up to 8 (G rounded up to 1, 2, 4 or 8), the
+# tensor-core one wgmma's 64
 SIMT_ROWS = 8
 TC_ROWS = 64
+# the single-query body splits a window into 32-slot blocks over a cluster
+# of CTAs, until the grid covers the card's SMs (H100: 132).  The launcher
+# takes clusters of up to 8; the plan stops at 4, since clusters of 8 ran
+# slower than 4 at every main-path shape on an H100 (PERF.md)
+SPLIT_SLOTS = 32
+MAX_CLUSTER = 4
+NUM_SMS = 132
 
 launches = 0
 chunk_launches = 0
 paged_launches = 0
 paged_chunk_launches = 0
-# launches of the tensor-core body, by any of the four wrappers
+# launches of the tensor-core body and of the single-query (split) body,
+# by any of the four wrappers
 chunk_tc_launches = 0
+split_launches = 0
 
 
-def chunk_plan(s_q: int, h: int, h_kv: int, b: int, dh: int) -> dict:
-    """The body and grid a launch of ``s_q`` queries per row takes, for
-    every wrapper: rows r = j * G + g (G = h / h_kv) of one (batch row, KV
-    head) share a CTA.  One query per row (B3, B6, and a one-query chunk)
-    keeps the CUDA-core body (``"simt"``, 8-row tiles), so a one-query
-    chunk equals the single-query decode bit for bit; a chunk (S > 1: B4,
-    B7) takes the tensor-core body (``"wgmma"``, 64-row tiles).  Returns
-    {"body", "rows_per_cta", "tiles", "ctas"}."""
-    if h % h_kv or dh not in (128, 256) or s_q < 1:
-        raise ValueError(f"no kernel for s_q {s_q}, h {h}, h_kv {h_kv}, dh {dh}")
-    body, per = ("simt", SIMT_ROWS) if s_q == 1 else ("wgmma", TC_ROWS)
-    tiles = -(-s_q * (h // h_kv) // per)
-    return {"body": body, "rows_per_cta": per, "tiles": tiles, "ctas": tiles * h_kv * b}
+def chunk_plan(s_q: int, h: int, h_kv: int, b: int, dh: int, l_buf: int) -> dict:
+    """The body and grid a launch of ``s_q`` queries per row against an
+    ``l_buf``-slot cache takes, for every wrapper; it reads the shapes
+    only, never the layout or the windows, so dense and paged calls run
+    the same grid.  Rows r = j * G + g (G = h / h_kv) of one (batch row, KV
+    head) share a CTA.
+
+    - One query per row (B3, B6, and a one-query chunk, which so equals the
+      single-query decode bit for bit) takes the CUDA-core body
+      (``"split"``): G rows a CTA (rounded up to 1, 2, 4 or 8; tiles of 8
+      above), each window split over a cluster of ``cluster`` CTAs, the
+      smallest power of two up to :data:`MAX_CLUSTER` whose grid reaches
+      :data:`NUM_SMS` CTAs, and never more shares than the cache has
+      32-slot blocks.
+    - A chunk (S > 1: B4, B7) takes the tensor-core body (``"wgmma"``,
+      64-row tiles, cluster 1).
+
+    Returns {"body", "rows_per_cta", "tiles", "cluster", "ctas"}."""
+    if h % h_kv or dh not in (128, 256) or s_q < 1 or l_buf < 1:
+        raise ValueError(f"no kernel for s_q {s_q}, h {h}, h_kv {h_kv}, dh {dh}, "
+                         f"l_buf {l_buf}")
+    g = h // h_kv
+    if s_q > 1:
+        tiles = -(-s_q * g // TC_ROWS)
+        return {"body": "wgmma", "rows_per_cta": TC_ROWS, "tiles": tiles, "cluster": 1,
+                "ctas": tiles * h_kv * b}
+    per = min(SIMT_ROWS, 1 << (g - 1).bit_length())
+    tiles = -(-g // per)
+    base = tiles * h_kv * b
+    blocks = -(-l_buf // SPLIT_SLOTS)
+    cluster = 1
+    while cluster < MAX_CLUSTER and base * cluster < NUM_SMS and 2 * cluster <= blocks:
+        cluster *= 2
+    return {"body": "split", "rows_per_cta": per, "tiles": tiles, "cluster": cluster,
+            "ctas": base * cluster}
 
 
 def resources() -> dict:
-    """Registers, shared memory, spills and CTAs per SM of the CUDA-core
-    body (at dh 128) and of the tensor-core body at dh 128 and 256, on the
-    card (``build.resources``): {name: {field: int}}."""
+    """Registers, shared memory, spills and CTAs per SM of the single-query
+    body (dh 128 at G = 1 and G = 4, dh 256 at G = 2) and of the
+    tensor-core body at dh 128 and 256, on the card (``build.resources``):
+    {name: {field: int}}."""
     return build.resources("decode_attention", "decode_attention_resources",
-                           ("simt", "wgmma_dh128", "wgmma_dh256"))
+                           ("split_dh128", "split_dh128_g4", "split_dh256_g2", "wgmma_dh128",
+                            "wgmma_dh256"))
 
 
 def auto_block_kv(l_buf: int, h_kv: int, dh: int) -> int:
@@ -230,12 +265,21 @@ def _check_launch(what: str, q, k8, ks, v8, vs, dh: int) -> None:
             raise ValueError(f"{what} operands must be contiguous and on one device")
 
 
+def plan_for(q: torch.Tensor, k8: torch.Tensor, table: Optional[torch.Tensor] = None) -> dict:
+    """The :func:`chunk_plan` a wrapper call launches for q (B, S, H, dh)
+    against a dense cache ``k8`` (B, Hkv, L, dh), or against (P, Hkv, T,
+    dh) pages through ``table`` (B, MP), whose cache length is MP * T."""
+    b, s_q, h, dh = q.shape
+    l_buf = k8.shape[2] if table is None else table.shape[1] * k8.shape[2]
+    return chunk_plan(s_q, h, k8.shape[1], b, dh, l_buf)
+
+
 def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale, table=None):
     """The checks and the launch of :func:`chunk_plan`'s body on a CUDA
     ``q`` (B, S, H, dh), or the plain version on a CPU one; every wrapper
     goes through here.  With ``table`` the cache operands are pages and the
     cache length is MP * T."""
-    global chunk_tc_launches
+    global chunk_tc_launches, split_launches
     b, s_q, h, dh = q.shape
     if table is None:
         _check_cache(q, k8, ks, v8, vs, h, dh)
@@ -252,14 +296,18 @@ def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale, table=None)
                                                       scale)
         return decode_attention_chunk_plain(q, k8, ks, v8, vs, start, stop0, scale)
     _check_launch(what, q, k8, ks, v8, vs, dh)
-    tc = chunk_plan(s_q, h, h_kv, b, dh)["body"] == "wgmma"
+    plan = plan_for(q, k8, table)
+    tc = plan["body"] == "wgmma"
+    # the launchers' first argument: 0 for the tensor-core body, else the
+    # single-query body's cluster
+    route = 0 if tc else plan["cluster"]
     out = torch.empty_like(q)
     p, i = ctypes.c_void_p, ctypes.c_int
     if table is None:
         launch = build.function("decode_attention", "decode_attention_chunk_launch",
                                 [i] + [p] * 8 + [i] * 6 + [ctypes.c_float, p])
         err = launch(
-            int(tc), *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, out)),
+            route, *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, out)),
             b, s_q, h, h_kv, l_buf, dh, scale, build.stream_ptr(q.device),
         )
     else:
@@ -269,13 +317,15 @@ def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale, table=None)
         launch = build.function("decode_attention", "paged_decode_attention_chunk_launch",
                                 [i] + [p] * 9 + [i] * 7 + [ctypes.c_float, p])
         err = launch(
-            int(tc), *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, table, out)),
+            route, *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, table, out)),
             b, s_q, h, h_kv, table.shape[1], k8.shape[2], dh, scale,
             build.stream_ptr(q.device),
         )
     build.check(err, what)
     if tc:
         chunk_tc_launches += 1
+    else:
+        split_launches += 1
     return out
 
 

@@ -2,7 +2,8 @@
 
 ``decode_attention.chunk_plan`` picks the body and grid of every launch of
 the four decode wrappers; here it is held at the main path's shapes and at
-the card check's extra cases.  The tensor-core body itself runs only on
+the card check's extra cases (the single-query body's cluster split in
+test_torch_decode_split.py).  The tensor-core body itself runs only on
 the card (chip_smoke.py holds it against decode_attention_chunk_plain,
 bit-equal on a rerun and paged against dense); here its blocked schedule
 (64-row tiles, 64-slot blocks from the window's first block, zero-filled
@@ -27,10 +28,11 @@ COUNTERS = ("launches", "chunk_launches", "paged_launches", "paged_chunk_launche
 
 @pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
 def test_one_query_keeps_the_cuda_core_body_at_every_group(g):
-    p = da.chunk_plan(1, 16, 16 // g, 8, 128)
-    assert p["body"] == "simt" and p["rows_per_cta"] == da.SIMT_ROWS == 8
+    p = da.chunk_plan(1, 16, 16 // g, 8, 128, 768)
+    assert p["body"] == "split" and da.SIMT_ROWS == 8
+    assert p["rows_per_cta"] == min(g, da.SIMT_ROWS)
     assert p["tiles"] == -(-g // 8)
-    assert p["ctas"] == p["tiles"] * (16 // g) * 8
+    assert p["ctas"] == p["tiles"] * (16 // g) * 8 * p["cluster"]
 
 
 @pytest.mark.parametrize("s_q,h,h_kv,b,dh,tiles,ctas", [
@@ -42,14 +44,15 @@ def test_one_query_keeps_the_cuda_core_body_at_every_group(g):
     (2, 16, 16, 1, 128, 1, 16),        # the smallest chunk
 ])
 def test_chunks_take_the_tensor_core_body(s_q, h, h_kv, b, dh, tiles, ctas):
-    p = da.chunk_plan(s_q, h, h_kv, b, dh)
-    assert p == {"body": "wgmma", "rows_per_cta": da.TC_ROWS, "tiles": tiles, "ctas": ctas}
+    p = da.chunk_plan(s_q, h, h_kv, b, dh, 768)
+    assert p == {"body": "wgmma", "rows_per_cta": da.TC_ROWS, "tiles": tiles, "cluster": 1,
+                 "ctas": ctas}
     assert da.TC_ROWS == 64
 
 
 def test_chunk_plan_refuses_what_no_body_takes():
-    for args in ((4, 16, 3, 1, 128), (4, 16, 16, 1, 64), (4, 16, 16, 1, 384),
-                 (0, 16, 16, 1, 128)):
+    for args in ((4, 16, 3, 1, 128, 768), (4, 16, 16, 1, 64, 768), (4, 16, 16, 1, 384, 768),
+                 (0, 16, 16, 1, 128, 768), (1, 16, 16, 1, 128, 0)):
         with pytest.raises(ValueError, match="no kernel"):
             da.chunk_plan(*args)
 
@@ -82,7 +85,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 def test_the_chunk_body_is_a_wgmma_kernel():
     src = (build.CSRC_DIR / "decode_attention.cu").read_text()
     assert "attend_tc_kernel" in src and "wgmma_ss_n64" in src and "wgmma_rs_n128" in src
-    assert "attend_kernel" in src       # the single-query body stays
+    assert "attend_split_kernel" in src     # the single-query body beside it
 
 
 def tc_replay(q, k8, ks, v8, vs, start, stop0, scale):
