@@ -495,7 +495,8 @@ def main() -> int:
     # window only; the window bounds
     nbytes = q.numel() * 2 * 2 + live * heads * (2 * dh + 2 * 2) + BATCH * 8
     ops = 4 * live * heads * dh
-    kernels["B3"].add(case=f"{BATCH}x1", route=b3_plan["body"], cluster=b3_plan["cluster"],
+    kernels["B3"].add(case=f"{BATCH}x1", route=b3_plan["body"], shares=b3_plan["shares"],
+                      cluster=b3_plan["cluster"],
                       ctas=b3_plan["ctas"], b=BATCH, h=heads, h_kv=heads, l_buf=l_buf, dh=dh,
                       live_slots=live, max_abs_err=err, err_over_limit=ratio,
                       bit_equal_rerun=True, ms=kms, plain_ms=pms, library_ms=lms,
@@ -788,8 +789,9 @@ def main() -> int:
             outs[key] = out_k
             pairs, window, bound = chunk_work(b, 1, h, h_kv, d, starts_, stops_,
                                               extra_bytes=extra)
-            kernels[key].add(case=case, route=plan["body"], cluster=plan["cluster"],
-                             ctas=plan["ctas"], b=b, h=h, h_kv=h_kv, dh=d, l_buf=length,
+            kernels[key].add(case=case, route=plan["body"], shares=plan["shares"],
+                             cluster=plan["cluster"], ctas=plan["ctas"], b=b, h=h, h_kv=h_kv,
+                             dh=d, l_buf=length,
                              live_pairs=pairs, max_abs_err=err_k, err_over_limit=ratio_k,
                              bit_equal_rerun=True, **bound)
             chunk_inputs.append((key, kernels[key].rows[-1], qq, operands, starts_, stops_,
@@ -1059,6 +1061,51 @@ def main() -> int:
     kernels["B2"].add(**qmm_case(BATCH, hidden, qkv_n, True, timed=False, x_f32=True, gen=gq))
     torch.cuda.empty_cache()
 
+    # A row's bits must not depend on how many rows the call holds (the
+    # Pallas grids give each row its own cell).  B3 and B6 on one row's
+    # inputs inside calls of 1, 8 and 32 rows, the row at another index in
+    # each, and B1 on 512 rows alone and inside a 4096-row call (a lone
+    # window-batcher prefill against the same prompt in a batch of 8), at
+    # every projection: bit for bit.  Own generator, after every other case
+    gb = torch.Generator(device=dev).manual_seed(SEED + 3)
+    big = quant_cache(4 * BATCH, gen=gb)
+    qb = torch.randn(4 * BATCH, heads, dh, generator=gb, device=dev).bfloat16()
+    sb = torch.randint(0, PROMPT - 100, (4 * BATCH,), generator=gb, **i32s)
+    eb = torch.randint(PROMPT - 60, PROMPT + NEW, (4 * BATCH,), generator=gb, **i32s)
+    row_bits = {}
+    for b, at_ in ((1, 0), (BATCH, 3), (4 * BATCH, 17)):
+        sel = torch.tensor(list(range(1, at_ + 1)) + [0] + list(range(at_ + 1, b)),
+                           device=dev)
+        sub = tuple(t[sel].contiguous() for t in big)
+        pages, table, dense = paginate(sub, eb[sel] - 1, gen=gb)
+        plan = da.chunk_plan(1, heads, heads, b, dh, l_buf)
+        row_bits[b] = (
+            da.decode_attention(qb[sel], *dense, sb[sel], eb[sel], scale)[at_],
+            da.paged_decode_attention(qb[sel], *pages, table, sb[sel], eb[sel], scale)[at_],
+            (plan["shares"], plan["cluster"]))
+    torch.cuda.synchronize()
+    ref3, ref6, _ = row_bits[1]
+    for b, (o3, o6, grid) in row_bits.items():
+        if not (torch.equal(o3, ref3) and torch.equal(o6, ref6) and torch.equal(o6, o3)):
+            raise AssertionError(f"B3/B6: one row's output inside a {b}-row call (shares, "
+                                 f"cluster {grid}) differs from the same row alone")
+    log("  B3/B6 one row inside calls of 1, 8 and 32 rows ((shares, cluster) "
+        f"{[v[2] for v in row_bits.values()]}): bit-equal, B6 == B3")
+    del big, row_bits, sub, pages, table, dense
+    for d, n in b1_prefill:
+        q8, sc = qmm_operands(1, d, n, 1, gen=gb)[1:]
+        xb = torch.randn(BATCH * PROMPT, d, generator=gb, device=dev).bfloat16()
+        full = qm.quant_matmul(xb, q8[0], sc)
+        alone512 = qm.quant_matmul(xb[3 * PROMPT: 4 * PROMPT].contiguous(), q8[0], sc)
+        torch.cuda.synchronize()
+        if not torch.equal(alone512, full[3 * PROMPT: 4 * PROMPT]):
+            raise AssertionError(f"B1 {d}x{n}: 512 rows alone differ from the same rows inside "
+                                 f"a {BATCH * PROMPT}-row call")
+        log(f"  B1 {d}x{n}: {PROMPT} rows alone == inside {BATCH * PROMPT} rows (D split "
+            f"{qm.plan(PROMPT, d, n)['splits']} at both)")
+    del q8, sc, xb, full, alone512
+    torch.cuda.empty_cache()
+
     # ---- 4. window serve
     log("phase window serve")
     from mlcomp_tpu_torch.io.weights import init_params
@@ -1110,6 +1157,12 @@ def main() -> int:
     alone = prompt_of(200)
     first = post({"prompt": alone, "max_new_tokens": NEW})
     second = post({"prompt": alone, "max_new_tokens": NEW})
+    # a greedy request that rode a batch (padded to 8 rows) must give the
+    # same tokens sent alone (one row): its prefill at 512 rows instead of
+    # 4096, its decode at 1 row instead of 8
+    rode = next(i for i, r in enumerate(results) if r["batched_with"] > 1
+                and "temperature" not in bodies[i])
+    solo = post(bodies[rode])
     counts = {key: k.launches for key, k in kernels.items()}
     with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
         health = json.loads(r.read())
@@ -1126,11 +1179,15 @@ def main() -> int:
             raise AssertionError("logprobs must be <= 0, one per token")
     if first["ids"] != second["ids"]:
         raise AssertionError("the same greedy prompt gave different tokens")
+    if solo["batched_with"] != 1 or solo["ids"] != results[rode]["ids"]:
+        raise AssertionError(f"window batcher: request {rode} alone gave other tokens than "
+                             f"inside a batch of {results[rode]['batched_with']}")
     if not health.get("ok"):
         raise AssertionError(f"/healthz: {health}")
     log(f"serve: {len(bodies)} concurrent requests in {wall:.2f} s "
         f"(batches {health['batches']}, rows {health['batched_rows']}); "
-        f"repeat prompt identical; healthz ok")
+        f"repeat prompt identical; request {rode} alone == inside a batch of "
+        f"{results[rode]['batched_with']}; healthz ok")
     log("launches over the window serve run: " + json.dumps(
         {kernels[key].name: n for key, n in counts.items()}))
     for key in kernels:
@@ -1575,14 +1632,21 @@ def main() -> int:
     pcounts = paged_run["counts"]
     chunks_on_tensor_cores(paged_run, "paged engine")
     for key in kernels:
-        if (pcounts[key] > 0) != (key not in ("B3", "B7", "B8", "B9", "B10", "B11")):
+        if (pcounts[key] > 0) != (key not in ("B3", "B7", "B9", "B10", "B11")):
             raise AssertionError(f"{kernels[key].name}: {pcounts[key]} launches on the paged "
-                                 "engine path (B6 must replace B3 in every decode step)")
+                                 "engine path (B6 must replace B3 in every decode step, and "
+                                 "the repeated lone prompt must hit the prefix-page registry)")
     if pcounts["B6"] != layers * paged_run["steps_issued"]:
         raise AssertionError(f"B6 launched {pcounts['B6']} times for "
                              f"{paged_run['steps_issued']} decode steps of {layers} layers")
     pst = peng.stats()
     ppool = pst["kv_pool"]
+    # B8 serves the int8 engine's registry hits: each gathers every layer's
+    # four leaves (int8 K and V codes, bf16 K and V scales) once
+    n_leaves = 4 * layers
+    if pst["kv_registry_hit_tokens"] <= 0 or pcounts["B8"] % n_leaves:
+        raise AssertionError(f"paged engine: {pcounts['B8']} B8 launches for "
+                             f"{pst['kv_registry_hit_tokens']} registry hit tokens")
     elastic = {"slots_scaled": pst["slots_scaled"], "peak_live_slots": pst["peak_live_slots"],
                "live_slots_after": pst["live_slots"], "max_slots": pst["max_slots"]}
     log(f"paged engine: peak pages used {ppool['peak_pages_used']} of {ppool['pages_total']}; "
@@ -1612,12 +1676,122 @@ def main() -> int:
                              f"requests {bad}")
     sampled_equal = sum(eq_ids[i] == dense_run["ids"][i] for i in range(len(bodies))
                         if i not in greedy)
-    elastic_equal = sum(paged_run["ids"][i] == dense_run["ids"][i] for i in greedy)
+    # the elastic run (slots growing to 16 and more, so every kernel at
+    # other row counts) must give every greedy request the dense tokens: a
+    # row's bits do not depend on how many rows the call holds
+    elastic_bad = [i for i in greedy if paged_run["ids"][i] != dense_run["ids"][i]]
+    if elastic_bad:
+        raise AssertionError(f"elastic paged run: greedy requests {elastic_bad} differ from the "
+                             f"dense engine's (peak live slots {elastic['peak_live_slots']})")
+    elastic_equal = len(greedy)
     log(f"paged == dense: {len(got)} greedy requests equal at 8 slots (sampled, keyed by "
         f"request ids that differ between the runs: {sampled_equal} of "
-        f"{len(bodies) - len(greedy)} equal); in the elastic run {elastic_equal} of "
-        f"{len(greedy)} greedy requests equal the dense engine's")
+        f"{len(bodies) - len(greedy)} equal); in the elastic run (peak live slots "
+        f"{elastic['peak_live_slots']}) all {len(greedy)} greedy requests equal the dense "
+        f"engine's; {pcounts['B8']} B8 launches for {pst['kv_registry_hit_tokens']} registry "
+        "hit tokens")
+    pmodel = pservice.model
     del pservice, peng, eq
+    torch.cuda.empty_cache()
+
+    # ---- 8b. disaggregated handoff: the same model, int8 KV, 128-slot pages
+    log("phase disaggregated handoff")
+    from mlcomp_tpu_torch.kvpool.transfer import HandoffError
+
+    hand_prompts = [bodies[i]["prompt"] for i in greedy] + [alone]
+    pre = DecodeEngine(pmodel, prefill_only=True, kv_page_tokens=page_t, **engine_kw)
+    dec = DecodeEngine(pmodel, slots=BATCH, kv_layout="paged", kv_page_tokens=page_t,
+                       max_slots=BATCH, **engine_kw)
+    try:
+        pre.submit(warm, 2).result(timeout=300)
+        dec.submit(warm, 2).result(timeout=300)
+        # the prefill replica: one export at a time, each timed alone
+        for k in kernels.values():
+            k.reset()
+        blobs, export_ms = [], []
+        for p in hand_prompts:
+            t = time.perf_counter()
+            blobs.append(pre.submit(p, NEW).result(timeout=300)["handoff"])
+            export_ms.append((time.perf_counter() - t) * 1e3)
+        pre_counts = {key: k.launches for key, k in kernels.items()}
+        pre_st = pre.stats()
+        # a blob cut short is rejected typed, no page touched
+        free0 = dec._pool.alloc.free_pages
+        try:
+            dec.import_pages(blobs[0][: len(blobs[0]) // 2])
+            raise AssertionError("a truncated handoff was accepted")
+        except HandoffError:
+            pass
+        if dec._pool.alloc.free_pages != free0 or dec.stats()["handoff_rejects"] != 1:
+            raise AssertionError("the rejected handoff touched the pool")
+        # the decode replica: one import timed alone to its first token,
+        # then every blob at once
+        for k in kernels.values():
+            k.reset()
+        tap: "queue.Queue" = queue.Queue()
+        t = time.perf_counter()
+        f_one = dec.import_pages(blobs[-1], stream=tap)
+        tap.get(timeout=300)
+        import_first_ms = (time.perf_counter() - t) * 1e3
+        f_one.result(timeout=300)
+        t = time.perf_counter()
+        futs = [dec.import_pages(b) for b in blobs]
+        hand_ids = [f.result(timeout=300)["ids"] for f in futs]
+        import_wall = time.perf_counter() - t
+        dec_counts = {key: k.launches for key, k in kernels.items()}
+        dec_st = dec.stats()
+        if hand_ids != want:
+            bad = [i for i, (a, b) in enumerate(zip(hand_ids, want)) if a != b]
+            raise AssertionError(f"imported requests {bad} differ from the dense engine's")
+        # a repeated prompt (the longest greedy one, imported once more so
+        # that its pages are the registry's newest) hits the registry: its
+        # prefix pages gathered by B8, its tokens the cold ones
+        hit_i = max(range(len(greedy)), key=lambda i: len(hand_prompts[i]))
+        dec.import_pages(blobs[hit_i]).result(timeout=300)
+        for k in kernels.values():
+            k.reset()
+        hit0 = dec.stats()["kv_registry_hit_tokens"]
+        hit_ids = dec.submit(hand_prompts[hit_i], NEW).result(timeout=300)["ids"]
+        hit_tokens = dec.stats()["kv_registry_hit_tokens"] - hit0
+        hit_counts = {key: k.launches for key, k in kernels.items()}
+    finally:
+        pre.close()
+        dec.close()
+    if hit_ids != want[hit_i] or hit_tokens <= 0 or hit_counts["B8"] != n_leaves:
+        raise AssertionError(f"registry hit: {hit_tokens} tokens, {hit_counts['B8']} B8 "
+                             f"launches, tokens equal cold: {hit_ids == want[hit_i]}")
+    for key in ("B1", "B2", "B4", "B5"):
+        if pre_counts[key] <= 0:
+            raise AssertionError(f"the prefill replica launched no {kernels[key].name}")
+    if any(pre_counts[key] for key in ("B3", "B6", "B7", "B8")) or pre_st["dispatches"]:
+        raise AssertionError(f"the prefill replica ran decode work: {pre_counts}")
+    if dec_counts["B6"] <= 0 or dec_counts["B4"] or dec_counts["B5"] or dec_counts["B3"]:
+        raise AssertionError(f"the decode replica's imports ran a prefill: {dec_counts}")
+    sizes = sorted(len(b) for b in blobs)
+    disagg = {
+        "requests": len(blobs), "handoff_bytes": {"min": sizes[0], "max": sizes[-1],
+                                                  "total": sum(sizes)},
+        "pages_exported": pre_st["kv_pages_exported"],
+        "export_ms": {"median": sorted(export_ms)[len(export_ms) // 2],
+                      "spread": [min(export_ms), max(export_ms)]},
+        "import_to_first_token_ms": import_first_ms,
+        "import_wall_s": import_wall, "imported": dec_st["handoffs_imported"],
+        "pages_imported": dec_st["kv_pages_imported"],
+        "launches_prefill_side": pre_counts, "launches_decode_side": dec_counts,
+        "registry_hit": {"tokens": hit_tokens, "launches": hit_counts, "equal_cold": True},
+        "greedy_equal_dense": len(want), "truncated_blob_rejected": True, "card": smi,
+    }
+    log(f"disaggregated handoff ({smi}): {len(blobs)} prompts exported by a prefill_only "
+        f"engine, {sizes[0]}-{sizes[-1]} bytes a handoff; export median "
+        f"{disagg['export_ms']['median']:.1f} ms; one import to its first token "
+        f"{import_first_ms:.1f} ms; all imported in {import_wall:.2f} s, tokens equal the dense "
+        f"engine's; a cut blob rejected with no page touched; registry hit {hit_tokens} tokens "
+        f"with {hit_counts['B8']} B8 launches, tokens equal cold")
+    log("launches, prefill side: " + json.dumps(pre_counts) + "; decode side: "
+        + json.dumps(dec_counts))
+    # the paged model's weights go too: the train phase's peak memory is
+    # read after this
+    del pre, dec, blobs, pmodel
     torch.cuda.empty_cache()
 
     # ---- 9. bf16-KV paged engine: each layer's K and V gathered through B8
@@ -2150,7 +2324,7 @@ def main() -> int:
         if key in ("B3", "B4", "B6", "B7", "B8"):
             # every case, one call each: its body, grid and device time
             entry["cases"] = [
-                {f: r[f] for f in ("case", "route", "cluster", "ctas", "ms", "ms_spread",
+                {f: r[f] for f in ("case", "route", "shares", "cluster", "ctas", "ms", "ms_spread",
                                    "device_ms", "bound_ms", "bound_by", "library_ms",
                                    "library_device_ms", "plain_ms", "err_over_limit") if f in r}
                 for r in kernels[key].rows]
@@ -2197,6 +2371,7 @@ def main() -> int:
         "bf16_kv": {"requests": len(few), "new_tokens": n16, "wall_s": wall16,
                     "launches": counts16, "equal_dense": True},
         "card": smi}}))
+    log(json.dumps({"disagg": disagg}))
     log(json.dumps({"train": {**train_result, "parity": {
         "loss_kernels": l_k, "loss_plain": l_p, "grad_norm_kernels": g_k,
         "grad_norm_plain": g_p, "tolerance": "loss 1e-3 relative, gradient norm 2%"},

@@ -82,6 +82,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         kv_page_tokens=args.kv_page_tokens,
         kv_pages=args.kv_pages,
         max_slots=args.max_slots,
+        phase=args.phase,
     )
     serve_http(service, args.host, args.port, model_name=str(model_cfg.get("name", "model")))
     return 0
@@ -160,6 +161,13 @@ def main(argv=None) -> int:
                     help="paged KV: elastic slot-count cap (default 4x the largest"
                     " --batch-sizes entry)")
     sv.add_argument("--request-timeout", type=float, default=600.0)
+    sv.add_argument("--phase", choices=("both", "prefill", "decode"), default="both",
+                    help="disaggregated serving role: 'prefill' runs the admission core"
+                    " only and answers POST /prefill with KV-page handoff blobs (continuous"
+                    " batcher, dense layout; --kv-page-tokens picks the page size); 'decode'"
+                    " is a paged daemon that also admits handoffs through POST /import,"
+                    " skipping the prefill with the same tokens; 'both' (the default) is"
+                    " the monolithic daemon")
     sv.set_defaults(fn=_cmd_serve)
 
     d = sub.add_parser("dag", help="run a DAG locally (in-process scheduler)")

@@ -30,13 +30,16 @@
 // Two bodies, picked by the wrapper's `chunk_plan`:
 //
 // - `attend_split_kernel` (S = 1: B3, B6, and a one-query chunk, which
-//   equals the single-query decode bit for bit: it is the same launch).  A
-//   thread-block cluster of C CTAs (the plan's `cluster`, 1-8, from the
-//   shapes alone, so dense and paged calls split alike) takes the R <= 8
-//   rows of one (batch row, KV head); each CTA derives on the device its
-//   own contiguous share of the 32-slot blocks that meet the window, so
-//   that a decode step at 8 rows (128 (row, head) pairs) or one lone
-//   request (16) still spreads over the card.  Inside a CTA each of its 4
+//   equals the single-query decode bit for bit: it is the same launch).
+//   Each window is cut into NS contiguous shares of the 32-slot blocks
+//   that meet it (the plan's `shares`, 1-8, from the cache length alone),
+//   merged in share order: that cut and that order are all a row's bits
+//   depend on, never the batch.  A thread-block cluster of C CTAs (the
+//   plan's `cluster`, C dividing NS) takes the R <= 8 rows of one (batch
+//   row, KV head), CTA rank c computing shares c NS/C .. (c + 1) NS/C - 1
+//   one after another: C only places the shares, so that one lone request
+//   (16 (row, head) pairs) still spreads over the card while a decode step
+//   of many rows needs no cluster.  Inside a CTA each of its 4
 //   warps takes every 4th block of the share and runs its own online
 //   softmax over them with no CTA-wide barrier: a cp.async ring of raw
 //   int8 K and V blocks per warp (two stages, bytes in flight from the
@@ -45,9 +48,10 @@
 //   into shared memory; q . k one slot a lane, p V four head dims a lane,
 //   both on the CUDA cores (at G = 1 a KV head has one query row: nothing
 //   to fill a tensor core with), int8 converted to f32 by a byte permute
-//   and one subtraction.  At the end the warps' and CTAs' (m, l, acc)
-//   meet in one merge, in rank then warp order, through distributed shared
-//   memory.  No atomics, no second launch.
+//   and one subtraction.  At the end of a share its warps' (m, l, acc)
+//   merge in warp order into the share's partial, stored into rank 0's
+//   shared memory (distributed shared memory); rank 0 merges the NS
+//   partials in share order.  No atomics, no second launch.
 // - `attend_tc_kernel` (S > 1: B4, B7): tiles of 64 rows on the tensor
 //   cores (wgmma.cuh).  The (1, 256) admission chunk is 4 tiles x 16 heads
 //   = 64 CTAs, each reading its K/V window once per 64 rows.  A CTA is two
@@ -111,8 +115,8 @@ constexpr int MAX_CLUSTER = 8;
 
 // shared memory (bytes): each warp's ring of two stages of (32 raw int8 K
 // rows | 32 raw int8 V rows) | q (R x DH f32) | each warp's running max and
-// sum per row (2 x R x 4 f32) | each cluster rank's merged partial, acc (R x
-// DH f32) then (m, l, -, -) per row (R x 4 f32), filled in rank 0 | the
+// sum per row (2 x R x 4 f32) | each share's merged partial, acc (R x DH
+// f32) then (m, l, -, -) per row (R x 4 f32), filled in rank 0 | the
 // share's page ids (paged only)
 template <int DH>
 struct SplitSmem {
@@ -121,8 +125,8 @@ struct SplitSmem {
   static constexpr int RING = SPLIT_WARPS * STAGES * STAGE;
   // one rank's merged partial, in floats
   __host__ __device__ static constexpr int part(int rows) { return rows * (DH + 4); }
-  static constexpr int bytes(int rows, int cluster, int pages) {
-    return RING + rows * DH * 4 + 2 * SPLIT_WARPS * rows * 4 + cluster * part(rows) * 4 +
+  static constexpr int bytes(int rows, int shares, int pages) {
+    return RING + rows * DH * 4 + 2 * SPLIT_WARPS * rows * 4 + shares * part(rows) * 4 +
            pages * 4;
   }
 };
@@ -175,11 +179,12 @@ __device__ __forceinline__ void st_cluster_f4(uint32_t addr, uint32_t rank, floa
 __device__ __forceinline__ int k_chunk(int c, int r) { return (c & ~7) | ((c ^ r) & 7); }
 
 // grid (tiles x cluster, Hkv, B), launched as clusters of (cluster, 1, 1):
-// CTA rank c of a cluster takes the c-th contiguous share of the 32-slot
-// blocks that meet the window [kv_start, min(kv_stop0, L)) of its (batch
-// row, KV head), for the R query rows r0 .. r0 + R - 1 of that KV head
-// (rows past G are computed on zero q and never stored).  Operands as
-// `launch` (S = 1).
+// the blocks that meet the window [kv_start, min(kv_stop0, L)) of a (batch
+// row, KV head) are cut into `shares` contiguous shares, and CTA rank c of
+// its cluster computes shares c * shares / cluster onwards, one after
+// another, for the R query rows r0 .. r0 + R - 1 of that KV head (rows
+// past G are computed on zero q and never stored).  Operands as `launch`
+// (S = 1).
 template <int DH, int R>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 attend_split_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k8,
@@ -187,7 +192,7 @@ attend_split_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restric
                     const __nv_bfloat16* __restrict__ vs, const int* __restrict__ kv_start,
                     const int* __restrict__ kv_stop0, const int* __restrict__ table,
                     __nv_bfloat16* __restrict__ out, int H, int Hkv, int L, int MP, int T,
-                    float scale) {
+                    float scale, int shares) {
   using namespace hopper;
   using Sm = SplitSmem<DH>;
   constexpr int STAGES = Sm::STAGES;
@@ -198,13 +203,14 @@ attend_split_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restric
   float* qs = reinterpret_cast<float*>(smem + Sm::RING);
   float* ml_m = qs + R * DH;                 // [row][warp]
   float* ml_l = ml_m + R * SPLIT_WARPS;
-  float* cpart = ml_l + R * SPLIT_WARPS;     // [rank][Sm::part(R)]
+  float* cpart = ml_l + R * SPLIT_WARPS;     // [share][Sm::part(R)]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = (int)cluster_rank(), ranks = (int)cluster_size();
-  int* pg = reinterpret_cast<int*>(cpart + ranks * Sm::part(R));
+  const int per_cta = shares / ranks;        // shares this CTA computes
+  int* pg = reinterpret_cast<int*>(cpart + shares * Sm::part(R));
   // every CTA of the cluster has started before any writes into another's
-  // shared memory: this arrive's wait comes before the merge
+  // shared memory: this arrive's wait comes before the first merge
   if (ranks > 1) cluster_arrive_relaxed();
   const int r0 = (blockIdx.x / ranks) * R;
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -218,224 +224,231 @@ attend_split_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restric
     qv[k] = q[((size_t)b * H + hk * G + r0 + (r < rows ? r : 0)) * DH + i % DH];
   }
 
-  // this CTA's share of the window's blocks, from the window alone
+  // the blocks that meet the window, from the window alone
   const int lo = max(kv_start[b], 0);
   const int hi = min(kv_stop0[b], L);
   const int kb0 = lo / SPLIT_SLOTS;
   const int nblk = hi > lo ? (hi + SPLIT_SLOTS - 1) / SPLIT_SLOTS - kb0 : 0;
-  const int c0 = kb0 + rank * nblk / ranks, c1 = kb0 + (rank + 1) * nblk / ranks;
-  // the live slots of the share, and (paged) its pages, read once each
-  const int s_lo = max(c0 * SPLIT_SLOTS, lo), s_hi = min(c1 * SPLIT_SLOTS, hi);
-  const int p0 = table != nullptr && s_hi > s_lo ? s_lo / T : 0;
-  if (table != nullptr) {
-    const int np = s_hi > s_lo ? (s_hi - 1) / T - p0 + 1 : 0;
-    for (int i = tid; i < np; i += SPLIT_THREADS) pg[i] = __ldg(table + (size_t)b * MP + p0 + i);
-    __syncthreads();
-  }
   const size_t dense_base = ((size_t)b * Hkv + hk) * L;
-  // the cache row of slot i (values and scales alike), -1 outside the share
-  auto resolve = [&](int i) -> int {
-    if (i < s_lo || i >= s_hi) return -1;
-    if (table == nullptr) return (int)(dense_base + i);
-    const int p = i / T;
-    return (pg[p - p0] * Hkv + hk) * T + (i - p * T);
-  };
-
-  // this warp's blocks: c0 + warp, c0 + warp + 4, ...; block n of the warp
-  // goes to stage n % STAGES of its ring
-  const int nw = c1 - c0 > warp ? (c1 - c0 - warp + SPLIT_WARPS - 1) / SPLIT_WARPS : 0;
   unsigned char* ring = smem + warp * STAGES * Sm::STAGE;
   const uint32_t ring_s = smem_u32(ring);
-  // issue block n's K and V rows (lane l resolved slot l; rows outside the
-  // share zero-filled) and load its scales for this lane's slot, kept raw
-  // until the block is computed (a slot off the window loads row 0's and
-  // is selected away then), so that nothing here waits for a load
-  auto issue = [&](int n, __nv_bfloat16& ksv, __nv_bfloat16& vsv) {
-    if (n >= nw) return;
-    const int a = resolve((c0 + warp + n * SPLIT_WARPS) * SPLIT_SLOTS + lane);
-    const uint32_t kd = ring_s + (n % STAGES) * Sm::STAGE, vd = kd + SPLIT_SLOTS * DH;
-#pragma unroll
-    for (int it = 0; it < CH; ++it) {
-      const int u = lane + 32 * it, r = u / CH, c = u % CH;
-      const int ra = __shfl_sync(0xffffffffu, a, r);
-      const bool valid = ra >= 0;
-      const size_t off = valid ? (size_t)ra * DH + c * 16 : 0;
-      cp_async_16(kd + r * DH + k_chunk(c, r) * 16, k8 + off, valid);
-      cp_async_16(vd + r * DH + c * 16, v8 + off, valid);
+  for (int si = 0; si < per_cta; ++si) {
+    // share sh of those blocks, the same cut at every cluster size
+    const int sh = rank * per_cta + si;
+    const int c0 = kb0 + sh * nblk / shares, c1 = kb0 + (sh + 1) * nblk / shares;
+    // the live slots of the share, and (paged) its pages, read once each
+    const int s_lo = max(c0 * SPLIT_SLOTS, lo), s_hi = min(c1 * SPLIT_SLOTS, hi);
+    const int p0 = table != nullptr && s_hi > s_lo ? s_lo / T : 0;
+    if (table != nullptr) {
+      const int np = s_hi > s_lo ? (s_hi - 1) / T - p0 + 1 : 0;
+      for (int i = tid; i < np; i += SPLIT_THREADS) pg[i] = __ldg(table + (size_t)b * MP + p0 + i);
+      __syncthreads();
     }
-    ksv = ks[a >= 0 ? a : 0];
-    vsv = vs[a >= 0 ? a : 0];
-  };
+    // the cache row of slot i (values and scales alike), -1 outside the share
+    auto resolve = [&](int i) -> int {
+      if (i < s_lo || i >= s_hi) return -1;
+      if (table == nullptr) return (int)(dense_base + i);
+      const int p = i / T;
+      return (pg[p - p0] * Hkv + hk) * T + (i - p * T);
+    };
 
-  __nv_bfloat16 ksr[STAGES], vsr[STAGES];   // scales of blocks n .. n + STAGES - 1
+    // this warp's blocks: c0 + warp, c0 + warp + 4, ...; block n of the warp
+    // goes to stage n % STAGES of its ring
+    const int nw = c1 - c0 > warp ? (c1 - c0 - warp + SPLIT_WARPS - 1) / SPLIT_WARPS : 0;
+    // issue block n's K and V rows (lane l resolved slot l; rows outside the
+    // share zero-filled) and load its scales for this lane's slot, kept raw
+    // until the block is computed (a slot off the window loads row 0's and
+    // is selected away then), so that nothing here waits for a load
+    auto issue = [&](int n, __nv_bfloat16& ksv, __nv_bfloat16& vsv) {
+      if (n >= nw) return;
+      const int a = resolve((c0 + warp + n * SPLIT_WARPS) * SPLIT_SLOTS + lane);
+      const uint32_t kd = ring_s + (n % STAGES) * Sm::STAGE, vd = kd + SPLIT_SLOTS * DH;
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    issue(s, ksr[s], vsr[s]);
-    cp_async_commit();
-  }
-#pragma unroll
-  for (int k = 0; k < QPT; ++k) {
-    const int i = tid + k * SPLIT_THREADS;
-    qs[i] = i / DH < rows ? __bfloat162float(qv[k]) : 0.f;
-  }
-  __syncthreads();
-
-  float m[R], l[R], acc[R][4 * NV];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4 * NV; ++e) acc[r][e] = 0.f;
-  }
-
-  for (int n = 0; n < nw; ++n) {
-    // block n has landed for every lane, and every lane is done with block
-    // n - 1, whose stage takes block n + STAGES - 1: asking for every block
-    // at the start only delays the first (measured on an H100)
-    cp_async_wait<STAGES - 2>();
-    __syncwarp();
-    issue(n + STAGES - 1, ksr[STAGES - 1], vsr[STAGES - 1]);
-    cp_async_commit();
-    const unsigned char* kst = ring + (n % STAGES) * Sm::STAGE;
-    const unsigned char* vst = kst + SPLIT_SLOTS * DH;
-    const int slot = (c0 + warp + n * SPLIT_WARPS) * SPLIT_SLOTS + lane;
-    const bool live = slot >= lo && slot < hi;
-
-    // q . k, one slot a lane: NP independent sums a row (head dims 4v ..
-    // 4v + 3 of every 16 into sum v % NP), so that the FMA chains overlap,
-    // added in a fixed order at the end
-    constexpr int NP = R >= 4 ? 1 : 4 / R;
-    float part[R][NP];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int i = 0; i < NP; ++i) part[r][i] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < CH; ++c) {
-      const uint4 w = *reinterpret_cast<const uint4*>(kst + lane * DH + k_chunk(c, lane) * 16);
-      float kf[16];
-      f32x4_of_int8(w.x, kf);
-      f32x4_of_int8(w.y, kf + 4);
-      f32x4_of_int8(w.z, kf + 8);
-      f32x4_of_int8(w.w, kf + 12);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4* qr = reinterpret_cast<const float4*>(qs + r * DH + c * 16);
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const float4 qv = qr[v];
-          float& d = part[r][v % NP];
-          d = fmaf(qv.x, kf[4 * v], d);
-          d = fmaf(qv.y, kf[4 * v + 1], d);
-          d = fmaf(qv.z, kf[4 * v + 2], d);
-          d = fmaf(qv.w, kf[4 * v + 3], d);
-        }
+      for (int it = 0; it < CH; ++it) {
+        const int u = lane + 32 * it, r = u / CH, c = u % CH;
+        const int ra = __shfl_sync(0xffffffffu, a, r);
+        const bool valid = ra >= 0;
+        const size_t off = valid ? (size_t)ra * DH + c * 16 : 0;
+        cp_async_16(kd + r * DH + k_chunk(c, r) * 16, k8 + off, valid);
+        cp_async_16(vd + r * DH + c * 16, v8 + off, valid);
       }
-    }
-    float dot[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if constexpr (NP == 4) {
-        dot[r] = (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]);
-      } else if constexpr (NP == 2) {
-        dot[r] = part[r][0] + part[r][1];
-      } else {
-        dot[r] = part[r][0];
-      }
-    }
+      ksv = ks[a >= 0 ? a : 0];
+      vsv = vs[a >= 0 ? a : 0];
+    };
 
-    // the warp's online softmax: logits (q . k) * scale * ks, -1e30 off the
-    // window; p zero while the row has seen no live slot; p * vs selected
-    // to 0 off the window and rounded to bf16; l of the unscaled p, kept
-    // per lane and summed once at the end
-    float pv[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float s = live ? (dot[r] * scale) * __bfloat162float(ksr[0]) : NEG_INF;
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float p = m_new > NEG_INF / 2 ? expf(s - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] = alpha * l[r] + p;
-      pv[r] = live ? __bfloat162float(__float2bfloat16(p * __bfloat162float(vsr[0]))) : 0.f;
-#pragma unroll
-      for (int e = 0; e < 4 * NV; ++e) acc[r][e] *= alpha;
-    }
-
-    // p V: this lane's head dims 4 lane .. 4 lane + 3 (+ 128 at dh 256),
-    // the block's slots in order
-#pragma unroll 4
-    for (int j = 0; j < SPLIT_SLOTS; ++j) {
-      float pj[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) pj[r] = __shfl_sync(0xffffffffu, pv[r], j);
-#pragma unroll
-      for (int h = 0; h < NV; ++h) {
-        float vf[4];
-        f32x4_of_int8(*reinterpret_cast<const uint32_t*>(vst + j * DH + 128 * h + 4 * lane), vf);
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[r][4 * h + e] = fmaf(pj[r], vf[e], acc[r][4 * h + e]);
-      }
-    }
+    __nv_bfloat16 ksr[STAGES], vsr[STAGES];   // scales of blocks n .. n + STAGES - 1
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
-      ksr[s] = ksr[s + 1];
-      vsr[s] = vsr[s + 1];
+      issue(s, ksr[s], vsr[s]);
+      cp_async_commit();
     }
-  }
-  cp_async_wait<0>();   // no copy lands in the ring after this
-  __syncwarp();
+    if (si == 0) {
+#pragma unroll
+      for (int k = 0; k < QPT; ++k) {
+        const int i = tid + k * SPLIT_THREADS;
+        qs[i] = i / DH < rows ? __bfloat162float(qv[k]) : 0.f;
+      }
+    }
+    __syncthreads();
 
-  // this warp's partial: (m, l) per row beside the other warps', acc (R x
-  // DH f32) over its own ring
-  float* part = reinterpret_cast<float*>(ring);
+    float m[R], l[R], acc[R][4 * NV];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float lr = warp_sum(l[r]);
-    if (lane == 0) {
-      ml_m[r * SPLIT_WARPS + warp] = m[r];
-      ml_l[r * SPLIT_WARPS + warp] = lr;
+    for (int r = 0; r < R; ++r) {
+      m[r] = NEG_INF;
+      l[r] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4 * NV; ++e) acc[r][e] = 0.f;
     }
-#pragma unroll
-    for (int h = 0; h < NV; ++h)
-      *reinterpret_cast<float4*>(part + r * DH + 128 * h + 4 * lane) =
-          make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2], acc[r][4 * h + 3]);
-  }
 
-  // The merge: m = max m_i, l = sum e^(m_i - m) l_i, acc = sum e^(m_i - m)
-  // acc_i, first over the CTA's warps in order, each rank storing its
-  // result into its slot of rank 0's shared memory (distributed shared
-  // memory: stores, so no round trip), then, after one cluster barrier,
-  // over the ranks in order by rank 0, which writes the output.  An empty
-  // share (m -1e30, l 0, acc 0) adds 0; an empty window gives l == 0 and
-  // so 0.
-  __syncthreads();
-  if (ranks > 1) cluster_wait();
-  const uint32_t mine = smem_u32(cpart + rank * Sm::part(R));
-  for (int u = tid; u < rows * (DH / 4); u += SPLIT_THREADS) {
-    const int r = u / (DH / 4), d = 4 * (u % (DH / 4));
-    const float4 mm = *reinterpret_cast<const float4*>(ml_m + r * SPLIT_WARPS);
-    const float4 ll = *reinterpret_cast<const float4*>(ml_l + r * SPLIT_WARPS);
-    const float mw[4] = {mm.x, mm.y, mm.z, mm.w}, lw[4] = {ll.x, ll.y, ll.z, ll.w};
-    const float mc = fmaxf(fmaxf(mw[0], mw[1]), fmaxf(mw[2], mw[3]));
-    float lc = 0.f;
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int n = 0; n < nw; ++n) {
+      // block n has landed for every lane, and every lane is done with block
+      // n - 1, whose stage takes block n + STAGES - 1: asking for every block
+      // at the start only delays the first (measured on an H100)
+      cp_async_wait<STAGES - 2>();
+      __syncwarp();
+      issue(n + STAGES - 1, ksr[STAGES - 1], vsr[STAGES - 1]);
+      cp_async_commit();
+      const unsigned char* kst = ring + (n % STAGES) * Sm::STAGE;
+      const unsigned char* vst = kst + SPLIT_SLOTS * DH;
+      const int slot = (c0 + warp + n * SPLIT_WARPS) * SPLIT_SLOTS + lane;
+      const bool live = slot >= lo && slot < hi;
+
+      // q . k, one slot a lane: NP independent sums a row (head dims 4v ..
+      // 4v + 3 of every 16 into sum v % NP), so that the FMA chains overlap,
+      // added in a fixed order at the end
+      constexpr int NP = R >= 4 ? 1 : 4 / R;
+      float part[R][NP];
 #pragma unroll
-    for (int w = 0; w < SPLIT_WARPS; ++w) {
-      const float f = expf(mw[w] - mc);
-      const float4 a = *reinterpret_cast<const float4*>(
-          smem + w * STAGES * Sm::STAGE + (r * DH + d) * 4);
-      lc += f * lw[w];
-      o.x += f * a.x;
-      o.y += f * a.y;
-      o.z += f * a.z;
-      o.w += f * a.w;
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < NP; ++i) part[r][i] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < CH; ++c) {
+        const uint4 w = *reinterpret_cast<const uint4*>(kst + lane * DH + k_chunk(c, lane) * 16);
+        float kf[16];
+        f32x4_of_int8(w.x, kf);
+        f32x4_of_int8(w.y, kf + 4);
+        f32x4_of_int8(w.z, kf + 8);
+        f32x4_of_int8(w.w, kf + 12);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4* qr = reinterpret_cast<const float4*>(qs + r * DH + c * 16);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const float4 qv = qr[v];
+            float& d = part[r][v % NP];
+            d = fmaf(qv.x, kf[4 * v], d);
+            d = fmaf(qv.y, kf[4 * v + 1], d);
+            d = fmaf(qv.z, kf[4 * v + 2], d);
+            d = fmaf(qv.w, kf[4 * v + 3], d);
+          }
+        }
+      }
+      float dot[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if constexpr (NP == 4) {
+          dot[r] = (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]);
+        } else if constexpr (NP == 2) {
+          dot[r] = part[r][0] + part[r][1];
+        } else {
+          dot[r] = part[r][0];
+        }
+      }
+
+      // the warp's online softmax: logits (q . k) * scale * ks, -1e30 off the
+      // window; p zero while the row has seen no live slot; p * vs selected
+      // to 0 off the window and rounded to bf16; l of the unscaled p, kept
+      // per lane and summed once at the end
+      float pv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float s = live ? (dot[r] * scale) * __bfloat162float(ksr[0]) : NEG_INF;
+        const float m_new = fmaxf(m[r], warp_max(s));
+        const float p = m_new > NEG_INF / 2 ? expf(s - m_new) : 0.f;
+        const float alpha = expf(m[r] - m_new);
+        m[r] = m_new;
+        l[r] = alpha * l[r] + p;
+        pv[r] = live ? __bfloat162float(__float2bfloat16(p * __bfloat162float(vsr[0]))) : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4 * NV; ++e) acc[r][e] *= alpha;
+      }
+
+      // p V: this lane's head dims 4 lane .. 4 lane + 3 (+ 128 at dh 256),
+      // the block's slots in order
+#pragma unroll 4
+      for (int j = 0; j < SPLIT_SLOTS; ++j) {
+        float pj[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) pj[r] = __shfl_sync(0xffffffffu, pv[r], j);
+#pragma unroll
+        for (int h = 0; h < NV; ++h) {
+          float vf[4];
+          f32x4_of_int8(*reinterpret_cast<const uint32_t*>(vst + j * DH + 128 * h + 4 * lane), vf);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][4 * h + e] = fmaf(pj[r], vf[e], acc[r][4 * h + e]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < STAGES - 1; ++s) {
+        ksr[s] = ksr[s + 1];
+        vsr[s] = vsr[s + 1];
+      }
     }
-    st_cluster_f4(mine + (r * DH + d) * 4, 0, o);
-    if (d == 0) st_cluster_f4(mine + (R * DH + 4 * r) * 4, 0, make_float4(mc, lc, 0.f, 0.f));
+    cp_async_wait<0>();   // no copy lands in the ring after this
+    __syncwarp();
+
+    // this warp's partial: (m, l) per row beside the other warps', acc (R x
+    // DH f32) over its own ring
+    float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float lr = warp_sum(l[r]);
+      if (lane == 0) {
+        ml_m[r * SPLIT_WARPS + warp] = m[r];
+        ml_l[r * SPLIT_WARPS + warp] = lr;
+      }
+#pragma unroll
+      for (int h = 0; h < NV; ++h)
+        *reinterpret_cast<float4*>(part + r * DH + 128 * h + 4 * lane) =
+            make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2], acc[r][4 * h + 3]);
+    }
+
+    // The merge: m = max m_i, l = sum e^(m_i - m) l_i, acc = sum e^(m_i - m)
+    // acc_i, first over the share's warps in order, stored into the share's
+    // slot of rank 0's shared memory (distributed shared memory: stores, so
+    // no round trip), then, after one cluster barrier, over the shares in
+    // order by rank 0, which writes the output.  An empty share (m -1e30,
+    // l 0, acc 0) adds 0; an empty window gives l == 0 and so 0.
+    __syncthreads();
+    if (si == 0 && ranks > 1) cluster_wait();
+    const uint32_t mine = smem_u32(cpart + sh * Sm::part(R));
+    for (int u = tid; u < rows * (DH / 4); u += SPLIT_THREADS) {
+      const int r = u / (DH / 4), d = 4 * (u % (DH / 4));
+      const float4 mm = *reinterpret_cast<const float4*>(ml_m + r * SPLIT_WARPS);
+      const float4 ll = *reinterpret_cast<const float4*>(ml_l + r * SPLIT_WARPS);
+      const float mw[4] = {mm.x, mm.y, mm.z, mm.w}, lw[4] = {ll.x, ll.y, ll.z, ll.w};
+      const float mc = fmaxf(fmaxf(mw[0], mw[1]), fmaxf(mw[2], mw[3]));
+      float lc = 0.f;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < SPLIT_WARPS; ++w) {
+        const float f = expf(mw[w] - mc);
+        const float4 a = *reinterpret_cast<const float4*>(
+            smem + w * STAGES * Sm::STAGE + (r * DH + d) * 4);
+        lc += f * lw[w];
+        o.x += f * a.x;
+        o.y += f * a.y;
+        o.z += f * a.z;
+        o.w += f * a.w;
+      }
+      st_cluster_f4(mine + (r * DH + d) * 4, 0, o);
+      if (d == 0) st_cluster_f4(mine + (R * DH + 4 * r) * 4, 0, make_float4(mc, lc, 0.f, 0.f));
+    }
+    // the next share reuses the ring, the warps' (m, l) and the page ids
+    __syncthreads();
   }
   if (ranks > 1) {
     cluster_sync();
@@ -446,10 +459,10 @@ attend_split_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restric
   for (int u = tid; u < rows * (DH / 4); u += SPLIT_THREADS) {
     const int r = u / (DH / 4), d = 4 * (u % (DH / 4));
     float mx = NEG_INF;
-    for (int p = 0; p < ranks; ++p) mx = fmaxf(mx, cpart[p * Sm::part(R) + R * DH + 4 * r]);
+    for (int p = 0; p < shares; ++p) mx = fmaxf(mx, cpart[p * Sm::part(R) + R * DH + 4 * r]);
     float ls = 0.f;
     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int p = 0; p < ranks; ++p) {
+    for (int p = 0; p < shares; ++p) {
       const float* pp = cpart + p * Sm::part(R);
       const float f = expf(pp[R * DH + 4 * r] - mx);
       const float4 a = *reinterpret_cast<const float4*>(pp + r * DH + d);
@@ -805,16 +818,16 @@ cudaError_t allow_smem_once(const void* kernel, std::atomic<unsigned long long>&
   return err;
 }
 
-// the pages a CTA's share can span: ceil(ceil(L / 32) / cluster) blocks
-int split_pages(int L, int MP, int T, int cluster) {
+// the pages a share can span: ceil(ceil(L / 32) / shares) blocks
+int split_pages(int L, int MP, int T, int shares) {
   const int blocks = (L + SPLIT_SLOTS - 1) / SPLIT_SLOTS;
-  const int share = (blocks + cluster - 1) / cluster * SPLIT_SLOTS;
+  const int share = (blocks + shares - 1) / shares * SPLIT_SLOTS;
   const int pages = (share + T - 1) / T + 1;
   return pages < MP ? pages : MP;
 }
 
 template <int DH, int R>
-cudaError_t launch_split(int cluster, cudaStream_t st, const void* q, const void* k8,
+cudaError_t launch_split(int cluster, int shares, cudaStream_t st, const void* q, const void* k8,
                          const void* ks, const void* v8, const void* vs, const void* kv_start,
                          const void* kv_stop0, const void* table, void* out, int B, int H,
                          int Hkv, int L, int MP, int T, float scale) {
@@ -823,7 +836,7 @@ cudaError_t launch_split(int cluster, cudaStream_t st, const void* q, const void
   cudaError_t err = allow_smem_once((const void*)kernel, ready);
   if (err != cudaSuccess) return err;
   const int tiles = (H / Hkv + R - 1) / R;
-  const int pages = table != nullptr ? split_pages(L, MP, T, cluster) : 0;
+  const int pages = table != nullptr ? split_pages(L, MP, T, shares) : 0;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -832,7 +845,7 @@ cudaError_t launch_split(int cluster, cudaStream_t st, const void* q, const void
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * cluster, Hkv, B);
   cfg.blockDim = dim3(SPLIT_THREADS);
-  cfg.dynamicSmemBytes = SplitSmem<DH>::bytes(R, cluster, pages);
+  cfg.dynamicSmemBytes = SplitSmem<DH>::bytes(R, shares, pages);
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -841,28 +854,28 @@ cudaError_t launch_split(int cluster, cudaStream_t st, const void* q, const void
       static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(v8),
       static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(kv_start),
       static_cast<const int*>(kv_stop0), static_cast<const int*>(table),
-      static_cast<__nv_bfloat16*>(out), H, Hkv, L, MP, T, scale);
+      static_cast<__nv_bfloat16*>(out), H, Hkv, L, MP, T, scale, shares);
 }
 
 // rows per CTA: G rounded up to 1, 2, 4 or 8 (above 8, tiles of 8)
 template <int DH>
-cudaError_t launch_split_rows(int cluster, cudaStream_t st, const void* q, const void* k8,
-                              const void* ks, const void* v8, const void* vs,
+cudaError_t launch_split_rows(int cluster, int shares, cudaStream_t st, const void* q,
+                              const void* k8, const void* ks, const void* v8, const void* vs,
                               const void* kv_start, const void* kv_stop0, const void* table,
                               void* out, int B, int H, int Hkv, int L, int MP, int T,
                               float scale) {
   const int G = H / Hkv;
   if (G <= 1)
-    return launch_split<DH, 1>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out,
-                               B, H, Hkv, L, MP, T, scale);
+    return launch_split<DH, 1>(cluster, shares, st, q, k8, ks, v8, vs, kv_start, kv_stop0,
+                               table, out, B, H, Hkv, L, MP, T, scale);
   if (G <= 2)
-    return launch_split<DH, 2>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out,
-                               B, H, Hkv, L, MP, T, scale);
+    return launch_split<DH, 2>(cluster, shares, st, q, k8, ks, v8, vs, kv_start, kv_stop0,
+                               table, out, B, H, Hkv, L, MP, T, scale);
   if (G <= 4)
-    return launch_split<DH, 4>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out,
-                               B, H, Hkv, L, MP, T, scale);
-  return launch_split<DH, 8>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out, B,
-                             H, Hkv, L, MP, T, scale);
+    return launch_split<DH, 4>(cluster, shares, st, q, k8, ks, v8, vs, kv_start, kv_stop0,
+                               table, out, B, H, Hkv, L, MP, T, scale);
+  return launch_split<DH, 8>(cluster, shares, st, q, k8, ks, v8, vs, kv_start, kv_stop0, table,
+                             out, B, H, Hkv, L, MP, T, scale);
 }
 
 template <int DH>
@@ -881,9 +894,10 @@ void launch_tc(dim3 grid, cudaStream_t st, const void* q, const void* k8, const 
 }
 
 // `cluster` picks the body: 0 the tensor-core one (64-row tiles, dh 128 or
-// 256, any S); 1, 2, 4 or 8 the single-query one (S = 1) with each window
-// split over a cluster of that many CTAs
-int launch(int cluster, const void* q, const void* k8, const void* ks, const void* v8,
+// 256, any S); 1, 2, 4 or 8 the single-query one (S = 1), each window cut
+// into `shares` shares (1-8, a multiple of the cluster) placed over a
+// cluster of that many CTAs
+int launch(int cluster, int shares, const void* q, const void* k8, const void* ks, const void* v8,
            const void* vs, const void* kv_start, const void* kv_stop0, const void* table,
            void* out, int B, int S, int H, int Hkv, int L, int dh, int MP, int T, float scale,
            void* stream) {
@@ -900,13 +914,14 @@ int launch(int cluster, const void* q, const void* k8, const void* ks, const voi
     }
     return (int)cudaGetLastError();
   }
-  if (S != 1 || cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)))
+  if (S != 1 || cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)) ||
+      shares < cluster || shares > MAX_CLUSTER || shares % cluster)
     return (int)cudaErrorInvalidValue;
   const cudaError_t err =
-      dh == 128 ? launch_split_rows<128>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0,
-                                         table, out, B, H, Hkv, L, MP, T, scale)
-                : launch_split_rows<256>(cluster, st, q, k8, ks, v8, vs, kv_start, kv_stop0,
-                                         table, out, B, H, Hkv, L, MP, T, scale);
+      dh == 128 ? launch_split_rows<128>(cluster, shares, st, q, k8, ks, v8, vs, kv_start,
+                                         kv_stop0, table, out, B, H, Hkv, L, MP, T, scale)
+                : launch_split_rows<256>(cluster, shares, st, q, k8, ks, v8, vs, kv_start,
+                                         kv_stop0, table, out, B, H, Hkv, L, MP, T, scale);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -916,29 +931,29 @@ extern "C" {
 
 // q (B, S, H, dh) bf16, query j attending [kv_start, kv_stop0 + j);
 // k8/v8 (B, Hkv, L, dh) int8; ks/vs (B, Hkv, 1, L) bf16; kv_start/kv_stop0
-// (B,) int32; out (B, S, H, dh) bf16; dh 128 or 256; `cluster` as
-// `launch` (0: the tensor-core body; 1-8: the single-query body, S = 1).
-// Returns cudaGetLastError().
-int decode_attention_chunk_launch(int cluster, const void* q, const void* k8, const void* ks,
-                                  const void* v8, const void* vs,
+// (B,) int32; out (B, S, H, dh) bf16; dh 128 or 256; `cluster` and
+// `shares` as `launch` (cluster 0: the tensor-core body; 1-8: the
+// single-query body, S = 1).  Returns cudaGetLastError().
+int decode_attention_chunk_launch(int cluster, int shares, const void* q, const void* k8,
+                                  const void* ks, const void* v8, const void* vs,
                                   const void* kv_start, const void* kv_stop0,
                                   void* out, int B, int S, int H, int Hkv, int L,
                                   int dh, float scale, void* stream) {
-  return launch(cluster, q, k8, ks, v8, vs, kv_start, kv_stop0, nullptr, out, B, S, H, Hkv, L,
-                dh, 0, 1, scale, stream);
+  return launch(cluster, shares, q, k8, ks, v8, vs, kv_start, kv_stop0, nullptr, out, B, S, H,
+                Hkv, L, dh, 0, 1, scale, stream);
 }
 
 // The same through a page table: k8/v8 pages (P, Hkv, T, dh) int8, ks/vs
 // pages (P, Hkv, 1, T) bf16, table (B, MP) int32 of physical page ids;
 // the cache length is MP * T.  Returns cudaGetLastError().
-int paged_decode_attention_chunk_launch(int cluster, const void* q, const void* k8,
+int paged_decode_attention_chunk_launch(int cluster, int shares, const void* q, const void* k8,
                                         const void* ks, const void* v8, const void* vs,
                                         const void* kv_start, const void* kv_stop0,
                                         const void* table, void* out, int B, int S, int H,
                                         int Hkv, int MP, int T, int dh, float scale,
                                         void* stream) {
-  return launch(cluster, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out, B, S, H, Hkv,
-                MP * T, dh, MP, T, scale, stream);
+  return launch(cluster, shares, q, k8, ks, v8, vs, kv_start, kv_stop0, table, out, B, S, H,
+                Hkv, MP * T, dh, MP, T, scale, stream);
 }
 
 // Resources of the single-query body (dh 128 at G = 1 and G = 4, dh 256 at
@@ -953,7 +968,7 @@ int decode_attention_resources(int* res) {
                         (const void*)attend_split_kernel<256, 2>,
                         (const void*)attend_tc_kernel<128>, (const void*)attend_tc_kernel<256>};
   const int threads[5] = {SPLIT_THREADS, SPLIT_THREADS, SPLIT_THREADS, TC_THREADS, TC_THREADS};
-  const int smem[5] = {SplitSmem<128>::bytes(1, 2, 0), SplitSmem<128>::bytes(4, 4, 0),
+  const int smem[5] = {SplitSmem<128>::bytes(1, 4, 0), SplitSmem<128>::bytes(4, 4, 0),
                        SplitSmem<256>::bytes(2, 4, 0), TcSmem<128>::BYTES, TcSmem<256>::BYTES};
   std::atomic<unsigned long long>* ready[3] = {&r1, &r4, &r2};
   for (int i = 0; i < 3; ++i) {

@@ -39,7 +39,18 @@ layouts.
   the live slot count grows by doubling (up to ``max_slots``) under
   queued traffic when pages allow and shrinks back at quiesce.  The int8
   family attends through the table (B6); the bf16 family over each
-  layer's gathered view (B8).  Tokens equal the dense layout's.
+  layer's gathered view (B8).  Tokens equal the dense layout's.  Every
+  inserted prompt's prefix pages are pinned in the pool's device
+  prefix-page registry under their placement key; a later admission of a
+  prompt that shares a page-aligned prefix at the same placement gathers
+  those rows into its admission cache (B8), starts at its first uncached
+  chunk, and maps the pages into its table copy-on-write.
+- Disaggregated serving (``kvpool/transfer.py``): a ``prefill_only``
+  engine runs only the admission core and resolves each request with the
+  finished prompt's KV as page payloads (a handoff blob); a paged engine
+  imports such a blob with :meth:`DecodeEngine.import_pages`, writing the
+  pages straight into its pool and decoding from the prompt's end, with
+  the tokens a local admission gives.
 
 PyTorch runs eagerly, so the JAX package's jitted, donated programs
 become Python code that launches into preallocated device tensors updated
@@ -47,8 +58,7 @@ in place.  The static buffers leave room to capture one CUDA graph per K
 rung; none is captured yet.
 
 Not in this engine (the JAX engine has them; see ROADMAP.md): speculative
-dispatch, prefix caches and the device prefix-page registry, meshes and
-distributed gangs, prefill-only export and handoff import, the flight
+dispatch, the host prefix cache, meshes and distributed gangs, the flight
 recorder, metrics and device profiling, fault injection.
 """
 
@@ -75,6 +85,12 @@ from mlcomp_tpu_torch.kvpool import (
     PagedKV,
     PagedLayout,
     PagePool,
+)
+from mlcomp_tpu_torch.kvpool.transfer import (
+    HandoffError,
+    decode_handoff,
+    encode_handoff,
+    rows_to_page_tiles,
 )
 from mlcomp_tpu_torch.models.generation import sample_token_rowwise_keyed
 from mlcomp_tpu_torch.serve import (
@@ -139,7 +155,8 @@ class _Admission:
     """A prefill in progress: one chunk per loop boundary."""
 
     __slots__ = ("req", "s_bucket", "chunk", "n_chunks", "next_chunk", "row",
-                 "positions", "kv_start", "last_logits", "fused_any")
+                 "positions", "kv_start", "last_logits", "fused_any", "page_lease",
+                 "handoff")
 
     def __init__(self, req, s_bucket, chunk, first_chunk):
         self.req = req
@@ -152,6 +169,8 @@ class _Admission:
         self.kv_start = None            # (1,) first real slot on the device
         self.last_logits = None         # (1, V) of the last chunk run
         self.fused_any = False          # any chunk issued behind a decode dispatch
+        self.page_lease = None          # a device prefix-registry hit's pages
+        self.handoff = None             # an import's parsed blob (born complete)
 
 
 class _Inflight:
@@ -172,7 +191,13 @@ class DecodeEngine:
     dicts ``{"token", "logprob", "step"}`` as they land, then ``None``.
     Greedy outputs equal ``generate`` on the same weights: the prefill and
     the steps run the same model code, and a row's logits never depend on
-    its neighbours."""
+    its neighbours.
+
+    ``prefill_only`` makes the prefill half of disaggregated serving: the
+    engine runs only the admission core on the dense admission cache (one
+    throwaway slot, no decode dispatch ever issues, chunks run staged) and
+    each future resolves with ``{"handoff": blob, "pages", ...}``;
+    ``kv_page_tokens`` then picks the export page size."""
 
     def __init__(
         self,
@@ -191,9 +216,21 @@ class DecodeEngine:
         kv_page_tokens: Optional[int] = None,
         kv_pages: Optional[int] = None,
         max_slots: Optional[int] = None,
+        prefill_only: bool = False,
     ):
         self.model = model
         self.device = torch.device(model.device)
+        self.prefill_only = bool(prefill_only)
+        if self.prefill_only:
+            if kv_layout != "dense":
+                raise ValueError("prefill_only engines keep the dense admission cache (there "
+                                 "are no decode slots to page); pass kv_page_tokens to pick "
+                                 "the EXPORT page size")
+            if kv_pages is not None or max_slots is not None:
+                raise ValueError("kv_pages / max_slots need a decode slot pool; a "
+                                 "prefill_only engine has none")
+            # one throwaway carry row: no decode dispatch ever issues
+            slots, pipeline_depth, fused_admission = 1, 1, False
         self.slots = int(slots)
         if self.slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -242,8 +279,10 @@ class DecodeEngine:
             if max_slots is not None and int(max_slots) != self.slots:
                 raise ValueError("elastic slots (max_slots) need kv_layout='paged'; the dense "
                                  "layout reserves worst-case KV per slot at construction")
-            if kv_page_tokens is not None or kv_pages is not None:
-                raise ValueError("kv_page_tokens / kv_pages only apply to kv_layout='paged'")
+            if (kv_page_tokens is not None and not self.prefill_only) or kv_pages is not None:
+                raise ValueError("kv_page_tokens / kv_pages only apply to kv_layout='paged' "
+                                 "(kv_page_tokens also picks a prefill_only engine's export "
+                                 "page size)")
 
         with torch.inference_mode():
             # the admission's (1, L) cache and the packed-token rings are
@@ -251,6 +290,13 @@ class DecodeEngine:
             self._adm_cache = model.init_cache(1, self.l_buf)
             if self.kv_layout == "paged":
                 self._init_pool(kv_page_tokens, kv_pages, max_slots)
+            # the EXPORT geometry (prefill_only): pages must tile every
+            # chunk, so the prompt span exports as whole tiles of the
+            # admission cache's leaves
+            self._export: Optional[PagedLayout] = None
+            if self.prefill_only:
+                self._export = PagedLayout(self._adm_cache, self.l_buf,
+                                           self._page_quantum(kv_page_tokens))
             self._d = self._fresh_dstate()
             kmax = max(self.k_ladder)
             ring = self.pipeline_depth + 1
@@ -279,6 +325,15 @@ class DecodeEngine:
             # boundaries, and rows failed by a dry pool at such a crossing
             self._stats.update(slots_scaled=0, peak_live_slots=self.slots,
                                kv_pages_lazy_allocated=0, kv_decode_page_failures=0)
+            # prompt tokens whose prefill a registry hit skipped, and the
+            # decode side of disaggregation: handoffs imported, their pages
+            # and bytes, and blobs rejected typed before any allocation
+            self._stats.update(kv_registry_hit_tokens=0, handoffs_imported=0,
+                               kv_pages_imported=0, handoff_bytes_imported=0,
+                               handoff_rejects=0)
+        if self.prefill_only:
+            self._stats.update(handoffs_exported=0, kv_pages_exported=0,
+                               handoff_bytes_exported=0)
         self._dispatches_by_k: Dict[int, int] = {}
         self._inflight: Deque[_Inflight] = deque()
         self._pstats = {"issued": 0, "hidden_ms": 0.0, "wait_ms": 0.0,
@@ -411,6 +466,10 @@ class DecodeEngine:
         if n_new > self.max_new_cap:
             raise ValueError(f"max_new_tokens {n_new} exceeds the engine cap {self.max_new_cap}")
         self._bucket(len(ids))  # validate now, in the caller thread
+        if self.prefill_only and stream is not None:
+            raise ValueError("a prefill_only engine emits no tokens to stream: the future "
+                             "resolves with the handoff payload (decode, and stream, on a "
+                             "decode replica through import_pages)")
         if self._stop.is_set():
             raise RuntimeError("decode engine closed")
         if self._broken is not None:
@@ -443,6 +502,131 @@ class DecodeEngine:
         if self._stop.is_set() or self._broken is not None:
             # close() (or a dying loop) may have drained the queue between
             # the checks above and our put: resolve the future ourselves
+            if stream is not None:
+                stream.put(None)
+            _fail_future(fut, self._broken or RuntimeError("decode engine closed"))
+        self._stats["requests"] += 1
+        return fut
+
+    def validate_handoff(self, blob: bytes):
+        """Parse a handoff blob and check it against THIS engine's paged
+        geometry: every violation raises the typed ``HandoffError`` (and
+        counts in ``handoff_rejects``) BEFORE any page, lease or slot is
+        touched.  Returns the parsed ``(meta, last_logits, payloads)`` for
+        :meth:`import_pages`."""
+        if self._pool is None:
+            raise ValueError("import_pages needs kv_layout='paged': the handoff's currency is "
+                             "pages in this engine's PagePool")
+        try:
+            return self._validate_handoff(blob)
+        except HandoffError:
+            self._stats["handoff_rejects"] += 1
+            raise
+
+    def _validate_handoff(self, blob: bytes):
+        meta, logits, payloads = decode_handoff(blob)
+        pool, layout = self._pool, self._layout
+        t = int(meta.get("page_tokens") or 0)
+        if t != pool.page_tokens:
+            raise HandoffError(f"handoff pages hold {t} tokens; this pool's hold "
+                               f"{pool.page_tokens}: prefill and decode replicas must share "
+                               "the page quantum (kv_page_tokens)")
+        try:
+            ids = [int(x) for x in meta["ids"]]
+            s_bucket = int(meta["s_bucket"])
+            start_pad = int(meta["start_pad"])
+            n_new = int(meta["n_new"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise HandoffError(f"bad handoff metadata: {e}") from None
+        if not ids or n_new <= 0:
+            raise HandoffError("handoff carries no prompt or no budget")
+        if n_new > self.max_new_cap:
+            raise HandoffError(f"handoff max_new_tokens {n_new} exceeds this engine's cap "
+                               f"{self.max_new_cap}")
+        try:
+            want_bucket = self._bucket(len(ids))
+        except ValueError as e:
+            raise HandoffError(f"handoff prompt does not fit this engine's buckets: {e}; "
+                               "prefill and decode replicas must share prompt buckets") from None
+        if s_bucket != want_bucket or start_pad != s_bucket - len(ids):
+            raise HandoffError(f"handoff placement (s_bucket={s_bucket}, start_pad="
+                               f"{start_pad}) does not match this engine's bucket for a "
+                               f"{len(ids)}-token prompt: prefill and decode replicas must "
+                               "share prompt buckets")
+        if s_bucket % t:
+            raise HandoffError(f"s_bucket={s_bucket} is not page-aligned at T={t}")
+        n_pages = s_bucket // t - start_pad // t
+        leaves = meta.get("leaves")
+        if (not isinstance(leaves, list) or len(leaves) != len(layout.kv_specs)
+                or len(payloads) != len(layout.kv_specs)):
+            raise HandoffError(f"handoff carries {len(payloads)} KV leaves; this engine's "
+                               f"cache has {len(layout.kv_specs)}")
+        for lv, spec, pl in zip(leaves, layout.kv_specs, payloads):
+            want = (n_pages,) + layout._page_rest(spec)
+            if not isinstance(lv, dict) or lv.get("key") != spec.keystr:
+                key = lv.get("key") if isinstance(lv, dict) else lv
+                raise HandoffError(f"handoff leaf {key!r} does not match this engine's "
+                                   f"{spec.keystr!r} (different model or cache family)")
+            if tuple(pl.shape) != want or pl.dtype != spec.dtype:
+                raise HandoffError(f"handoff leaf {spec.keystr}: payload {pl.dtype}"
+                                   f"{tuple(pl.shape)} vs expected {spec.dtype}{want}")
+        if tuple(logits.shape) != (1, self.vocab):
+            raise HandoffError(f"handoff logits shaped {tuple(logits.shape)}; this engine's "
+                               f"vocab row is (1, {self.vocab})")
+        return meta, logits, payloads
+
+    def import_pages(self, blob: bytes, stream: Optional["queue.Queue"] = None,
+                     deadline_s: Optional[float] = None, trace_id: Optional[str] = None,
+                     parsed=None) -> Future:
+        """Admit a request by IMPORTING its finished prefill: the decode
+        half of a disaggregated handoff.  The payload pages are written
+        straight into the pool at the admission boundary (registered in the
+        prefix-page registry) and the slot starts decoding at the prompt's
+        end; no prefill chunk runs, and the tokens equal a local admission
+        of the same prompt (same KV bytes, same final logits, the prefill
+        side's sampling-stream seed).
+
+        Validation happens HERE, on the caller's thread: a truncated or
+        mismatched blob raises the typed ``HandoffError`` with no page,
+        lease or slot touched.  ``parsed`` (what :meth:`validate_handoff`
+        returned) skips a second parse."""
+        meta, logits, payloads = parsed if parsed is not None else self.validate_handoff(blob)
+        if self._stop.is_set():
+            raise RuntimeError("decode engine closed")
+        if self._broken is not None:
+            raise RuntimeError(f"decode engine is down: {self._broken!r}") from self._broken
+        if deadline_s is not None and float(deadline_s) <= 0:
+            raise ValueError(f"deadline_s must be positive, got {deadline_s}")
+        knobs = dict(meta.get("req") or {})
+        if trace_id is None:
+            trace_id = meta.get("trace_id")
+        if trace_id is None or not valid_trace_id(trace_id):
+            trace_id = make_trace_id()
+        fut: Future = Future()
+        rid = next(self._rid)
+        fut.rid = rid
+        fut.trace_id = trace_id
+        now = time.perf_counter()
+        eos = knobs.get("eos_id")
+        self._queue.put({
+            "ids": [int(t) for t in meta["ids"]], "n_new": int(meta["n_new"]), "future": fut,
+            "temperature": float(knobs.get("temperature", 0.0)),
+            "top_k": int(knobs.get("top_k") or self.vocab),
+            "top_p": float(knobs.get("top_p") or 1.0),
+            "eos_id": -1 if eos is None else int(eos),
+            "logprobs": bool(knobs.get("logprobs", False)),
+            "repetition_penalty": float(knobs.get("repetition_penalty", 1.0)),
+            "stream": stream,
+            "t_submit": now,
+            "t_deadline": None if deadline_s is None else now + float(deadline_s),
+            "rid": rid,
+            "trace_id": trace_id,
+            # the parsed handoff rides the request into the loop; the
+            # completion boundary writes the pages and inserts the slot
+            "handoff": {"meta": meta, "logits": logits, "payloads": payloads,
+                        "bytes": len(blob) if blob is not None else 0},
+        })
+        if self._stop.is_set() or self._broken is not None:
             if stream is not None:
                 stream.put(None)
             _fail_future(fut, self._broken or RuntimeError("decode engine closed"))
@@ -578,6 +762,10 @@ class DecodeEngine:
         if self._adm is None:
             return
         adm, self._adm = self._adm, None
+        if adm.page_lease is not None:
+            # a dead admission must not pin its registry hit's pages
+            adm.page_lease.release()
+            adm.page_lease = None
         self._fail_queued(adm.req, err)
 
     def _drain_queue(self, err: Exception) -> None:
@@ -673,10 +861,24 @@ class DecodeEngine:
         """Begin a chunked prefill (a free slot exists: the caller checked,
         and slots only free up while it runs).  The admission cache starts
         at the first chunk holding a real token: the all-pad chunks before
-        it are skipped, their slots never read."""
+        it are skipped, their slots never read.
+
+        Paged: a placement-exact hit in the device prefix-page registry
+        gathers the leased pages' rows [0, width) into the fresh admission
+        cache (B8 on a card) and starts at the first uncached chunk; the
+        hit is chunk-aligned and capped at len(ids) - 1, so the last
+        token's chunk always runs and gives the sampling logits.  An
+        IMPORT (``req["handoff"]``) is born complete: the completion
+        boundary writes its pages and inserts the slot."""
         ids = req["ids"]
         s_bucket = self._bucket(len(ids))
         c = self._chunk_width(s_bucket)
+        if req.get("handoff") is not None:
+            adm = _Admission(req, s_bucket, c, 0)
+            adm.next_chunk = adm.n_chunks       # nothing to prefill
+            adm.handoff = req["handoff"]
+            self._adm = adm
+            return
         start_pad = s_bucket - len(ids)
         first_chunk = start_pad // c
         adm = _Admission(req, s_bucket, c, first_chunk)
@@ -685,12 +887,40 @@ class DecodeEngine:
         adm.row = self._upload(row[None])
         adm.positions = self._upload(positions[None])
         adm.kv_start = self._upload(np.asarray([start_pad], np.int32))
+        self._zero_adm_cache()
         cache = self._adm_cache
-        for layer in cache.layers:
+        cache.index = first_chunk * c
+        lease = None if self._pool is None else self._pool.registry_lookup(
+            s_bucket, start_pad, ids)
+        if lease is not None:
+            cached_chunk = (start_pad + min(lease.matched, len(ids) - 1)) // c
+            if cached_chunk <= first_chunk:
+                lease.release()
+                lease = None
+        if lease is not None:
+            try:
+                width = cached_chunk * c
+                n_pages = -(-width // self._pool.page_tokens)
+                page_ids = self._upload(np.asarray(lease.entries[:n_pages], np.int32))
+                rows = self._layout.gather_row_span(self._d["pages"], page_ids, width)
+                for spec, r in zip(self._layout.kv_specs, rows):
+                    leaf = getattr(cache.layers[spec.layer], spec.field)
+                    leaf.narrow(spec.slot_axis, 0, width).copy_(r)
+            except BaseException:
+                # the admission fails (the caller fails its request); the
+                # lease must not pin its pages
+                lease.release()
+                raise
+            cache.index = width
+            adm.next_chunk = cached_chunk
+            adm.page_lease = lease
+            self._stats["kv_registry_hit_tokens"] += width - start_pad
+        self._adm = adm
+
+    def _zero_adm_cache(self) -> None:
+        for layer in self._adm_cache.layers:
             for t in vars(layer).values():
                 t.zero_()
-        cache.index = first_chunk * c
-        self._adm = adm
 
     def _run_admission_chunk(self) -> None:
         """One STAGED chunk at a drained boundary (``fused_admission=False``,
@@ -712,7 +942,12 @@ class DecodeEngine:
         adm = self._adm
         self._busy_since = time.perf_counter()
         try:
-            self._insert_admission(adm)
+            if adm.handoff is not None:
+                self._insert_import(adm)
+            elif self.prefill_only:
+                self._export_admission(adm)
+            else:
+                self._insert_admission(adm)
         finally:
             self._busy_since = None
         if adm.fused_any:
@@ -722,47 +957,182 @@ class DecodeEngine:
 
     def _insert_admission(self, adm: _Admission) -> None:
         req = adm.req
-        s_bucket, n_ids = adm.s_bucket, len(req["ids"])
+        s_bucket = adm.s_bucket
         slot = self._host.index(None)
-        d = self._d
         span = None
         if self._pool is None:
-            for dst, src in zip(d["cache"].layers, self._adm_cache.layers):
+            for dst, src in zip(self._d["cache"].layers, self._adm_cache.layers):
                 for name, t in vars(dst).items():
                     t[slot].copy_(getattr(src, name)[0])
         else:
-            span = self._insert_pages(slot, s_bucket, n_ids, req["n_new"])
-        d["last_logits"][slot].copy_(adm.last_logits[0])
-        d["presence"][slot].zero_()
-        if req["repetition_penalty"] != 1.0:
-            d["presence"][slot, adm.row[0, s_bucket - n_ids:]] = True
-        for key, value in (("cursors", s_bucket), ("positions", n_ids),
-                           ("kv_start", s_bucket - n_ids), ("remaining", req["n_new"]),
-                           ("eos", req["eos_id"]), ("t", req["temperature"]),
-                           ("k", req["top_k"]), ("p", req["top_p"]),
-                           ("rp", req["repetition_penalty"]), ("rseed", req["rid"])):
-            d[key][slot] = value
-        d["active"][slot] = True
+            try:
+                span = self._insert_pages(slot, s_bucket, req["ids"], req["n_new"],
+                                          adm.page_lease)
+            finally:
+                if adm.page_lease is not None:
+                    adm.page_lease.release()
+                    adm.page_lease = None
+        self._set_row(slot, req, adm.last_logits[0], req["rid"])
         sl = _Slot(req, remaining=req["n_new"], cursor=s_bucket)
         if span is not None:
             sl.span_end, sl.alloc_upto = span
         self._host[slot] = sl
 
+    def _set_row(self, slot: int, req, last_logits: torch.Tensor, rseed: int) -> None:
+        """A fresh decode row at ``slot``: the prompt's last logits, its
+        presence row (only the penalty reads it), cursors and knobs."""
+        d = self._d
+        ids = req["ids"]
+        s_bucket = self._bucket(len(ids))
+        d["last_logits"][slot].copy_(last_logits)
+        d["presence"][slot].zero_()
+        if req["repetition_penalty"] != 1.0:
+            d["presence"][slot, self._upload(np.asarray(ids, np.int64))] = True
+        for key, value in (("cursors", s_bucket), ("positions", len(ids)),
+                           ("kv_start", s_bucket - len(ids)), ("remaining", req["n_new"]),
+                           ("eos", req["eos_id"]), ("t", req["temperature"]),
+                           ("k", req["top_k"]), ("p", req["top_p"]),
+                           ("rp", req["repetition_penalty"]), ("rseed", rseed)):
+            d[key][slot] = value
+        d["active"][slot] = True
+
+    # --------------------------------------------- disaggregated handoff
+
+    def _export_admission(self, adm: _Admission) -> None:
+        """Prefill-only completion: slice the finished admission cache's
+        prompt rows from the page holding ``start_pad`` to the bucket end,
+        tile them into page payloads, and resolve the request's future with
+        the serialized handoff, encoded with the last real token's
+        logits."""
+        req = adm.req
+        ids = req["ids"]
+        s_bucket = adm.s_bucket
+        layout = self._export
+        t = layout.page_tokens
+        start_pad = s_bucket - len(ids)
+        lo_page = (start_pad // t) * t
+        payloads = []
+        for spec in layout.kv_specs:
+            leaf = getattr(self._adm_cache.layers[spec.layer], spec.field)
+            rows = leaf.narrow(spec.slot_axis, lo_page, s_bucket - lo_page)
+            payloads.append(rows_to_page_tiles(rows, spec.slot_axis, t).cpu())
+        rid = req["rid"]
+        meta = {
+            "s_bucket": s_bucket, "start_pad": start_pad, "page_tokens": t,
+            "n_pages": (s_bucket - lo_page) // t,
+            "ids": [int(x) for x in ids],
+            "n_new": int(req["n_new"]),
+            # the per-request sampling-stream seed, so that a sampled
+            # request decodes the same on any replica built with the same
+            # engine seed (greedy never reads it)
+            "rseed": rid % (1 << 23),
+            "trace_id": req["trace_id"],
+            "req": {"temperature": req["temperature"], "top_k": req["top_k"],
+                    "top_p": req["top_p"], "eos_id": req["eos_id"],
+                    "logprobs": req["logprobs"],
+                    "repetition_penalty": req["repetition_penalty"]},
+            "leaves": [{"key": spec.keystr} for spec in layout.kv_specs],
+        }
+        blob = encode_handoff(meta, adm.last_logits.float().cpu(), payloads)
+        self._stats["handoffs_exported"] += 1
+        self._stats["kv_pages_exported"] += meta["n_pages"]
+        self._stats["handoff_bytes_exported"] += len(blob)
+        now = time.perf_counter()
+        # the handoff wall is this request's service time on the prefill
+        # replica: the TTFT reservoir reads prefill latency
+        self._lat_ttft.append((now - req["t_submit"]) * 1e3)
+        self._lat_ttft_n += 1
+        self._cancelled.discard(rid)
+        _set_result(req["future"], {
+            "handoff": blob, "prefill_tokens": len(ids), "pages": meta["n_pages"],
+            "latency_ms": round((now - req["t_submit"]) * 1e3, 2),
+            "trace_id": req["trace_id"],
+        })
+
+    def _insert_import(self, adm: _Admission) -> None:
+        """Insert an IMPORTED prefill at a free slot: allocate the slot's
+        pages (prompt span plus one dispatch of decode lookahead, the local
+        insert's currency, with its reclaim-then-retry), zero-fill the
+        decode-span pages from a zeroed admission cache (a recycled page
+        must not leak another stream's bytes into the masked-but-readable
+        span), write the payload tiles into the prompt pages
+        (``index_copy_``), register them under the placement key, and take
+        token 0 from the handoff's logits.  Nothing leaks on any failure
+        path: the uncommitted row is released."""
+        hd = adm.handoff
+        meta = hd["meta"]
+        req = adm.req
+        pool, layout = self._pool, self._layout
+        t = pool.page_tokens
+        ids = req["ids"]
+        s_bucket = adm.s_bucket
+        slot = self._host.index(None)
+        start_pad, span_end = self._slot_span(s_bucket, len(ids), req["n_new"])
+        alloc_end = self._alloc_end(s_bucket, span_end)
+        row, mask = self._build_row(start_pad, span_end, alloc_end, None)
+        p0, p_n = start_pad // t, s_bucket // t
+        # the prompt pages route to the graveyard here: the payload write
+        # below fills them
+        wsel = np.where(mask, row, GRAVE_PAGE).astype(np.int32)
+        wsel[p0:p_n] = GRAVE_PAGE
+        try:
+            self._zero_adm_cache()
+            pages = self._d["pages"]
+            layout.insert_rows(pages, self._upload(wsel), self._adm_cache)
+            dst = self._upload(row[p0:p_n].astype(np.int64))
+            for pg, pl in zip(pages, hd["payloads"]):
+                pg.index_copy_(0, dst, pl.to(self.device, non_blocking=self._cuda))
+            self._d["table"][slot].copy_(self._upload(row))
+        except Exception:
+            pool.release_row(row)
+            raise
+        pool.commit_slot_row(slot, row)
+        pool.registry_register(s_bucket, start_pad, ids, row)
+        adm.handoff = None      # drop the payload buffers
+        self._set_row(slot, req, hd["logits"][0].to(self.device),
+                      int(meta.get("rseed", 0)) % (1 << 23))
+        sl = _Slot(req, remaining=req["n_new"], cursor=s_bucket)
+        sl.span_end, sl.alloc_upto = span_end, -(-alloc_end // t) * t
+        self._host[slot] = sl
+        self._stats["handoffs_imported"] += 1
+        self._stats["kv_pages_imported"] += p_n - p0
+        self._stats["handoff_bytes_imported"] += int(hd.get("bytes", 0))
+
     # ------------------------------------------------------------ paging
 
-    def _insert_pages(self, slot: int, s_bucket: int, n_ids: int, n_new: int):
-        """The paged insert: compose the slot's table row (NULL for pad and
-        beyond-allocation pages, private pages for the prefill span plus
-        one dispatch of lookahead), write the admission cache into those
-        pages only (everything else routes to GRAVE), then flip the
-        slot's device table row.  All or nothing: ``NoFreePages`` here
-        (lazy growth of the running rows took the pages the gate saw)
-        fails the joiner and leaks nothing.  Returns the row's (span end,
-        page-aligned allocated end)."""
+    def _build_row(self, start_pad: int, span_end: int, alloc_end: int, lease):
+        """``pool.build_slot_row``, evicting LRU registry pins down to the
+        PRIVATE shortfall and retrying once when the free list is short
+        (shared mappings cost no pages, so reclaiming for the worst case up
+        front would evict the registry even where sharing covers the gap).
+        Returns (row, write mask)."""
         pool = self._pool
-        start_pad, span_end = self._slot_span(s_bucket, n_ids, n_new)
+        try:
+            row, mask, _ = pool.build_slot_row(start_pad, span_end, shared=lease,
+                                               alloc_end=alloc_end)
+        except NoFreePages:
+            pool.reclaim(pool.private_pages_needed(start_pad, span_end, shared=lease,
+                                                   alloc_end=alloc_end))
+            row, mask, _ = pool.build_slot_row(start_pad, span_end, shared=lease,
+                                               alloc_end=alloc_end)
+        return row, mask
+
+    def _insert_pages(self, slot: int, s_bucket: int, ids: Sequence[int], n_new: int,
+                      lease=None):
+        """The paged insert: compose the slot's table row (NULL for pad and
+        beyond-allocation pages, the registry hit's pages shared
+        copy-on-write, private pages for the rest of the prefill span plus
+        one dispatch of lookahead), write the admission cache into the
+        private pages only (everything else routes to GRAVE), flip the
+        slot's device table row, and pin the prompt's prefix pages in the
+        registry.  All or nothing: ``NoFreePages`` here (lazy growth of the
+        running rows took the pages the gate saw) fails the joiner and
+        leaks nothing.  Returns the row's (span end, page-aligned allocated
+        end)."""
+        pool = self._pool
+        start_pad, span_end = self._slot_span(s_bucket, len(ids), n_new)
         alloc_end = self._alloc_end(s_bucket, span_end)
-        row, mask, _ = pool.build_slot_row(start_pad, span_end, alloc_end=alloc_end)
+        row, mask = self._build_row(start_pad, span_end, alloc_end, lease)
         try:
             wsel = np.where(mask, row, GRAVE_PAGE).astype(np.int32)
             self._layout.insert_rows(self._d["pages"], self._upload(wsel), self._adm_cache)
@@ -771,6 +1141,9 @@ class DecodeEngine:
             pool.release_row(row)
             raise
         pool.commit_slot_row(slot, row)
+        # the NEXT same-placement prompt that shares this prefix maps these
+        # pages with no prefill of them at all
+        pool.registry_register(s_bucket, start_pad, ids, row)
         t = pool.page_tokens
         return span_end, -(-alloc_end // t) * t
 
@@ -821,9 +1194,19 @@ class DecodeEngine:
                 f"request needs {worst} pages worst-case; the pool holds {total} (raise "
                 "kv_pages or shrink the request)"))
             return None
-        if self._pages_initial(req) > self._pool.alloc.free_pages:
+        need = self._pages_initial(req)
+        if need > self._pages_available(need):
             return None
         return self._pending.popleft()
+
+    def _pages_available(self, need: int) -> int:
+        """Free pages, counting the registry's reclaimable pins only when
+        the free list alone falls short (the reclaimable scan walks the
+        whole registry)."""
+        free = self._pool.alloc.free_pages
+        if need <= free:
+            return free
+        return free + self._pool.reclaimable_pages()
 
     def _lazy_extend_tick(self) -> None:
         """Before each issue, make every live row's pages cover the slots
@@ -846,7 +1229,12 @@ class DecodeEngine:
                 continue
             p0, p1 = sl.alloc_upto // t, -(-target // t)
             try:
-                pool.extend_slot_row(i, p0, p1)
+                try:
+                    pool.extend_slot_row(i, p0, p1)
+                except NoFreePages:
+                    # registry pins are cache, not commitments
+                    pool.reclaim(p1 - p0)
+                    pool.extend_slot_row(i, p0, p1)
             except NoFreePages:
                 self._stats["kv_decode_page_failures"] += 1
                 err = NoFreePages(
@@ -907,7 +1295,8 @@ class DecodeEngine:
         ns = len(self._host)
         if (self._adm is None and self._pending and None not in self._host
                 and ns < self.max_slots):
-            if self._pages_initial(self._pending[0]) <= self._pool.alloc.free_pages:
+            need = self._pages_initial(self._pending[0])
+            if need <= self._pages_available(need):
                 self._drain_inflight()
                 self._scale_slots(min(self.max_slots, ns * 2))
         elif (ns > self.slots and self._adm is None and not self._pending

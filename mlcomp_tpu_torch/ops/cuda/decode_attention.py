@@ -10,10 +10,10 @@ scales, L from :func:`pick_buffer_len` and dh zero-padded to 128, exactly
 the JAX package's shapes; its pages are (P, Hkv, T, dh) and (P, Hkv, 1, T)
 tiles of it (``kvpool/layout.py``).  Two kernel bodies serve the four,
 picked by :func:`chunk_plan`: a single query (S = 1) runs on the CUDA
-cores with each window split over a thread-block cluster, a chunk (S > 1)
-on the tensor cores; each reads the dense cache or the pages, and the plan
-depends on the shapes alone, so a paged call equals the dense call on the
-same bytes bit for bit.  A CUDA tensor launches a kernel; a CPU tensor
+cores with each window cut into shares placed over a thread-block cluster,
+a chunk (S > 1) on the tensor cores; each reads the dense cache or the
+pages, and the plan depends on the shapes alone, so a paged call equals
+the dense call on the same bytes bit for bit.  A CUDA tensor launches a kernel; a CPU tensor
 takes the plain version beside it.
 """
 
@@ -41,10 +41,16 @@ CHUNK_MAX_SQ = 32
 # tensor-core one wgmma's 64
 SIMT_ROWS = 8
 TC_ROWS = 64
-# the single-query body splits a window into 32-slot blocks over a cluster
-# of CTAs, until the grid covers the card's SMs (H100: 132).  The launcher
-# takes clusters of up to 8; the plan stops at 4, since clusters of 8 ran
-# slower than 4 at every main-path shape on an H100 (PERF.md)
+# the single-query body cuts each window's 32-slot blocks into shares,
+# merged in share order.  The cut comes from the cache length alone, never
+# from the batch: it decides which blocks each warp walks and the order of
+# the merges, so a row's bits would otherwise change with how many rows
+# share the call.  A thread-block cluster of CTAs places the shares (each
+# CTA computes its shares one after another), so that one lone request
+# still spreads over the card (H100: 132 SMs) while a many-row call needs
+# no cluster.  The launcher takes up to 8; the plan stops at 4, since
+# clusters of 8 ran slower than 4 at every main-path shape on an H100
+# (PERF.md)
 SPLIT_SLOTS = 32
 MAX_CLUSTER = 4
 NUM_SMS = 132
@@ -69,31 +75,40 @@ def chunk_plan(s_q: int, h: int, h_kv: int, b: int, dh: int, l_buf: int) -> dict
     - One query per row (B3, B6, and a one-query chunk, which so equals the
       single-query decode bit for bit) takes the CUDA-core body
       (``"split"``): G rows a CTA (rounded up to 1, 2, 4 or 8; tiles of 8
-      above), each window split over a cluster of ``cluster`` CTAs, the
-      smallest power of two up to :data:`MAX_CLUSTER` whose grid reaches
-      :data:`NUM_SMS` CTAs, and never more shares than the cache has
-      32-slot blocks.
+      above), each window cut into ``shares`` contiguous shares of its
+      32-slot blocks, the largest power of two up to :data:`MAX_CLUSTER`
+      and no larger than the cache's count of blocks, and merged in share
+      order.  ``shares`` reads ``l_buf`` alone, never ``b``: a row's cut,
+      and so its bits, do not depend on how many rows the call holds.
+      The shares are placed over a cluster of ``cluster`` CTAs, the
+      smallest power of two up to ``shares`` whose grid reaches
+      :data:`NUM_SMS` CTAs; each CTA computes ``shares / cluster`` of them
+      one after another.
     - A chunk (S > 1: B4, B7) takes the tensor-core body (``"wgmma"``,
-      64-row tiles, cluster 1).
+      64-row tiles, shares and cluster 1).
 
-    Returns {"body", "rows_per_cta", "tiles", "cluster", "ctas"}."""
+    Returns {"body", "rows_per_cta", "tiles", "shares", "cluster",
+    "ctas"}."""
     if h % h_kv or dh not in (128, 256) or s_q < 1 or l_buf < 1:
         raise ValueError(f"no kernel for s_q {s_q}, h {h}, h_kv {h_kv}, dh {dh}, "
                          f"l_buf {l_buf}")
     g = h // h_kv
     if s_q > 1:
         tiles = -(-s_q * g // TC_ROWS)
-        return {"body": "wgmma", "rows_per_cta": TC_ROWS, "tiles": tiles, "cluster": 1,
-                "ctas": tiles * h_kv * b}
+        return {"body": "wgmma", "rows_per_cta": TC_ROWS, "tiles": tiles, "shares": 1,
+                "cluster": 1, "ctas": tiles * h_kv * b}
     per = min(SIMT_ROWS, 1 << (g - 1).bit_length())
     tiles = -(-g // per)
-    base = tiles * h_kv * b
     blocks = -(-l_buf // SPLIT_SLOTS)
+    shares = 1
+    while shares < MAX_CLUSTER and 2 * shares <= blocks:
+        shares *= 2
+    base = tiles * h_kv * b
     cluster = 1
-    while cluster < MAX_CLUSTER and base * cluster < NUM_SMS and 2 * cluster <= blocks:
+    while cluster < shares and base * cluster < NUM_SMS:
         cluster *= 2
-    return {"body": "split", "rows_per_cta": per, "tiles": tiles, "cluster": cluster,
-            "ctas": base * cluster}
+    return {"body": "split", "rows_per_cta": per, "tiles": tiles, "shares": shares,
+            "cluster": cluster, "ctas": base * cluster}
 
 
 def resources() -> dict:
@@ -298,16 +313,17 @@ def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale, table=None)
     _check_launch(what, q, k8, ks, v8, vs, dh)
     plan = plan_for(q, k8, table)
     tc = plan["body"] == "wgmma"
-    # the launchers' first argument: 0 for the tensor-core body, else the
-    # single-query body's cluster
+    # the launchers' first arguments: 0 for the tensor-core body, else the
+    # single-query body's cluster; then its shares
     route = 0 if tc else plan["cluster"]
     out = torch.empty_like(q)
     p, i = ctypes.c_void_p, ctypes.c_int
     if table is None:
         launch = build.function("decode_attention", "decode_attention_chunk_launch",
-                                [i] + [p] * 8 + [i] * 6 + [ctypes.c_float, p])
+                                [i, i] + [p] * 8 + [i] * 6 + [ctypes.c_float, p])
         err = launch(
-            route, *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, out)),
+            route, plan["shares"],
+            *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, out)),
             b, s_q, h, h_kv, l_buf, dh, scale, build.stream_ptr(q.device),
         )
     else:
@@ -315,9 +331,10 @@ def _attend(what: str, q, k8, ks, v8, vs, kv_start, kv_stop0, scale, table=None)
             raise TypeError(f"{what}: the table must be int32 on {q.device}")
         table = table.contiguous()
         launch = build.function("decode_attention", "paged_decode_attention_chunk_launch",
-                                [i] + [p] * 9 + [i] * 7 + [ctypes.c_float, p])
+                                [i, i] + [p] * 9 + [i] * 7 + [ctypes.c_float, p])
         err = launch(
-            route, *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, table, out)),
+            route, plan["shares"],
+            *(t.data_ptr() for t in (q, k8, ks, v8, vs, start, stop0, table, out)),
             b, s_q, h, h_kv, table.shape[1], k8.shape[2], dh, scale,
             build.stream_ptr(q.device),
         )

@@ -28,6 +28,10 @@ GEMV_CLUSTERS = (1, 2, 4, 8)
 # depth of one step, and the fewest steps a D slice may hold
 GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
 MIN_SLICE_STEPS = 2
+# the row count the tiled path's D split is sized for: the engine's
+# admission chunk.  The split is a function of (D, N) alone, so a row's
+# f32 sum order never depends on how many rows the call holds
+SPLIT_ROWS = 256
 SMS = 132             # the H100's SMs
 
 launches = 0        # kernel launches without the norm prologue (B1)
@@ -72,8 +76,8 @@ def gemv_plan(rows: int, d: int, n: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _gemm_splits(rows: int, d: int, n: int) -> int:
-    tiles = -(-rows // GEMM_BM) * (n // GEMM_BN)
+def _gemm_splits(d: int, n: int) -> int:
+    tiles = -(-SPLIT_ROWS // GEMM_BM) * (n // GEMM_BN)
     steps = d // GEMM_BK
     fits = [s for s in range(1, steps // MIN_SLICE_STEPS + 1)
             if steps % s == 0 and tiles * s <= SMS]
@@ -82,15 +86,18 @@ def _gemm_splits(rows: int, d: int, n: int) -> int:
 
 def plan(rows: int, d: int, n: int) -> dict:
     """The tiled path's grid for ``rows`` > GEMV_ROWS: 128 x 128 output
-    tiles, and, where fewer tiles than SMs, D split into ``splits`` slices
-    of whole 64-deep steps: the most slices (of at least MIN_SLICE_STEPS
-    steps) that still give every CTA an SM of its own.  Past one CTA an
-    SM a split only adds partial sums to write and add (measured on the
-    H100: qkv at 256 rows takes longer split in two, 192 CTAs, than whole,
-    96).  Returns {"tiles", "splits", "ctas", "d_chunk", "steps"}:
-    ``steps`` per slice."""
+    tiles, and D split into ``splits`` slices of whole 64-deep steps,
+    summed in slice order by a second pass.  The split reads (D, N) alone:
+    the most slices (of at least MIN_SLICE_STEPS steps) that still give
+    every CTA of a SPLIT_ROWS-row call (the admission chunk) an SM of its
+    own.  Past one CTA an SM a split only adds partial sums to write and
+    add (measured on the H100: qkv at 256 rows takes longer split in two,
+    192 CTAs, than whole, 96), and a split that followed the row count
+    would give one row other f32 sums at other batch sizes.  Returns
+    {"tiles", "splits", "ctas", "d_chunk", "steps"}: ``steps`` per
+    slice."""
     tiles = -(-rows // GEMM_BM) * (n // GEMM_BN)
-    splits = _gemm_splits(rows, d, n)
+    splits = _gemm_splits(d, n)
     return dict(tiles=tiles, splits=splits, ctas=tiles * splits, d_chunk=d // splits,
                 steps=d // GEMM_BK // splits)
 
@@ -147,7 +154,7 @@ def quant_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
     if r <= GEMV_ROWS:
         splits = gemv_plan(r, d, n)["cluster"]
     else:
-        splits = _gemm_splits(r, d, n)
+        splits = _gemm_splits(d, n)
         if splits > 1:
             partial = torch.empty((splits, r, n), dtype=torch.float32, device=x.device)
     p, i = ctypes.c_void_p, ctypes.c_int

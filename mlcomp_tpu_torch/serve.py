@@ -17,6 +17,13 @@ Two batchers, picked by ``GenerationService(batcher=)``:
   per-request sampling knobs ride as per-row arrays.  One background
   thread owns all device work.
 
+``phase`` is the disaggregated serving role: ``"both"`` (the default) the
+monolithic daemon; ``"prefill"`` runs the continuous engine's admission
+core only (``prefill_only``) and answers ``POST /prefill`` with KV-page
+handoff blobs; ``"decode"`` is a paged daemon that also admits handoffs
+through ``POST /import``, skipping the prefill with the tokens a local
+admission gives.  Any paged daemon takes ``/import``.
+
 HTTP handler threads enqueue requests and wait on futures.  HTTP surface
 (stdlib ``http.server``):
 
@@ -34,6 +41,15 @@ HTTP handler threads enqueue requests and wait on futures.  HTTP surface
     GET  /healthz   -> {"ok": ..., "ready": ..., "model": ..., **stats}
         ``ok`` is liveness (503 when the engine is down), ``ready`` is
         whether to send new traffic (false while draining).
+    POST /prefill   the /generate body (phase=prefill replicas)
+        -> the handoff blob as application/octet-stream, its summary
+           (pages, prefill_tokens, latency_ms, trace_id) as JSON in the
+           ``x-mlcomp-handoff`` header; 409 ``wrong_phase`` off a prefill
+           replica, which in turn answers /generate with 409
+    POST /import    a handoff blob (paged replicas); ``?stream=1`` streams
+        SSE as /generate does, else the /generate result; a truncated or
+        mismatched blob answers 400 ``bad_handoff`` with nothing allocated,
+        a pool that cannot hold its pages 429 ``no_free_pages``
     POST /drain     {"draining": true} -> {"ok": true, "draining": true}
     GET  /stats     -> the service counters
 """
@@ -41,6 +57,7 @@ HTTP handler threads enqueue requests and wait on futures.  HTTP surface
 from __future__ import annotations
 
 import json
+import math
 import os
 import queue
 import re
@@ -66,6 +83,18 @@ def make_trace_id() -> str:
 
 def valid_trace_id(tid: Any) -> bool:
     return isinstance(tid, str) and bool(_TRACE_ID_RE.fullmatch(tid)) and tid != "0" * 32
+
+
+class BackpressureError(RuntimeError):
+    """Admission control rejected the request (here: a handoff import
+    whose pages the pool cannot hold): a fast failure with a retry hint
+    instead of unbounded queueing.  HTTP maps this to 429 +
+    ``Retry-After``."""
+
+    def __init__(self, msg: str, reason: str, retry_after_s: float):
+        super().__init__(msg)
+        self.reason = reason
+        self.retry_after_s = float(retry_after_s)
 
 
 def _bucket(value: int, buckets: Sequence[int], what: str) -> int:
@@ -119,7 +148,8 @@ class GenerationService:
     slots, the prompt buckets, ``max_new_buckets[-1]`` as its budget cap,
     and the engine knobs (``steps_per_dispatch`` default ``"adaptive"``;
     ``kv_layout``, ``kv_page_tokens``, ``kv_pages`` and ``max_slots`` for
-    the paged layout, ``max_slots`` defaulting to 4 x the slots)."""
+    the paged layout, ``max_slots`` defaulting to 4 x the slots).
+    ``phase`` is the disaggregated serving role (module docstring)."""
 
     def __init__(
         self,
@@ -148,6 +178,7 @@ class GenerationService:
         kv_page_tokens: Optional[int] = None,
         kv_pages: Optional[int] = None,
         max_slots: Optional[int] = None,
+        phase: str = "both",
     ):
         from mlcomp_tpu_torch.models.generation import prep_decode_variables
         from mlcomp_tpu_torch.ops.quant import quantize_params
@@ -165,6 +196,15 @@ class GenerationService:
                                     or kv_pages is not None or max_slots is not None):
             raise ValueError("kv_layout / kv_page_tokens / kv_pages / max_slots need the "
                              "continuous batcher (only the slot engine owns a device KV pool)")
+        self.phase = str(phase)
+        if self.phase not in ("both", "prefill", "decode"):
+            raise ValueError(f"phase must be 'both', 'prefill', or 'decode'; got {phase!r}")
+        if self.phase != "both" and batcher != "continuous":
+            raise ValueError("phase-split serving needs the continuous batcher (only the slot "
+                             "engine owns an admission core)")
+        if self.phase == "decode" and kv_layout != "paged":
+            raise ValueError("phase='decode' needs kv_layout='paged': handoff imports land "
+                             "as pages in the engine's PagePool")
         self.batcher = batcher
         self.model = model
         self.batch_sizes = tuple(sorted(batch_sizes))
@@ -208,7 +248,7 @@ class GenerationService:
                 fused_admission=engine_fused_admission,
                 dispatch_stall_timeout=dispatch_stall_timeout,
                 kv_layout=kv_layout, kv_page_tokens=kv_page_tokens, kv_pages=kv_pages,
-                max_slots=max_slots,
+                max_slots=max_slots, prefill_only=self.phase == "prefill",
             )
         else:
             self._gen = torch.Generator(device=model.device).manual_seed(seed)
@@ -303,6 +343,54 @@ class GenerationService:
         its Future); False for the window batcher, which cannot."""
         return self.engine.cancel(rid) if self.engine is not None else False
 
+    def import_pages(self, blob: bytes, stream: Optional["queue.Queue"] = None,
+                     deadline_s: Optional[float] = None,
+                     trace_id: Optional[str] = None) -> Future:
+        """Admit a disaggregated handoff (behind ``POST /import``): validate
+        the blob against this engine's paged geometry (typed
+        ``HandoffError`` on a truncated or mismatched transfer, nothing
+        allocated), gate it on the pool's free pages (``BackpressureError``
+        ``no_free_pages``, nothing allocated) and on the service's
+        ``max_new`` buckets, and queue the import.  The future resolves to
+        the /generate result; the tokens equal a local admission's."""
+        if self.engine is None or self.engine._pool is None:
+            raise ValueError("handoff import needs a continuous paged engine (phase='decode', "
+                             "or any kv_layout='paged' service)")
+        parsed = self.engine.validate_handoff(blob)
+        meta = parsed[0]
+        _bucket(int(meta["n_new"]), self.max_new_buckets, "max_new_tokens")
+        self._page_budget_check(meta["ids"], int(meta["n_new"]))
+        eff = self.request_timeout_s if deadline_s is None else min(
+            float(deadline_s), self.request_timeout_s)
+        return self.engine.import_pages(blob, stream=stream, deadline_s=eff, trace_id=trace_id,
+                                        parsed=parsed)
+
+    def _page_budget_check(self, ids, n_new: int) -> None:
+        """The paged layout's free-page gate: the request's INITIAL page
+        need (prefill span plus one dispatch of decode lookahead) against
+        the free and reclaimable pages less what the queued backlog needs
+        at its own admission.  Approximate (racing callers may both pass);
+        the engine's own boundary gate defers whatever slips through."""
+        eng = self.engine
+        try:
+            need = eng._pages_initial({"ids": ids, "n_new": n_new})
+            pool = eng._pool
+            avail = pool.alloc.free_pages + pool.reclaimable_pages()
+            backlog = sum(eng._pages_initial(r) for r in list(eng._pending))
+            with eng._queue.mutex:
+                parked = [r for r in eng._queue.queue if isinstance(r, dict)]
+            backlog += sum(eng._pages_initial(r) for r in parked)
+            adm = eng._adm
+            if adm is not None:
+                backlog += eng._pages_initial(adm.req)
+        except RuntimeError:
+            return  # a torn read mid-mutation: admit, the engine re-gates
+        if need <= avail - backlog:
+            return
+        raise BackpressureError(
+            f"request needs {need} KV pages at admission; {max(avail - backlog, 0)} free after "
+            f"the queued backlog (pool: {pool.alloc.total_pages})", "no_free_pages", 1.0)
+
     def set_draining(self, draining: bool) -> bool:
         """The drain bit behind ``POST /drain``: a draining service keeps
         serving what it holds and stays ok, but reads ``ready: false``."""
@@ -317,6 +405,7 @@ class GenerationService:
             "batcher": self.batcher,
             "device": str(self.model.device),
             "request_timeout_s": self.request_timeout_s,
+            "phase": self.phase,
         }
         if self.engine is not None:
             eng = self.engine.stats()
@@ -556,6 +645,79 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
                 except OSError:
                     pass
 
+        def _reject_429(self, e: BackpressureError, tid: str):
+            body = json.dumps({"error": str(e), "status": e.reason, "trace_id": tid}).encode()
+            self.send_response(429)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("Retry-After", str(max(1, int(math.ceil(e.retry_after_s)))))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _error(self, e: Exception, tid: str):
+            """The error answer /generate, /prefill and /import share."""
+            if isinstance(e, BackpressureError):
+                return self._reject_429(e, tid)
+            if isinstance(e, FutTimeout):
+                return self._json({"error": f"{type(e).__name__}: {e}",
+                                   "status": "deadline_exceeded", "trace_id": tid}, 504)
+            status = getattr(e, "status", None)
+            if isinstance(e, (KeyError, ValueError, TypeError)):
+                # a bad handoff is a ValueError too, typed by its status
+                return self._json({"error": f"{type(e).__name__}: {e}", "trace_id": tid,
+                                   **({"status": status} if status else {})}, 400)
+            code = 504 if status == "deadline_exceeded" else 500
+            return self._json({"error": f"{type(e).__name__}: {e}", "trace_id": tid,
+                               **({"status": status} if status else {})}, code)
+
+        def _prefill(self, tid):
+            """POST /prefill (phase=prefill replicas): run the admission core
+            on a /generate-shaped request and answer with the serialized
+            KV-page handoff, the blob a decode replica's POST /import takes."""
+            if service.engine is None or not service.engine.prefill_only:
+                return self._json({"error": "this replica does not serve phase=prefill; POST "
+                                   "/generate instead", "status": "wrong_phase",
+                                   "trace_id": tid}, 409, close=True)
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                fut = service.submit(
+                    req["prompt"], int(req.get("max_new_tokens", 32)),
+                    temperature=req.get("temperature"), top_k=req.get("top_k"),
+                    top_p=req.get("top_p"), eos_id=req.get("eos_id"),
+                    logprobs=req.get("logprobs", False),
+                    repetition_penalty=req.get("repetition_penalty"), trace_id=tid,
+                    deadline_s=req.get("deadline_s"),
+                )
+                res = fut.result(timeout=service.request_timeout_s + 30.0)
+            except Exception as e:
+                return self._error(e, tid)
+            blob = res.pop("handoff")
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(blob)))
+            # the summary rides a header so that the body stays the raw blob
+            self.send_header("x-mlcomp-handoff", json.dumps(res))
+            self.end_headers()
+            self.wfile.write(blob)
+            return None
+
+        def _import(self, tid):
+            """POST /import (paged replicas, usually phase=decode): admit a
+            KV-page handoff blob; ``?stream=1`` streams tokens over SSE as
+            /generate does."""
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                blob = self.rfile.read(n)
+                qs = self.path.partition("?")[2]
+                toks = queue.Queue() if ("stream=1" in qs or "stream=true" in qs) else None
+                fut = service.import_pages(blob, stream=toks, trace_id=tid)
+                if toks is not None:
+                    return self._stream(fut, toks)
+                return self._json(fut.result(timeout=service.request_timeout_s + 30.0))
+            except Exception as e:
+                return self._error(e, tid)
+
         def do_POST(self):  # noqa: N802
             route = self.path.split("?", 1)[0]
             if route == "/drain":
@@ -568,9 +730,19 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
                 except (ValueError, TypeError, AttributeError) as e:
                     return self._json({"error": f"{type(e).__name__}: {e}"}, 400)
                 return self._json({"ok": True, "draining": service.set_draining(draining)})
-            if route != "/generate":
+            if route not in ("/generate", "/prefill", "/import"):
                 return self._json({"error": "not found"}, 404, close=True)
             tid = make_trace_id()
+            if route == "/prefill":
+                return self._prefill(tid)
+            if route == "/import":
+                return self._import(tid)
+            if service.phase == "prefill":
+                # a prefill replica owns no decode loop
+                return self._json({"error": "this replica serves phase=prefill (POST /prefill "
+                                   "for a KV-page handoff); send generation to a decode or "
+                                   "monolithic replica", "status": "wrong_phase",
+                                   "trace_id": tid}, 409, close=True)
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n) or b"{}")
@@ -586,16 +758,8 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
                 if toks is not None:
                     return self._stream(fut, toks)
                 return self._json(fut.result(timeout=service.request_timeout_s + 30.0))
-            except FutTimeout as e:
-                return self._json({"error": f"{type(e).__name__}: {e}",
-                                   "status": "deadline_exceeded", "trace_id": tid}, 504)
-            except (KeyError, ValueError, TypeError) as e:
-                return self._json({"error": f"{type(e).__name__}: {e}", "trace_id": tid}, 400)
             except Exception as e:
-                status = getattr(e, "status", None)
-                code = 504 if status == "deadline_exceeded" else 500
-                return self._json({"error": f"{type(e).__name__}: {e}", "trace_id": tid,
-                                   **({"status": status} if status else {})}, code)
+                return self._error(e, tid)
 
     return ThreadingHTTPServer((host, port), Handler)
 

@@ -45,8 +45,8 @@ def test_one_query_keeps_the_cuda_core_body_at_every_group(g):
 ])
 def test_chunks_take_the_tensor_core_body(s_q, h, h_kv, b, dh, tiles, ctas):
     p = da.chunk_plan(s_q, h, h_kv, b, dh, 768)
-    assert p == {"body": "wgmma", "rows_per_cta": da.TC_ROWS, "tiles": tiles, "cluster": 1,
-                 "ctas": ctas}
+    assert p == {"body": "wgmma", "rows_per_cta": da.TC_ROWS, "tiles": tiles, "shares": 1,
+                 "cluster": 1, "ctas": ctas}
     assert da.TC_ROWS == 64
 
 

@@ -1,16 +1,19 @@
-"""The int8-KV single-query decode's split over a thread-block cluster.
+"""The int8-KV single-query decode's split of each window into shares,
+placed over a thread-block cluster.
 
 One query per row (B3, B6, and a one-query chunk) runs on
 ``attend_split_kernel`` (csrc/decode_attention.cu), which exists only on
 the card: chip_smoke.py holds it there against the plain version, paged
-against dense and a one-query chunk against B3 bit for bit, and a rerun
-against the first run.  Here, on the CPU: ``chunk_plan``'s cluster, the
-same plan for a dense and a paged call of one shape, and a PyTorch replay
-of the body's arithmetic (each CTA's contiguous share of the window's
-32-slot blocks, every 4th block of it to each of 4 warps, one online
-softmax per warp with p * vs rounded to bf16 against the warp's running
-max, the warps' partials merged in order, then the ranks' in rank order
-by rank 0)
+against dense and a one-query chunk against B3 bit for bit, a rerun
+against the first run, and one row inside calls of 1, 8 and 32 rows.
+Here, on the CPU: ``chunk_plan``'s shares (read from the cache length
+alone) and cluster, the same plan for a dense and a paged call of one
+shape, and a PyTorch replay of the body's arithmetic (each share, a
+contiguous run of the window's 32-slot blocks, every 4th block of it to
+each of 4 warps, one online softmax per warp with p * vs rounded to bf16
+against the warp's running max, the warps' partials merged in order,
+then the shares' in share order by rank 0; which CTA computes a share
+does not enter)
 held against the JAX package's Pallas kernels in interpret mode and
 against the port's plain version.
 """
@@ -36,22 +39,29 @@ WARPS, SLOTS = 4, 32
 @pytest.mark.parametrize("b", [1, 2, 4, 8, 9, 16, 32, 64])
 @pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
 def test_the_cluster_fills_the_card_and_no_more(b, g):
-    """C is a power of two up to 4 (the launcher takes 8): the smallest
-    whose grid reaches the card's 132 SMs, 1 where the grid already does,
-    and never more than the cache's 32-slot blocks."""
+    """The shares NS are a power of two up to 4 (the launcher takes 8),
+    read from the cache length alone: the most that do not exceed the
+    cache's 32-slot blocks, the same at every batch row count, so that a
+    row's cut (and so its bits) never depends on how many rows share the
+    call.  The cluster C places them: a power of two dividing NS, the
+    smallest whose grid reaches the card's 132 SMs, 1 where the grid
+    already does."""
     h_kv = 16 // g
     for dh in (128, 256):
         for l_buf in (64, 128, 256, 768, 4096):
             p = da.chunk_plan(1, 16, h_kv, b, dh, l_buf)
-            c = p["cluster"]
+            ns, c = p["shares"], p["cluster"]
             base = p["tiles"] * h_kv * b
             blocks = -(-l_buf // da.SPLIT_SLOTS)
-            assert p["body"] == "split" and c in (1, 2, 4) and da.MAX_CLUSTER == 4
+            assert p["body"] == "split" and ns in (1, 2, 4) and da.MAX_CLUSTER == 4
+            assert ns <= blocks and (ns == da.MAX_CLUSTER or 2 * ns > blocks)
+            for b2 in (1, 8, 32, 64):
+                assert da.chunk_plan(1, 16, h_kv, b2, dh, l_buf)["shares"] == ns
+            assert c in (1, 2, 4) and ns % c == 0
             assert p["ctas"] == base * c
-            assert c <= blocks
             if base >= da.NUM_SMS:
                 assert c == 1
-            elif c < da.MAX_CLUSTER and 2 * c <= blocks:
+            elif c < ns:
                 assert base * c >= da.NUM_SMS
             if c > 1:
                 assert base * c // 2 < da.NUM_SMS
@@ -67,9 +77,11 @@ def test_the_cluster_fills_the_card_and_no_more(b, g):
     (2, 16, 1, 128, 768, 8, 4, 16),       # G = 16: two 8-row tiles
 ])
 def test_the_main_path_shapes(b, h, h_kv, dh, l_buf, per, cluster, ctas):
+    """Every main-path shape cuts a window into 4 shares; the cluster that
+    places them falls from 4 at one row to 1 at 32."""
     p = da.chunk_plan(1, h, h_kv, b, dh, l_buf)
     assert p == {"body": "split", "rows_per_cta": per, "tiles": -(-(h // h_kv) // per),
-                 "cluster": cluster, "ctas": ctas}
+                 "shares": 4, "cluster": cluster, "ctas": ctas}
 
 
 @pytest.mark.parametrize("t", [32, 64, 128, 256])
@@ -87,22 +99,24 @@ def test_dense_and_paged_calls_take_one_plan(t, b, h, h_kv):
     assert want["body"] == "split"
 
 
-def shares(start, stop, l_buf, cluster):
-    """Each rank's [c0, c1) of 32-slot blocks, as the kernel derives them."""
+def shares(start, stop, l_buf, n_shares):
+    """Each share's [c0, c1) of 32-slot blocks, as the kernel derives them."""
     lo, hi = max(start, 0), min(stop, l_buf)
     kb0 = lo // SLOTS
     nblk = -(-hi // SLOTS) - kb0 if hi > lo else 0
-    return [(kb0 + c * nblk // cluster, kb0 + (c + 1) * nblk // cluster) for c in range(cluster)]
+    return [(kb0 + c * nblk // n_shares, kb0 + (c + 1) * nblk // n_shares)
+            for c in range(n_shares)]
 
 
-def split_replay(q, k8, ks, v8, vs, start, stop, scale, cluster):
+def split_replay(q, k8, ks, v8, vs, start, stop, scale, n_shares):
     """The single-query body's arithmetic in PyTorch: per (batch row, KV
-    head), rank c's share of the window's blocks, every 4th block of it to
-    warp w; each warp's online softmax (logits (q . k) * scale * ks, -1e30
-    off the window, p zero while its row has seen no live slot, p * vs
+    head), share c of the window's blocks, every 4th block of it to warp
+    w; each warp's online softmax (logits (q . k) * scale * ks, -1e30 off
+    the window, p zero while its row has seen no live slot, p * vs
     selected to 0 off the window and rounded to bf16, l of the unscaled p);
-    then the warps' partials merged in order into each rank's, and the
-    ranks' in rank order; l == 0 gives 0."""
+    then the warps' partials merged in order into each share's, and the
+    shares' in share order; l == 0 gives 0.  The cluster that places the
+    shares does not enter."""
     b, h, dh = q.shape
     h_kv, l_buf = k8.shape[1], k8.shape[2]
     g = h // h_kv
@@ -112,7 +126,7 @@ def split_replay(q, k8, ks, v8, vs, start, stop, scale, cluster):
         for hk in range(h_kv):
             qt = q[bi, hk * g:(hk + 1) * g].float()
             ranks = []
-            for c0, c1 in shares(int(start[bi]), int(stop[bi]), l_buf, cluster):
+            for c0, c1 in shares(int(start[bi]), int(stop[bi]), l_buf, n_shares):
                 parts = []
                 for w in range(WARPS):
                     m = torch.full((g,), NEG_INF)
@@ -190,12 +204,12 @@ def _pages(rng, k8, ks, v8, vs, t, stop):
 
 # (h, h_kv): G 1 and 4; windows: the whole buffer, one that starts and
 # stops inside a block (so inside a share), an EMPTY one, one of two slots
-# and one from mid-block to the end; clusters 1-8 (at 8 the short windows
+# and one from mid-block to the end; 1-8 shares (at 8 the short windows
 # leave shares empty)
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_shares", [1, 2, 4, 8])
 @pytest.mark.parametrize("h,h_kv", [(4, 4), (8, 2)])
-def test_split_replay_holds_the_pallas_kernels_and_the_plain_version(cluster, h, h_kv):
-    rng = np.random.default_rng(cluster * 10 + h)
+def test_split_replay_holds_the_pallas_kernels_and_the_plain_version(n_shares, h, h_kv):
+    rng = np.random.default_rng(n_shares * 10 + h)
     b, l_buf, dh, t = 5, 256, 128, 64
     k8, ks = _quant_cache(rng, b, h_kv, l_buf, dh)
     v8, vs = _quant_cache(rng, b, h_kv, l_buf, dh)
@@ -208,7 +222,7 @@ def test_split_replay_holds_the_pallas_kernels_and_the_plain_version(cluster, h,
     tk8, tks = torch.from_numpy(k8), torch.from_numpy(ks).bfloat16()
     tv8, tvs = torch.from_numpy(v8), torch.from_numpy(vs).bfloat16()
     tstart, tstop = torch.from_numpy(start), torch.from_numpy(stop)
-    got = split_replay(tq, tk8, tks, tv8, tvs, tstart, tstop, scale, cluster).float()
+    got = split_replay(tq, tk8, tks, tv8, tvs, tstart, tstop, scale, n_shares).float()
     plain = da.decode_attention_plain(tq, tk8, tks, tv8, tvs, tstart, tstop, scale).float()
     ref_abs = da.decode_attention_plain(tq, tk8, tks, tv8.abs(), tvs, tstart, tstop,
                                         scale).float()
@@ -240,23 +254,52 @@ def test_split_replay_holds_the_pallas_kernels_and_the_plain_version(cluster, h,
                                                  scale), plain.bfloat16())
 
 
-@pytest.mark.parametrize("start,stop,cluster", [
+@pytest.mark.parametrize("start,stop,n_shares", [
     (0, 256, 8), (37, 211, 4), (100, 100, 2), (130, 132, 8), (70, 256, 8), (5, 700, 2),
     (412, 576, 8), (0, 768, 1),
 ])
-def test_shares_cover_the_live_blocks_once(start, stop, cluster):
-    """The ranks' shares are contiguous, disjoint, in rank order, at most
-    one block apart in size, and together the blocks that meet the
-    window: no live slot is lost or counted twice, and an empty window
-    gives every rank an empty share."""
+def test_shares_cover_the_live_blocks_once(start, stop, n_shares):
+    """The shares are contiguous, disjoint, in order, at most one block
+    apart in size, and together the blocks that meet the window: no live
+    slot is lost or counted twice, and an empty window gives every share
+    nothing."""
     l_buf = 768 if stop > 256 else 256
-    got = shares(start, stop, l_buf, cluster)
+    got = shares(start, stop, l_buf, n_shares)
     lo, hi = max(start, 0), min(stop, l_buf)
     want = set(range(lo // SLOTS, -(-hi // SLOTS))) if hi > lo else set()
     seen = [k for c0, c1 in got for k in range(c0, c1)]
     assert sorted(seen) == seen and set(seen) == want and len(seen) == len(want)
     sizes = [c1 - c0 for c0, c1 in got]
     assert max(sizes) - min(sizes) <= 1
+
+
+# the main path's single-query shapes (h, h_kv, dh, l_buf): the decode
+# step, GQA 16 on 4, head dim 256
+MAIN_SPLIT_SHAPES = [(16, 16, 128, 768), (16, 4, 128, 768), (8, 4, 256, 512)]
+
+
+@pytest.mark.parametrize("h,h_kv,dh,l_buf", MAIN_SPLIT_SHAPES)
+def test_a_rows_bits_do_not_depend_on_the_batch(h, h_kv, dh, l_buf):
+    """One row's inputs replayed under the plan each batch row count b
+    launches (b = 1 ... 64) give the same bits: the plan's shares, which
+    decide the row's cut and merge order, read the shapes of one row
+    alone, while the cluster that places them follows b.  (The card holds
+    the kernel to the same inside calls of 1, 8 and 32 rows.)"""
+    rng = np.random.default_rng(h + h_kv + dh)
+    k8, ks = _quant_cache(rng, 1, h_kv, l_buf, dh)
+    v8, vs = _quant_cache(rng, 1, h_kv, l_buf, dh)
+    q = torch.from_numpy(rng.normal(size=(1, h, dh)).astype(np.float32)).bfloat16()
+    args = (q, torch.from_numpy(k8), torch.from_numpy(ks).bfloat16(), torch.from_numpy(v8),
+            torch.from_numpy(vs).bfloat16(), torch.tensor([37], dtype=torch.int32),
+            torch.tensor([l_buf - 91], dtype=torch.int32), 1 / math.sqrt(dh))
+    outs, clusters = {}, set()
+    for b in (1, 2, 4, 8, 9, 16, 32, 64):
+        p = da.chunk_plan(1, h, h_kv, b, dh, l_buf)
+        clusters.add(p["cluster"])
+        if p["shares"] not in outs:
+            outs[p["shares"]] = split_replay(*args, p["shares"])
+        assert torch.equal(outs[p["shares"]], next(iter(outs.values()))), (b, p)
+    assert len(outs) == 1 and len(clusters) > 1
 
 
 def test_the_single_query_body_is_a_cluster_split_with_copies_in_flight():

@@ -340,10 +340,13 @@ def _paged(model, slots=2, t=4, **kw):
 
 
 def _quiesced(eng, timeout=10.0):
-    """Wait until every page is free again (rows retire at boundaries)."""
+    """Wait until every page is free again (rows retire at boundaries),
+    with the prefix-page registry flushed: its pins are cache, not live
+    decode state (tests/test_engine_paged.py flushes it the same way)."""
     pool = eng._pool
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < timeout:
+        pool.reclaim_all()
         if pool.alloc.free_pages == pool.alloc.total_pages:
             break
         time.sleep(0.02)

@@ -1,6 +1,6 @@
 """The port stands alone: ``mlcomp_tpu_torch`` imports neither JAX, flax,
-optax, orbax nor anything of ``mlcomp_tpu``; chip_smoke.py refuses to run
-without a card."""
+optax, orbax, ml_dtypes nor anything of ``mlcomp_tpu``; chip_smoke.py
+refuses to run without a card."""
 
 import ast
 import os
@@ -26,7 +26,7 @@ def _modules():
 
 def test_the_module_walk_covers_the_kvpool_copies():
     mods = _modules()
-    for name in ("allocator", "pool", "layout", "attn"):
+    for name in ("allocator", "pool", "layout", "attn", "transfer"):
         assert f"mlcomp_tpu_torch.kvpool.{name}" in mods
 
 
@@ -47,7 +47,7 @@ def test_import_leaves_jax_out_of_the_process():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-        " 'optax', 'orbax', 'mlcomp_tpu'))\n"
+        " 'optax', 'orbax', 'ml_dtypes', 'mlcomp_tpu'))\n"
         "print(','.join(bad))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -58,14 +58,15 @@ def test_import_leaves_jax_out_of_the_process():
 
 
 @pytest.mark.parametrize("module", ["mlcomp_tpu_torch.engine", "mlcomp_tpu_torch.dispatch_control",
-                                    "mlcomp_tpu_torch.kvpool", "mlcomp_tpu_torch.train.loop",
+                                    "mlcomp_tpu_torch.kvpool", "mlcomp_tpu_torch.kvpool.transfer",
+                                    "mlcomp_tpu_torch.train.loop",
                                     "mlcomp_tpu_torch.scheduler.local",
                                     "mlcomp_tpu_torch.executors.train"])
 def test_engine_modules_alone_leave_jax_out(module):
     code = (
         f"import sys, {module}\n"
         "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
-        " 'flax', 'optax', 'orbax', 'mlcomp_tpu'))))\n"
+        " 'flax', 'optax', 'orbax', 'ml_dtypes', 'mlcomp_tpu'))))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -86,7 +87,8 @@ def test_no_jax_or_mlcomp_tpu_imports_in_the_source():
                 continue
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "flax", "mlcomp_tpu", "optax", "orbax"), (
+                assert root not in ("jax", "jaxlib", "flax", "mlcomp_tpu", "optax", "orbax",
+                                    "ml_dtypes"), (
                     f"{path.relative_to(REPO)}:{node.lineno} imports {name}")
 
 

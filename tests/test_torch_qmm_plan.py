@@ -37,14 +37,15 @@ def _check_plan(rows, d, n):
     assert p["d_chunk"] * p["splits"] == d
     assert p["d_chunk"] % qm.GEMM_BK == 0
     assert p["steps"] * qm.GEMM_BK == p["d_chunk"]
-    if p["tiles"] >= qm.SMS:
-        # the tiles alone fill the card: no split
+    # the slicing reads (D, N) alone: one wave that covers the work of a
+    # SPLIT_ROWS-row call (the admission chunk), every CTA on an SM of its
+    # own, and the most slices that keep it so
+    ref_tiles = -(-qm.SPLIT_ROWS // qm.GEMM_BM) * (n // qm.GEMM_BN)
+    if ref_tiles >= qm.SMS:
         assert p["splits"] == 1
     else:
-        # one wave that covers the work, every CTA on an SM of its own, and
-        # the most slices that keep it so
-        assert p["ctas"] <= qm.SMS
-        assert all(p["tiles"] * s > qm.SMS for s in _valid_splits(d) if s > p["splits"])
+        assert ref_tiles * p["splits"] <= qm.SMS
+        assert all(ref_tiles * s > qm.SMS for s in _valid_splits(d) if s > p["splits"])
     return p
 
 
@@ -53,8 +54,23 @@ def _check_plan(rows, d, n):
 def test_plan_covers_the_card_at_main_path_shapes(shape, rows):
     d, n = MAIN_SHAPES[shape]
     p = _check_plan(rows, d, n)
-    # every main-path shape keeps at least 96 of the 132 SMs busy
-    assert p["ctas"] >= 96
+    # every main-path shape keeps at least 96 of the 132 SMs busy from two
+    # row tiles on (the admission chunk, the prefill); one row tile (65-128
+    # rows) at least 48
+    assert p["ctas"] >= (96 if rows > qm.GEMM_BM else 48)
+
+
+@pytest.mark.parametrize("shape", sorted(MAIN_SHAPES))
+def test_every_row_count_slices_d_alike(shape):
+    """A row's f32 sums do not depend on how many rows the call holds: the
+    same D slices (count, width) at M = 65, 256, 512, 1024 and 4096, so a
+    lone 512-row prefill and the same rows inside an 8 x 512 one sum in
+    one order (the card holds 512 rows inside 4096 bit for bit)."""
+    d, n = MAIN_SHAPES[shape]
+    plans = [qm.plan(m, d, n) for m in (65, 256, 512, 1024, 4096)]
+    assert len({(p["splits"], p["d_chunk"], p["steps"]) for p in plans}) == 1
+    for m in (66, 127, 129, 300, 2000, 8192):
+        assert qm.plan(m, d, n)["d_chunk"] == plans[0]["d_chunk"]
 
 
 def test_plan_at_the_admission_chunk_and_the_prefill():
@@ -62,9 +78,10 @@ def test_plan_at_the_admission_chunk_and_the_prefill():
     # 32, split in four (128 CTAs)
     assert {k: qm.plan(256, *v)["splits"] for k, v in MAIN_SHAPES.items()} == {
         "qkv": 1, "gate_up": 1, "down": 4, "out": 4}
-    # 8 x 512 rows: at least 512 tiles everywhere, no split
-    assert all(qm.plan(4096, *v)["splits"] == 1 and qm.plan(4096, *v)["tiles"] >= 512
-               for v in MAIN_SHAPES.values())
+    # 8 x 512 rows: at least 512 tiles everywhere, and the chunk's slices
+    for k, v in MAIN_SHAPES.items():
+        p = qm.plan(4096, *v)
+        assert p["tiles"] >= 512 and p["splits"] == qm.plan(256, *v)["splits"], k
 
 
 def test_plan_refuses_nothing_the_wrapper_accepts():
