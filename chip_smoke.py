@@ -60,8 +60,18 @@ without printing a result:
    each with its spread and the host's load average.
 7. engine parity: a (1, 256) admission chunk at cache index 256 and 8
    per-row-cursor decode steps, kernels against plain versions.
-8. paged engine serve (``kv_layout="paged"``) and 9. the bf16-KV paged
-   engine.
+8. paged engine serve (``kv_layout="paged"``), its disaggregated handoff,
+   then "prefix cache and daemon surface": the same weights served with
+   ``prefix_cache=True`` on the dense and the paged engine (prompts of
+   340-500 tokens, three sharing a 320-token prefix); every repeat must
+   hit and give its cold tokens, a shared prefix at another length must
+   hit the host cache, launch counts must show each hit skipping its first
+   chunk (B5) and running its second (B4), ``cache_degraded`` must stay 0;
+   then a daemon started through ``start_warmup`` must answer ``ready:
+   false`` until warmup ends, serve ``/metrics``, answer 429 with
+   ``Retry-After`` under ``max_queue_depth=2`` and 11 clients while every
+   accepted request completes, and return a client's ``traceparent`` in
+   ``/trace``.  9. the bf16-KV paged engine.
 10. train: configs/multihost_lm.yml's 1.2B transformer_lm (hidden 2048, 16
    layers, vocab 32000, bf16, adafactor with warmup_cosine) through
    ``mlcomp_tpu_torch.cli dag``, in-process, cut to one card (2 sequences
@@ -75,8 +85,9 @@ without printing a result:
    through pages: each must run its attention as 16 launches of the split
    body (no launch of the old ``attend_kernel``), and the paged step's
    logits must equal the dense step's bit for bit.
-12. summary: ``serve``, ``engine``, ``paged_engine``, ``train`` and
-   ``kernels`` JSON lines, then, last, the device line.
+12. summary: ``serve``, ``engine``, ``paged_engine``, ``disagg``,
+   ``prefix_cache``, ``daemon``, ``train`` and ``kernels`` JSON lines, then,
+   last, the device line.
 
 The kernel phase (3) also holds the flash-attention backward (B9-B11), and
 the forward (B5) whose (out, lse) it takes, at the training shape, a GQA
@@ -99,6 +110,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -1794,6 +1806,247 @@ def main() -> int:
     del pre, dec, blobs, pmodel
     torch.cuda.empty_cache()
 
+    # ---- 8c. prefix cache and daemon surface: the same weights, int8 KV
+    log("phase prefix cache and daemon surface")
+    from mlcomp_tpu_torch.serve import start_warmup
+
+    # prompts of 340-500 tokens; "a", "b" and "c" share a 320-token prefix,
+    # longer than one 256-token chunk, "d" shares nothing.  A repeat at the
+    # same placement hits the device registry first on the paged layout
+    # (B8), the host cache on the dense one, and must give the cache-off
+    # tokens when its first instance was a cold prefill.  A prompt of a new
+    # length that shares the prefix misses the registry (another placement)
+    # and hits the host cache on both layouts: its first chunk is skipped
+    # and its second (B4) attends over rows that came from host RAM.  Those
+    # rows were computed along another chunk path (a 256-token chunk at
+    # index 0 attends its fresh K/V, a later one the int8 cache), so its
+    # tokens are compared with the cache-off engine's, not required equal.
+    shared = prompt_of(320)
+    pc = {key: shared + prompt_of(n - 320) for key, n in (("a", 340), ("b", 400), ("c", 460))}
+    pc["d"] = prompt_of(500)
+    pc_order = ["a", "a", "b", "c", "b", "d", "d"]
+    pc_new = 32
+    cold_lone = [prompt_of(400) for _ in range(LONE_REPEATS)]
+
+    def span_ms(svc, name, hit=False):
+        """Sorted ms of the flight recorder's ``name`` spans (with a hit only)."""
+        evs = [e for e in svc.trace()["traceEvents"] if e.get("name") == name
+               and e.get("ph") == "X" and (not hit or (e["args"].get("hit_tokens") or 0) > 0)]
+        return sorted(e["dur"] / 1e3 for e in evs)
+
+    def med(xs):
+        return {"median": xs[len(xs) // 2], "spread": [xs[0], xs[-1]], "n": len(xs)}
+
+    def prefix_run(label, **layout):
+        """The prefix-cache sequence over HTTP with launch counts; lone TTFT
+        of cold prompts and of their repeats; the cache's bytes and the
+        recorder's lookup + upload and capture times; then the same prompts
+        through a cache-off engine."""
+        nonlocal url
+        svc = load_service(CFG, prefix_cache=True, **layout, **serve_kw)
+        eng = svc.engine
+        httpd = make_http_server(svc, "127.0.0.1", 0, model_name="transformer_lm-1.2b")
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            post({"prompt": warm, "max_new_tokens": 2})   # warm the allocator
+            svc.prefix_cache.flush()
+            for k in kernels.values():
+                k.reset()
+            st0 = eng.stats()
+            res = []
+            for key in pc_order:
+                res.append(post({"prompt": pc[key], "max_new_tokens": pc_new}))
+                svc.prefix_cache.flush()       # the capture lands before the next lookup
+            counts = {key: k.launches for key, k in kernels.items()}
+            st1 = eng.stats()
+            # lone TTFT: cold prompts one at a time, then each again (a hit)
+            lone = {"cold": [], "hit": []}
+            for kind in ("cold", "hit"):
+                for p in cold_lone:
+                    events, t_first, _ = sse({"prompt": p, "max_new_tokens": 16})
+                    lone[kind].append((t_first * 1e3, streamed(events, 16)))
+                    svc.prefix_cache.flush()
+            upload_ms, capture_ms = span_ms(svc, "prefix_cache.lookup", hit=True), span_ms(
+                svc, "prefix_cache.capture")
+            cstats, st2 = svc.cache_stats(), eng.stats()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join(timeout=10)
+            svc.close()
+        off_kw = {"kv_layout": "paged", "kv_page_tokens": page_t} if layout else {}
+        off = DecodeEngine(svc.model, slots=BATCH, **off_kw, **engine_kw)
+        try:
+            off_ids = {key: off.submit(pc[key], pc_new).result(timeout=300)["ids"]
+                       for key in pc}
+        finally:
+            off.close()
+        hits = [r["cache_hit_tokens"] for r in res]
+        ids = [r["ids"] for r in res]
+        first = {key: pc_order.index(key) for key in pc}
+        cold_first = [key for key in pc if hits[first[key]] == 0]
+        repeats = [i for i, key in enumerate(pc_order) if i != first[key]]
+        lone_hits = [r["cache_hit_tokens"] for _, r in lone["hit"]]
+        if (sorted(cold_first) != ["a", "d"] or min(hits[i] for i in repeats) <= 0
+                or min(lone_hits) <= 0 or any(r["cache_hit_tokens"] for _, r in lone["cold"])):
+            raise AssertionError(f"{label}: cache_hit_tokens {hits}, lone {lone_hits}")
+        # a repeat gives its first instance's tokens, and the cache-off
+        # engine's when that was a cold prefill
+        if (any(ids[i] != ids[first[pc_order[i]]] for i in repeats)
+                or any(ids[first[key]] != off_ids[key] for key in cold_first)
+                or [r["ids"] for _, r in lone["hit"]] != [r["ids"] for _, r in lone["cold"]]):
+            raise AssertionError(f"{label}: a repeated prompt's tokens differ from cold")
+        if st2["cache_degraded"] or cstats["insert_errors"]:
+            raise AssertionError(f"{label}: cache_degraded {st2['cache_degraded']}, capture "
+                                 f"errors {cstats['insert_errors']}")
+        host_hits = st1["prefix_cache"]["used_hits"] - st0["prefix_cache"]["used_hits"]
+        registry_hits = counts["B8"] // (4 * layers)
+        # every request runs its last chunk at index 256 (B4); only the cold
+        # ones run their first chunk (B5 at index 0): a hit skips it
+        want = {"B4": layers * len(pc_order), "B5": layers * len(cold_first)}
+        if layout:
+            want.update(B3=0, B8=4 * layers * 3)
+            tiers = (registry_hits, host_hits) == (3, 2)
+        else:
+            want.update(B6=0, B8=0)
+            tiers = host_hits == 5
+        bad = {key: counts[key] for key, n in want.items() if counts[key] != n}
+        decode_key = "B6" if layout else "B3"
+        if bad or not tiers or counts[decode_key] <= 0 or counts["B1"] <= 0 or counts["B2"] <= 0:
+            raise AssertionError(f"{label}: launches {counts} (expected {want}); registry hits "
+                                 f"{registry_hits}, host hits {host_hits}")
+        shared_hits = [key for key in pc if key not in cold_first]
+        out = {
+            "requests": pc_order, "prompt_tokens": {k: len(v) for k, v in pc.items()},
+            "cache_hit_tokens": hits, "registry_hits": registry_hits, "host_hits": host_hits,
+            "repeats_equal_cold": len(repeats) + len(cold_lone),
+            "shared_prefix_hits_equal_cache_off": sum(ids[first[k]] == off_ids[k]
+                                                      for k in shared_hits),
+            "shared_prefix_hits": len(shared_hits),
+            "lone_ttft_ms": {kind: med(sorted(t for t, _ in lone[kind])) for kind in lone},
+            "lone_hit_tokens": lone_hits, "loadavg": list(os.getloadavg()),
+            "bytes_stored": cstats["bytes"], "inserted_tokens": cstats["inserted_tokens"],
+            "hit_lookup_upload_ms": med(upload_ms), "capture_ms_off_loop": med(capture_ms),
+            "launches": counts, "cache_degraded": st2["cache_degraded"],
+        }
+        log(f"{label} with the prefix cache ({smi}): hit tokens {hits}; lone TTFT "
+            f"{json.dumps(out['lone_ttft_ms'])} ms; {cstats['bytes']} bytes stored; a host "
+            f"hit's lookup + upload {json.dumps(out['hit_lookup_upload_ms'])} ms; capture off "
+            f"the loop {json.dumps(out['capture_ms_off_loop'])} ms; launches "
+            f"{json.dumps(counts)}; repeats equal cold; shared-prefix hits equal to the "
+            f"cache-off engine's: {out['shared_prefix_hits_equal_cache_off']} of "
+            f"{len(shared_hits)}")
+        return out, [r["ids"] for _, r in lone["cold"]]
+
+    pc_dense, lone_dense = prefix_run("dense engine")
+    pc_paged, lone_paged = prefix_run("paged engine", kv_layout="paged", kv_page_tokens=page_t)
+    if lone_dense != lone_paged:
+        raise AssertionError("the paged engine's tokens differ from the dense engine's")
+    torch.cuda.empty_cache()
+
+    # the daemon: --warmup (ready false until it ends), /metrics, 429s under
+    # --max-queue-depth 2 with 11 concurrent clients, a client's traceparent
+    dsvc = load_service(CFG, prefix_cache=True, max_queue_depth=2, **serve_kw)
+    httpd = make_http_server(dsvc, "127.0.0.1", 0, model_name="transformer_lm-1.2b")
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def health():
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            return json.loads(r.read())
+
+    def post_status(body, headers=None):
+        req = urllib.request.Request(url + "/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json",
+                                              **(headers or {})})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, None, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("Retry-After"), json.loads(e.read())
+
+    try:
+        warm_failed = []
+        t0 = time.perf_counter()
+        warm_thread = start_warmup(dsvc, warm_failed.append)
+        answers = []
+        while not warm_failed:
+            answers.append(health()["ready"])
+            if answers[-1] or time.perf_counter() - t0 > 600:
+                break
+            time.sleep(0.002)
+        time_to_ready = time.perf_counter() - t0
+        warm_thread.join(timeout=60)
+        if warm_failed:
+            raise warm_failed[0]
+        if not answers[-1] or answers[0] or warm_thread.is_alive():
+            raise AssertionError(f"--warmup: ready answers {answers[:3]}...{answers[-3:]}")
+        events, t_first, _ = sse({"prompt": prompt_of(400), "max_new_tokens": 16})
+        streamed(events, 16)
+        first_ttft_ms = t_first * 1e3
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            ctype, text = r.headers["Content-Type"], r.read().decode()
+        families = set()
+        for line in text.splitlines():
+            if line.startswith("# TYPE "):
+                families.add(line.split()[2])
+            elif line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                float(value)
+                if not re.fullmatch(r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})?", name):
+                    raise AssertionError(f"/metrics: bad sample line {line!r}")
+        need = {"mlcomp_engine_ttft_ms", "mlcomp_prefix_cache_used_hits_total",
+                "mlcomp_serving_requests_rejected_total", "mlcomp_cache_degraded_total"}
+        if not ctype.startswith("text/plain; version=0.0.4") or not need <= families:
+            raise AssertionError(f"/metrics: {ctype}, missing {need - families}")
+        flood = [{"prompt": prompt_of(500), "max_new_tokens": 32} for _ in range(11)]
+        with ThreadPoolExecutor(len(flood)) as ex:
+            outs = list(ex.map(post_status, flood))
+        ok = [o for o in outs if o[0] == 200]
+        rejected = [o for o in outs if o[0] == 429]
+        if (len(ok) + len(rejected) != len(outs) or not rejected or not ok
+                or any(len(o[2]["ids"]) != 32 for o in ok)
+                or any(o[2]["reason"] != "queue_full" or int(o[1]) < 1 for o in rejected)):
+            raise AssertionError(f"--max-queue-depth 2: {[(o[0], o[1]) for o in outs]}")
+        tid = "0af7651916cd43dd8448eb211c80319c"
+        code, _, res = post_status({"prompt": prompt_of(300), "max_new_tokens": 8},
+                                   {"traceparent": f"00-{tid}-b7ad6b7169203331-01"})
+        with urllib.request.urlopen(f"{url}/trace?trace_id={tid}", timeout=60) as r:
+            tevs = [e for e in json.loads(r.read())["traceEvents"] if e.get("ph") != "M"]
+        tnames = sorted({e["name"] for e in tevs})
+        if code != 200 or res["trace_id"] != tid or not {"request", "admit", "insert"} <= set(
+                tnames):
+            raise AssertionError(f"traceparent: {code}, {res.get('trace_id')}, {tnames}")
+        dst = dsvc.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=10)
+        dsvc.close()
+    daemon = {
+        "time_to_ready_s": time_to_ready, "ready_answers": len(answers),
+        "ready_false_answers": answers.count(False),
+        "first_request_ttft_ms": first_ttft_ms, "metrics_families": len(families),
+        "max_queue_depth": 2, "clients": len(flood), "accepted": len(ok),
+        "rejected_429": len(rejected), "retry_after_s": sorted(int(o[1]) for o in rejected),
+        "rejected_counter": dst["rejected"], "traceparent_events": len(tevs),
+        "traceparent_event_names": tnames, "card": smi,
+    }
+    log(f"daemon ({smi}): ready after {time_to_ready:.2f} s of --warmup ({answers.count(False)} "
+        f"/healthz answers ready: false first); first request's TTFT {first_ttft_ms:.1f} ms; "
+        f"/metrics {len(families)} families; --max-queue-depth 2 under {len(flood)} clients: "
+        f"{len(ok)} served, {len(rejected)} x 429 (Retry-After {daemon['retry_after_s']}); "
+        f"traceparent {tid}: {len(tevs)} events {tnames}")
+    # the server's handler class holds its service: drop both (and with
+    # them the last reference to the window phase's service, which the
+    # name httpd kept alive into the train phase before this phase existed)
+    del dsvc, httpd, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 9. bf16-KV paged engine: each layer's K and V gathered through B8
     log("phase bf16-KV paged engine")
     cfg16 = {**CFG, "kv_quant": False}
@@ -2261,6 +2514,8 @@ def main() -> int:
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": path_counts[key], "path": paths[key],
             "launches_window_path": window_counts[key],
+            "launches_prefix_cache_path": {"dense": pc_dense["launches"][key],
+                                           "paged": pc_paged["launches"][key]},
             "max_abs_err": max(r["max_abs_err"] for r in k.rows),
             "err_over_limit": max(r["err_over_limit"] for r in k.rows),
             "scope": label, **total(weighted),
@@ -2372,6 +2627,8 @@ def main() -> int:
                     "launches": counts16, "equal_dense": True},
         "card": smi}}))
     log(json.dumps({"disagg": disagg}))
+    log(json.dumps({"prefix_cache": {"dense": pc_dense, "paged": pc_paged, "card": smi}}))
+    log(json.dumps({"daemon": daemon}))
     log(json.dumps({"train": {**train_result, "parity": {
         "loss_kernels": l_k, "loss_plain": l_p, "grad_norm_kernels": g_k,
         "grad_norm_plain": g_p, "tolerance": "loss 1e-3 relative, gradient norm 2%"},

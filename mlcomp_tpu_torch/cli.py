@@ -57,6 +57,23 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         # serving random init silently would look healthy and emit junk
         print("error: pass --ckpt (a .npz params file to serve)", file=sys.stderr)
         return 2
+    slo_config = None
+    if args.slo_config:
+        if not args.metrics_history_interval:
+            print("error: --slo-config needs the metrics-history sampler; don't combine it "
+                  "with --metrics-history-interval 0", file=sys.stderr)
+            return 2
+        try:
+            with open(args.slo_config) as f:
+                slo_config = json.load(f)
+            # validated before the model loads: a bad config exits 2
+            from mlcomp_tpu_torch.obs.slo import validate_config
+
+            validate_config(slo_config)
+        except (OSError, ValueError) as e:
+            print(f"error: --slo-config {args.slo_config!r}: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+            return 2
     service = load_service(
         model_cfg,
         ckpt_path=args.ckpt,
@@ -83,8 +100,16 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         kv_pages=args.kv_pages,
         max_slots=args.max_slots,
         phase=args.phase,
+        prefix_cache=args.prefix_cache,
+        prefix_cache_bytes=args.prefix_cache_bytes,
+        flight_recorder_events=args.flight_recorder_events,
+        max_queue_depth=args.max_queue_depth,
+        max_concurrent_requests=args.max_concurrent_requests,
+        metrics_history_interval=args.metrics_history_interval,
+        slo_config=slo_config,
     )
-    serve_http(service, args.host, args.port, model_name=str(model_cfg.get("name", "model")))
+    serve_http(service, args.host, args.port, model_name=str(model_cfg.get("name", "model")),
+               **({"warmup": True} if args.warmup else {}))
     return 0
 
 
@@ -160,7 +185,34 @@ def main(argv=None) -> int:
     sv.add_argument("--max-slots", type=int, default=None,
                     help="paged KV: elastic slot-count cap (default 4x the largest"
                     " --batch-sizes entry)")
+    sv.add_argument("--prefix-cache", action="store_true",
+                    help="host-RAM prefix KV cache (continuous batcher): requests sharing a"
+                    " cached prompt prefix fetch its K/V rows from host memory and prefill"
+                    " only the uncached suffix; responses carry cache_hit_tokens and GET"
+                    " /cache/stats reports hit/miss/eviction counters")
+    sv.add_argument("--prefix-cache-bytes", type=int, default=1 << 31,
+                    help="host-byte budget for --prefix-cache (default 2 GiB); LRU-evicts"
+                    " unpinned prefixes beyond it")
+    sv.add_argument("--flight-recorder-events", type=int, default=32768,
+                    help="continuous batcher: bound on the engine flight recorder's event"
+                    " ring (GET /trace exports it as Chrome trace JSON); 0 disables it")
     sv.add_argument("--request-timeout", type=float, default=600.0)
+    sv.add_argument("--max-queue-depth", type=int, default=0,
+                    help="continuous batcher: bound on requests waiting for a slot; past it"
+                    " submits fail fast with 429 + Retry-After (0 = unbounded)")
+    sv.add_argument("--max-concurrent-requests", type=int, default=0,
+                    help="continuous batcher: bound on in-flight requests (queued +"
+                    " decoding); past it submits fail fast with 429 (0 = unbounded)")
+    sv.add_argument("--metrics-history-interval", type=float, default=5.0,
+                    help="seconds between metrics-history snapshots (GET /metrics/history"
+                    " and the SLO burn rates); 0 disables the sampler, and /metrics/history"
+                    " and /slo answer 404")
+    sv.add_argument("--slo-config", default=None, metavar="FILE.json",
+                    help="JSON file overriding the default SLOs (TTFT p95, per-token p50,"
+                    " reject rate, engine-healthy uptime); a malformed one fails startup")
+    sv.add_argument("--warmup", action="store_true",
+                    help="build the CUDA kernels and launch every kernel of the served"
+                    " configuration before reporting ready (/healthz ready: false until then)")
     sv.add_argument("--phase", choices=("both", "prefill", "decode"), default="both",
                     help="disaggregated serving role: 'prefill' runs the admission core"
                     " only and answers POST /prefill with KV-page handoff blobs (continuous"

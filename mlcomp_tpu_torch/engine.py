@@ -52,14 +52,33 @@ layouts.
   pages straight into its pool and decoding from the prompt's end, with
   the tokens a local admission gives.
 
+- The host prefix cache (``cache/``, ``prefix_cache=``): an admission
+  that the device registry did not serve looks its prompt up in a
+  host-RAM radix trie; a hit writes the cached rows into the admission
+  cache through the registry hit's writer and starts at the first
+  uncached chunk (B4 then attends over rows that came from host RAM).
+  Every finished prefill's new rows are copied out of the admission cache
+  before it is reused and inserted off the loop by the cache's worker.  A
+  fault in the lookup, assemble or upload degrades that admission to a
+  cold prefill (``cache_degraded``); a kernel launch is never contained.
+- A flight recorder (``utils/trace.Tracer`` in ring mode): admission,
+  dispatch issue/resolve, prefill chunks, prefix and registry lookups,
+  inserts, exports and request lifecycles, each with its ``rid`` and
+  ``trace_id`` (``GET /trace``); scrape-time metrics into ``metrics``
+  (``obs/metrics.Registry``, ``GET /metrics``); the fault points of
+  ``utils/faults.py`` (``engine.dispatch``, ``engine.resolve``,
+  ``engine.fused_prefill``, ``engine.export``, ``cache.lookup``,
+  ``cache.capture``); and warm functions that launch every kernel of the
+  served configuration before a daemon reports ready.
+
 PyTorch runs eagerly, so the JAX package's jitted, donated programs
 become Python code that launches into preallocated device tensors updated
 in place.  The static buffers leave room to capture one CUDA graph per K
 rung; none is captured yet.
 
 Not in this engine (the JAX engine has them; see ROADMAP.md): speculative
-dispatch, the host prefix cache, meshes and distributed gangs, the flight
-recorder, metrics and device profiling, fault injection.
+dispatch (A7), meshes and distributed gangs (A12), device profiling and
+the roofline gauges (A13).
 """
 
 from __future__ import annotations
@@ -77,6 +96,12 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mlcomp_tpu_torch.cache.kv_store import (
+    StagedRows,
+    rows_to_device,
+    stage_slot_rows,
+    write_slot_rows,
+)
 from mlcomp_tpu_torch.dispatch_control import DEFAULT_LADDER, AdaptiveKController
 from mlcomp_tpu_torch.kvpool import (
     GRAVE_PAGE,
@@ -93,13 +118,10 @@ from mlcomp_tpu_torch.kvpool.transfer import (
     rows_to_page_tiles,
 )
 from mlcomp_tpu_torch.models.generation import sample_token_rowwise_keyed
-from mlcomp_tpu_torch.serve import (
-    _bucket,
-    _fail_future,
-    left_pad_row,
-    make_trace_id,
-    valid_trace_id,
-)
+from mlcomp_tpu_torch.obs.metrics import DEFAULT_MS_BUCKETS, Registry
+from mlcomp_tpu_torch.serve import _bucket, _fail_future, left_pad_row
+from mlcomp_tpu_torch.utils.faults import inject as _inject_fault
+from mlcomp_tpu_torch.utils.trace import Tracer, make_trace_id, null_tracer, valid_trace_id
 
 _POISON = object()  # close() wakes a blocked queue.get with this
 
@@ -156,7 +178,7 @@ class _Admission:
 
     __slots__ = ("req", "s_bucket", "chunk", "n_chunks", "next_chunk", "row",
                  "positions", "kv_start", "last_logits", "fused_any", "page_lease",
-                 "handoff")
+                 "handoff", "stall_ms", "skip_capture", "capture_lo")
 
     def __init__(self, req, s_bucket, chunk, first_chunk):
         self.req = req
@@ -171,15 +193,21 @@ class _Admission:
         self.fused_any = False          # any chunk issued behind a decode dispatch
         self.page_lease = None          # a device prefix-registry hit's pages
         self.handoff = None             # an import's parsed blob (born complete)
+        # host ms the decode rows waited on this admission (staged chunks,
+        # the prefix lookup/upload and the insert while rows decode)
+        self.stall_ms = 0.0
+        self.skip_capture = False       # a host-cache lease covered the prompt
+        self.capture_lo = 0             # first slot the capture takes (first run chunk)
 
 
 class _Inflight:
     """An issued dispatch whose tokens are not read yet."""
 
-    __slots__ = ("host", "event", "t_issue", "k")
+    __slots__ = ("host", "event", "t_issue", "k", "seq")
 
-    def __init__(self, host, event, t_issue, k):
+    def __init__(self, host, event, t_issue, k, seq):
         self.host, self.event, self.t_issue, self.k = host, event, t_issue, k
+        self.seq = seq      # the flight recorder's dispatch span id
 
 
 class DecodeEngine:
@@ -197,7 +225,12 @@ class DecodeEngine:
     engine runs only the admission core on the dense admission cache (one
     throwaway slot, no decode dispatch ever issues, chunks run staged) and
     each future resolves with ``{"handoff": blob, "pages", ...}``;
-    ``kv_page_tokens`` then picks the export page size."""
+    ``kv_page_tokens`` then picks the export page size.
+
+    ``prefix_cache`` (a ``cache.PrefixKVCache``) turns on the host prefix
+    cache; ``flight_recorder_events`` bounds the recorder's ring (0
+    disables it); ``metrics`` is the registry the engine's collector and
+    histograms join (a private one by default)."""
 
     def __init__(
         self,
@@ -217,6 +250,9 @@ class DecodeEngine:
         kv_pages: Optional[int] = None,
         max_slots: Optional[int] = None,
         prefill_only: bool = False,
+        prefix_cache=None,
+        flight_recorder_events: Optional[int] = 32768,
+        metrics: Optional[Registry] = None,
     ):
         self.model = model
         self.device = torch.device(model.device)
@@ -260,6 +296,18 @@ class DecodeEngine:
         if self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.fused_admission = True if fused_admission is None else bool(fused_admission)
+        self.prefix_cache = prefix_cache
+        if prefix_cache is not None:
+            # hits skip whole chunks only: a bucket that prefills as ONE
+            # chunk can never hit (its captures feed other buckets)
+            mono = [s for s in self.prompt_buckets
+                    if s <= self.prefill_chunk or s % min(self.prefill_chunk, s)]
+            if mono:
+                warnings.warn(f"prefix-cache hits are impossible at prompt bucket(s) {mono}: "
+                              f"each prefills as a single chunk (prefill_chunk="
+                              f"{self.prefill_chunk}), and hits skip whole chunks only; shrink "
+                              "prefill_chunk to a divisor of every bucket to cache-serve them",
+                              stacklevel=2)
         self.pipeline_depth = 2 if pipeline_depth is None else int(pipeline_depth)
         if self.pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
@@ -318,7 +366,8 @@ class DecodeEngine:
             "requests": 0, "steps": 0, "prefills": 0, "dispatches": 0,
             "prefill_chunks": 0, "emitted_tokens": 0, "fused_chunks": 0,
             "admissions_overlapped": 0, "deadline_exceeded": 0, "cancelled": 0,
-            "watchdog_stalls": 0, "watchdog_restarts": 0, "dispatch_k_changes": 0,
+            "cache_degraded": 0, "watchdog_stalls": 0, "watchdog_restarts": 0,
+            "dispatch_k_changes": 0,
         }
         if self._pool is not None:
             # elastic resizes, pages allocated as cursors crossed page
@@ -342,6 +391,28 @@ class DecodeEngine:
         self._lat_tok: Deque[float] = deque(maxlen=2048)
         self._lat_ttft_n = 0
         self._rid = itertools.count(1)
+        self._dispatch_seq = itertools.count(1)
+        # the flight recorder: a bounded ring of admission, dispatch,
+        # prefix-cache and request-lifecycle events (GET /trace)
+        self.recorder: Tracer = (Tracer(max_events=int(flight_recorder_events))
+                                 if flight_recorder_events else null_tracer())
+        if prefix_cache is not None:
+            # the capture worker's spans land on its own thread track
+            prefix_cache.tracer = self.recorder
+            prefix_cache.bind_layout(self._adm_cache)
+        self.metrics = metrics if metrics is not None else Registry()
+        self._hist_ttft = self.metrics.histogram(
+            "mlcomp_engine_ttft_ms", "Submit -> first token at the host, per finished request",
+            buckets=DEFAULT_MS_BUCKETS)
+        self._hist_tok = self.metrics.histogram(
+            "mlcomp_engine_per_token_ms",
+            "Mean decode interval after the first token, per request", buckets=DEFAULT_MS_BUCKETS)
+        self._hist_stall = self.metrics.histogram(
+            "mlcomp_engine_admission_stall_ms",
+            "Host-observed decode-stream stall per completed admission (staged chunks run "
+            "while rows decode + the insert boundary; ~0 when every chunk rides a fused "
+            "dispatch)", buckets=DEFAULT_MS_BUCKETS)
+        self.metrics.register_collector(self._collect_metrics)
         self.step_count = 0
         self._stop = threading.Event()
         # watchdog state: _busy_since marks when the loop thread entered a
@@ -456,7 +527,12 @@ class DecodeEngine:
         stream: Optional["queue.Queue"] = None,
         deadline_s: Optional[float] = None,
         trace_id: Optional[str] = None,
+        _count: bool = True,
     ) -> Future:
+        """Queue one request (class docstring).  ``_count=False`` marks
+        warmup's dummy requests: no rid, no lifecycle trace, no request
+        count, latency sample, prefix-cache lookup or capture, or registry
+        entry."""
         ids = [int(t) for t in prompt_ids]
         if not ids:
             raise ValueError("prompt must be non-empty")
@@ -481,9 +557,12 @@ class DecodeEngine:
         elif not valid_trace_id(trace_id):
             raise ValueError(f"trace_id must be 32 lowercase hex chars, got {trace_id!r}")
         fut: Future = Future()
-        rid = next(self._rid)
+        rid = next(self._rid) if _count else 0
         fut.rid = rid  # the cancel(rid) handle callers key on
         fut.trace_id = trace_id
+        if rid:
+            self.recorder.async_begin("request", rid, cat="req", prompt=len(ids), n_new=n_new,
+                                      trace_id=trace_id)
         now = time.perf_counter()
         self._queue.put({
             "ids": ids, "n_new": n_new, "future": fut,
@@ -498,6 +577,7 @@ class DecodeEngine:
             "t_deadline": None if deadline_s is None else now + float(deadline_s),
             "rid": rid,
             "trace_id": trace_id,
+            "warmup": not _count,
         })
         if self._stop.is_set() or self._broken is not None:
             # close() (or a dying loop) may have drained the queue between
@@ -505,7 +585,8 @@ class DecodeEngine:
             if stream is not None:
                 stream.put(None)
             _fail_future(fut, self._broken or RuntimeError("decode engine closed"))
-        self._stats["requests"] += 1
+        if _count:
+            self._stats["requests"] += 1
         return fut
 
     def validate_handoff(self, blob: bytes):
@@ -606,6 +687,8 @@ class DecodeEngine:
         rid = next(self._rid)
         fut.rid = rid
         fut.trace_id = trace_id
+        self.recorder.async_begin("request", rid, cat="req", prompt=len(meta["ids"]),
+                                  n_new=int(meta["n_new"]), trace_id=trace_id, imported=True)
         now = time.perf_counter()
         eos = knobs.get("eos_id")
         self._queue.put({
@@ -728,7 +811,168 @@ class DecodeEngine:
             out["live_slots"] = len(self._host)
             out["max_slots"] = self.max_slots
             out["kv_pool"] = self._pool_stats()
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats()
         return out
+
+    def _kv_bytes_moved_per_dispatch(self) -> int:
+        """Estimated KV bytes one dispatch moves through device memory: K
+        forwards each read the dense buffer, or the live page mappings
+        through the table (the int8 family), or the live pages gathered
+        into each layer's dense view and that view read (the bf16
+        family's gather path)."""
+        fw = self.steps_per_dispatch
+        if self._pool is None:
+            return fw * sum(t.numel() * t.element_size() for layer in self._d["cache"].layers
+                            for t in vars(layer).values())
+        live = int((self._pool.tables[: len(self._host)] >= RESERVED_PAGES).sum()) * (
+            self._layout.page_bytes())
+        specs = self._layout.kv_specs
+        if any(s.field == "kq" for s in specs):
+            return fw * live
+        dense = len(self._host) * sum(int(np.prod(s.shape)) * s.dtype.itemsize for s in specs)
+        return fw * (live + 2 * dense)
+
+    def _collect_metrics(self) -> None:
+        """Scrape-time collector: the engine's monotonic stats into the
+        registry (``set_total`` keeps counters monotonic across scrapes);
+        the hot path pays nothing for /metrics.  The JAX engine's
+        families, less those whose subject the port has no module for yet:
+        speculation (A7), meshes (A12), device profiles and rooflines
+        (A13)."""
+        m = self.metrics
+        st = self._stats
+
+        def ctr(name, help, value):
+            m.counter(name, help).set_total(value)
+
+        def gau(name, help, value):
+            m.gauge(name, help).set(value)
+
+        ctr("mlcomp_engine_requests_total", "Real (non-warmup) requests submitted",
+            st["requests"])
+        ctr("mlcomp_engine_dispatches_total", "Decode dispatches resolved", st["dispatches"])
+        ctr("mlcomp_engine_steps_total", "Device decode forwards", st["steps"])
+        ctr("mlcomp_engine_emitted_tokens_total", "Tokens emitted to requests",
+            st["emitted_tokens"])
+        ctr("mlcomp_engine_prefills_total", "Admissions completed (rows inserted)",
+            st["prefills"])
+        ctr("mlcomp_engine_prefill_chunks_total", "Prefill chunks run", st["prefill_chunks"])
+        ctr("mlcomp_engine_fused_prefill_chunks_total",
+            "Prefill chunks that rode a decode dispatch (subset of prefill_chunks)",
+            st["fused_chunks"])
+        ctr("mlcomp_engine_admissions_overlapped_total",
+            "Completed admissions with at least one fused chunk", st["admissions_overlapped"])
+        gau("mlcomp_engine_dispatch_k", "Decode steps per dispatch currently in effect (the "
+            "adaptive controller's pick, or the pinned K)", self.steps_per_dispatch)
+        ctr("mlcomp_engine_dispatch_k_changes_total",
+            "Adaptive-K controller switches of steps_per_dispatch", st["dispatch_k_changes"])
+        ctr("mlcomp_engine_latency_samples_total",
+            "Requests behind the TTFT percentiles (lifetime)", self._lat_ttft_n)
+        ctr("mlcomp_engine_deadline_exceeded_total", "Requests retired past their deadline",
+            st["deadline_exceeded"])
+        ctr("mlcomp_engine_cancelled_total", "Requests retired by cancel()", st["cancelled"])
+        ctr("mlcomp_cache_degraded_total", "Prefix-cache faults contained to a cache-bypass",
+            st["cache_degraded"])
+        ctr("mlcomp_engine_watchdog_stalls_total", "Watchdog stall/dead-loop detections",
+            st["watchdog_stalls"])
+        ctr("mlcomp_engine_watchdog_restarts_total",
+            "Drive-loop restarts the watchdog performed", st["watchdog_restarts"])
+        gau("mlcomp_engine_healthy", "1 while the drive loop is alive and unbroken, else 0",
+            1 if self.healthy else 0)
+        gau("mlcomp_engine_slots", "Configured decode slots", self.slots)
+        gau("mlcomp_engine_active_slots", "Slots currently decoding",
+            sum(1 for s in self._host if s is not None))
+        gau("mlcomp_engine_queue_depth", "Requests waiting for a slot",
+            self._queue.qsize() + len(self._pending))
+        p = dict(self._pstats)
+        ctr("mlcomp_engine_pipeline_issued_total", "Dispatches issued into the pipeline",
+            p["issued"])
+        ctr("mlcomp_engine_pipeline_hidden_ms_total",
+            "Host ms hidden behind in-flight device compute", p["hidden_ms"])
+        ctr("mlcomp_engine_pipeline_wait_ms_total", "Host ms blocked on dispatch outputs",
+            p["wait_ms"])
+        gau("mlcomp_engine_pipeline_depth", "Configured pipeline depth", self.pipeline_depth)
+        gau("mlcomp_engine_pipeline_inflight", "Dispatches currently in flight",
+            len(self._inflight))
+        gau("mlcomp_engine_pipeline_peak_inflight", "Peak in-flight dispatch depth",
+            p["peak_inflight"])
+        busy = p["hidden_ms"] + p["wait_ms"]
+        gau("mlcomp_engine_pipeline_overlap_efficiency",
+            "hidden_ms / (hidden_ms + wait_ms) since start",
+            p["hidden_ms"] / busy if busy > 0 else 0.0)
+        ctr("mlcomp_engine_trace_events_dropped_total", "Flight-recorder ring evictions",
+            self.recorder.dropped)
+        done = st["dispatches"]
+        if done:
+            # the steady-state estimate: the pipeline's measured hidden
+            # host work per dispatch (no device capture in the port yet)
+            gau("mlcomp_engine_host_overhead_ms_per_dispatch",
+                "Non-device ms per dispatch (capture host gap, else the pipeline's measured "
+                "hidden host work)", round(p["hidden_ms"] / done, 3))
+        if self._pool is not None:
+            ps = self._pool_stats()
+            gau("mlcomp_engine_kv_pages_total", "Allocatable device KV pages (paged layout; "
+                "reserved NULL/GRAVE pages excluded)", ps.get("pages_total", 0))
+            gau("mlcomp_engine_kv_pages_free", "Device KV pages on the free list",
+                ps.get("pages_free", 0))
+            gau("mlcomp_engine_kv_pages_shared",
+                "Pages mapped by more than one reference (prefix sharing)",
+                ps.get("pages_shared", 0))
+            ctr("mlcomp_engine_kv_page_cow_forks_total",
+                "Copy-on-write forks: shared prefix pages privately re-allocated because the "
+                "slot's write span crossed the share boundary", ps.get("cow_forks", 0))
+            ctr("mlcomp_engine_slots_scaled_total", "Elastic slot-count resizes (grow + shrink)",
+                st["slots_scaled"])
+            gau("mlcomp_engine_live_slots",
+                "Current elastic slot count (floor = slots, cap = max_slots)", len(self._host))
+            gau("mlcomp_engine_max_slots", "Elastic slot-count cap", self.max_slots)
+            ctr("mlcomp_engine_kv_registry_hits_total", "Device prefix-page registry hits "
+                "(shared pages mapped with no host round-trip)", ps.get("registry_hits", 0))
+            ctr("mlcomp_engine_kv_registry_hit_tokens_total",
+                "Prompt tokens whose prefill a registry hit skipped",
+                st["kv_registry_hit_tokens"])
+            ctr("mlcomp_engine_kv_pages_lazy_allocated_total",
+                "Decode pages allocated lazily as cursors crossed page boundaries mid-stream "
+                "(instead of worst-case at insert)", st["kv_pages_lazy_allocated"])
+            ctr("mlcomp_engine_kv_decode_page_failures_total",
+                "Requests failed mid-decode by a dry page pool at a lazy page crossing "
+                "(bounded failure)", st["kv_decode_page_failures"])
+            ctr("mlcomp_engine_handoffs_imported_total",
+                "Disaggregated handoffs admitted via import_pages (prefill skipped; payload "
+                "pages written straight into the pool)", st["handoffs_imported"])
+            ctr("mlcomp_engine_kv_pages_imported_total",
+                "KV pages received through handoff imports", st["kv_pages_imported"])
+            ctr("mlcomp_engine_handoff_bytes_imported_total",
+                "Handoff payload bytes received (wire size of accepted imports)",
+                st["handoff_bytes_imported"])
+            ctr("mlcomp_engine_handoff_rejects_total",
+                "Handoff blobs rejected typed before any allocation (truncated transfer, "
+                "geometry mismatch)", st["handoff_rejects"])
+        if self.prefill_only:
+            ctr("mlcomp_engine_handoffs_exported_total",
+                "Completed admissions exported as page-payload handoffs (prefill-only engines)",
+                st["handoffs_exported"])
+            ctr("mlcomp_engine_kv_pages_exported_total",
+                "KV pages serialized into exported handoffs", st["kv_pages_exported"])
+            ctr("mlcomp_engine_handoff_bytes_exported_total",
+                "Handoff payload bytes serialized (wire size of exports)",
+                st["handoff_bytes_exported"])
+        gau("mlcomp_engine_kv_bytes_moved_per_dispatch",
+            "Estimated KV bytes one dispatch moves through device memory (dense: K forwards x "
+            "buffer; paged through the table: K forwards x live pages; paged gather: + the "
+            "dense-view round trip)", self._kv_bytes_moved_per_dispatch())
+        if self.prefix_cache is not None:
+            cs = self.prefix_cache.stats()
+            for key in ("lookups", "hits", "misses", "matched_tokens", "used_hits",
+                        "used_hit_tokens", "inserted_tokens", "evictions", "evicted_tokens",
+                        "insert_errors", "insert_dropped"):
+                ctr(f"mlcomp_prefix_cache_{key}_total",
+                    f"Prefix KV cache {key.replace('_', ' ')}", cs[key])
+            for key in ("bytes", "max_bytes", "nodes", "pinned_nodes", "outstanding_leases",
+                        "capture_queue_depth"):
+                gau(f"mlcomp_prefix_cache_{key}", f"Prefix KV cache {key.replace('_', ' ')}",
+                    cs[key])
 
     def close(self, timeout: Optional[float] = 60.0) -> None:
         """Stop the loop thread, then fail everything still in flight.  Shared
@@ -741,6 +985,9 @@ class DecodeEngine:
         self._thread.join(timeout=timeout)
         if self._watchdog is not None:
             self._watchdog.join(timeout=5.0)
+        if self.prefix_cache is not None:
+            # drop queued captures and stop the cache's worker thread
+            self.prefix_cache.close()
         err = RuntimeError("decode engine closed")
         if self._thread.is_alive():
             self._abandoned = True
@@ -789,6 +1036,8 @@ class DecodeEngine:
             return  # failed already (submit's close race, the watchdog)
         if req["stream"] is not None:
             req["stream"].put(None)
+        if req["rid"]:
+            self.recorder.async_end("request", req["rid"], cat="req", error=True)
         _fail_future(req["future"], err)
 
     # ------------------------------------------------------ device work
@@ -802,19 +1051,22 @@ class DecodeEngine:
         c = min(self.prefill_chunk, s_bucket)
         return s_bucket if s_bucket % c else c
 
-    def _decode_steps(self, k: int, out: torch.Tensor) -> None:
-        """K single-token steps of every slot, in place on the device state;
+    def _decode_steps(self, k: int, out: torch.Tensor, d: Optional[Dict[str, Any]] = None
+                      ) -> None:
+        """K single-token steps of every slot, in place on the device state
+        (``d``, default the live one; warmup passes a throwaway state);
         step j's (tokens, logprobs, live) land in ``out[:, j]`` (3, K,
         slots).  A row whose budget or EOS lands mid-dispatch stops
         emitting and its cursor freezes; the state comes back with it
         inactive.  Nothing here waits for the device."""
-        d = self._d
-        rows = torch.arange(len(self._host), device=self.device)
+        live_state = d is None
+        d = self._d if live_state else d
+        rows = torch.arange(d["active"].shape[0], device=self.device)
         cache = d["cache"] if self._layout is None else PagedKV(
             self._layout, d["pages"], d["table"])
         # host-side verdicts on work the steps may skip: the host view
         # holds every row the device may still have live
-        reqs = [sl.req for sl in self._host if sl is not None]
+        reqs = [sl.req for sl in self._host if sl is not None] if live_state else []
         any_sampled = any(r["temperature"] > 0 for r in reqs)
         penalty_on = any(r["repetition_penalty"] != 1.0 for r in reqs)
         live = d["active"].clone()
@@ -846,6 +1098,79 @@ class DecodeEngine:
             live = live & ~done_now
         d["active"].copy_(live)
 
+    # ------------------------------------------------------------ warmup
+
+    def warm_dispatch_fns(self) -> int:
+        """Run one decode dispatch per rung of the K ladder on a throwaway
+        state (service warmup): every decode-path kernel launches (and
+        builds, on a card) before the first request.  Nothing the drive
+        loop owns is touched; it idles while this runs."""
+        if self.prefill_only:
+            return 0  # no decode dispatch ever issues
+        with torch.inference_mode():
+            d = self._fresh_dstate()
+            for k in self.k_ladder:
+                out = torch.zeros((3, k, self.slots), device=self.device)
+                self._decode_steps(k, out, d)
+                out.cpu()   # wait until it ran
+        return len(self.k_ladder)
+
+    def warm_fused_fns(self) -> int:
+        """One fused dispatch per distinct chunk width on throwaway state
+        (service warmup): K decode steps, then one (1, c) prefill chunk on
+        a fresh admission-shaped cache."""
+        if not self.fused_admission or self.prefill_only:
+            return 0
+        widths = sorted({self._chunk_width(s) for s in self.prompt_buckets})
+        with torch.inference_mode():
+            d = self._fresh_dstate()
+            k = self.k_ladder[0]
+            for c in widths:
+                out = torch.zeros((3, k, self.slots), device=self.device)
+                self._decode_steps(k, out, d)
+                cache = self.model.init_cache(1, self.l_buf)
+                ids = torch.ones((1, c), dtype=torch.int64, device=self.device)
+                pos = torch.arange(c, device=self.device)[None]
+                start = torch.zeros((1,), dtype=torch.int32, device=self.device)
+                self.model(ids, positions=pos, cache=cache, last_only=True,
+                           kv_start=start).cpu()
+        return len(widths)
+
+    def warm_prefix_fns(self) -> int:
+        """Run the host prefix cache's device paths once per chunk boundary
+        of every bucket on a throwaway cache (service warmup): the capture
+        of rows [k c, s) into host memory and the write of a hit's rows
+        [0, k c).  Copies only, no model forward."""
+        if self.prefix_cache is None:
+            return 0
+        n = 0
+        with torch.inference_mode():
+            cache = self.model.init_cache(1, self.l_buf)
+            for s in self.prompt_buckets:
+                c = self._chunk_width(s)
+                for k in range(s // c):
+                    stage_slot_rows(cache, k * c, s).rows()
+                    n += 1
+                    if k == 0:
+                        continue  # a width-0 write cannot happen (no hit)
+                    host = stage_slot_rows(cache, 0, k * c).rows()
+                    write_slot_rows(cache, rows_to_device(host, cache, self.device), k * c)
+                    n += 1
+        return n
+
+    def warm_registry_fns(self) -> int:
+        """The paged layout's registry-hit gather (B8 on a card) once over
+        the NULL page, read-only (service warmup): registry hits launch it
+        mid-serving."""
+        if self._pool is None:
+            return 0
+        t = self._pool.page_tokens
+        with torch.inference_mode():
+            ids = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            rows = self._layout.gather_row_span(self._d["pages"], ids, t)
+            rows[0].cpu()
+        return 1
+
     def _run_chunk(self, adm: _Admission) -> None:
         """One (1, c) prefill chunk against the admission cache (its index
         is the chunk's first slot); keeps the chunk's last-token logits."""
@@ -867,16 +1192,27 @@ class DecodeEngine:
         gathers the leased pages' rows [0, width) into the fresh admission
         cache (B8 on a card) and starts at the first uncached chunk; the
         hit is chunk-aligned and capped at len(ids) - 1, so the last
-        token's chunk always runs and gives the sampling logits.  An
-        IMPORT (``req["handoff"]``) is born complete: the completion
-        boundary writes its pages and inserts the slot."""
+        token's chunk always runs and gives the sampling logits.  When the
+        registry did not hit, the host prefix cache is asked the same way;
+        its rows are uploaded and written by the same writer.  A fault in
+        either lookup, or in the host rows' assembly or upload, degrades
+        the admission to a cold prefill (``cache_degraded``); the gather
+        and the write are device work and fail the request.  An IMPORT
+        (``req["handoff"]``) is born complete: the completion boundary
+        writes its pages and inserts the slot."""
         ids = req["ids"]
+        rid, tid = req["rid"], req["trace_id"]
+        warm = req.get("warmup", False)
         s_bucket = self._bucket(len(ids))
         c = self._chunk_width(s_bucket)
         if req.get("handoff") is not None:
             adm = _Admission(req, s_bucket, c, 0)
             adm.next_chunk = adm.n_chunks       # nothing to prefill
             adm.handoff = req["handoff"]
+            if rid:
+                self.recorder.async_instant("admit", rid, cat="req", bucket=s_bucket,
+                                            imported=True, trace_id=tid)
+            req["cache_hit_tokens"] = 0
             self._adm = adm
             return
         start_pad = s_bucket - len(ids)
@@ -888,34 +1224,93 @@ class DecodeEngine:
         adm.positions = self._upload(positions[None])
         adm.kv_start = self._upload(np.asarray([start_pad], np.int32))
         self._zero_adm_cache()
-        cache = self._adm_cache
-        cache.index = first_chunk * c
-        lease = None if self._pool is None else self._pool.registry_lookup(
-            s_bucket, start_pad, ids)
-        if lease is not None:
-            cached_chunk = (start_pad + min(lease.matched, len(ids) - 1)) // c
-            if cached_chunk <= first_chunk:
-                lease.release()
-                lease = None
-        if lease is not None:
+        self._adm_cache.index = first_chunk * c
+        if rid:
+            self.recorder.async_instant("admit", rid, cat="req", bucket=s_bucket, trace_id=tid)
+        hit_tokens = 0
+        cache_faulted = False
+        t_lookup = time.perf_counter()
+        if self._pool is not None and not warm:
+            with self.recorder.span("kv_registry.lookup", track="engine.loop",
+                                    prompt=len(ids), rid=rid, trace_id=tid) as sp:
+                try:
+                    _inject_fault("cache.lookup")
+                    lease = self._pool.registry_lookup(s_bucket, start_pad, ids)
+                except Exception as e:
+                    cache_faulted = True
+                    self._cache_degraded(rid, e)
+                    lease = None
+                if lease is not None:
+                    # attached before the gather: every failure path releases it
+                    adm.page_lease = lease
+                    cached_chunk = (start_pad + min(lease.matched, len(ids) - 1)) // c
+                    if cached_chunk > first_chunk:
+                        width = cached_chunk * c
+                        n_pages = -(-width // self._pool.page_tokens)
+                        try:
+                            page_ids = self._upload(np.asarray(lease.entries[:n_pages],
+                                                               np.int32))
+                            self._write_prefix_rows(adm, self._layout.gather_row_span(
+                                self._d["pages"], page_ids, width), width)
+                        except BaseException:
+                            # the request fails (the caller fails it); the
+                            # lease must not pin its pages
+                            lease.release()
+                            adm.page_lease = None
+                            raise
+                        hit_tokens = width - start_pad
+                    else:
+                        lease.release()
+                        adm.page_lease = None
+                sp["hit_tokens"] = hit_tokens
+            self._stats["kv_registry_hit_tokens"] += hit_tokens
+        if (not hit_tokens and not cache_faulted and self.prefix_cache is not None
+                and not warm):
+            rows = None
             try:
-                width = cached_chunk * c
-                n_pages = -(-width // self._pool.page_tokens)
-                page_ids = self._upload(np.asarray(lease.entries[:n_pages], np.int32))
-                rows = self._layout.gather_row_span(self._d["pages"], page_ids, width)
-                for spec, r in zip(self._layout.kv_specs, rows):
-                    leaf = getattr(cache.layers[spec.layer], spec.field)
-                    leaf.narrow(spec.slot_axis, 0, width).copy_(r)
-            except BaseException:
-                # the admission fails (the caller fails its request); the
-                # lease must not pin its pages
-                lease.release()
-                raise
-            cache.index = width
-            adm.next_chunk = cached_chunk
-            adm.page_lease = lease
-            self._stats["kv_registry_hit_tokens"] += width - start_pad
+                with self.recorder.span("prefix_cache.lookup", track="engine.loop",
+                                        prompt=len(ids), rid=rid, trace_id=tid) as sp:
+                    lease = self.prefix_cache.lookup(ids)
+                    if lease is not None:
+                        try:
+                            adm.skip_capture = lease.tokens >= len(ids)
+                            cached_chunk = (start_pad + min(lease.tokens, len(ids) - 1)) // c
+                            if cached_chunk > first_chunk:
+                                width = cached_chunk * c
+                                host = self.prefix_cache.assemble(lease, width, start_pad,
+                                                                  width - start_pad)
+                                rows = rows_to_device(host, self._adm_cache, self.device)
+                        finally:
+                            lease.release()
+                    sp["hit_tokens"] = 0 if rows is None else width - start_pad
+            except Exception as e:
+                rows = None
+                adm.skip_capture = False
+                self._cache_degraded(rid, e)
+            if rows is not None:
+                self._write_prefix_rows(adm, rows, width)
+                hit_tokens = width - start_pad
+                self.prefix_cache.record_hit(hit_tokens)
+        req["cache_hit_tokens"] = hit_tokens
+        if any(s is not None for s in self._host):
+            # the lookups, and a hit's gather or upload, ran on the loop
+            # thread with rows decoding: that wall is admission stall
+            adm.stall_ms += (time.perf_counter() - t_lookup) * 1e3
+        adm.capture_lo = adm.next_chunk * c
         self._adm = adm
+
+    def _write_prefix_rows(self, adm: _Admission, rows, width: int) -> None:
+        """A prefix hit's rows [0, width) into the admission cache, and the
+        admission's start at the first uncached chunk: the one writer for
+        registry and host-cache hits alike."""
+        write_slot_rows(self._adm_cache, rows, width)
+        self._adm_cache.index = width
+        adm.next_chunk = width // adm.chunk
+
+    def _cache_degraded(self, rid: int, err: Exception) -> None:
+        self._stats["cache_degraded"] += 1
+        self.recorder.instant("cache_degraded", track="engine.loop", rid=rid,
+                              error=f"{type(err).__name__}: {err}")
 
     def _zero_adm_cache(self) -> None:
         for layer in self._adm_cache.layers:
@@ -927,11 +1322,18 @@ class DecodeEngine:
         or no decode rows to ride); completes the admission after its last
         chunk."""
         adm = self._adm
-        self._busy_since = time.perf_counter()
+        decoding = any(s is not None for s in self._host)
+        t0 = self._busy_since = time.perf_counter()
         try:
-            self._run_chunk(adm)
+            with self.recorder.span("prefill_chunk", track="engine.loop", chunk=adm.next_chunk,
+                                    of=adm.n_chunks, rid=adm.req["rid"], fused=False,
+                                    trace_id=adm.req["trace_id"]):
+                self._run_chunk(adm)
         finally:
             self._busy_since = None
+        if decoding:
+            # a staged chunk with rows decoding IS the stall fusing removes
+            adm.stall_ms += (time.perf_counter() - t0) * 1e3
         if adm.next_chunk >= adm.n_chunks:
             self._complete_admission()
 
@@ -940,7 +1342,8 @@ class DecodeEngine:
         slot.  The caller drained the pipeline (the slot comes from the host
         view, which must be fresh)."""
         adm = self._adm
-        self._busy_since = time.perf_counter()
+        decoding = any(s is not None for s in self._host)
+        t0 = self._busy_since = time.perf_counter()
         try:
             if adm.handoff is not None:
                 self._insert_import(adm)
@@ -950,28 +1353,52 @@ class DecodeEngine:
                 self._insert_admission(adm)
         finally:
             self._busy_since = None
+        if decoding:
+            adm.stall_ms += (time.perf_counter() - t0) * 1e3
+        self._hist_stall.observe(adm.stall_ms)
         if adm.fused_any:
             self._stats["admissions_overlapped"] += 1
         self._stats["prefills"] += 1
         self._adm = None
 
+    def _capture(self, adm: _Admission) -> None:
+        """Queue the finished prefill's new rows for the host prefix cache
+        (best effort: a fault here counts in ``cache_degraded`` and never
+        fails the request).  The rows [capture_lo, s_bucket) leave the
+        admission cache HERE, before the next admission zeroes it: queued
+        copies into pinned host memory behind an event on a card
+        (``stage_slot_rows``); the worker waits on the event, trims and
+        inserts off the loop thread."""
+        req = adm.req
+        if self.prefix_cache is None or req.get("warmup") or adm.skip_capture:
+            return
+        try:
+            staged = stage_slot_rows(self._adm_cache, adm.capture_lo, adm.s_bucket)
+            self.prefix_cache.insert_async(StagedRows.rows, staged, req["ids"],
+                                           adm.s_bucket - len(req["ids"]), adm.capture_lo)
+        except Exception:
+            self._stats["cache_degraded"] += 1
+
     def _insert_admission(self, adm: _Admission) -> None:
         req = adm.req
         s_bucket = adm.s_bucket
+        self._capture(adm)
         slot = self._host.index(None)
         span = None
-        if self._pool is None:
-            for dst, src in zip(self._d["cache"].layers, self._adm_cache.layers):
-                for name, t in vars(dst).items():
-                    t[slot].copy_(getattr(src, name)[0])
-        else:
-            try:
-                span = self._insert_pages(slot, s_bucket, req["ids"], req["n_new"],
-                                          adm.page_lease)
-            finally:
-                if adm.page_lease is not None:
-                    adm.page_lease.release()
-                    adm.page_lease = None
+        with self.recorder.span("insert", track="engine.loop", slot=slot, rid=req["rid"],
+                                trace_id=req["trace_id"]):
+            if self._pool is None:
+                for dst, src in zip(self._d["cache"].layers, self._adm_cache.layers):
+                    for name, t in vars(dst).items():
+                        t[slot].copy_(getattr(src, name)[0])
+            else:
+                try:
+                    span = self._insert_pages(slot, s_bucket, req["ids"], req["n_new"],
+                                              adm.page_lease, register=not req.get("warmup"))
+                finally:
+                    if adm.page_lease is not None:
+                        adm.page_lease.release()
+                        adm.page_lease = None
         self._set_row(slot, req, adm.last_logits[0], req["rid"])
         sl = _Slot(req, remaining=req["n_new"], cursor=s_bucket)
         if span is not None:
@@ -999,24 +1426,66 @@ class DecodeEngine:
     # --------------------------------------------- disaggregated handoff
 
     def _export_admission(self, adm: _Admission) -> None:
-        """Prefill-only completion: slice the finished admission cache's
-        prompt rows from the page holding ``start_pad`` to the bucket end,
-        tile them into page payloads, and resolve the request's future with
-        the serialized handoff, encoded with the last real token's
-        logits."""
+        """Prefill-only completion: feed the host prefix cache, slice the
+        finished admission cache's prompt rows from the page holding
+        ``start_pad`` to the bucket end, tile them into page payloads, and
+        resolve the request's future with the serialized handoff, encoded
+        with the last real token's logits.  Faults here fail this request
+        only (the ``engine.export`` fault point models a replica dying
+        mid-transfer)."""
         req = adm.req
         ids = req["ids"]
         s_bucket = adm.s_bucket
+        t = self._export.page_tokens
+        start_pad = s_bucket - len(ids)
+        # a prefill replica is where the host prefix cache earns its RAM:
+        # every request is an admission, and its rows feed the trie
+        self._capture(adm)
+        lo_page = (start_pad // t) * t
+        rid = req["rid"]
+        _inject_fault("engine.export")
+        with self.recorder.span("handoff_export", track="engine.loop", rid=rid,
+                                trace_id=req["trace_id"], prompt=len(ids)) as sp:
+            blob, meta = self._encode_export(adm, start_pad, lo_page)
+            sp["pages"] = meta["n_pages"]
+            sp["bytes"] = len(blob)
+        warm = req.get("warmup")
+        if not warm:
+            self._stats["handoffs_exported"] += 1
+            self._stats["kv_pages_exported"] += meta["n_pages"]
+            self._stats["handoff_bytes_exported"] += len(blob)
+        now = time.perf_counter()
+        if not warm:
+            # the handoff wall is this request's service time on the
+            # prefill replica: the TTFT reservoir reads prefill latency
+            ttft_ms = (now - req["t_submit"]) * 1e3
+            self._lat_ttft.append(ttft_ms)
+            self._lat_ttft_n += 1
+            self._hist_ttft.observe(ttft_ms)
+        if rid:
+            self._cancelled.discard(rid)
+            self.recorder.async_end("request", rid, cat="req", exported=True)
+        _set_result(req["future"], {
+            "handoff": blob, "prefill_tokens": len(ids), "pages": meta["n_pages"],
+            "cache_hit_tokens": int(req.get("cache_hit_tokens", 0)),
+            "latency_ms": round((now - req["t_submit"]) * 1e3, 2),
+            "trace_id": req["trace_id"],
+        })
+
+    def _encode_export(self, adm: _Admission, start_pad: int, lo_page: int):
+        """The handoff blob of a finished prefill: the admission cache's
+        prompt rows from ``lo_page`` to the bucket end as page tiles, with
+        the last real token's logits.  Returns (blob, meta)."""
         layout = self._export
         t = layout.page_tokens
-        start_pad = s_bucket - len(ids)
-        lo_page = (start_pad // t) * t
+        req, s_bucket = adm.req, adm.s_bucket
+        ids = req["ids"]
+        rid = req["rid"]
         payloads = []
         for spec in layout.kv_specs:
             leaf = getattr(self._adm_cache.layers[spec.layer], spec.field)
             rows = leaf.narrow(spec.slot_axis, lo_page, s_bucket - lo_page)
             payloads.append(rows_to_page_tiles(rows, spec.slot_axis, t).cpu())
-        rid = req["rid"]
         meta = {
             "s_bucket": s_bucket, "start_pad": start_pad, "page_tokens": t,
             "n_pages": (s_bucket - lo_page) // t,
@@ -1033,21 +1502,7 @@ class DecodeEngine:
                     "repetition_penalty": req["repetition_penalty"]},
             "leaves": [{"key": spec.keystr} for spec in layout.kv_specs],
         }
-        blob = encode_handoff(meta, adm.last_logits.float().cpu(), payloads)
-        self._stats["handoffs_exported"] += 1
-        self._stats["kv_pages_exported"] += meta["n_pages"]
-        self._stats["handoff_bytes_exported"] += len(blob)
-        now = time.perf_counter()
-        # the handoff wall is this request's service time on the prefill
-        # replica: the TTFT reservoir reads prefill latency
-        self._lat_ttft.append((now - req["t_submit"]) * 1e3)
-        self._lat_ttft_n += 1
-        self._cancelled.discard(rid)
-        _set_result(req["future"], {
-            "handoff": blob, "prefill_tokens": len(ids), "pages": meta["n_pages"],
-            "latency_ms": round((now - req["t_submit"]) * 1e3, 2),
-            "trace_id": req["trace_id"],
-        })
+        return encode_handoff(meta, adm.last_logits.float().cpu(), payloads), meta
 
     def _insert_import(self, adm: _Admission) -> None:
         """Insert an IMPORTED prefill at a free slot: allocate the slot's
@@ -1076,13 +1531,15 @@ class DecodeEngine:
         wsel = np.where(mask, row, GRAVE_PAGE).astype(np.int32)
         wsel[p0:p_n] = GRAVE_PAGE
         try:
-            self._zero_adm_cache()
-            pages = self._d["pages"]
-            layout.insert_rows(pages, self._upload(wsel), self._adm_cache)
-            dst = self._upload(row[p0:p_n].astype(np.int64))
-            for pg, pl in zip(pages, hd["payloads"]):
-                pg.index_copy_(0, dst, pl.to(self.device, non_blocking=self._cuda))
-            self._d["table"][slot].copy_(self._upload(row))
+            with self.recorder.span("import", track="engine.loop", slot=slot, rid=req["rid"],
+                                    pages=p_n - p0, trace_id=req["trace_id"]):
+                self._zero_adm_cache()
+                pages = self._d["pages"]
+                layout.insert_rows(pages, self._upload(wsel), self._adm_cache)
+                dst = self._upload(row[p0:p_n].astype(np.int64))
+                for pg, pl in zip(pages, hd["payloads"]):
+                    pg.index_copy_(0, dst, pl.to(self.device, non_blocking=self._cuda))
+                self._d["table"][slot].copy_(self._upload(row))
         except Exception:
             pool.release_row(row)
             raise
@@ -1118,7 +1575,7 @@ class DecodeEngine:
         return row, mask
 
     def _insert_pages(self, slot: int, s_bucket: int, ids: Sequence[int], n_new: int,
-                      lease=None):
+                      lease=None, register: bool = True):
         """The paged insert: compose the slot's table row (NULL for pad and
         beyond-allocation pages, the registry hit's pages shared
         copy-on-write, private pages for the rest of the prefill span plus
@@ -1141,9 +1598,11 @@ class DecodeEngine:
             pool.release_row(row)
             raise
         pool.commit_slot_row(slot, row)
-        # the NEXT same-placement prompt that shares this prefix maps these
-        # pages with no prefill of them at all
-        pool.registry_register(s_bucket, start_pad, ids, row)
+        if register:
+            # the NEXT same-placement prompt that shares this prefix maps
+            # these pages with no prefill of them at all (warmup's dummy
+            # prompts stay out)
+            pool.registry_register(s_bucket, start_pad, ids, row)
         t = pool.page_tokens
         return span_end, -(-alloc_end // t) * t
 
@@ -1237,6 +1696,8 @@ class DecodeEngine:
                     pool.extend_slot_row(i, p0, p1)
             except NoFreePages:
                 self._stats["kv_decode_page_failures"] += 1
+                self.recorder.instant("kv_page_exhausted", track="engine.loop", slot=i,
+                                      rid=sl.req["rid"])
                 err = NoFreePages(
                     f"KV page pool exhausted mid-decode: slot {i} needed {p1 - p0} page(s) "
                     f"at cursor {sl.cursor} (lazy decode allocation overcommits the pool; "
@@ -1275,10 +1736,11 @@ class DecodeEngine:
             return
         self._busy_since = time.perf_counter()
         try:
-            fresh = self._fresh_rows(max(ns2 - ns, 0))
-            for key, t in fresh.items():
-                old = self._d[key]
-                self._d[key] = torch.cat([old, t]) if ns2 > ns else old[:ns2].contiguous()
+            with self.recorder.span("scale_slots", track="engine.loop", frm=ns, to=ns2):
+                fresh = self._fresh_rows(max(ns2 - ns, 0))
+                for key, t in fresh.items():
+                    old = self._d[key]
+                    self._d[key] = torch.cat([old, t]) if ns2 > ns else old[:ns2].contiguous()
         finally:
             self._busy_since = None
         if ns2 > ns:
@@ -1320,6 +1782,7 @@ class DecodeEngine:
         steps, then the non-blocking readback of their packed tokens behind
         a CUDA event.  ``fused`` issues the admission's next chunk right
         behind the steps, with no host sync in between."""
+        seq = next(self._dispatch_seq)
         # lazy page growth first: this dispatch and those in flight must
         # find every slot they can write backed by a page
         self._lazy_extend_tick()
@@ -1330,26 +1793,45 @@ class DecodeEngine:
         self._ring_i = (self._ring_i + 1) % len(self._ring_dev)
         self._busy_since = time.perf_counter()
         event = None
+        rec = self.recorder
         try:
-            self._decode_steps(k, dev)
-            if self._cuda:
-                host.copy_(dev, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-            else:
-                host.copy_(dev)
+            # the engine.dispatch fault point: raise = a dispatch exception
+            # (the loop fails everything and dies cleanly), sleep = a wedged
+            # dispatch (the watchdog's clock is already running)
+            _inject_fault("engine.dispatch")
             if fused is not None:
-                self._run_chunk(fused)
-                fused.fused_any = True
-                self._stats["fused_chunks"] += 1
+                # the dispatch's lifetime span opens before the issue, so
+                # that the fused chunk's span nests inside it
+                rec.async_begin("dispatch", seq, cat="disp", inflight=len(self._inflight) + 1,
+                                fused=True)
+            with rec.span("issue", track="engine.loop", seq=seq,
+                          **({"fused": True} if fused is not None else {})):
+                self._decode_steps(k, dev)
+                if self._cuda:
+                    host.copy_(dev, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                else:
+                    host.copy_(dev)
+                if fused is not None:
+                    with rec.span("prefill_chunk", track="engine.loop", chunk=fused.next_chunk,
+                                  of=fused.n_chunks, rid=fused.req["rid"], fused=True, seq=seq,
+                                  trace_id=fused.req["trace_id"]):
+                        self._run_chunk(fused)
+                    fused.fused_any = True
+                    self._stats["fused_chunks"] += 1
         finally:
             self._busy_since = None
-        self._inflight.append(_Inflight(host, event, time.perf_counter(), k))
+        self._inflight.append(_Inflight(host, event, time.perf_counter(), k, seq))
         self._dispatches_by_k[k] = self._dispatches_by_k.get(k, 0) + 1
         p = self._pstats
         p["issued"] += 1
         p["inflight_sum"] += len(self._inflight)
         p["peak_inflight"] = max(p["peak_inflight"], len(self._inflight))
+        if fused is None:
+            # the dispatch's lifetime (issue -> outputs read) as an async
+            # span: at depth 2 dispatch N+1's span nests inside N's
+            rec.async_begin("dispatch", seq, cat="disp", inflight=len(self._inflight))
 
     def _process_oldest(self) -> None:
         """Wait for the OLDEST in-flight dispatch's tokens and run the host
@@ -1360,15 +1842,21 @@ class DecodeEngine:
         t_block = time.perf_counter()
         self._busy_since = t_block
         try:
-            if inf.event is not None:
-                inf.event.synchronize()
-            arr = inf.host.numpy().copy()
+            _inject_fault("engine.resolve")  # sleep = a slow readback
+            # the resolve span's duration is the blocked wait; the time the
+            # pipeline hid (issue -> block) rides as an arg
+            with self.recorder.span("resolve", track="engine.loop", seq=inf.seq,
+                                    hidden_ms=round((t_block - inf.t_issue) * 1e3, 3)):
+                if inf.event is not None:
+                    inf.event.synchronize()
+                arr = inf.host.numpy().copy()
         finally:
             self._busy_since = None
         t_done = time.perf_counter()
         p = self._pstats
         p["hidden_ms"] += (t_block - inf.t_issue) * 1e3
         p["wait_ms"] += (t_done - t_block) * 1e3
+        self.recorder.async_end("dispatch", inf.seq, cat="disp")
         toks = arr[0].astype(np.int64)
         lps = arr[1]
         valid = arr[2] > 0.5
@@ -1383,6 +1871,8 @@ class DecodeEngine:
                 tok, lp = int(toks[kk, i]), float(lps[kk, i])
                 if sl.t_first is None:
                     sl.t_first = t_done
+                    if sl.req["rid"]:
+                        self.recorder.async_instant("first_token", sl.req["rid"], cat="req")
                 sl.emitted.append((tok, lp))
                 if sl.req["stream"] is not None:
                     sl.req["stream"].put({"token": tok, "logprob": round(lp, 5),
@@ -1394,8 +1884,13 @@ class DecodeEngine:
                     self._release_slot_pages(i)
 
     def _drain_inflight(self) -> None:
-        while self._inflight:
-            self._process_oldest()
+        """Resolve every in-flight dispatch (the recorded join drain), at
+        loop level only: a dispatch failure here is engine-level."""
+        if not self._inflight:
+            return
+        with self.recorder.span("join_drain", track="engine.loop", inflight=len(self._inflight)):
+            while self._inflight:
+                self._process_oldest()
 
     def _finish(self, slot_idx: int, error: Optional[Exception] = None) -> None:
         sl = self._host[slot_idx]
@@ -1403,27 +1898,39 @@ class DecodeEngine:
         if sl is None:
             return
         req = sl.req
-        self._cancelled.discard(req["rid"])
+        rid = req["rid"]
+        self._cancelled.discard(rid)
         if req["future"].done():
             return  # the watchdog failed it and closed its stream
         if req["stream"] is not None:
             req["stream"].put(None)
         if error is not None:
+            if rid:
+                self.recorder.async_end("request", rid, cat="req", error=True)
             _fail_future(req["future"], error)
             return
         now = time.perf_counter()
-        if sl.t_first is not None:
-            self._lat_ttft.append((sl.t_first - req["t_submit"]) * 1e3)
+        if rid:
+            self.recorder.async_end("request", rid, cat="req", tokens=len(sl.emitted))
+        if sl.t_first is not None and not req.get("warmup"):
+            ttft_ms = (sl.t_first - req["t_submit"]) * 1e3
+            self._lat_ttft.append(ttft_ms)
             self._lat_ttft_n += 1
+            self._hist_ttft.observe(ttft_ms)
             n = len(sl.emitted)
             if n > 1:
-                self._lat_tok.append((now - sl.t_first) * 1e3 / (n - 1))
+                tok_ms = (now - sl.t_first) * 1e3 / (n - 1)
+                self._lat_tok.append(tok_ms)
+                self._hist_tok.observe(tok_ms)
         result = {
             "ids": [t for t, _ in sl.emitted],
             "latency_ms": round((now - req["t_submit"]) * 1e3, 2),
             "batched_with": self.slots,
             "trace_id": req["trace_id"],
         }
+        if self.prefix_cache is not None:
+            # prompt tokens whose prefill the cache skipped (0 on a miss)
+            result["cache_hit_tokens"] = int(req.get("cache_hit_tokens", 0))
         if req["logprobs"]:
             result["logprobs"] = [round(lp, 5) for _, lp in sl.emitted]
         _set_result(req["future"], result)
@@ -1476,8 +1983,10 @@ class DecodeEngine:
         return None
 
     def _count_retire(self, err: Exception, req: Dict[str, Any]) -> None:
-        key = "cancelled" if isinstance(err, RequestCancelled) else "deadline_exceeded"
-        self._stats[key] += 1
+        cancelled = isinstance(err, RequestCancelled)
+        self._stats["cancelled" if cancelled else "deadline_exceeded"] += 1
+        self.recorder.instant("cancel" if cancelled else "deadline", track="engine.loop",
+                              rid=req["rid"])
         self._cancelled.discard(req["rid"])
 
     def _boundary_maintenance(self, block_s: float = 0.0) -> None:
@@ -1523,6 +2032,8 @@ class DecodeEngine:
         if k2 != self.steps_per_dispatch:
             self.steps_per_dispatch = k2
             self._stats["dispatch_k_changes"] += 1
+            self.recorder.instant("dispatch_k_change", track="engine.loop", k=k2,
+                                  queue_depth=depth, active=active)
 
     def _admission_tick(self) -> bool:
         """Start the next admission, retire a cancelled/expired one, advance
@@ -1548,8 +2059,16 @@ class DecodeEngine:
         adm = self._adm
         if adm is not None and adm.next_chunk < adm.n_chunks:
             if self.fused_admission and any(s is not None for s in self._host):
-                self._issue_dispatch(fused=adm)
-                issued = True
+                # the engine.fused_prefill fault point: host-side prep before
+                # the combined issue fails only the admission, and the rows
+                # ride a plain dispatch below
+                try:
+                    _inject_fault("engine.fused_prefill")
+                except Exception as e:
+                    self._fail_admission(e)
+                else:
+                    self._issue_dispatch(fused=adm)
+                    issued = True
             else:
                 self._drain_inflight()
                 try:
@@ -1628,6 +2147,7 @@ class DecodeEngine:
         self._unhealthy_reason = str(err)
         self._broken = err      # submits fail fast from here on
         self._exit_loop.set()   # the loop dies when the call returns
+        self.recorder.instant("watchdog_fire", track="engine.watchdog", stuck_s=round(stuck_s, 3))
         # fail the WAITERS now; slot and queue bookkeeping stays loop-owned
         waiters = [sl.req for sl in list(self._host) if sl is not None]
         adm = self._adm
@@ -1672,6 +2192,7 @@ class DecodeEngine:
             # fresh zero pages: every host-side mapping is stale
             self._pool.reset()
         self._stats["watchdog_restarts"] += 1
+        self.recorder.instant("watchdog_restart", track="engine.watchdog")
         self._exit_loop.clear()
         self._broken = None
         self._unhealthy_reason = None

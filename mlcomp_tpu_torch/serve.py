@@ -52,15 +52,31 @@ HTTP handler threads enqueue requests and wait on futures.  HTTP surface
         a pool that cannot hold its pages 429 ``no_free_pages``
     POST /drain     {"draining": true} -> {"ok": true, "draining": true}
     GET  /stats     -> the service counters
+    GET  /cache/stats -> the host prefix cache's counters (404 unless the
+        service was built with ``prefix_cache=True``); with the cache on,
+        every result carries ``cache_hit_tokens``
+    GET  /metrics   -> Prometheus text exposition (``obs/metrics.py``):
+        the engine's, the prefix cache's and the service's families
+    GET  /trace?last_ms=N[&trace_id=<32 hex>][&rid=N] -> the engine's
+        flight recorder as Chrome trace-event JSON, or one request's
+        events (404 on the window batcher).  A request adopts the client's
+        W3C ``traceparent`` trace id, else mints one; every answer echoes it
+    GET  /slo, GET /metrics/history?window_s=N -> the SLO burn rates and
+        the metrics-history ring (``obs/slo.py``, ``obs/history.py``; 404
+        with ``metrics_history_interval=0``)
+
+Admission control: the paged layout's free-page gate (always on) and the
+optional ``max_queue_depth`` / ``max_concurrent_requests`` caps answer
+429 with ``Retry-After`` (reasons ``no_free_pages``, ``queue_full``,
+``concurrency``) instead of queueing without bound.  ``warmup()`` launches
+every kernel of the served configuration with ``ready: false`` until it
+is done.
 """
 
 from __future__ import annotations
 
 import json
-import math
-import os
 import queue
-import re
 import threading
 import time
 from concurrent.futures import Future
@@ -70,25 +86,19 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-_TRACE_ID_RE = re.compile(r"[0-9a-f]{32}")
-
-
-def make_trace_id() -> str:
-    """A fresh W3C-shape trace id (32 hex chars, never all zero)."""
-    while True:
-        tid = os.urandom(16).hex()
-        if tid != "0" * 32:
-            return tid
-
-
-def valid_trace_id(tid: Any) -> bool:
-    return isinstance(tid, str) and bool(_TRACE_ID_RE.fullmatch(tid)) and tid != "0" * 32
+from mlcomp_tpu_torch.obs.metrics import Registry
+from mlcomp_tpu_torch.utils.trace import (
+    filter_export,
+    make_trace_id,
+    parse_traceparent,
+    valid_trace_id,
+)
 
 
 class BackpressureError(RuntimeError):
-    """Admission control rejected the request (here: a handoff import
-    whose pages the pool cannot hold): a fast failure with a retry hint
-    instead of unbounded queueing.  HTTP maps this to 429 +
+    """Admission control rejected the request (the paged layout's free
+    pages, the bounded queue or the concurrency cap): a fast failure with a
+    drain estimate instead of unbounded queueing.  HTTP maps this to 429 +
     ``Retry-After``."""
 
     def __init__(self, msg: str, reason: str, retry_after_s: float):
@@ -149,7 +159,14 @@ class GenerationService:
     and the engine knobs (``steps_per_dispatch`` default ``"adaptive"``;
     ``kv_layout``, ``kv_page_tokens``, ``kv_pages`` and ``max_slots`` for
     the paged layout, ``max_slots`` defaulting to 4 x the slots).
-    ``phase`` is the disaggregated serving role (module docstring)."""
+    ``phase`` is the disaggregated serving role (module docstring).
+
+    Continuous batcher only: ``prefix_cache`` turns on the host prefix
+    cache (``prefix_cache_bytes`` its budget); ``flight_recorder_events``
+    bounds the engine's recorder; ``max_queue_depth`` and
+    ``max_concurrent_requests`` (0: unbounded) cap admission.  Any
+    batcher: ``metrics_history_interval`` (0 disables) samples the metrics
+    registry for ``/metrics/history`` and the SLOs of ``slo_config``."""
 
     def __init__(
         self,
@@ -179,6 +196,13 @@ class GenerationService:
         kv_pages: Optional[int] = None,
         max_slots: Optional[int] = None,
         phase: str = "both",
+        prefix_cache: bool = False,
+        prefix_cache_bytes: int = 1 << 31,
+        flight_recorder_events: Optional[int] = 32768,
+        max_queue_depth: int = 0,
+        max_concurrent_requests: int = 0,
+        metrics_history_interval: Optional[float] = 5.0,
+        slo_config: Optional[Dict[str, Any]] = None,
     ):
         from mlcomp_tpu_torch.models.generation import prep_decode_variables
         from mlcomp_tpu_torch.ops.quant import quantize_params
@@ -205,6 +229,20 @@ class GenerationService:
         if self.phase == "decode" and kv_layout != "paged":
             raise ValueError("phase='decode' needs kv_layout='paged': handoff imports land "
                              "as pages in the engine's PagePool")
+        if prefix_cache and batcher != "continuous":
+            # only the slot engine has admissions to serve from the cache
+            raise ValueError("prefix_cache needs the continuous batcher")
+        history_interval = float(metrics_history_interval) if metrics_history_interval else 0.0
+        if history_interval < 0:
+            raise ValueError(f"metrics_history_interval must be >= 0 (0 disables), got "
+                             f"{metrics_history_interval}")
+        if history_interval > 0:
+            from mlcomp_tpu_torch.obs.slo import validate_config
+
+            validate_config(slo_config)   # fail at construction, not at a tick
+        elif slo_config is not None:
+            raise ValueError("slo_config needs the metrics-history sampler; don't set "
+                             "metrics_history_interval to 0 with an SLO config")
         self.batcher = batcher
         self.model = model
         self.batch_sizes = tuple(sorted(batch_sizes))
@@ -227,15 +265,30 @@ class GenerationService:
         self.request_timeout_s = float(request_timeout_s)
         if self.request_timeout_s <= 0:
             raise ValueError(f"request_timeout_s must be positive, got {request_timeout_s}")
+        self.max_queue_depth = int(max_queue_depth or 0)
+        self.max_concurrent_requests = int(max_concurrent_requests or 0)
+        self._rejects = {"queue_full": 0, "concurrency": 0, "no_free_pages": 0}
         self._queue: "queue.Queue" = queue.Queue()
         self._deferred: List[Dict[str, Any]] = []
         self._stats = {"requests": 0, "batches": 0, "batched_rows": 0}
         self._stop = threading.Event()
-        # readiness vs liveness: a draining daemon is ok (keep it) but not
-        # ready (send it no new traffic)
+        # the scrape registry behind GET /metrics: the engine registers its
+        # collector and histograms into it, the service its own counters
+        self.metrics = Registry()
+        self.metrics.register_collector(self._collect_metrics)
+        self.history = None
+        self.slo = None
+        # readiness vs liveness: a draining or warming daemon is ok (keep
+        # it) but not ready (send it no new traffic)
         self._draining = False
+        self._warming = False
         self.engine = None
         self._thread = None
+        self.prefix_cache = None
+        if prefix_cache:
+            from mlcomp_tpu_torch.cache import PrefixKVCache
+
+            self.prefix_cache = PrefixKVCache(max_bytes=int(prefix_cache_bytes))
         if batcher == "continuous":
             from mlcomp_tpu_torch.engine import DecodeEngine
 
@@ -249,11 +302,23 @@ class GenerationService:
                 dispatch_stall_timeout=dispatch_stall_timeout,
                 kv_layout=kv_layout, kv_page_tokens=kv_page_tokens, kv_pages=kv_pages,
                 max_slots=max_slots, prefill_only=self.phase == "prefill",
+                prefix_cache=self.prefix_cache, flight_recorder_events=flight_recorder_events,
+                metrics=self.metrics,
             )
         else:
             self._gen = torch.Generator(device=model.device).manual_seed(seed)
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
+        if history_interval > 0:
+            from mlcomp_tpu_torch.obs.history import MetricsHistory
+            from mlcomp_tpu_torch.obs.slo import SLOEngine
+
+            self.history = MetricsHistory(self.metrics, interval_s=history_interval)
+            self.slo = SLOEngine(self.history, config=slo_config, registry=self.metrics,
+                                 recorder=self.engine.recorder if self.engine is not None
+                                 else None)
+            # burn rates re-evaluate at every sampler tick
+            self.history.add_callback(self.slo.evaluate)
 
     # ------------------------------------------------------------- public
 
@@ -273,7 +338,9 @@ class GenerationService:
         ``None``; ``deadline_s`` (default, and upper clamp, the service's
         ``request_timeout_s``) retires the request at the next dispatch
         boundary past it with ``DeadlineExceeded``.  The future carries
-        ``rid``, the handle :meth:`cancel` takes."""
+        ``rid``, the handle :meth:`cancel` takes.  Admission control may
+        reject before queueing with ``BackpressureError`` (HTTP 429).
+        ``trace_id`` (32 hex) is adopted, else one is minted."""
         if trace_id is not None and not valid_trace_id(trace_id):
             raise ValueError(f"trace_id must be 32 lowercase hex chars, got {trace_id!r}")
         ids = [int(t) for t in prompt_ids]
@@ -310,6 +377,7 @@ class GenerationService:
         _bucket(len(ids), self.prompt_buckets, "prompt length")
         nb = _bucket(n_new, self.max_new_buckets, "max_new_tokens")
         if self.engine is not None:
+            self._admission_check(ids, n_new)
             # a client may only tighten the operator's request timeout
             eff = self.request_timeout_s if deadline_s is None else min(
                 float(deadline_s), self.request_timeout_s)
@@ -350,8 +418,8 @@ class GenerationService:
         the blob against this engine's paged geometry (typed
         ``HandoffError`` on a truncated or mismatched transfer, nothing
         allocated), gate it on the pool's free pages (``BackpressureError``
-        ``no_free_pages``, nothing allocated) and on the service's
-        ``max_new`` buckets, and queue the import.  The future resolves to
+        ``no_free_pages``, nothing allocated), the queue caps and the
+        service's ``max_new`` buckets, and queue the import.  The future resolves to
         the /generate result; the tokens equal a local admission's."""
         if self.engine is None or self.engine._pool is None:
             raise ValueError("handoff import needs a continuous paged engine (phase='decode', "
@@ -359,18 +427,71 @@ class GenerationService:
         parsed = self.engine.validate_handoff(blob)
         meta = parsed[0]
         _bucket(int(meta["n_new"]), self.max_new_buckets, "max_new_tokens")
-        self._page_budget_check(meta["ids"], int(meta["n_new"]))
+        self._admission_check(meta["ids"], int(meta["n_new"]))
         eff = self.request_timeout_s if deadline_s is None else min(
             float(deadline_s), self.request_timeout_s)
         return self.engine.import_pages(blob, stream=stream, deadline_s=eff, trace_id=trace_id,
                                         parsed=parsed)
 
+    def _per_token_p50_ms(self) -> Optional[float]:
+        try:
+            samples = list(self.engine._lat_tok)
+        except RuntimeError:  # the loop appended mid-copy
+            samples = []
+        return float(np.median(np.asarray(samples))) if samples else None
+
+    def _retry_after_s(self, needed_pages: Optional[int] = None) -> float:
+        """The drain estimate behind a 429's ``Retry-After``.  Slot pool
+        (dense): (waiting + active) requests x the mean tokens each emits
+        x the p50 per-token ms, spread over the slots.  Paged
+        (``needed_pages``): walk the active rows soonest-retiring first,
+        adding the pages each returns, and answer the remaining-token clock
+        of the row whose retirement covers the need.  1 s before any
+        latency sample; clamped to [1, 60]."""
+        eng = self.engine
+        per_tok = self._per_token_p50_ms()
+        if per_tok is None:
+            return 1.0
+        if needed_pages is not None and eng._pool is not None:
+            from mlcomp_tpu_torch.kvpool import RESERVED_PAGES
+
+            try:
+                pool = eng._pool
+                freed = pool.alloc.free_pages + pool.reclaimable_pages()
+                rows = sorted((sl.remaining, i) for i, sl in enumerate(list(eng._host))
+                              if sl is not None)
+                eta_tokens = None
+                for remaining, i in rows:
+                    freed += int((pool.tables[i] >= RESERVED_PAGES).sum())
+                    if freed >= needed_pages:
+                        eta_tokens = remaining
+                        break
+                if eta_tokens is None:
+                    return 60.0
+                return float(min(max(eta_tokens * per_tok / 1e3, 1.0), 60.0))
+            except RuntimeError:
+                pass  # a torn read mid-mutation: the slot-pool estimate below
+        st = eng._stats
+        finished = max(1, eng._lat_ttft_n)
+        mean_tokens = max(1.0, st["emitted_tokens"] / finished)
+        waiting = eng._queue.qsize() + len(eng._pending) + 1
+        active = sum(1 for s in eng._host if s is not None)
+        eta = (waiting + active) * mean_tokens * per_tok / (eng.slots * 1e3)
+        return float(min(max(eta, 1.0), 60.0))
+
+    def _reject(self, reason: str, msg: str, needed_pages: Optional[int] = None) -> None:
+        self._rejects[reason] += 1
+        self.engine.recorder.instant("reject", track="service", reason=reason)
+        raise BackpressureError(msg, reason, self._retry_after_s(needed_pages=needed_pages))
+
     def _page_budget_check(self, ids, n_new: int) -> None:
         """The paged layout's free-page gate: the request's INITIAL page
         need (prefill span plus one dispatch of decode lookahead) against
         the free and reclaimable pages less what the queued backlog needs
-        at its own admission.  Approximate (racing callers may both pass);
-        the engine's own boundary gate defers whatever slips through."""
+        at its own admission.  Pages commit only at insert, so without the
+        backlog term a flood would all pass the same reading and queue
+        without bound.  Approximate (racing callers may both pass); the
+        engine's own boundary gate defers whatever slips through."""
         eng = self.engine
         try:
             need = eng._pages_initial({"ids": ids, "n_new": n_new})
@@ -387,15 +508,83 @@ class GenerationService:
             return  # a torn read mid-mutation: admit, the engine re-gates
         if need <= avail - backlog:
             return
-        raise BackpressureError(
-            f"request needs {need} KV pages at admission; {max(avail - backlog, 0)} free after "
-            f"the queued backlog (pool: {pool.alloc.total_pages})", "no_free_pages", 1.0)
+        self._reject("no_free_pages",
+                     f"request needs {need} KV pages at admission; {max(avail - backlog, 0)} "
+                     f"free after the queued backlog (pool: {pool.alloc.total_pages})",
+                     needed_pages=need + backlog)
+
+    def _admission_check(self, ids, n_new: int) -> None:
+        """Admission fast-fail (continuous engine): the paged layout's
+        free-page budget first (the hard physical bound), then the opt-in
+        queue and concurrency caps.  Approximate by design: two racing
+        submits may both pass a cap-1 check."""
+        eng = self.engine
+        if eng._pool is not None:
+            self._page_budget_check(ids, int(n_new))
+        if self.max_queue_depth <= 0 and self.max_concurrent_requests <= 0:
+            return
+        depth = eng._queue.qsize() + len(eng._pending)
+        if 0 < self.max_queue_depth <= depth:
+            self._reject("queue_full", f"submit queue is full ({depth} >= max_queue_depth="
+                         f"{self.max_queue_depth})")
+        active = sum(1 for s in eng._host if s is not None)
+        inflight = depth + active + (1 if eng._adm is not None else 0)
+        if 0 < self.max_concurrent_requests <= inflight:
+            self._reject("concurrency", f"{inflight} requests in flight >= "
+                         f"max_concurrent_requests={self.max_concurrent_requests}")
 
     def set_draining(self, draining: bool) -> bool:
         """The drain bit behind ``POST /drain``: a draining service keeps
         serving what it holds and stays ok, but reads ``ready: false``."""
         self._draining = bool(draining)
         return self._draining
+
+    def warmup(self) -> int:
+        """Launch every kernel of the served configuration before traffic:
+        build the CUDA libraries (a failed build raises: the daemon fails,
+        it never falls back to the plain versions), then, on the
+        continuous engine, one dummy request per prompt bucket (chunks,
+        insert, decode) kept out of the stats, the prefix cache and the
+        registry, one decode dispatch per K rung, one fused dispatch per
+        chunk width, the prefix cache's copies and the registry's gather;
+        on the window batcher one generate per max_new bucket at the
+        smallest and largest batch.  ``ready`` reads false meanwhile.
+        Returns the number of warm runs."""
+        self._warming = True
+        try:
+            return self._warmup_inner()
+        finally:
+            self._warming = False
+
+    def _warmup_inner(self) -> int:
+        if torch.device(self.model.device).type == "cuda":
+            from mlcomp_tpu_torch.ops.cuda import build
+
+            build.build_all()
+        eng = self.engine
+        if eng is not None:
+            n_new = min(2, eng.max_new_cap)
+            futs = [eng.submit([1] * s, n_new, _count=False) for s in self.prompt_buckets]
+            for f in futs:
+                f.result(timeout=self.request_timeout_s)
+            return (len(futs) + eng.warm_prefix_fns() + eng.warm_dispatch_fns()
+                    + eng.warm_fused_fns() + eng.warm_registry_fns())
+        from mlcomp_tpu_torch.models.generation import generate
+
+        n = 0
+        s = self.prompt_buckets[-1]
+        knob = {"temperature": 0.0, "top_k": self._neutral_k, "top_p": 1.0,
+                "repetition_penalty": self.defaults["repetition_penalty"]}
+        for nb in self.max_new_buckets:
+            for b in sorted({self.batch_sizes[0], self.batch_sizes[-1]}):
+                out, _ = generate(
+                    self.model, torch.ones((b, s), dtype=torch.int64), nb,
+                    prompt_mask=torch.ones((b, s), dtype=torch.bool), pad_id=self.pad_id,
+                    generator=torch.Generator(device=self.model.device).manual_seed(0),
+                    with_logprobs=True, **self._knob_rows([knob] * b, b))
+                out.cpu()
+                n += 1
+        return n
 
     def stats(self) -> Dict[str, Any]:
         out = {
@@ -404,6 +593,7 @@ class GenerationService:
             "quantize": self.quant_mode,
             "batcher": self.batcher,
             "device": str(self.model.device),
+            "rejected": dict(self._rejects),
             "request_timeout_s": self.request_timeout_s,
             "phase": self.phase,
         }
@@ -413,15 +603,87 @@ class GenerationService:
             out["requests"] = eng["requests"]
             out["healthy"] = eng["healthy"]
             out["latency"] = eng["latency"]
+            if "kv_pool" in eng:
+                out["kv_pool"] = eng["kv_pool"]
+                out["live_slots"] = eng.get("live_slots")
             out["engine"] = eng
         else:
             out["healthy"] = self._thread.is_alive()
+        if self.slo is not None:
+            # the SLO verdict rides /healthz
+            out["slo"] = self.slo.summary()
+        if self.history is not None:
+            out["metrics_history"] = self.history.stats()
         out["draining"] = self._draining
-        out["ready"] = bool(out["healthy"] and not self._draining and not self._stop.is_set())
+        out["ready"] = bool(out["healthy"] and not self._draining and not self._warming
+                            and not self._stop.is_set())
         return out
+
+    def cache_stats(self) -> Optional[Dict[str, Any]]:
+        """The prefix cache's counters (behind GET /cache/stats), or None
+        without a prefix cache."""
+        if self.prefix_cache is None:
+            return None
+        return self.prefix_cache.stats()
+
+    def _collect_metrics(self) -> None:
+        """Scrape-time collector of the service's own counters (the engine
+        registers its own)."""
+        m = self.metrics
+        st = self._stats
+        m.gauge("mlcomp_service_info", "Service configuration (value is always 1)",
+                labelnames=("batcher", "quantize")).set(
+            1, batcher=self.batcher, quantize=str(self.quant_mode))
+        rej = m.counter("mlcomp_serving_requests_rejected_total",
+                        "Requests fast-failed by admission control", labelnames=("reason",))
+        for reason, n in self._rejects.items():
+            rej.set_total(n, reason=reason)
+        m.counter("mlcomp_service_batches_total",
+                  "Batches run (window/speculative batchers)").set_total(st["batches"])
+        m.counter("mlcomp_service_batched_rows_total",
+                  "Request rows across those batches").set_total(st["batched_rows"])
+        if self.engine is None:
+            # continuous mode: the engine collector owns requests and depth
+            m.counter("mlcomp_service_requests_total",
+                      "Requests submitted (window/speculative batchers)").set_total(
+                st["requests"])
+            m.gauge("mlcomp_service_queue_depth", "Requests waiting for a batch").set(
+                self._queue.qsize() + len(self._deferred))
+
+    def trace(self, last_ms: Optional[float] = None, trace_id: Optional[str] = None,
+              rid: Optional[int] = None) -> Dict[str, Any]:
+        """The engine flight recorder's Chrome-trace export (behind GET
+        /trace); ``trace_id`` / ``rid`` keep one request's events.  Raises
+        on the window batcher (HTTP 404)."""
+        if self.engine is None:
+            raise ValueError("the flight recorder needs the continuous batcher; this service "
+                             f"runs the {self.batcher} batcher")
+        body = self.engine.recorder.export(last_ms=last_ms)
+        if trace_id is not None or rid is not None:
+            body = filter_export(body, trace_id=trace_id, rid=rid)
+        return body
+
+    def slo_status(self) -> Dict[str, Any]:
+        """The SLO engine's status (behind GET /slo); raises when the
+        history sampler is off (HTTP 404)."""
+        if self.slo is None:
+            raise ValueError("SLOs need the metrics-history sampler; this service was built "
+                             "with metrics_history_interval=0")
+        return self.slo.status()
+
+    def metrics_history(self, window_s: Optional[float] = None) -> Dict[str, Any]:
+        """The metrics-history ring as JSON (behind GET /metrics/history);
+        raises when disabled (HTTP 404)."""
+        if self.history is None:
+            raise ValueError("metrics history is disabled; this service was built with "
+                             "metrics_history_interval=0")
+        return self.history.query(window_s=window_s)
 
     def close(self) -> None:
         self._stop.set()
+        if self.history is not None:
+            # stop the sampler (and its SLO callbacks) before the engine
+            self.history.close()
         if self.engine is not None:
             self.engine.close()
             return
@@ -600,7 +862,9 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
             self.wfile.write(body)
 
         def do_GET(self):  # noqa: N802
-            route = self.path.partition("?")[0]
+            from urllib.parse import parse_qs
+
+            route, _, query = self.path.partition("?")
             if route == "/healthz":
                 st = service.stats()
                 ok = bool(st["healthy"])
@@ -608,6 +872,68 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
                 return self._json({"ok": ok, "model": model_name, **st}, 200 if ok else 503)
             if route == "/stats":
                 return self._json(service.stats())
+            if route == "/metrics":
+                from mlcomp_tpu_torch.obs.metrics import CONTENT_TYPE
+
+                body = service.metrics.render().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return None
+            if route == "/trace":
+                if service.engine is None:
+                    return self._json({"error": "the flight recorder needs the continuous "
+                                       f"batcher; this service runs the {service.batcher} "
+                                       "batcher"}, 404)
+                try:
+                    qs = parse_qs(query)
+                    last_ms = None
+                    if qs.get("last_ms"):
+                        last_ms = float(qs["last_ms"][0])
+                        if last_ms <= 0:
+                            raise ValueError(f"last_ms must be positive, got {last_ms}")
+                    trace_id = None
+                    if qs.get("trace_id"):
+                        trace_id = qs["trace_id"][0].strip().lower()
+                        if not valid_trace_id(trace_id):
+                            raise ValueError(f"trace_id must be 32 hex chars, got "
+                                             f"{qs['trace_id'][0]!r}")
+                    rid = None
+                    if qs.get("rid"):
+                        rid = int(qs["rid"][0])
+                        if rid <= 0:
+                            raise ValueError(f"rid must be positive, got {rid}")
+                    return self._json(service.trace(last_ms=last_ms, trace_id=trace_id,
+                                                    rid=rid))
+                except ValueError as e:
+                    return self._json({"error": f"{type(e).__name__}: {e}"}, 400)
+            if route == "/slo":
+                try:
+                    return self._json(service.slo_status())
+                except ValueError as e:  # the sampler is off: an absent surface
+                    return self._json({"error": f"{type(e).__name__}: {e}"}, 404)
+            if route == "/metrics/history":
+                try:
+                    qs = parse_qs(query)
+                    window_s = None
+                    if qs.get("window_s"):
+                        window_s = float(qs["window_s"][0])
+                        if window_s <= 0:
+                            raise ValueError(f"window_s must be positive, got {window_s}")
+                except ValueError as e:
+                    return self._json({"error": f"{type(e).__name__}: {e}"}, 400)
+                try:
+                    return self._json(service.metrics_history(window_s=window_s))
+                except ValueError as e:
+                    return self._json({"error": f"{type(e).__name__}: {e}"}, 404)
+            if route == "/cache/stats":
+                stats = service.cache_stats()
+                if stats is None:
+                    return self._json({"error": "prefix cache disabled (start with "
+                                       "--prefix-cache)"}, 404)
+                return self._json(stats)
             return self._json({"error": "not found"}, 404)
 
         def _stream(self, fut, toks: "queue.Queue"):
@@ -646,11 +972,14 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
                     pass
 
         def _reject_429(self, e: BackpressureError, tid: str):
-            body = json.dumps({"error": str(e), "status": e.reason, "trace_id": tid}).encode()
+            """The one admission-control 429 every POST route answers."""
+            body = json.dumps({"error": str(e), "status": "rejected", "reason": e.reason,
+                               "retry_after_s": round(e.retry_after_s, 1),
+                               "trace_id": tid}).encode()
             self.send_response(429)
             self.send_header("Content-Type", "application/json")
+            self.send_header("Retry-After", str(max(1, int(round(e.retry_after_s)))))
             self.send_header("Content-Length", str(len(body)))
-            self.send_header("Retry-After", str(max(1, int(math.ceil(e.retry_after_s)))))
             self.end_headers()
             self.wfile.write(body)
 
@@ -732,7 +1061,9 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
                 return self._json({"ok": True, "draining": service.set_draining(draining)})
             if route not in ("/generate", "/prefill", "/import"):
                 return self._json({"error": "not found"}, 404, close=True)
-            tid = make_trace_id()
+            # trace context: the client's W3C traceparent trace id when one
+            # arrives well-formed, else a fresh one; every answer echoes it
+            tid = parse_traceparent(self.headers.get("traceparent")) or make_trace_id()
             if route == "/prefill":
                 return self._prefill(tid)
             if route == "/import":
@@ -764,10 +1095,38 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), Handler)
 
 
+def start_warmup(service: GenerationService, on_error) -> threading.Thread:
+    """Run :meth:`GenerationService.warmup` on a thread of its own, the
+    service reading ``ready: false`` from this call on until it ends;
+    ``on_error(exc)`` is called if it fails (a CUDA build, a launch)."""
+    def warm():
+        try:
+            n = service.warmup()
+            print(json.dumps({"event": "warmup", "programs": n}), flush=True)
+        except BaseException as e:
+            on_error(e)
+
+    service._warming = True   # not ready from the first answer on
+    t = threading.Thread(target=warm, daemon=True, name="warmup")
+    t.start()
+    return t
+
+
 def serve_http(service: GenerationService, host: str = "127.0.0.1", port: int = 8900,
-               model_name: str = "model"):
-    """Blocking HTTP front end."""
+               model_name: str = "model", warmup: bool = False):
+    """Blocking HTTP front end.  ``warmup`` runs :meth:`GenerationService.
+    warmup` while the server already answers (``ready: false`` until it
+    ends); a failed warmup stops the server and raises: the daemon fails,
+    it never serves on the plain versions."""
     httpd = make_http_server(service, host, port, model_name)
+    failed: List[BaseException] = []
+
+    def fail(e):
+        failed.append(e)
+        httpd.shutdown()
+
+    if warmup:
+        start_warmup(service, fail)
     print(json.dumps({"event": "serving", "host": host, "port": httpd.server_address[1],
                       "model": model_name, **service.stats()}), flush=True)
     try:
@@ -777,3 +1136,5 @@ def serve_http(service: GenerationService, host: str = "127.0.0.1", port: int = 
     finally:
         httpd.server_close()
         service.close()
+    if failed:
+        raise RuntimeError(f"warmup failed: {failed[0]!r}") from failed[0]

@@ -41,6 +41,13 @@ def test_the_module_walk_covers_the_training_slice():
         assert f"mlcomp_tpu_torch.{name}" in mods, name
 
 
+def test_the_module_walk_covers_the_prefix_cache_and_obs_modules():
+    mods = set(_modules())
+    for name in ("cache.kv_store", "cache.prefix_index", "cache.prefix_key", "obs.history",
+                 "obs.slo", "obs.metrics"):
+        assert f"mlcomp_tpu_torch.{name}" in mods, name
+
+
 def test_import_leaves_jax_out_of_the_process():
     code = (
         "import importlib, sys\n"
