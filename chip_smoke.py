@@ -35,7 +35,9 @@ without printing a result:
    one-query chunk B3 bit for bit.  The chunk decode (B4, and B7 through a page
    table) is held at the admission chunk (1, 256), the 8 x 32 verify
    width, a GQA chunk at a ragged S, head dim 256, and windows that start
-   mid-block with one row's window empty: each prints the route its
+   mid-block with one row's window empty, and last, on a generator of
+   their own, the speculative verify's widths 8 x 8 (spec_k 7 at 8 slots)
+   and 1 x 9 (spec_k 8 at B = 1): each prints the route its
    ``chunk_plan`` picks, must give the same bits on a rerun, and B7 must
    equal B4 bit for bit.  The page gather (B8) must equal pages[table] on
    a bf16 K leaf, an int8 code leaf and a bf16 scale leaf.  The device
@@ -72,6 +74,17 @@ without printing a result:
    ``Retry-After`` under ``max_queue_depth=2`` and 11 clients while every
    accepted request completes, and return a client's ``traceparent`` in
    ``/trace``.  9. the bf16-KV paged engine.
+9b. speculation: the same model's dense engine at 8 slots with
+   ``spec_k=7`` (B4 must carry every verify and no single-query kernel may
+   run), the paged engine with 128-slot pages at ``max_slots`` 8 (B7 in
+   B4's place, no B6) and the B = 1 speculative batcher at ``spec_k=8``
+   (B4 at 1 x 9) against the window batcher at B = 1.  Paged spec tokens
+   must equal dense spec tokens on every request; the largest logit
+   difference D between a verify and single-token steps on the same tokens
+   from one state is measured, and at every divergence between spec and
+   non-spec tokens the teacher-forced margin of the two tokens must be at
+   most 2 D; on seeded prompts whose greedy continuation repeats a bigram
+   at least one verify must emit more than one token.
 10. train: configs/multihost_lm.yml's 1.2B transformer_lm (hidden 2048, 16
    layers, vocab 32000, bf16, adafactor with warmup_cosine) through
    ``mlcomp_tpu_torch.cli dag``, in-process, cut to one card (2 sequences
@@ -85,9 +98,14 @@ without printing a result:
    through pages: each must run its attention as 16 launches of the split
    body (no launch of the old ``attend_kernel``), and the paged step's
    logits must equal the dense step's bit for bit.
-12. summary: ``serve``, ``engine``, ``paged_engine``, ``disagg``,
-   ``prefix_cache``, ``daemon``, ``train`` and ``kernels`` JSON lines, then,
-   last, the device line.
+11b. train to serve: configs/generate_quant.yml through ``cli dag`` as
+   published (only its model storage moved to a temporary directory): its
+   sample stage must launch B1, B2, B3 and B5; then ``serve`` on the train
+   task's checkpoint directory (resolved as ``--storage-task`` resolves
+   it) must give the greedy tokens of the same weights served from .npz.
+12. summary: ``serve``, ``engine``, ``paged_engine``, ``disagg``, ``spec``,
+   ``train_to_serve``, ``prefix_cache``, ``daemon``, ``train`` and
+   ``kernels`` JSON lines, then, last, the device line.
 
 The kernel phase (3) also holds the flash-attention backward (B9-B11), and
 the forward (B5) whose (out, lse) it takes, at the training shape, a GQA
@@ -566,15 +584,16 @@ def main() -> int:
     # the summary reads); then a GQA chunk at a ragged S, head dim 256, and
     # windows that start mid-block with one row's window empty.  Each case
     # prints its chunk_plan route and must give the same bits on a rerun
-    def chunk_case(b, s_q, starts, stop0, h=heads, h_kv=heads, d=dh, length=None, case=None):
+    def chunk_case(b, s_q, starts, stop0, h=heads, h_kv=heads, d=dh, length=None, case=None,
+                   gen=g):
         length = length or l_buf
         case = case or f"{b}x{s_q}"
         sc_ = 1.0 / math.sqrt(d)
         plan = da.chunk_plan(s_q, h, h_kv, b, d, length)
         log(f"  B4 {case}: chunk_plan {json.dumps(plan)}")
-        cs = [quant_cache(b, h_kv, d, length)
+        cs = [quant_cache(b, h_kv, d, length, gen=gen)
               for _ in range(copies_for(2 * b * h_kv * length * d))]
-        qc = torch.randn(b, s_q, h, d, generator=g, device=dev).bfloat16()
+        qc = torch.randn(b, s_q, h, d, generator=gen, device=dev).bfloat16()
         k8, ks, v8, vs = cs[0]
         outc = da.decode_attention_chunk(qc, k8, ks, v8, vs, starts, stop0, sc_)
         err, ratio = held(f"decode_attention_chunk {case}", outc,
@@ -698,7 +717,7 @@ def main() -> int:
         dense = tuple(t.contiguous() for t in da.pages_to_dense(*pages, table))
         return tuple(pages), table, dense
 
-    def paged_case(key, twin, qp, cache, starts, stop0, case=None):
+    def paged_case(key, twin, qp, cache, starts, stop0, case=None, gen=g):
         """B6 (q (B, H, dh)) or B7 (q (B, S, H, dh)) against B3 / B4 on the
         same bytes (bit for bit), against its plain version (2^-7 rule) and
         against itself on a rerun (bit for bit)."""
@@ -709,7 +728,7 @@ def main() -> int:
         sc_ = 1.0 / math.sqrt(d)
         plan = da.chunk_plan(s_q, h, h_kv, b, d, cache[0].shape[2])
         log(f"  {key} {case}: chunk_plan {json.dumps(plan)}")
-        pages, table, dense = paginate(cache, stop0 + s_q - 2)
+        pages, table, dense = paginate(cache, stop0 + s_q - 2, gen=gen)
         if single:
             kern, plain, twin_fn = (da.paged_decode_attention, da.paged_decode_attention_plain,
                                     da.decode_attention)
@@ -1117,6 +1136,21 @@ def main() -> int:
             f"{qm.plan(PROMPT, d, n)['splits']} at both)")
     del q8, sc, xb, full, alone512
     torch.cuda.empty_cache()
+
+    # The speculative verify's widths: B4 (dense) and B7 (through pages) at 8
+    # rows x 8 queries (spec_k 7 at 8 slots, the engine's) and 1 x 9 (spec_k
+    # 8, the speculative batcher's), each against its plain version, bit-equal
+    # on a rerun, B7 == B4 on the same bytes, its chunk_plan route printed;
+    # their device times come after the train phase.  Own generator, last
+    gsp = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for b_, s_ in ((BATCH, 8), (1, 9)):
+        spec_case = f"spec verify {b_}x{s_}"
+        st_ = torch.randint(0, 100, (b_,), generator=gsp, **i32)
+        so_ = torch.randint(PROMPT, PROMPT + NEW - s_, (b_,), generator=gsp, **i32)
+        chunk_case(b_, s_, st_, so_, case=spec_case, gen=gsp)
+        paged_case("B7", "decode_attention_chunk",
+                   torch.randn(b_, s_, heads, dh, generator=gsp, device=dev).bfloat16(),
+                   quant_cache(b_, gen=gsp), st_, so_, case=spec_case, gen=gsp)
 
     # ---- 4. window serve
     log("phase window serve")
@@ -2083,6 +2117,299 @@ def main() -> int:
     del svc16, dense16
     torch.cuda.empty_cache()
 
+    # ---- 9b. speculation: the dense and the paged engine's speculative
+    # dispatch (spec_k 7 at 8 slots: a verify puts 64 rows through B1/B2, the
+    # decode kernel's upper edge; B4 on the dense cache, B7 through 128-slot
+    # pages) and the B = 1 speculative batcher (spec_k 8: B4 at 1 x 9)
+    log("phase speculation")
+    SPEC_K, SPEC_K_B1 = 7, 8
+    spec_kw = dict(prompt_buckets=(PROMPT,), max_new_cap=NEW, prefill_chunk=CHUNK)
+    spec_svc = load_service(CFG, batcher="speculative", spec_k=SPEC_K_B1,
+                            **{**serve_kw, "batch_sizes": (1,)})
+    smodel = spec_svc.model
+    spec_prompts = [bodies[i]["prompt"] for i in greedy] + [alone]
+
+    def spec_run(eng, prompts, label):
+        """``prompts`` at once through ``eng`` (greedy, NEW tokens each):
+        ids, wall, launch counts, tokens, verifies and the engine's
+        acceptance over the run."""
+        eng.submit(warm, 2).result(timeout=300)
+        for k in kernels.values():
+            k.reset()
+        da.chunk_tc_launches = da.split_launches = 0
+        st0 = eng.stats()
+        t0 = time.perf_counter()
+        ids = [f.result(timeout=600)["ids"] for f in [eng.submit(p, NEW) for p in prompts]]
+        wall = time.perf_counter() - t0
+        counts = {key: k.launches for key, k in kernels.items()}
+        st1 = eng.stats()
+        run = {"ids": ids, "wall_s": wall, "counts": counts,
+               "chunk_tc": da.chunk_tc_launches, "split": da.split_launches,
+               "emitted": st1["emitted_tokens"] - st0["emitted_tokens"],
+               "issued": st1["pipeline"]["issued"] - st0["pipeline"]["issued"],
+               "prefill_chunks": st1["prefill_chunks"] - st0["prefill_chunks"],
+               "spec_rows": st1.get("spec_rows", 0) - st0.get("spec_rows", 0)}
+        run["tok_s"] = run["emitted"] / wall
+        if run["spec_rows"]:
+            run["acceptance_tokens_per_row"] = run["emitted"] / run["spec_rows"]
+        if any(len(i) != NEW or not all(0 <= t < vocab for t in i) for i in ids):
+            raise AssertionError(f"{label}: expected {NEW} ids in the vocabulary per request")
+        log(f"{label}: {len(prompts)} requests, {run['emitted']} tokens in {wall:.2f} s "
+            f"({run['tok_s']:.1f} tok/s), {run['issued']} dispatches, acceptance "
+            f"{run.get('acceptance_tokens_per_row')}; launches {json.dumps(counts)}")
+        return run
+
+    def spec_checks(run, label, chunk_key, single_keys):
+        """A speculating engine's launches: every dispatch one verify, each
+        layer's attention one ``chunk_key`` launch (B4 dense, B7 paged) on
+        the tensor-core body; admissions B5 (a chunk at index 0) or B4; no
+        single-query launch (B3, B6) at all."""
+        c = run["counts"]
+        verifies = layers * run["issued"]
+        chunks_b4 = layers * run["prefill_chunks"] - c["B5"]
+        want_b4 = chunks_b4 + (verifies if chunk_key == "B4" else 0)
+        if (c[chunk_key] <= 0 or c["B4"] != want_b4
+                or (chunk_key == "B7" and c["B7"] != verifies)):
+            raise AssertionError(f"{label}: B4 {c['B4']} launches (want {want_b4}), B7 "
+                                 f"{c['B7']} (want {verifies if chunk_key == 'B7' else 0}) for "
+                                 f"{run['issued']} verifies and {run['prefill_chunks']} chunks")
+        if any(c[k] for k in single_keys) or run["split"]:
+            raise AssertionError(f"{label}: a single-query kernel ran during spec decode: "
+                                 f"{ {k: c[k] for k in single_keys} }, {run['split']} split-body "
+                                 "launches")
+        if run["chunk_tc"] != c["B4"] + c["B7"] or c["B1"] <= 0 or c["B2"] <= 0:
+            raise AssertionError(f"{label}: {run['chunk_tc']} tensor-core launches for "
+                                 f"{c['B4']} B4 and {c['B7']} B7; B1 {c['B1']}, B2 {c['B2']}")
+
+    plain_eng = DecodeEngine(smodel, slots=BATCH, **engine_kw)
+    try:
+        plain_run = spec_run(plain_eng, spec_prompts, "non-spec dense engine")
+        # candidates for a multi-token verify: seeded prompts of a repeated
+        # 4-gram; random-weight greedy streams fall into cycles, and a
+        # continuation that repeats a bigram gives the draft a hit
+        gcand = torch.Generator().manual_seed(SEED + 5)
+        cands = [torch.randint(1, vocab, (4,), generator=gcand).tolist() * 24 for _ in range(16)]
+        cand_ids = [f.result(timeout=600)["ids"]
+                    for f in [plain_eng.submit(p, NEW) for p in cands]]
+    finally:
+        plain_eng.close()
+
+    def repeats_bigram(ids):
+        pairs = list(zip(ids, ids[1:]))
+        return len(set(pairs)) < len(pairs)
+
+    cycling = [p for p, ids in zip(cands, cand_ids) if repeats_bigram(ids)][:BATCH]
+    if not cycling:
+        raise AssertionError("no candidate prompt's greedy continuation repeats a bigram: no "
+                             "prompt to hold a multi-token verify on")
+    spec_dense = DecodeEngine(smodel, slots=BATCH, spec_k=SPEC_K, **spec_kw)
+    try:
+        if spec_dense.steps_per_dispatch != 1 or spec_dense.spec_k != SPEC_K:
+            raise AssertionError(f"not the spec engine asked for: {spec_dense.stats()}")
+        dense_spec = spec_run(spec_dense, spec_prompts, "dense spec engine")
+        dense_cyc = spec_run(spec_dense, cycling, "dense spec engine, cycling prompts")
+    finally:
+        spec_dense.close()
+    spec_checks(dense_spec, "dense spec engine", "B4", ("B3", "B6", "B7"))
+    spec_paged = DecodeEngine(smodel, slots=BATCH, spec_k=SPEC_K, kv_layout="paged",
+                              kv_page_tokens=page_t, max_slots=BATCH, **spec_kw)
+    try:
+        paged_spec = spec_run(spec_paged, spec_prompts, "paged spec engine")
+        paged_cyc = spec_run(spec_paged, cycling, "paged spec engine, cycling prompts")
+        if spec_paged.stats()["peak_live_slots"] != BATCH:
+            raise AssertionError("the paged spec engine changed its slot count")
+    finally:
+        spec_paged.close()
+    spec_checks(paged_spec, "paged spec engine", "B7", ("B3", "B6"))
+    for a, b, what in ((paged_spec, dense_spec, "requests"), (paged_cyc, dense_cyc, "cycling")):
+        if a["ids"] != b["ids"]:
+            bad = [i for i, (x, y) in enumerate(zip(a["ids"], b["ids"])) if x != y]
+            raise AssertionError(f"paged spec {what} {bad} differ from the dense spec engine's")
+    if dense_cyc["emitted"] <= dense_cyc["spec_rows"]:
+        raise AssertionError(f"no verify emitted more than one token on the cycling prompts: "
+                             f"{dense_cyc['emitted']} tokens in {dense_cyc['spec_rows']} "
+                             "row-verifies")
+    log(f"paged spec == dense spec on {len(spec_prompts)} requests and {len(cycling)} cycling "
+        f"prompts; cycling acceptance {dense_cyc['acceptance_tokens_per_row']:.3f} tokens a row "
+        "a verify")
+
+    # the cross-body noise D: from one prefilled state of the 8 greedy
+    # prompts, one verify of K+1 tokens (B4, 64 rows through B1/B2) against
+    # K+1 single-token steps on the same tokens (B3, 8 rows): the largest
+    # logit difference
+    def padded(prompts):
+        row = torch.zeros((len(prompts), PROMPT), dtype=torch.long)
+        mask = torch.zeros((len(prompts), PROMPT), dtype=torch.bool)
+        for r, p in enumerate(prompts):
+            row[r, PROMPT - len(p):] = torch.tensor(p)
+            mask[r, PROMPT - len(p):] = True
+        return row.to(dev), mask.to(dev)
+
+    with torch.inference_mode():
+        nb = len(greedy)
+        row_, mask_ = padded(spec_prompts[:nb])
+        pos_ = torch.clamp(torch.cumsum(mask_.int(), 1) - 1, min=0)
+        cache = smodel.init_cache(nb, PROMPT + NEW + SPEC_K + 1)
+        kv_start_ = (PROMPT - mask_.sum(1)).int()
+        smodel(row_, positions=pos_, cache=cache, last_only=True, kv_start=kv_start_)
+        snap = [{n: t.clone() for n, t in vars(layer).items()} for layer in cache.layers]
+        seq = torch.tensor([ids[: SPEC_K + 1] for ids in plain_run["ids"][:nb]], device=dev)
+        vpos = mask_.sum(1)[:, None] + torch.arange(SPEC_K + 1, device=dev)[None]
+        lv = smodel(seq, positions=vpos, cache=cache, kv_start=kv_start_)
+        for layer, saved in zip(cache.layers, snap):
+            for n, t in saved.items():
+                getattr(layer, n).copy_(t)
+        cache.index = PROMPT
+        ls = torch.stack([smodel(seq[:, j:j + 1], positions=vpos[:, j:j + 1], cache=cache,
+                                 kv_start=kv_start_)[:, 0] for j in range(SPEC_K + 1)], 1)
+        noise_d = (lv - ls).abs().max().item()
+        del cache, snap, lv, ls
+    log(f"cross-body noise D: {noise_d:.6g} (largest logit difference, verify against single "
+        f"steps, {nb} rows x {SPEC_K + 1} positions)")
+
+    # spec against non-spec: at each divergence the teacher-forced margin of
+    # the two tokens, on the non-spec engine's own path (its chunked
+    # admission, then single steps over the common prefix), must be <= 2 D
+    def teacher_margin(prompt, prefix, a, b):
+        with torch.inference_mode():
+            row, mask = padded([prompt])
+            pos = torch.clamp(torch.cumsum(mask.int(), 1) - 1, min=0)
+            kv_start = (PROMPT - mask.sum(1)).int()
+            cache = smodel.init_cache(1, PROMPT + NEW + 1)
+            first = (PROMPT - len(prompt)) // CHUNK
+            cache.index = first * CHUNK
+            for lo in range(first * CHUNK, PROMPT, CHUNK):
+                lg = smodel(row[:, lo:lo + CHUNK], positions=pos[:, lo:lo + CHUNK], cache=cache,
+                            last_only=True, kv_start=kv_start)[:, -1]
+            p = len(prompt)
+            for t in prefix:
+                lg = smodel(torch.tensor([[t]], device=dev), positions=torch.tensor([[p]],
+                            device=dev), cache=cache, kv_start=kv_start)[:, -1]
+                p += 1
+            return (lg[0, b] - lg[0, a]).item()
+
+    margins = []
+    for p, s_ids, n_ids in zip(spec_prompts, dense_spec["ids"], plain_run["ids"]):
+        if s_ids == n_ids:
+            continue
+        at = next(i for i, (x, y) in enumerate(zip(s_ids, n_ids)) if x != y)
+        m = teacher_margin(p, n_ids[:at], s_ids[at], n_ids[at])
+        margins.append({"position": at, "spec_token": s_ids[at], "plain_token": n_ids[at],
+                        "margin": m})
+    spec_equal = sum(a == b for a, b in zip(dense_spec["ids"], plain_run["ids"]))
+    log(f"spec == non-spec on {spec_equal} of {len(spec_prompts)} requests; divergences "
+        f"(teacher-forced margins, limit 2 D = {2 * noise_d:.6g}): {json.dumps(margins)}")
+    if any(abs(m["margin"]) > 2 * noise_d for m in margins):
+        raise AssertionError(f"a spec/non-spec divergence has a margin above 2 D = "
+                             f"{2 * noise_d}: {margins}")
+
+    # B = 1: the speculative batcher (spec_k 8) against the window batcher
+    b1_prompts = cycling[:2] + spec_prompts[:2]
+    spec_svc.generate(warm, 2)
+    for k in kernels.values():
+        k.reset()
+    da.chunk_tc_launches = da.split_launches = 0
+    b1_st0 = spec_svc.stats()
+    t0 = time.perf_counter()
+    b1_ids = [spec_svc.generate(p, NEW)["ids"] for p in b1_prompts]
+    b1_wall = time.perf_counter() - t0
+    b1_counts = {key: k.launches for key, k in kernels.items()}
+    b1_st = {k: v - b1_st0[k] for k, v in spec_svc.stats().items()
+             if k in ("spec_tokens", "spec_forwards")}
+    spec_svc.close()
+    if b1_counts["B4"] <= 0 or b1_counts["B3"] or b1_counts["B6"] or b1_counts["B7"]:
+        raise AssertionError(f"speculative batcher launches {b1_counts}: B4 must carry every "
+                             "verify, and no single-query kernel may run")
+    win_svc = load_service(CFG, batcher="window", **{**serve_kw, "batch_sizes": (1,)})
+    try:
+        win_svc.generate(warm, 2)
+        t0 = time.perf_counter()
+        win_ids = [win_svc.generate(p, NEW)["ids"] for p in b1_prompts]
+        win_wall = time.perf_counter() - t0
+    finally:
+        win_svc.close()
+
+    # B = 1 against the window batcher, on the two batchers' own paths: a
+    # B = 1 prefill of the padded prompt (the speculative batcher's cache
+    # holds K slots more), then a verify of K+1 tokens (B4 at 1 x 9) against
+    # K+1 single steps (B3).  D1 is the largest logit difference on the
+    # window batcher's first K+1 tokens of each prompt; at each divergence
+    # the window path's teacher-forced margin of the two tokens must be <= 2 D1
+    def one_row_prefill(prompt, slack):
+        row, mask = padded([prompt])
+        total = PROMPT + NEW + slack
+        cache = smodel.init_cache(1, total)
+        kv_mask = torch.cat([mask, torch.ones((1, total - PROMPT), dtype=torch.bool,
+                                              device=dev)], 1)
+        pos = torch.clamp(torch.cumsum(mask.int(), 1) - 1, min=0)
+        lg = smodel(row, positions=pos, cache=cache, kv_mask=kv_mask, last_only=True)[:, -1]
+        return cache, kv_mask, lg
+
+    def b1_margin(prompt, prefix, a, b):
+        cache, kv_mask, lg = one_row_prefill(prompt, 0)
+        for i, t in enumerate(prefix):
+            lg = smodel(torch.tensor([[t]], device=dev),
+                        positions=torch.tensor([[len(prompt) + i]], device=dev), cache=cache,
+                        kv_mask=kv_mask, last_only=True)[:, -1]
+        return (lg[0, b] - lg[0, a]).item()
+
+    noise_d1, b1_margins = 0.0, []
+    with torch.inference_mode():
+        for p, w_ids in zip(b1_prompts, win_ids):
+            seq = torch.tensor([w_ids[: SPEC_K_B1 + 1]], device=dev)
+            vpos = len(p) + torch.arange(SPEC_K_B1 + 1, device=dev)[None]
+            cache, kv_mask, _ = one_row_prefill(p, SPEC_K_B1)
+            lv = smodel(seq, positions=vpos, cache=cache, kv_mask=kv_mask)
+            cache, kv_mask, _ = one_row_prefill(p, 0)
+            ls = torch.stack([smodel(seq[:, j:j + 1], positions=vpos[:, j:j + 1], cache=cache,
+                                     kv_mask=kv_mask)[:, 0] for j in range(SPEC_K_B1 + 1)], 1)
+            noise_d1 = max(noise_d1, (lv - ls).abs().max().item())
+            del cache, lv, ls
+        for p, s_ids, w_ids in zip(b1_prompts, b1_ids, win_ids):
+            if s_ids == w_ids:
+                continue
+            at = next(i for i, (x, y) in enumerate(zip(s_ids, w_ids)) if x != y)
+            b1_margins.append({"position": at, "spec_token": s_ids[at],
+                               "window_token": w_ids[at],
+                               "margin": b1_margin(p, w_ids[:at], s_ids[at], w_ids[at])})
+    log(f"B = 1 cross-body noise D1: {noise_d1:.6g} (verify 1 x {SPEC_K_B1 + 1} against single "
+        f"steps, {len(b1_prompts)} prompts); divergences from the window batcher "
+        f"(teacher-forced margins, limit 2 D1 = {2 * noise_d1:.6g}): {json.dumps(b1_margins)}")
+    if any(abs(m["margin"]) > 2 * noise_d1 for m in b1_margins):
+        raise AssertionError(f"a speculative/window batcher divergence has a margin above "
+                             f"2 D1 = {2 * noise_d1}: {b1_margins}")
+    b1 = {"spec_k": SPEC_K_B1, "requests": len(b1_prompts), "tokens": b1_st["spec_tokens"],
+          "forwards": b1_st["spec_forwards"],
+          "tokens_per_forward": b1_st["spec_tokens"] / b1_st["spec_forwards"],
+          "tok_s": len(b1_prompts) * NEW / b1_wall,
+          "window_batcher_b1_tok_s": len(b1_prompts) * NEW / win_wall,
+          "equal_window_batcher": sum(a == b for a, b in zip(b1_ids, win_ids)),
+          "cross_body_noise_d1": noise_d1, "divergence_margins": b1_margins,
+          "launches": b1_counts}
+    log(f"speculative batcher B=1: {b1['tokens_per_forward']:.3f} tokens a forward, "
+        f"{b1['tok_s']:.1f} tok/s against the window batcher's {b1['window_batcher_b1_tok_s']:.1f}"
+        f"; ids equal on {b1['equal_window_batcher']} of {len(b1_prompts)}")
+    spec_result = {
+        "spec_k": SPEC_K, "slots": BATCH, "requests": len(spec_prompts),
+        "non_spec": {k: plain_run[k] for k in ("wall_s", "tok_s", "emitted", "issued")},
+        "dense": {k: dense_spec.get(k) for k in ("wall_s", "tok_s", "emitted", "issued",
+                                                  "acceptance_tokens_per_row", "counts")},
+        "paged": {k: paged_spec.get(k) for k in ("wall_s", "tok_s", "emitted", "issued",
+                                                  "acceptance_tokens_per_row", "counts")},
+        "cycling": {"prompts": len(cycling), "candidates": len(cands),
+                    "dense_acceptance_tokens_per_row": dense_cyc["acceptance_tokens_per_row"],
+                    "paged_acceptance_tokens_per_row": paged_cyc["acceptance_tokens_per_row"],
+                    "dense_tok_s": dense_cyc["tok_s"]},
+        "paged_equal_dense": len(spec_prompts) + len(cycling),
+        "spec_equal_non_spec": spec_equal, "cross_body_noise_d": noise_d,
+        "divergence_margins": margins, "batcher_b1": b1,
+        "b4_launches": dense_spec["counts"]["B4"], "b7_launches": paged_spec["counts"]["B7"],
+        "card": smi,
+    }
+    del spec_svc, win_svc, smodel, spec_dense, spec_paged, plain_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 10. train: configs/multihost_lm.yml's model through `cli dag`
     log("phase train")
     import tempfile
@@ -2475,6 +2802,96 @@ def main() -> int:
     gather_inputs.clear()
     torch.cuda.empty_cache()
 
+    # ---- 11b. train to serve: configs/generate_quant.yml through `cli dag`
+    # as published (a train stage, then a generate stage on int8 weights
+    # through the int8 matmul and an int8 KV cache), only its model storage
+    # moved under a temporary directory; then `serve` on the train task's
+    # checkpoint directory against the same weights served from .npz
+    log("phase train to serve")
+    from mlcomp_tpu_torch.io.checkpoint import read_weights
+    from mlcomp_tpu_torch.io.weights import save_npz
+    from mlcomp_tpu_torch.serve import resolve_storage_ckpt
+
+    with open(Path(__file__).resolve().parent / "configs" / "generate_quant.yml") as f:
+        gq_cfg = yaml.safe_load(f)
+    tmp_gq = tempfile.mkdtemp(prefix="chip_smoke_gq_")
+    for ex in gq_cfg["executors"].values():
+        ex["args"]["storage_root"] = f"{tmp_gq}/storage"
+    gq_yaml = f"{tmp_gq}/generate_quant.yml"
+    with open(gq_yaml, "w") as f:
+        yaml.safe_dump(gq_cfg, f)
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    rc = port_cli.main(["dag", gq_yaml, "--db", f"{tmp_gq}/db.sqlite", "--workdir", tmp_gq,
+                        "--device", "cuda"])
+    gq_wall = time.perf_counter() - t0
+    gq_counts = {key: k.launches for key, k in kernels.items()}
+    store = Store(f"{tmp_gq}/db.sqlite")
+    try:
+        gq_rows = {r["name"]: r for r in store.task_rows(1)}
+    finally:
+        store.close()
+    if rc != 0 or any(r["status"] != "success" for r in gq_rows.values()):
+        raise AssertionError("generate_quant.yml: " + json.dumps(
+            {n: [r["status"], r["error"]] for n, r in gq_rows.items()}))
+    gq_model = gq_cfg["model"]
+    gq_train = gq_cfg["executors"]["train"]["args"]
+    gq_sample = gq_cfg["executors"]["sample"]["args"]
+    tr_steps = gq_train["data"]["train"]["n"] // gq_train["data"]["train"]["batch_size"]
+    sm_batches = -(-gq_sample["data"]["infer"]["n"] // gq_sample["data"]["infer"]["batch_size"])
+    gq_layers = gq_model["layers"]
+    # B5: every train step's forward and every sample batch's prefill; B3:
+    # every decode step of every sample batch (max_new_tokens - 1 a batch)
+    want_gq = {"B5": gq_layers * (tr_steps + sm_batches),
+               "B3": gq_layers * sm_batches * (gq_sample["max_new_tokens"] - 1)}
+    if ({k: gq_counts[k] for k in want_gq} != want_gq or gq_counts["B1"] <= 0
+            or gq_counts["B2"] <= 0):
+        raise AssertionError(f"generate_quant.yml launches {gq_counts}: want {want_gq} and B1, "
+                             "B2 on the sample stage")
+    import numpy as np_
+
+    gen_ids = np_.load(f"{tmp_gq}/sample_gen.npz")["ids"]
+    if gen_ids.shape != (gq_sample["data"]["infer"]["n"], gq_sample["data"]["infer"]["seq_len"]
+                         + gq_sample["max_new_tokens"]) or gen_ids.min() < 0 \
+            or gen_ids.max() >= gq_model["vocab_size"]:
+        raise AssertionError(f"sample stage ids {gen_ids.shape}, range [{gen_ids.min()}, "
+                             f"{gen_ids.max()}]")
+    os.environ["MLCOMP_TPU_STORAGE"] = f"{tmp_gq}/storage"
+    try:
+        gq_ckpt = resolve_storage_ckpt("lm", "generate_quant", "train")
+    finally:
+        del os.environ["MLCOMP_TPU_STORAGE"]
+    save_npz(f"{tmp_gq}/weights.npz", read_weights(gq_ckpt)["params"])
+    gq_prompts = [torch.randint(1, gq_model["vocab_size"], (n,), generator=cpu_rng).tolist()
+                  for n in (20, 60, 100, 128)]
+    t2s_ids = {}
+    for src, path in (("checkpoint_dir", gq_ckpt), ("npz", f"{tmp_gq}/weights.npz")):
+        svc = load_service(gq_model, ckpt_path=path, device="cuda", quantize="kernel",
+                           batch_sizes=(1, 4), prompt_buckets=(128,), max_new_buckets=(32,))
+        try:
+            t2s_ids[src] = [f.result(timeout=300)["ids"]
+                            for f in [svc.submit(p, 32) for p in gq_prompts]]
+        finally:
+            svc.close()
+        del svc
+    if t2s_ids["checkpoint_dir"] != t2s_ids["npz"]:
+        raise AssertionError("serving the train task's checkpoint directory gives other tokens "
+                             "than the same weights served from .npz")
+    t2s_result = {
+        "config": "configs/generate_quant.yml", "moved": "model storage -> a temporary dir",
+        "dag_wall_s": gq_wall, "train_steps": tr_steps, "sample_batches": sm_batches,
+        # over the DAG: B5 of both stages, the rest the sample stage's
+        "launches": {k: gq_counts[k] for k in ("B1", "B2", "B3", "B4", "B5")},
+        "sample_ids_shape": list(gen_ids.shape), "checkpoint": gq_ckpt,
+        "served_requests": len(gq_prompts), "checkpoint_dir_equal_npz": True, "card": smi,
+    }
+    log(f"train to serve: generate_quant.yml in {gq_wall:.1f} s, launches "
+        f"{json.dumps(t2s_result['launches'])}; serve --storage-task lm/generate_quant/"
+        f"train == .npz on {len(gq_prompts)} greedy requests")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 12. summary
     # each kernel's work in one decode step at B=8 (B1, B2, B3), in one
     # 8x512 prefill (B5) or in one admission chunk at index 256 (B4); B1's
@@ -2488,8 +2905,8 @@ def main() -> int:
                [(kernels["B4"].rows[0], per_chunk["B4"])]),
         "B5": ("prefill 8x512: every layer", [(row_of("B5", PREFILL_CASE), pre_n["B5"])]),
         "B6": ("paged decode step: every layer", [(kernels["B6"].rows[0], layers)]),
-        "B7": ("8 rows x 32 queries through the table, one call (the paged verify shape; "
-               "served with speculation, not yet)", [(kernels["B7"].rows[0], 1)]),
+        "B7": (f"paged spec verify, 8 rows x {SPEC_K + 1} queries through the table: every "
+               "layer", [(row_of("B7", f"spec verify {BATCH}x{SPEC_K + 1}"), layers)]),
         "B8": ("bf16-KV paged decode step: K and V of every layer",
                [(kernels["B8"].rows[0], 2 * layers)]),
         "B9": ("BERT finetune backward 32x128, 12 heads of 64, key padding, one call (the JAX "
@@ -2502,10 +2919,10 @@ def main() -> int:
     }
     # each kernel's launches over its own path's run
     path_counts = {**{key: counts[key] for key in dense_keys},
-                   "B6": pcounts["B6"], "B7": pcounts["B7"], "B8": counts16["B8"],
+                   "B6": pcounts["B6"], "B7": paged_spec["counts"]["B7"], "B8": counts16["B8"],
                    **{key: train_counts[key] for key in train_keys}}
     paths = {**{key: "dense engine serve" for key in dense_keys},
-             "B6": "paged engine serve", "B7": "paged engine serve",
+             "B6": "paged engine serve", "B7": f"paged spec engine (spec_k {SPEC_K})",
              "B8": "bf16-KV paged engine", **{key: "train (cli dag)" for key in train_keys}}
     entries = []
     for key, (label, weighted) in scopes.items():
@@ -2516,6 +2933,9 @@ def main() -> int:
             "launches_window_path": window_counts[key],
             "launches_prefix_cache_path": {"dense": pc_dense["launches"][key],
                                            "paged": pc_paged["launches"][key]},
+            "launches_spec_path": {"dense": dense_spec["counts"][key],
+                                   "paged": paged_spec["counts"][key],
+                                   "batcher_b1": b1_counts[key]},
             "max_abs_err": max(r["max_abs_err"] for r in k.rows),
             "err_over_limit": max(r["err_over_limit"] for r in k.rows),
             "scope": label, **total(weighted),
@@ -2576,6 +2996,14 @@ def main() -> int:
         if key == "B7":
             entry["admission_shape"] = {"scope": "(1, 256) chunk at cache index 256, one call",
                                         **total([(kernels["B7"].rows[1], 1)])}
+            entry["verify_width_32"] = {"scope": "8 rows x 32 queries, one call",
+                                        **total([(kernels["B7"].rows[0], 1)])}
+        if key in ("B4", "B7"):
+            # the speculative verify's widths, one call each
+            entry["spec_verify"] = [
+                {"scope": f"{r['case']}, one call", **total([(r, 1)]),
+                 "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"]}
+                for r in kernels[key].rows if r["case"].startswith("spec verify")]
         if key in ("B3", "B4", "B6", "B7", "B8"):
             # every case, one call each: its body, grid and device time
             entry["cases"] = [
@@ -2627,6 +3055,8 @@ def main() -> int:
                     "launches": counts16, "equal_dense": True},
         "card": smi}}))
     log(json.dumps({"disagg": disagg}))
+    log(json.dumps({"spec": spec_result}))
+    log(json.dumps({"train_to_serve": t2s_result}))
     log(json.dumps({"prefix_cache": {"dense": pc_dense, "paged": pc_paged, "card": smi}}))
     log(json.dumps({"daemon": daemon}))
     log(json.dumps({"train": {**train_result, "parity": {

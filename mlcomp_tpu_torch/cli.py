@@ -1,13 +1,17 @@
 """Command line of the port: ``python -m mlcomp_tpu_torch.cli <command>``.
 
-Two commands, with the JAX CLI's flag names:
+Three commands, with the JAX CLI's flag names:
 
-- ``serve``: an LM over HTTP on the GPU; ``--ckpt`` names a ``.npz``
-  params tree (``io.weights.save_npz``).
+- ``serve``: an LM over HTTP on the GPU; ``--ckpt`` names a training
+  checkpoint directory or a ``.npz`` params tree (``io.weights.save_npz``),
+  ``--storage-task PROJECT/DAG/TASK`` a train task's checkpoints in model
+  storage.
 - ``dag <yaml>``: run a DAG locally (supervisor and in-process workers,
   ``scheduler/local.run_dag_local``); its tasks run on ``--device``
   (default ``cuda``; a train task without a card fails rather than run on
   the CPU).
+- ``average DIR[:STEP]... --out DIR``: the weight-space average of
+  checkpoints (``io.checkpoint.average_checkpoints``).
 """
 
 from __future__ import annotations
@@ -42,10 +46,19 @@ def _cmd_dag(args: argparse.Namespace) -> int:
     return 1 if bad else 0
 
 
+def _cmd_average(args: argparse.Namespace) -> int:
+    from mlcomp_tpu_torch.io.checkpoint import average_checkpoints
+
+    weights = [float(w) for w in args.weights.split(",")] if args.weights else None
+    path = average_checkpoints(args.sources, args.out, weights=weights)
+    print(json.dumps({"averaged": len(args.sources), "out": path}))
+    return 0
+
+
 def _cmd_serve(args: argparse.Namespace) -> int:
     import yaml
 
-    from mlcomp_tpu_torch.serve import load_service, serve_http
+    from mlcomp_tpu_torch.serve import load_service, resolve_storage_ckpt, serve_http
 
     with open(args.model) as f:
         doc = yaml.safe_load(f)
@@ -53,10 +66,18 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     model_cfg = doc.get("model", doc) if isinstance(doc, dict) else doc
     if args.kv_quant:
         model_cfg = {**model_cfg, "kv_quant": True}
-    if not args.ckpt:
+    if not args.ckpt and not args.storage_task:
         # serving random init silently would look healthy and emit junk
-        print("error: pass --ckpt (a .npz params file to serve)", file=sys.stderr)
+        print("error: pass --ckpt or --storage-task (a checkpoint to serve)", file=sys.stderr)
         return 2
+    ckpt = args.ckpt
+    if not ckpt:
+        parts = args.storage_task.split("/")
+        if len(parts) != 3:
+            print(f"error: --storage-task must be PROJECT/DAG/TASK, got {args.storage_task!r}",
+                  file=sys.stderr)
+            return 2
+        ckpt = resolve_storage_ckpt(*parts)
     slo_config = None
     if args.slo_config:
         if not args.metrics_history_interval:
@@ -76,7 +97,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
             return 2
     service = load_service(
         model_cfg,
-        ckpt_path=args.ckpt,
+        ckpt_path=ckpt,
         batch_sizes=tuple(int(x) for x in args.batch_sizes.split(",")),
         prompt_buckets=tuple(int(x) for x in args.prompt_buckets.split(",")),
         max_new_buckets=tuple(int(x) for x in args.max_new_buckets.split(",")),
@@ -99,6 +120,8 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         kv_page_tokens=args.kv_page_tokens,
         kv_pages=args.kv_pages,
         max_slots=args.max_slots,
+        spec_k=args.spec_k,
+        engine_spec_k=args.engine_spec_k,
         phase=args.phase,
         prefix_cache=args.prefix_cache,
         prefix_cache_bytes=args.prefix_cache_bytes,
@@ -125,7 +148,10 @@ def main(argv=None) -> int:
     sv.add_argument("--model", required=True,
                     help="YAML with the model config (a bare mapping, or a"
                     " YAML with a top-level 'model:' section)")
-    sv.add_argument("--ckpt", default=None, help=".npz params file")
+    sv.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (a train task's) or .npz params file")
+    sv.add_argument("--storage-task", default=None, metavar="PROJECT/DAG/TASK",
+                    help="resolve the checkpoint from model storage instead of --ckpt")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8900)
     sv.add_argument("--batch-sizes", default="1,2,4,8")
@@ -143,12 +169,24 @@ def main(argv=None) -> int:
                     " load) or the CUDA int8 matmul ('kernel')")
     sv.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache read by the CUDA flash-decode kernel")
-    sv.add_argument("--batcher", default="auto", choices=("auto", "continuous", "window"),
+    sv.add_argument("--batcher", default="auto",
+                    choices=("auto", "continuous", "window", "speculative"),
                     help="'continuous' (the default, 'auto'): fixed decode slots,"
                     " requests join a running decode at a dispatch boundary,"
                     " finished rows free their slot, tokens stream (POST"
                     " /generate with \"stream\": true -> SSE).  'window': one"
-                    " generate per arrival window (offline batch generation)")
+                    " generate per arrival window (offline batch generation)."
+                    "  'speculative': B=1 latency mode, each request alone through"
+                    " the n-gram speculative loop (greedy-only; see --spec-k)")
+    sv.add_argument("--spec-k", type=int, default=8,
+                    help="speculative batcher: draft tokens per verify forward")
+    sv.add_argument("--engine-spec-k", type=int, default=None,
+                    help="continuous batcher: batched speculative decoding; every"
+                    " dispatch drafts and verifies K tokens per slot in one"
+                    " per-row-cursor forward (greedy-only).  Replaces the K-step"
+                    " dispatch, so --steps-per-dispatch is ignored (the engine"
+                    " warns if both are set); with --quantize kernel keep"
+                    " slots*(K+1) <= 64 or the verify leaves the int8 decode kernel")
     sv.add_argument("--steps-per-dispatch", type=_steps_per_dispatch, default=None,
                     help="continuous batcher: decode steps per dispatch (K)."
                     " Default 'adaptive': K picked per boundary from the queue"
@@ -232,6 +270,15 @@ def main(argv=None) -> int:
                    help="torch device the tasks run on (default cuda; 'cpu' runs the"
                    " kernels' plain versions on the CPU)")
     d.set_defaults(fn=_cmd_dag)
+
+    av = sub.add_parser("average", help="weight-space average of checkpoints (SWA / model"
+                        " soup); saves a weights-only checkpoint that eval/infer/serve read")
+    av.add_argument("sources", nargs="+", metavar="DIR[:STEP]",
+                    help="checkpoint dirs (latest step unless :STEP given)")
+    av.add_argument("--out", required=True, help="output checkpoint dir")
+    av.add_argument("--weights", default=None,
+                    help="comma-separated per-source weights (normalized)")
+    av.set_defaults(fn=_cmd_average)
     args = p.parse_args(argv)
     return args.fn(args)
 

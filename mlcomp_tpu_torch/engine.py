@@ -71,14 +71,21 @@ layouts.
   ``cache.capture``); and warm functions that launch every kernel of the
   served configuration before a daemon reports ready.
 
+- Speculative dispatch (``spec_k``, greedy only): each dispatch takes
+  every live row's next token, drafts ``spec_k`` more by bigram
+  prompt-lookup over the row's device-carried token history
+  (``models/speculative.ngram_propose``), scores all K+1 in ONE
+  per-row-cursor forward (the chunk kernel B4 on the dense int8 cache,
+  B7 through pages) and advances each row by its accepted prefix plus one
+  token, all on the device; the packed readback is (3, K+1, slots).
+
 PyTorch runs eagerly, so the JAX package's jitted, donated programs
 become Python code that launches into preallocated device tensors updated
 in place.  The static buffers leave room to capture one CUDA graph per K
 rung; none is captured yet.
 
-Not in this engine (the JAX engine has them; see ROADMAP.md): speculative
-dispatch (A7), meshes and distributed gangs (A12), device profiling and
-the roofline gauges (A13).
+Not in this engine (the JAX engine has them; see ROADMAP.md): meshes and
+distributed gangs (A12), device profiling and the roofline gauges (A13).
 """
 
 from __future__ import annotations
@@ -118,7 +125,10 @@ from mlcomp_tpu_torch.kvpool.transfer import (
     rows_to_page_tiles,
 )
 from mlcomp_tpu_torch.models.generation import sample_token_rowwise_keyed
+from mlcomp_tpu_torch.models.speculative import ngram_propose
 from mlcomp_tpu_torch.obs.metrics import DEFAULT_MS_BUCKETS, Registry
+from mlcomp_tpu_torch.ops.cuda.quant_matmul import GEMV_ROWS
+from mlcomp_tpu_torch.ops.quant import Int8Linear
 from mlcomp_tpu_torch.serve import _bucket, _fail_future, left_pad_row
 from mlcomp_tpu_torch.utils.faults import inject as _inject_fault
 from mlcomp_tpu_torch.utils.trace import Tracer, make_trace_id, null_tracer, valid_trace_id
@@ -227,6 +237,10 @@ class DecodeEngine:
     each future resolves with ``{"handoff": blob, "pages", ...}``;
     ``kv_page_tokens`` then picks the export page size.
 
+    ``spec_k`` turns on speculative dispatch (module docstring): K+1
+    positions a row a dispatch, greedy requests only; ``steps_per_dispatch``
+    is then 1 and unread.
+
     ``prefix_cache`` (a ``cache.PrefixKVCache``) turns on the host prefix
     cache; ``flight_recorder_events`` bounds the recorder's ring (0
     disables it); ``metrics`` is the registry the engine's collector and
@@ -250,6 +264,7 @@ class DecodeEngine:
         kv_pages: Optional[int] = None,
         max_slots: Optional[int] = None,
         prefill_only: bool = False,
+        spec_k: Optional[int] = None,
         prefix_cache=None,
         flight_recorder_events: Optional[int] = 32768,
         metrics: Optional[Registry] = None,
@@ -258,6 +273,8 @@ class DecodeEngine:
         self.device = torch.device(model.device)
         self.prefill_only = bool(prefill_only)
         if self.prefill_only:
+            if spec_k is not None:
+                raise ValueError("prefill_only engines run no decode dispatch; drop spec_k")
             if kv_layout != "dense":
                 raise ValueError("prefill_only engines keep the dense admission cache (there "
                                  "are no decode slots to page); pass kv_page_tokens to pick "
@@ -281,17 +298,49 @@ class DecodeEngine:
         if isinstance(steps_per_dispatch, str) and not adaptive:
             raise ValueError("steps_per_dispatch must be an int, None, or "
                              f"'adaptive'; got {steps_per_dispatch!r}")
+        if adaptive and spec_k is not None:
+            # a verify has no K-step scan to adapt: say so rather than drop
+            # the knob silently
+            warnings.warn(f"spec_k={spec_k} engines ignore steps_per_dispatch='adaptive' (a "
+                          "speculative dispatch drafts and verifies spec_k+1 positions in one "
+                          "forward; there is no K-step scan to adapt); drop the knob or spec_k",
+                          stacklevel=2)
+            adaptive = False
+            steps_per_dispatch = None
         self._k_controller: Optional[AdaptiveKController] = None
         if adaptive:
             self._k_controller = AdaptiveKController(DEFAULT_LADDER)
             self.k_ladder = self._k_controller.ladder
             steps_per_dispatch = self.k_ladder[0]
-        self.steps_per_dispatch = int(4 if steps_per_dispatch is None else steps_per_dispatch)
+        if steps_per_dispatch is None:
+            steps_per_dispatch = 1 if spec_k is not None else 4
+        self.steps_per_dispatch = int(steps_per_dispatch)
         if self.steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         if not adaptive:
             self.k_ladder = (self.steps_per_dispatch,)
         self.adaptive_k = adaptive
+        if spec_k is not None and self.steps_per_dispatch != 1:
+            warnings.warn(f"spec_k={spec_k} engines ignore steps_per_dispatch (got "
+                          f"{self.steps_per_dispatch}): a speculative dispatch drafts and "
+                          "verifies spec_k+1 positions in one forward; drop steps_per_dispatch "
+                          "(or pass 1)", stacklevel=2)
+        self.spec_k = None if spec_k is None else int(spec_k)
+        # int8 weights through the kernel: the verify's products run
+        # slots*(spec_k+1) rows, and past GEMV_ROWS they leave the decode
+        # kernel for the tiled path
+        self._int8_kernel = any(isinstance(m, Int8Linear) for m in model.modules())
+        self._fatblock_scale_warned = False
+        if self.spec_k is not None:
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if self._int8_kernel and self.slots * (self.spec_k + 1) > GEMV_ROWS:
+                warnings.warn(
+                    f"slots*(spec_k+1) = {self.slots}*{self.spec_k + 1} = "
+                    f"{self.slots * (self.spec_k + 1)} exceeds the int8 kernel's fat-block "
+                    f"decode boundary (GEMV_ROWS = {GEMV_ROWS}): the speculative verify's "
+                    "products leave the decode kernel for the tiled path; shrink slots or "
+                    "spec_k so their product stays within budget", stacklevel=2)
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
@@ -313,8 +362,15 @@ class DecodeEngine:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         # +1 scratch slot: a RETIRED row's frozen cursor still receives each
         # step's K/V write (the device retires rows by masking emission,
-        # not by skipping the forward), one past its last budgeted slot
-        self.l_buf = self.prompt_buckets[-1] + self.max_new_cap + 1
+        # not by skipping the forward), one past its last budgeted slot; a
+        # verify writes spec_k more.  Without that slack RowCursors clamps
+        # a late row's K+1 writes back onto its own real K/V
+        self.l_buf = self.prompt_buckets[-1] + self.max_new_cap + (self.spec_k or 0) + 1
+        if self.spec_k is not None:
+            # the per-row token history the draft reads: real ids only,
+            # left-aligned (one scratch column past it takes the verify's
+            # invalid lanes: torch has no drop-mode scatter)
+            self.t_ids = self.prompt_buckets[-1] + self.max_new_cap
         self.vocab = int(model.vocab_size)
         self._cuda = self.device.type == "cuda"
         self.kv_layout = str(kv_layout)
@@ -346,9 +402,8 @@ class DecodeEngine:
                 self._export = PagedLayout(self._adm_cache, self.l_buf,
                                            self._page_quantum(kv_page_tokens))
             self._d = self._fresh_dstate()
-            kmax = max(self.k_ladder)
             ring = self.pipeline_depth + 1
-            n = 3 * kmax * self.max_slots
+            n = 3 * max(self._rows_out(k) for k in self.k_ladder) * self.max_slots
             self._ring_dev = [torch.zeros(n, device=self.device) for _ in range(ring)]
             self._ring_host = [torch.zeros(n, pin_memory=self._cuda) for _ in range(ring)]
         self._ring_i = 0
@@ -369,6 +424,13 @@ class DecodeEngine:
             "cache_degraded": 0, "watchdog_stalls": 0, "watchdog_restarts": 0,
             "dispatch_k_changes": 0,
         }
+        if self.spec_k is not None:
+            # live row-forwards across verifies: emitted_tokens / spec_rows
+            # is the measured acceptance (<= 1: speculation is a pure loss)
+            self._stats["spec_rows"] = 0
+        self._spec_warned = False
+        # sticky: flips once measured acceptance is <= 1 past 64 rows
+        self._spec_ineffective = False
         if self._pool is not None:
             # elastic resizes, pages allocated as cursors crossed page
             # boundaries, and rows failed by a dry pool at such a crossing
@@ -502,6 +564,9 @@ class DecodeEngine:
         if self._layout is not None:
             rows["table"] = torch.full((ns, self._layout.max_pages), GRAVE_PAGE, dtype=i32,
                                        device=dev)
+        if self.spec_k is not None:
+            rows["ids"] = torch.zeros((ns, self.t_ids + 1), dtype=i64, device=dev)
+            rows["ids_len"] = torch.zeros((ns,), dtype=i32, device=dev)
         return rows
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
@@ -542,6 +607,10 @@ class DecodeEngine:
         if n_new > self.max_new_cap:
             raise ValueError(f"max_new_tokens {n_new} exceeds the engine cap {self.max_new_cap}")
         self._bucket(len(ids))  # validate now, in the caller thread
+        if self.spec_k is not None and (float(temperature) != 0.0
+                                        or float(repetition_penalty) != 1.0):
+            raise ValueError("a speculative engine (spec_k set) is greedy-only: temperature "
+                             "must be 0 and repetition_penalty 1")
         if self.prefill_only and stream is not None:
             raise ValueError("a prefill_only engine emits no tokens to stream: the future "
                              "resolves with the handoff payload (decode, and stream, on a "
@@ -811,17 +880,27 @@ class DecodeEngine:
             out["live_slots"] = len(self._host)
             out["max_slots"] = self.max_slots
             out["kv_pool"] = self._pool_stats()
+        if self.spec_k is not None:
+            rows = self._stats["spec_rows"]
+            acc = self._stats["emitted_tokens"] / rows if rows else None
+            out["spec"] = {
+                "spec_k": self.spec_k,
+                # tokens a row a verify; a plain step emits exactly 1
+                "acceptance_tokens_per_row": round(acc, 3) if acc is not None else None,
+                "spec_net_gain": round(acc - 1.0, 3) if acc is not None else None,
+                "spec_ineffective": self._spec_ineffective,
+            }
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.stats()
         return out
 
     def _kv_bytes_moved_per_dispatch(self) -> int:
         """Estimated KV bytes one dispatch moves through device memory: K
-        forwards each read the dense buffer, or the live page mappings
-        through the table (the int8 family), or the live pages gathered
-        into each layer's dense view and that view read (the bf16
+        forwards (one for a verify) each read the dense buffer, or the live
+        page mappings through the table (the int8 family), or the live pages
+        gathered into each layer's dense view and that view read (the bf16
         family's gather path)."""
-        fw = self.steps_per_dispatch
+        fw = 1 if self.spec_k is not None else self.steps_per_dispatch
         if self._pool is None:
             return fw * sum(t.numel() * t.element_size() for layer in self._d["cache"].layers
                             for t in vars(layer).values())
@@ -838,8 +917,7 @@ class DecodeEngine:
         registry (``set_total`` keeps counters monotonic across scrapes);
         the hot path pays nothing for /metrics.  The JAX engine's
         families, less those whose subject the port has no module for yet:
-        speculation (A7), meshes (A12), device profiles and rooflines
-        (A13)."""
+        meshes (A12), device profiles and rooflines (A13)."""
         m = self.metrics
         st = self._stats
 
@@ -863,6 +941,14 @@ class DecodeEngine:
             st["fused_chunks"])
         ctr("mlcomp_engine_admissions_overlapped_total",
             "Completed admissions with at least one fused chunk", st["admissions_overlapped"])
+        if self.spec_k is not None and st.get("spec_rows"):
+            gau("mlcomp_engine_spec_net_gain", "Accepted tokens per row per verify forward "
+                "minus 1 (<= 0: speculation is a measured net loss)",
+                st["emitted_tokens"] / st["spec_rows"] - 1.0)
+        if self.spec_k is not None:
+            gau("mlcomp_engine_spec_ineffective", "1 once measured acceptance fell to <= 1 "
+                "token/row/forward past the 64-row window (sticky): speculation is burning "
+                "fat-block rows for nothing", 1 if self._spec_ineffective else 0)
         gau("mlcomp_engine_dispatch_k", "Decode steps per dispatch currently in effect (the "
             "adaptive controller's pick, or the pinned K)", self.steps_per_dispatch)
         ctr("mlcomp_engine_dispatch_k_changes_total",
@@ -1098,22 +1184,89 @@ class DecodeEngine:
             live = live & ~done_now
         d["active"].copy_(live)
 
+    def _spec_steps(self, out: torch.Tensor, d: Optional[Dict[str, Any]] = None) -> None:
+        """One speculative VERIFY of every slot, in place on the device state
+        (``d`` as in :meth:`_decode_steps`): each live row takes its greedy
+        token 0, drafts ``spec_k`` more from its token history, scores all
+        K+1 in one per-row-cursor forward (B4 dense, B7 paged), accepts the
+        draft's agreeing prefix (cut at EOS and at the budget) and advances
+        cursor, position, budget and history by the e tokens emitted; the
+        next dispatch starts from the logits after the last of them.  The
+        rejected positions' K/V lie past the new cursor, masked, and the
+        next verify overwrites them.  Token j's logprob scores it against
+        the logits before it.  (tokens, logprobs, valid) land in ``out``
+        (3, K+1, slots).  Nothing here waits for the device."""
+        d = self._d if d is None else d
+        kk = self.spec_k
+        dev = self.device
+        ns = d["active"].shape[0]
+        rows = torch.arange(ns, device=dev)
+        cache = d["cache"] if self._layout is None else PagedKV(
+            self._layout, d["pages"], d["table"])
+        live0 = d["active"].clone()
+        tok0 = torch.argmax(d["last_logits"], dim=-1)
+        tok0 = torch.where(live0, tok0, torch.full_like(tok0, self.pad_id))
+        prop = ngram_propose(d["ids"][:, : self.t_ids], d["ids_len"], tok0, kk, self.pad_id)
+        seq = torch.cat([tok0[:, None], prop], dim=1)                  # (slots, K+1)
+        j = torch.arange(kk + 1, device=dev)[None]
+        lg = self.model(seq, positions=d["positions"][:, None] + j, cache=cache,
+                        cache_cursor=d["cursors"], kv_start=d["kv_start"])  # (slots, K+1, V)
+        greedy = torch.argmax(lg, dim=-1)
+        accepted = torch.cumprod((prop == greedy[:, :kk]).long(), dim=1).sum(1)
+        e = torch.minimum(accepted + 1, d["remaining"].long())
+        eos_hit = (seq == d["eos"][:, None]) & (j < e[:, None])
+        any_eos = eos_hit.any(dim=1)
+        first = torch.argmax(eos_hit.int(), dim=1)
+        e = torch.where(any_eos, torch.minimum(e, first + 1), e)
+        e = torch.where(live0, e, torch.zeros_like(e))
+        prevl = torch.cat([d["last_logits"][:, None], lg[:, :kk]], dim=1)
+        lp = torch.log_softmax(prevl, dim=-1).gather(-1, seq[..., None])[..., 0]
+        valid = j < e[:, None]
+        # invalid lanes write the scratch column past the history
+        write_idx = torch.where(valid, d["ids_len"].long()[:, None] + j,
+                                torch.full_like(seq, self.t_ids))
+        d["ids"].scatter_(1, write_idx, seq)
+        e32 = e.to(torch.int32)
+        d["ids_len"].add_(e32)
+        d["cursors"].add_(e32)
+        d["positions"].add_(e)
+        d["remaining"].sub_(e32)
+        d["active"].copy_(live0 & ~any_eos & (d["remaining"] > 0))
+        d["last_logits"].copy_(lg[rows, torch.clamp(e - 1, min=0)])
+        out[0].copy_(seq.T)
+        out[1].copy_(lp.T)
+        out[2].copy_(valid.T)
+
+    def _dispatch_steps(self, k: int, out: torch.Tensor, d: Optional[Dict[str, Any]] = None
+                        ) -> None:
+        """The dispatch body: a verify on a speculative engine, else K
+        decode steps."""
+        if self.spec_k is not None:
+            self._spec_steps(out, d)
+        else:
+            self._decode_steps(k, out, d)
+
     # ------------------------------------------------------------ warmup
 
     def warm_dispatch_fns(self) -> int:
-        """Run one decode dispatch per rung of the K ladder on a throwaway
-        state (service warmup): every decode-path kernel launches (and
-        builds, on a card) before the first request.  Nothing the drive
-        loop owns is touched; it idles while this runs."""
+        """Run one decode dispatch per rung of the K ladder (one verify on
+        a speculative engine: B4, or B7 through pages) on a throwaway state
+        (service warmup): every decode-path kernel launches (and builds, on
+        a card) before the first request.  Nothing the drive loop owns is
+        touched; it idles while this runs."""
         if self.prefill_only:
             return 0  # no decode dispatch ever issues
         with torch.inference_mode():
             d = self._fresh_dstate()
             for k in self.k_ladder:
-                out = torch.zeros((3, k, self.slots), device=self.device)
-                self._decode_steps(k, out, d)
+                out = torch.zeros((3, self._rows_out(k), self.slots), device=self.device)
+                self._dispatch_steps(k, out, d)
                 out.cpu()   # wait until it ran
         return len(self.k_ladder)
+
+    def _rows_out(self, k: int) -> int:
+        """Packed rows a dispatch returns: K+1 for a verify, else K."""
+        return self.spec_k + 1 if self.spec_k is not None else k
 
     def warm_fused_fns(self) -> int:
         """One fused dispatch per distinct chunk width on throwaway state
@@ -1126,8 +1279,8 @@ class DecodeEngine:
             d = self._fresh_dstate()
             k = self.k_ladder[0]
             for c in widths:
-                out = torch.zeros((3, k, self.slots), device=self.device)
-                self._decode_steps(k, out, d)
+                out = torch.zeros((3, self._rows_out(k), self.slots), device=self.device)
+                self._dispatch_steps(k, out, d)
                 cache = self.model.init_cache(1, self.l_buf)
                 ids = torch.ones((1, c), dtype=torch.int64, device=self.device)
                 pos = torch.arange(c, device=self.device)[None]
@@ -1421,6 +1574,12 @@ class DecodeEngine:
                            ("k", req["top_k"]), ("p", req["top_p"]),
                            ("rp", req["repetition_penalty"]), ("rseed", rseed)):
             d[key][slot] = value
+        if self.spec_k is not None:
+            # the token history seeds the draft: the prompt's real ids
+            hist = np.zeros(self.t_ids + 1, np.int64)
+            hist[: len(ids)] = ids
+            d["ids"][slot].copy_(self._upload(hist))
+            d["ids_len"][slot] = len(ids)
         d["active"][slot] = True
 
     # --------------------------------------------- disaggregated handoff
@@ -1609,14 +1768,21 @@ class DecodeEngine:
     def _slot_span(self, s_bucket: int, n_ids: int, n_new: int) -> Tuple[int, int]:
         """A slot's WRITE span in cache-slot coordinates: from the left-pad
         boundary to the budget plus the scratch slot a retired row's frozen
-        cursor still writes.  Pages wholly inside the pad prefix (or past
-        the span) map NULL and cost nothing."""
-        return s_bucket - n_ids, s_bucket + int(n_new) + 1
+        cursor still writes (a verify widens it by K).  Pages wholly inside
+        the pad prefix (or past the span) map NULL and cost nothing."""
+        return s_bucket - n_ids, s_bucket + int(n_new) + (
+            self.spec_k + 1 if self.spec_k is not None else 1)
+
+    def _steps_hi(self) -> int:
+        """Cache slots one dispatch may advance a row at most (K steps, or
+        the K+1 positions of a verify): the lazy allocator's lookahead
+        unit."""
+        return self.spec_k + 1 if self.spec_k is not None else self.steps_per_dispatch
 
     def _alloc_end(self, s_bucket: int, span_end: int) -> int:
         """The span the INSERT backs with pages: the prefill plus one
         dispatch of decode lookahead; the rest is allocated lazily."""
-        return min(span_end, s_bucket + self.steps_per_dispatch + 1)
+        return min(span_end, s_bucket + self._steps_hi() + 1)
 
     def _req_span(self, req: Dict[str, Any]) -> Tuple[int, int, int]:
         s_bucket = self._bucket(len(req["ids"]))
@@ -1678,7 +1844,7 @@ class DecodeEngine:
             return
         pool = self._pool
         t = pool.page_tokens
-        lookahead = sum(inf.k for inf in self._inflight) + self.steps_per_dispatch + 1
+        lookahead = sum(inf.k for inf in self._inflight) + self._steps_hi() + 1
         grew = False
         for i, sl in enumerate(self._host):
             if sl is None or sl.span_end is None:
@@ -1734,6 +1900,14 @@ class DecodeEngine:
         ns = len(self._host)
         if ns2 == ns:
             return
+        rows = ns2 * (self.spec_k + 1) if self.spec_k is not None else ns2
+        if self._int8_kernel and rows > GEMV_ROWS and not self._fatblock_scale_warned:
+            self._fatblock_scale_warned = True
+            warnings.warn(f"elastic scale-up to {ns2} slots puts {rows} rows through the int8 "
+                          f"kernels, past the fat-block decode boundary (GEMV_ROWS = "
+                          f"{GEMV_ROWS}): dispatches at this width leave the decode kernel for "
+                          "the tiled path; cap max_slots (or spec_k) to keep the row count "
+                          "within budget", stacklevel=2)
         self._busy_since = time.perf_counter()
         try:
             with self.recorder.span("scale_slots", track="engine.loop", frm=ns, to=ns2):
@@ -1787,9 +1961,10 @@ class DecodeEngine:
         # find every slot they can write backed by a page
         self._lazy_extend_tick()
         k, ns = self.steps_per_dispatch, len(self._host)
-        n = 3 * k * ns
-        dev = self._ring_dev[self._ring_i][:n].view(3, k, ns)
-        host = self._ring_host[self._ring_i][:n].view(3, k, ns)
+        r = self._rows_out(k)
+        n = 3 * r * ns
+        dev = self._ring_dev[self._ring_i][:n].view(3, r, ns)
+        host = self._ring_host[self._ring_i][:n].view(3, r, ns)
         self._ring_i = (self._ring_i + 1) % len(self._ring_dev)
         self._busy_since = time.perf_counter()
         event = None
@@ -1806,7 +1981,7 @@ class DecodeEngine:
                                 fused=True)
             with rec.span("issue", track="engine.loop", seq=seq,
                           **({"fused": True} if fused is not None else {})):
-                self._decode_steps(k, dev)
+                self._dispatch_steps(k, dev)
                 if self._cuda:
                     host.copy_(dev, non_blocking=True)
                     event = torch.cuda.Event()
@@ -1822,7 +1997,9 @@ class DecodeEngine:
                     self._stats["fused_chunks"] += 1
         finally:
             self._busy_since = None
-        self._inflight.append(_Inflight(host, event, time.perf_counter(), k, seq))
+        # each dispatch carries the slots it may advance a row: the lazy
+        # page allocator prices the in-flight window by it
+        self._inflight.append(_Inflight(host, event, time.perf_counter(), self._steps_hi(), seq))
         self._dispatches_by_k[k] = self._dispatches_by_k.get(k, 0) + 1
         p = self._pstats
         p["issued"] += 1
@@ -1861,8 +2038,14 @@ class DecodeEngine:
         lps = arr[1]
         valid = arr[2] > 0.5
         self._stats["dispatches"] += 1
-        self._stats["steps"] += toks.shape[0]
+        # device forwards: a verify is ONE however many rows it packs
+        self._stats["steps"] += 1 if self.spec_k is not None else toks.shape[0]
         self._stats["emitted_tokens"] += int(valid.sum())
+        if self.spec_k is not None:
+            # a live row emits >= 1 token a verify: rows with any valid
+            # token are the verify's live row-forwards
+            self._stats["spec_rows"] += int(valid.any(axis=0).sum())
+            self._maybe_warn_spec_loss()
         for kk in range(toks.shape[0]):
             self.step_count += 1
             for i, sl in enumerate(self._host):
@@ -1882,6 +2065,24 @@ class DecodeEngine:
                 if sl.remaining <= 0 or tok == sl.req["eos_id"]:
                     self._finish(i)
                     self._release_slot_pages(i)
+
+    def _maybe_warn_spec_loss(self) -> None:
+        """Warn once, and set the sticky ``spec_ineffective``, when measured
+        acceptance past 64 row-forwards is at most one token a row a verify:
+        every verify then emitted what a plain step would, at K+1 the
+        width."""
+        if self._spec_warned or self._stats["spec_rows"] < 64:
+            return
+        acc = self._stats["emitted_tokens"] / self._stats["spec_rows"]
+        if acc <= 1.0 + 1e-6:
+            self._spec_warned = True
+            self._spec_ineffective = True
+            warnings.warn(f"speculative decoding (spec_k={self.spec_k}) is a measured net LOSS "
+                          f"on this traffic: acceptance {acc:.2f} tokens/row/forward over "
+                          f"{self._stats['spec_rows']} row-forwards; every verify forward emits "
+                          "no more than a plain decode step while paying the K+1-wide cost; "
+                          "drop --engine-spec-k (spec_net_gain in stats() / /healthz tracks "
+                          "this live)", stacklevel=2)
 
     def _drain_inflight(self) -> None:
         """Resolve every in-flight dispatch (the recorded join drain), at

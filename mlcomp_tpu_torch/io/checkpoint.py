@@ -9,8 +9,13 @@ writes into a temporary directory and renames it, so a reader sees a
 whole checkpoint or none; the newest ``max_to_keep`` are kept.
 :class:`AsyncCheckpointWriter` copies the state to the host before
 ``save`` returns (the next step may update the parameters in place) and
-writes it on a background thread.  ``read_weights``, ``restore_eval_state``
-and ``average_checkpoints`` come with the valid/infer executors.
+writes it on a background thread.
+
+The eval side reads weights only: :func:`read_weights` (the flax-layout
+params tree, EMA weights preferred), :func:`restore_eval_state` (those
+weights into a TrainState, for the valid/infer/generate executors) and
+:func:`average_checkpoints` (a weight-space average saved as a
+weights-only checkpoint, which both readers and ``serve --ckpt`` take).
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import os
 import shutil
 import threading
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 _FILE = "state.pt"
@@ -130,3 +136,108 @@ class AsyncCheckpointWriter:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _read(directory: str | Path, step: Optional[int]) -> Dict[str, Any]:
+    directory = Path(directory).absolute()
+    step = step if step is not None else latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    # mmap: the optimizer state is not read unless touched
+    payload = torch.load(directory / str(int(step)) / _FILE, map_location="cpu",
+                         weights_only=False, mmap=True)
+    payload.setdefault("step", step)
+    return payload
+
+
+def _flat_weights(payload: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The weights a checkpoint serves, by flax path: the EMA parameters
+    when it tracked them, else the parameters."""
+    return payload.get("ema_params") or payload["params"]
+
+
+def read_weights(directory: str | Path, step: Optional[int] = None) -> Dict[str, Any]:
+    """Weights-only read to the host: ``{"params": the flax-layout tree
+    (nested dicts of CPU tensors in the training shapes), "model_state":
+    {}, "step"}``, preferring the EMA weights when the checkpoint carries
+    them.  Needs no TrainState: the building block of ``serve --ckpt DIR``
+    and of :func:`average_checkpoints`."""
+    from mlcomp_tpu_torch.io.weights import unflatten
+
+    payload = _read(directory, step)
+    return {"params": unflatten(dict(_flat_weights(payload))), "model_state": {},
+            "step": int(payload["step"])}
+
+
+def restore_eval_state(directory: str | Path, state: Any, step: Optional[int] = None) -> Any:
+    """Weights-only restore for the eval/infer/generate executors: the
+    checkpoint's weights (EMA preferred) into ``state.params`` in place
+    and its step; the optimizer state on disk is never read, so these
+    stages need not repeat the train task's optimizer config.  The EMA
+    weights become the parameters, and ``state.ema_params`` is dropped, as
+    in the JAX package.  Returns ``state``."""
+    payload = _read(directory, step)
+    src = _flat_weights(payload)
+    missing = sorted(set(state.params) - set(src))
+    if missing:
+        raise ValueError(f"checkpoint under {directory} lacks {missing[:3]}... (another model?)")
+    with torch.no_grad():
+        for k, p in state.params.items():
+            if tuple(src[k].shape) != tuple(p.shape):
+                raise ValueError(f"checkpoint leaf {k} is {tuple(src[k].shape)}; the model's "
+                                 f"is {tuple(p.shape)}")
+            p.copy_(src[k])
+    state.ema_params = None
+    state.step = int(payload["step"])
+    return state
+
+
+def _parse_source(src) -> "tuple[str, Optional[int]]":
+    """``"dir"``, ``"dir:step"`` or a (dir, step) pair."""
+    if isinstance(src, (tuple, list)):
+        return str(src[0]), (None if len(src) < 2 else int(src[1]))
+    s = str(src)
+    if ":" in s:
+        head, _, tail = s.rpartition(":")
+        if tail.isdigit():
+            return head, int(tail)
+    return s, None
+
+
+def average_checkpoints(sources: Sequence[Any], out_dir: str | Path,
+                        weights: Optional[Sequence[float]] = None) -> str:
+    """Weight-space average of checkpoints (SWA, a model soup): ``sources``
+    are ``"dir"`` or ``"dir:step"`` strings (or (dir, step) pairs), each
+    contributing its EMA weights when it has them; ``weights`` (normalised)
+    default to equal.  The sums run in float64, as the JAX package's
+    average does, and each leaf casts back to the first source's dtype.
+    The result is saved weights-only at the largest source step; it
+    restores through :func:`read_weights`, :func:`restore_eval_state` and
+    ``serve --ckpt``.  Returns the step directory."""
+    parsed = [_parse_source(s) for s in sources]
+    if len(parsed) < 2:
+        raise ValueError(f"averaging needs >= 2 checkpoints, got {len(parsed)}")
+    if weights is None:
+        weights = [1.0 / len(parsed)] * len(parsed)
+    if len(weights) != len(parsed):
+        raise ValueError(f"{len(weights)} weights for {len(parsed)} checkpoints")
+    total = float(sum(weights))
+    if total <= 0:
+        raise ValueError("weights must sum to a positive value")
+    acc: Optional[Dict[str, np.ndarray]] = None
+    dtypes: Dict[str, torch.dtype] = {}
+    max_step = 0
+    for (d, step), w in zip(parsed, weights):
+        payload = _read(d, step)
+        max_step = max(max_step, int(payload["step"]))
+        flat = _flat_weights(payload)
+        if acc is None:
+            acc = {k: np.zeros(tuple(v.shape), np.float64) for k, v in flat.items()}
+            dtypes = {k: v.dtype for k, v in flat.items()}
+        elif set(flat) != set(acc) or any(tuple(flat[k].shape) != acc[k].shape for k in acc):
+            raise ValueError(f"checkpoint {d} has a different parameter structure")
+        for k, v in flat.items():
+            acc[k] += v.detach().double().numpy() * (float(w) / total)
+    out = {"step": max_step,
+           "params": {k: torch.from_numpy(a).to(dtypes[k]) for k, a in acc.items()}}
+    return _write(Path(out_dir).absolute(), out, max_step, max_to_keep=3)

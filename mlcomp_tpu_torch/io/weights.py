@@ -121,14 +121,19 @@ def save_npz(path: str, tree) -> None:
     np.savez(path, **flat)
 
 
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """A nested tree from leaves keyed by paths joined with ``/``."""
+    tree: Dict[str, Any] = {}
+    for key, leaf in flat.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
 def load_npz(path: str):
     """Inverse of :func:`save_npz`: a nested dict of numpy arrays."""
-    tree: Dict[str, Any] = {}
     with np.load(path) as z:
-        for key in z.files:
-            node = tree
-            parts = key.split("/")
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = z[key]
-    return tree
+        return unflatten({key: z[key] for key in z.files})

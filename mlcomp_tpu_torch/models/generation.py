@@ -186,6 +186,25 @@ def prep_decode_variables(model, params, quant_kernel: bool = False):
     return model
 
 
+def load_decode_weights(model, params, quantize: "bool | str" = False) -> Optional[str]:
+    """Load a float flax-layout ``params`` tree into ``model`` for decoding
+    under the ``quantize`` mode of the service and the generate executor:
+    False (as it is), True or ``"int8"`` (int8 weights dequantized once at
+    load) or ``"kernel"`` (int8 weights through the int8 matmul, B1/B2).
+    Returns the mode (None, "int8" or "kernel")."""
+    from mlcomp_tpu_torch.ops.quant import quantize_params
+
+    mode = None
+    if quantize:
+        mode = "int8" if quantize is True else str(quantize).strip().lower()
+        if mode not in ("int8", "kernel"):
+            # a typo must not silently fall back to another mode
+            raise ValueError(f"quantize: expected False/True/'int8'/'kernel', got {quantize!r}")
+        params = quantize_params(params)
+    prep_decode_variables(model, params, quant_kernel=mode == "kernel")
+    return mode
+
+
 def _rows(x, b: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype).reshape(-1).to(device).expand(b)
 

@@ -1,6 +1,6 @@
 """LM serving over HTTP: the counterpart of mlcomp_tpu/serve.py.
 
-Two batchers, picked by ``GenerationService(batcher=)``:
+Three batchers, picked by ``GenerationService(batcher=)``:
 
 - ``"continuous"`` (the default; ``"auto"`` means it): the slot engine
   (``engine.DecodeEngine``).  Requests join a running decode at a dispatch
@@ -16,6 +16,13 @@ Two batchers, picked by ``GenerationService(batcher=)``:
   bucket, the batch pads to a batch-size bucket with copies of row 0, and
   per-request sampling knobs ride as per-row arrays.  One background
   thread owns all device work.
+- ``"speculative"``: the B = 1 latency mode.  Each request runs alone
+  through ``models.speculative.speculative_generate`` (bigram draft,
+  K+1-wide verify; greedy only, no logprobs, no repetition penalty), one
+  request at a time on the window batcher's thread.
+
+``engine_spec_k`` makes the continuous engine speculate (its dispatch is
+then a verify of ``engine_spec_k + 1`` positions a row; greedy only).
 
 ``phase`` is the disaggregated serving role: ``"both"`` (the default) the
 monolithic daemon; ``"prefill"`` runs the continuous engine's admission
@@ -161,6 +168,9 @@ class GenerationService:
     the paged layout, ``max_slots`` defaulting to 4 x the slots).
     ``phase`` is the disaggregated serving role (module docstring).
 
+    ``spec_k`` is the speculative batcher's draft length; ``engine_spec_k``
+    turns on the continuous engine's speculative dispatch.
+
     Continuous batcher only: ``prefix_cache`` turns on the host prefix
     cache (``prefix_cache_bytes`` its budget); ``flight_recorder_events``
     bounds the engine's recorder; ``max_queue_depth`` and
@@ -195,6 +205,8 @@ class GenerationService:
         kv_page_tokens: Optional[int] = None,
         kv_pages: Optional[int] = None,
         max_slots: Optional[int] = None,
+        spec_k: int = 8,
+        engine_spec_k: Optional[int] = None,
         phase: str = "both",
         prefix_cache: bool = False,
         prefix_cache_bytes: int = 1 << 31,
@@ -204,19 +216,19 @@ class GenerationService:
         metrics_history_interval: Optional[float] = 5.0,
         slo_config: Optional[Dict[str, Any]] = None,
     ):
-        from mlcomp_tpu_torch.models.generation import prep_decode_variables
-        from mlcomp_tpu_torch.ops.quant import quantize_params
+        from mlcomp_tpu_torch.models.generation import load_decode_weights
 
         if batcher == "auto":
             batcher = "continuous"
-        if batcher not in ("continuous", "window"):
-            raise ValueError(f"batcher: expected 'auto'/'continuous'/'window', got {batcher!r}")
-        if batcher == "window" and (
+        if batcher not in ("continuous", "window", "speculative"):
+            raise ValueError("batcher: expected 'auto'/'continuous'/'window'/'speculative', got "
+                             f"{batcher!r}")
+        if batcher != "continuous" and (
                 engine_fused_admission is not None
                 or (engine_pipeline_depth is not None and int(engine_pipeline_depth) > 1)):
             raise ValueError("engine_pipeline_depth > 1 and engine_fused_admission need "
                              "the continuous batcher")
-        if batcher == "window" and (kv_layout != "dense" or kv_page_tokens is not None
+        if batcher != "continuous" and (kv_layout != "dense" or kv_page_tokens is not None
                                     or kv_pages is not None or max_slots is not None):
             raise ValueError("kv_layout / kv_page_tokens / kv_pages / max_slots need the "
                              "continuous batcher (only the slot engine owns a device KV pool)")
@@ -226,6 +238,8 @@ class GenerationService:
         if self.phase != "both" and batcher != "continuous":
             raise ValueError("phase-split serving needs the continuous batcher (only the slot "
                              "engine owns an admission core)")
+        if self.phase == "prefill" and engine_spec_k is not None:
+            raise ValueError("a prefill replica runs no decode dispatch; drop engine_spec_k")
         if self.phase == "decode" and kv_layout != "paged":
             raise ValueError("phase='decode' needs kv_layout='paged': handoff imports land "
                              "as pages in the engine's PagePool")
@@ -255,13 +269,25 @@ class GenerationService:
             "eos_id": eos_id, "repetition_penalty": float(repetition_penalty),
         }
         self._neutral_k = int(model.vocab_size)
-        self.quant_mode = None
-        if quantize:
-            self.quant_mode = "int8" if quantize is True else str(quantize).strip().lower()
-            if self.quant_mode not in ("int8", "kernel"):
-                raise ValueError(f"quantize: expected False/'int8'/'kernel', got {quantize!r}")
-            params = quantize_params(params)
-        prep_decode_variables(model, params, quant_kernel=self.quant_mode == "kernel")
+        self.spec_k = int(spec_k)
+        if batcher == "speculative":
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if self.defaults["temperature"] != 0.0:
+                raise ValueError("the speculative batcher is greedy-only; set the service "
+                                 "default temperature to 0")
+            if self.defaults["repetition_penalty"] != 1.0:
+                raise ValueError("repetition_penalty is not supported by the speculative "
+                                 "batcher; drop the service default")
+            # one request a call, B = 1 by design
+            self.batch_sizes = (1,)
+        if engine_spec_k is not None:
+            if batcher != "continuous":
+                raise ValueError("engine_spec_k needs the continuous batcher")
+            if self.defaults["temperature"] != 0.0 or self.defaults["repetition_penalty"] != 1.0:
+                raise ValueError("engine_spec_k engines are greedy-only: service defaults must "
+                                 "keep temperature 0 and repetition_penalty 1")
+        self.quant_mode = load_decode_weights(model, params, quantize)
         self.request_timeout_s = float(request_timeout_s)
         if self.request_timeout_s <= 0:
             raise ValueError(f"request_timeout_s must be positive, got {request_timeout_s}")
@@ -271,6 +297,8 @@ class GenerationService:
         self._queue: "queue.Queue" = queue.Queue()
         self._deferred: List[Dict[str, Any]] = []
         self._stats = {"requests": 0, "batches": 0, "batched_rows": 0}
+        if batcher == "speculative":
+            self._stats.update(spec_tokens=0, spec_forwards=0)
         self._stop = threading.Event()
         # the scrape registry behind GET /metrics: the engine registers its
         # collector and histograms into it, the service its own counters
@@ -295,8 +323,10 @@ class GenerationService:
             self.engine = DecodeEngine(
                 model, slots=self.batch_sizes[-1], prompt_buckets=self.prompt_buckets,
                 max_new_cap=self.max_new_buckets[-1], pad_id=self.pad_id, seed=seed,
+                # adaptive K by default; a spec engine reads no K
                 steps_per_dispatch=("adaptive" if steps_per_dispatch is None
-                                    else steps_per_dispatch),
+                                    and engine_spec_k is None else steps_per_dispatch),
+                spec_k=engine_spec_k,
                 prefill_chunk=prefill_chunk, pipeline_depth=engine_pipeline_depth,
                 fused_admission=engine_fused_admission,
                 dispatch_stall_timeout=dispatch_stall_timeout,
@@ -376,6 +406,15 @@ class GenerationService:
             raise ValueError(f"prompt ids must lie in [0, {self._neutral_k})")
         _bucket(len(ids), self.prompt_buckets, "prompt length")
         nb = _bucket(n_new, self.max_new_buckets, "max_new_tokens")
+        if self.batcher == "speculative":
+            if t != 0.0:
+                raise ValueError("the speculative batcher is greedy-only (temperature 0); use "
+                                 "the continuous batcher for sampling")
+            if rp != 1.0:
+                raise ValueError("repetition_penalty is not supported by the speculative "
+                                 "batcher")
+            if logprobs:
+                raise ValueError("logprobs are not supported by the speculative batcher")
         if self.engine is not None:
             self._admission_check(ids, n_new)
             # a client may only tighten the operator's request timeout
@@ -548,7 +587,9 @@ class GenerationService:
         registry, one decode dispatch per K rung, one fused dispatch per
         chunk width, the prefix cache's copies and the registry's gather;
         on the window batcher one generate per max_new bucket at the
-        smallest and largest batch.  ``ready`` reads false meanwhile.
+        smallest and largest batch; on the speculative batcher one
+        speculative decode per (prompt, max_new) bucket.  ``ready`` reads
+        false meanwhile.
         Returns the number of warm runs."""
         self._warming = True
         try:
@@ -569,6 +610,18 @@ class GenerationService:
                 f.result(timeout=self.request_timeout_s)
             return (len(futs) + eng.warm_prefix_fns() + eng.warm_dispatch_fns()
                     + eng.warm_fused_fns() + eng.warm_registry_fns())
+        if self.batcher == "speculative":
+            from mlcomp_tpu_torch.models.speculative import speculative_generate
+
+            n = 0
+            for s in self.prompt_buckets:
+                for nb in self.max_new_buckets:
+                    row, mask = left_pad_row([1], s, self.pad_id)
+                    speculative_generate(self.model, torch.from_numpy(row[None]), nb,
+                                         prompt_mask=torch.from_numpy(mask[None]),
+                                         spec_k=self.spec_k, pad_id=self.pad_id).cpu()
+                    n += 1
+            return n
         from mlcomp_tpu_torch.models.generation import generate
 
         n = 0
@@ -603,6 +656,9 @@ class GenerationService:
             out["requests"] = eng["requests"]
             out["healthy"] = eng["healthy"]
             out["latency"] = eng["latency"]
+            if "spec" in eng:
+                # the acceptance block rides /healthz's top level
+                out["spec"] = eng["spec"]
             if "kv_pool" in eng:
                 out["kv_pool"] = eng["kv_pool"]
                 out["live_slots"] = eng.get("live_slots")
@@ -762,7 +818,10 @@ class GenerationService:
                 if not batch:
                     continue
                 try:
-                    self._run_batch(batch)
+                    if self.batcher == "speculative":
+                        self._run_spec(batch[0])   # batch_sizes == (1,)
+                    else:
+                        self._run_batch(batch)
                 except Exception as e:  # surface to the waiting requests
                     for item in batch:
                         _fail_future(item["future"], e)
@@ -777,6 +836,32 @@ class GenerationService:
                 except queue.Empty:
                     break
                 _fail_future(item["future"], err)
+
+    def _run_spec(self, item: Dict[str, Any]) -> None:
+        """One request through ``speculative_generate`` (the speculative
+        batcher): its prompt left-padded into its bucket, its ``max_new``
+        bucket as the budget, the ids trimmed as the window batcher's."""
+        from mlcomp_tpu_torch.models.speculative import speculative_generate
+
+        t0 = time.perf_counter()
+        s_bucket = _bucket(len(item["ids"]), self.prompt_buckets, "prompt")
+        row, mask = left_pad_row(item["ids"], s_bucket, self.pad_id)
+        eos = item.get("eos_id", -1)
+        out, st = speculative_generate(
+            self.model, torch.from_numpy(row[None]), item["bucket_new"],
+            prompt_mask=torch.from_numpy(mask[None]), spec_k=self.spec_k,
+            eos_id=None if eos < 0 else eos, pad_id=self.pad_id, with_stats=True)
+        gen = _trim_generated(out[0].cpu().numpy(), s_bucket, item)
+        self._stats["batches"] += 1
+        self._stats["batched_rows"] += 1
+        self._stats["spec_tokens"] += int(st["emitted"])
+        self._stats["spec_forwards"] += int(st["steps"])
+        item["future"].set_result({
+            "ids": gen,
+            "latency_ms": round((time.perf_counter() - t0) * 1e3, 2),
+            "batched_with": 1,
+            "trace_id": item.get("trace_id"),
+        })
 
     def _run_batch(self, batch: List[Dict[str, Any]]) -> None:
         from mlcomp_tpu_torch.models.generation import generate
@@ -817,10 +902,14 @@ def load_service(model_cfg: Dict[str, Any], ckpt_path: Optional[str] = None,
                  params=None, device=None, **service_kw) -> GenerationService:
     """Build the model on ``device`` (default ``cuda``; raises when there is
     no card and ``device="cpu"`` was not asked for), take its weights from
-    ``params`` (a flax-layout tree), the ``.npz`` at ``ckpt_path``, or
-    ``io.weights.init_params(model_cfg, 0)``, and wrap it in a
-    :class:`GenerationService`.  ``decode_fused: true`` fuses the
-    training-layout projections once here."""
+    ``params`` (a flax-layout tree), ``ckpt_path`` (a training checkpoint
+    directory, read through ``io.checkpoint.read_weights`` with its EMA
+    weights preferred, or an ``.npz``), or ``io.weights.init_params(model_cfg,
+    0)``, and wrap it in a :class:`GenerationService`.  ``decode_fused:
+    true`` fuses the training-layout projections once here."""
+    import os
+
+    from mlcomp_tpu_torch.io.checkpoint import read_weights
     from mlcomp_tpu_torch.io.weights import init_params, load_npz
     from mlcomp_tpu_torch.models import create_model
     from mlcomp_tpu_torch.models.transformer import fuse_decode_params
@@ -829,12 +918,28 @@ def load_service(model_cfg: Dict[str, Any], ckpt_path: Optional[str] = None,
     dev = resolve_device(device)
     model_cfg = dict(model_cfg)
     decode_fused = bool(model_cfg.pop("decode_fused", False))
-    if params is None:
+    if params is None and ckpt_path and os.path.isdir(ckpt_path):
+        params = read_weights(ckpt_path)["params"]
+    elif params is None:
         params = load_npz(ckpt_path) if ckpt_path else init_params(model_cfg, 0)
     if decode_fused:
         params = fuse_decode_params(params)
     model = create_model({**model_cfg, "decode_fused": decode_fused}, device=dev)
     return GenerationService(model, params, **service_kw)
+
+
+def resolve_storage_ckpt(project: str, dag_name: str, task: str) -> str:
+    """The checkpoint directory the train executor writes for
+    ``project/dag_name/task`` under model storage (``io.storage``); an
+    explicit ``--ckpt`` wins over it.  Raises when it holds no
+    checkpoint."""
+    from mlcomp_tpu_torch.io.checkpoint import latest_step
+    from mlcomp_tpu_torch.io.storage import ModelStorage
+
+    d = ModelStorage().root / project / dag_name / task / "checkpoints"
+    if latest_step(d) is None:
+        raise FileNotFoundError(f"no checkpoints under {d} (train first, or pass --ckpt)")
+    return str(d)
 
 
 # ------------------------------------------------------------------ HTTP

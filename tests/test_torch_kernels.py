@@ -129,6 +129,10 @@ def test_decode_attention_matches_pallas(h, h_kv, q_dtype):
 CHUNK_CASES = [
     pytest.param(1, 4, 2, "base", id="1"),
     pytest.param(5, 4, 2, "base", id="5"),
+    # the speculative verify's widths: spec_k 3, 7 and 8 (S = K + 1)
+    pytest.param(4, 4, 2, "base", id="spec-4"),
+    pytest.param(8, 4, 2, "mid", id="spec-8"),
+    pytest.param(9, 4, 2, "base", id="spec-9"),
     pytest.param(da.CHUNK_MAX_SQ + 8, 4, 2, "base", id="40"),
     # the card check's GQA case: G = 4 at a ragged S
     pytest.param(37, 8, 2, "mid", id="gqa4-37-midblock"),

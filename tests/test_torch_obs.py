@@ -235,7 +235,6 @@ def _families(text):
 # the JAX daemon's families whose subject the port has no module for yet,
 # each with its ROADMAP item
 LATER = {
-    "mlcomp_engine_spec_net_gain": "A7", "mlcomp_engine_spec_ineffective": "A7",
     "mlcomp_engine_mesh_devices": "A12", "mlcomp_engine_is_coordinator": "A12",
     "mlcomp_engine_profile_captures_total": "A13",
     "mlcomp_engine_device_time_ms_per_dispatch": "A13",
@@ -256,11 +255,13 @@ def _traffic(svc):
 
 @pytest.mark.parametrize("kw", [dict(prefix_cache=True),
                                 dict(kv_layout="paged", kv_pages=40, prefix_cache=True,
-                                     max_queue_depth=4)])
+                                     max_queue_depth=4),
+                                dict(engine_spec_k=3, prefix_cache=True, steps_per_dispatch=None)])
 def test_metric_families_equal_the_jax_daemons(kw):
     """Under the same traffic the port's /metrics families (names and
     types) are the JAX daemon's, less only the later-slice families named
-    in LATER with their ROADMAP items."""
+    in LATER with their ROADMAP items; a speculating daemon carries the
+    acceptance gauges."""
     jsvc = _jax_service(**kw)
     try:
         want_ids, want_text = _traffic(jsvc)
@@ -280,6 +281,8 @@ def test_metric_families_equal_the_jax_daemons(kw):
     assert set(got) == set(want) - set(LATER)
     assert all(got[k] == want[k] for k in got)
     assert "mlcomp_prefix_cache_used_hits_total" in got and "mlcomp_engine_ttft_ms" in got
+    spec = {"mlcomp_engine_spec_net_gain", "mlcomp_engine_spec_ineffective"}
+    assert spec <= set(got) if "engine_spec_k" in kw else not spec & set(got)
 
 
 # ------------------------------------------------ trace, slo, history

@@ -173,11 +173,14 @@ def test_cli_serve_needs_a_checkpoint(tmp_path, capsys):
     assert "--ckpt" in capsys.readouterr().err
     # the JAX command line's engine flags carry over
     for flags in (["--batcher", "window"], ["--batcher", "continuous"],
+                  ["--batcher", "speculative", "--spec-k", "4"], ["--engine-spec-k", "3"],
                   ["--steps-per-dispatch", "adaptive", "--engine-pipeline-depth", "1",
                    "--engine-staged-admission", "--prefill-chunk", "64",
                    "--dispatch-stall-timeout", "0"], ["--steps-per-dispatch", "4"]):
         assert main(["serve", "--model", str(cfg), *flags]) == 2
-    for bad in (["--batcher", "speculative"], ["--steps-per-dispatch", "0"],
+    assert main(["serve", "--model", str(cfg), "--storage-task", "a/b"]) == 2
+    assert "PROJECT/DAG/TASK" in capsys.readouterr().err
+    for bad in (["--batcher", "beam"], ["--steps-per-dispatch", "0"],
                 ["--steps-per-dispatch", "fast"]):
         with pytest.raises(SystemExit):
             main(["serve", "--model", str(cfg), *bad])
