@@ -103,9 +103,27 @@ without printing a result:
    sample stage must launch B1, B2, B3 and B5; then ``serve`` on the train
    task's checkpoint directory (resolved as ``--storage-task`` resolves
    it) must give the greedy tokens of the same weights served from .npz.
+11c. daemons and report: the port's ``supervisor``, one isolated ``worker
+   --chips 1`` and ``report`` as processes over one store; the same
+   configs/generate_quant.yml ``submit``-ted, ``status`` polled until it
+   ends in the statuses ``cli dag`` gave it in 11b; the report server's
+   ``/api/dags``, task routes and ``/metrics`` must show it.  Then ``fleet
+   --scheduler --replicas 2 --storage-task`` on its train task: two
+   ``serve_replica`` tasks on the worker; a repeated greedy prompt must
+   come back from one ``x-mlcomp-replica`` with the ids ``load_service``
+   gives in-process, and ``stop`` must end both tasks and empty the
+   registry.
+11d. fleet: ``fleet --phase-split 1:1`` on the serving configuration (the
+   seed's weights saved once as ``.npz``): the 9 greedy prompts of the
+   disaggregated phase through the router (prefill replica, KV pages,
+   paged decode replica) must give the dense engine's ids; the router's
+   lone TTFT beside the engine's, the handoff bytes, the router's
+   ``mlcomp_fleet_*`` families, and a report server over the registry
+   listing both daemons in ``/fleet/metrics``.  Each of these phases ends
+   every process it starts and deletes its files, on failure too.
 12. summary: ``serve``, ``engine``, ``paged_engine``, ``disagg``, ``spec``,
-   ``train_to_serve``, ``prefix_cache``, ``daemon``, ``train`` and
-   ``kernels`` JSON lines, then, last, the device line.
+   ``train_to_serve``, ``daemons``, ``fleet``, ``prefix_cache``, ``daemon``,
+   ``train`` and ``kernels`` JSON lines, then, last, the device line.
 
 The kernel phase (3) also holds the flash-attention backward (B9-B11), and
 the forward (B5) whose (out, lse) it takes, at the training shape, a GQA
@@ -259,6 +277,449 @@ class Kernel:
                 kw[f"{k}_spread"] = list(v.spread)
         self.rows.append(kw)
         log("  " + json.dumps(kw))
+
+
+REPO = str(Path(__file__).resolve().parent)
+TERMINAL = ("success", "failed", "skipped", "stopped")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def kill_matching(token: str) -> None:
+    """SIGKILL every process of this user whose command line holds
+    ``token`` (a phase's temporary directory: task children and replicas
+    that run in sessions of their own)."""
+    import signal
+
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read()
+            if token.encode() in cmd:
+                os.kill(int(entry), signal.SIGKILL)
+        except OSError:
+            pass
+
+
+def end_procs(procs, timeout=30.0) -> None:
+    """SIGTERM each process (the daemons drain or clean up on it), then
+    SIGKILL its process group past ``timeout``."""
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except OSError:
+                p.kill()
+            p.wait()
+
+
+def http(url, body=None, timeout=600.0):
+    """GET (or POST ``body`` as JSON): (status, decoded body, headers)."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, code, headers = r.read(), r.status, dict(r.headers)
+    except urllib.error.HTTPError as e:
+        raw, code, headers = e.read(), e.code, dict(e.headers)
+    ctype = headers.get("Content-Type", "")
+    return code, json.loads(raw) if ctype.startswith("application/json") else raw.decode(), \
+        headers
+
+
+def spawn_cli(tmp, name, argv, env):
+    """``python -m mlcomp_tpu_torch.cli <argv>`` in a session of its own,
+    its output in ``tmp/<name>.log``."""
+    with open(f"{tmp}/{name}.log", "wb") as log_f:
+        return subprocess.Popen([sys.executable, "-m", "mlcomp_tpu_torch.cli", *argv],
+                                cwd=tmp, env=env, stdout=log_f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+
+def log_tail(tmp, name, n=3000) -> str:
+    try:
+        return Path(f"{tmp}/{name}.log").read_text(errors="replace")[-n:]
+    except OSError:
+        return ""
+
+
+def wait_router(url, want_live, proc, what, timeout=300.0):
+    """Poll a fleet router's ``/healthz`` until ``want_live(status)``;
+    raises if the fleet process exits first or the time runs out."""
+    deadline = time.monotonic() + timeout
+    st = {}
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"{what}: the fleet exited with {proc.returncode}")
+        try:
+            st = http(url + "/healthz", timeout=10)[1]
+            if want_live(st):
+                return st
+        except (urllib.error.URLError, OSError, ValueError):
+            pass
+        time.sleep(0.25)
+    raise AssertionError(f"{what}: not live in {timeout:.0f} s: {st}")
+
+
+def daemons_phase(gq_cfg, cli_statuses, tr_steps, device, smi):
+    """Phase "daemons and report": the port's ``supervisor``, one isolated
+    ``worker --chips 1`` and ``report`` as processes over one store;
+    ``submit`` of ``gq_cfg`` (configs/generate_quant.yml with its model
+    storage moved), ``status`` polled until the DAG ends in
+    ``cli_statuses`` (what ``cli dag`` gave it in the same call); the
+    report server's routes and ``/metrics`` must show it.  Then ``fleet
+    --scheduler --replicas 2`` on the train task's checkpoint runs two
+    ``serve_replica`` tasks on the worker: a repeated greedy prompt must
+    come back from one replica with the ids ``load_service`` gives for the
+    checkpoint in-process, and ``stop`` must end both replica tasks and
+    empty the registry.  Every process it starts is ended on the way out."""
+    import copy
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    import yaml
+
+    from mlcomp_tpu_torch import cli as port_cli
+    from mlcomp_tpu_torch.db.store import Store
+    from mlcomp_tpu_torch.fleet.registry import read_registry
+    from mlcomp_tpu_torch.io.checkpoint import latest_step
+    from mlcomp_tpu_torch.serve import load_service, resolve_storage_ckpt
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_daemons_")
+    storage = f"{tmp}/storage"
+    cfg = copy.deepcopy(gq_cfg)
+    for ex in cfg["executors"].values():
+        ex["args"]["storage_root"] = storage
+    dag_yaml = f"{tmp}/generate_quant.yml"
+    with open(dag_yaml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    db = f"{tmp}/db.sqlite"
+    info = cfg["info"]
+    train_name = next(n for n, ex in cfg["executors"].items() if ex["type"] == "train")
+    storage_task = f"{info['project']}/{info['name']}/{train_name}"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p),
+        # the worker resolves --storage-task here, and its replicas publish
+        # this address
+        "MLCOMP_TPU_STORAGE": storage, "MLCOMP_TPU_HOST_IP": "127.0.0.1"}
+
+    def cli(*argv):
+        buf = StringIO()
+        with redirect_stdout(buf):
+            rc = port_cli.main([str(a) for a in argv])
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]} exited {rc}: {buf.getvalue()}")
+        return buf.getvalue()
+
+    procs = {}
+    try:
+        report_port = free_port()
+        procs["supervisor"] = spawn_cli(tmp, "supervisor", ["supervisor", "--db", db, "--poll",
+                                                             "0.2"], env)
+        # two tasks at once: the two replicas (chips 0) share the card
+        procs["worker"] = spawn_cli(tmp, "worker", [
+            "worker", "--db", db, "--chips", "1", "--max-tasks", "2", "--workdir",
+            f"{tmp}/work", "--poll", "0.2", "--device", device], env)
+        procs["report"] = spawn_cli(tmp, "report", ["report", "--db", db, "--port",
+                                                     str(report_port)], env)
+        t0 = time.perf_counter()
+        dag_id = json.loads(cli("submit", dag_yaml, "--db", db))["dag_id"]
+        deadline = time.monotonic() + 900
+        while True:
+            lines = cli("status", dag_id, "--db", db).splitlines()
+            statuses = {ln.split()[1]: ln.split()[2] for ln in lines}
+            if statuses and all(s in TERMINAL for s in statuses.values()):
+                break
+            for name, p in procs.items():
+                if p.poll() is not None:
+                    raise AssertionError(f"the {name} daemon exited {p.returncode}: "
+                                         f"{log_tail(tmp, name)}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the DAG did not end: {statuses}")
+            time.sleep(0.5)
+        dag_wall = time.perf_counter() - t0
+        if statuses != cli_statuses:
+            raise AssertionError(f"through the daemons {statuses}; cli dag gave {cli_statuses}; "
+                                 f"{log_tail(tmp, 'worker')}")
+        # the report server's view of it
+        base = f"http://127.0.0.1:{report_port}"
+        dags = {d["id"]: d for d in http(base + "/api/dags")[1]}
+        counts = dags[dag_id]["counts"]
+        tasks = {t["name"]: t for t in http(f"{base}/api/dags/{dag_id}/tasks")[1]}
+        tid = tasks[train_name]["id"]
+        loss = http(f"{base}/api/tasks/{tid}/metrics/train/loss")[1]
+        logs = [ln["message"] for ln in http(f"{base}/api/tasks/{tid}/logs")[1]]
+        prom = http(base + "/metrics")[1]
+        n_ok = sum(s == "success" for s in cli_statuses.values())
+        ckpt_dir = f"{storage}/{storage_task}/checkpoints"
+        steps = latest_step(ckpt_dir)
+        if (counts != {"success": n_ok} or {n: t["status"] for n, t in tasks.items()}
+                != cli_statuses or len(loss) != 1 or not math.isfinite(loss[0][1])
+                or not any(m.startswith("epoch 0:") for m in logs)
+                or f'mlcomp_report_tasks{{status="success"}} {n_ok}' not in prom
+                or steps != tr_steps):
+            raise AssertionError(f"the report server's view: counts {counts}, loss {loss}, "
+                                 f"checkpoint step {steps}, tasks {list(tasks)}")
+        log(f"daemons: {info['name']} through supervisor + worker in {dag_wall:.1f} s, "
+            f"statuses {json.dumps(statuses)} as cli dag gave them; report: counts "
+            f"{json.dumps(counts)}, train/loss {loss} (one point an epoch: the mean over its "
+            f"{steps} steps)")
+
+        # the fleet through the scheduler: two serve_replica tasks
+        reg = f"{tmp}/registry.json"
+        rurl = f"http://127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        procs["fleet"] = spawn_cli(tmp, "fleet", [
+            "fleet", "--scheduler", "--replicas", "2", "--db", db, "--model", dag_yaml,
+            "--storage-task", storage_task, "--registry", reg, "--port", rurl.rsplit(":", 1)[1],
+            "--health-poll", "0.5"], env)
+        wait_router(rurl, lambda st: st.get("live") == 2, procs["fleet"],
+                    "the scheduler fleet")
+        fleet_ready_s = time.perf_counter() - t0
+        os.environ["MLCOMP_TPU_STORAGE"] = storage
+        try:
+            ckpt = resolve_storage_ckpt(*storage_task.split("/"))
+        finally:
+            del os.environ["MLCOMP_TPU_STORAGE"]
+        gen = torch.Generator().manual_seed(SEED + 14)
+        vocab = cfg["model"]["vocab_size"]
+        prompt = torch.randint(1, vocab, (60,), generator=gen).tolist()
+        others = [torch.randint(1, vocab, (n,), generator=gen).tolist() for n in (20, 90, 120)]
+        ref = load_service(cfg["model"], ckpt_path=ckpt, device=device)
+        try:
+            want = [f.result(timeout=300)["ids"]
+                    for f in [ref.submit(p, 32) for p in [prompt] + others]]
+        finally:
+            ref.close()
+        del ref
+        replies = [http(rurl + "/generate", {"prompt": p, "max_new_tokens": 32})
+                   for p in [prompt] * 3 + others]
+        served = [h.get("x-mlcomp-replica") for _, _, h in replies]
+        ids = [r.get("ids") for _, r, _ in replies]
+        if any(c != 200 for c, _, _ in replies) or len(set(served[:3])) != 1:
+            raise AssertionError(f"the repeated prompt went to {served[:3]}: {replies[0]}")
+        if ids != [want[0]] * 3 + want[1:]:
+            raise AssertionError("the scheduler replicas' tokens differ from load_service's "
+                                 "in-process ones")
+        # stop: the manager goes first (SIGKILL; the replicas are scheduler
+        # tasks and outlive it), then `stop` ends each replica's DAG
+        procs["fleet"].kill()
+        procs["fleet"].wait()
+        store = Store(db)
+        try:
+            replica_dags = [d["id"] for d in store.list_dags()
+                            if d["name"].startswith("fleet-") and d["status"] == "in_progress"]
+        finally:
+            store.close()
+        registered = sorted(read_registry(reg))
+        if len(replica_dags) != 2 or len(registered) != 2:
+            raise AssertionError(f"replica DAGs {replica_dags}, registry {registered}")
+        t0 = time.perf_counter()
+        stopped = [json.loads(cli("stop", d, "--db", db))["stopped_tasks"] for d in replica_dags]
+        deadline = time.monotonic() + 60
+        while True:
+            rows = [cli("status", d, "--db", db).split()[2] for d in replica_dags]
+            if rows == ["stopped", "stopped"] and not read_registry(reg):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"after stop: tasks {rows}, registry {read_registry(reg)}")
+            time.sleep(0.25)
+        stop_s = time.perf_counter() - t0
+    finally:
+        try:
+            store = Store(db)
+            try:
+                for d in store.list_dags():
+                    store.stop_dag(d["id"])
+            finally:
+                store.close()
+            time.sleep(2.0)   # the worker's stop-watch ends its children
+        except Exception:
+            pass
+        end_procs(list(procs.values()))
+        kill_matching(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {
+        "config": "configs/generate_quant.yml", "moved": "model storage -> a temporary dir",
+        "dag_wall_s": dag_wall, "statuses": statuses, "equal_cli_dag": True,
+        "report": {"counts": counts, "train_loss": loss, "train_steps": steps},
+        "scheduler_fleet": {"replicas": 2, "ready_s": fleet_ready_s, "repeat_replica": served[0],
+                            "served_by": served, "ids_equal_in_process": True,
+                            "stopped_tasks": stopped, "stop_to_empty_registry_s": stop_s},
+        "phase_s": time.perf_counter() - t_phase, "card": smi,
+    }
+    log(f"scheduler fleet: 2 serve_replica tasks ready in {fleet_ready_s:.1f} s; the repeated "
+        f"prompt came back from {served[0]} 3 times with load_service's ids; stop ended both "
+        f"and emptied the registry in {stop_s:.2f} s; phase {result['phase_s']:.1f} s ({smi})")
+    return result
+
+
+def fleet_phase(cfg, seed, prompts, want, lone_prompt, lone_new, engine_lone_ttft, serve_args,
+                device, smi):
+    """Phase "fleet": ``cli fleet --phase-split 1:1`` on ``cfg`` with the
+    seed's weights saved once as ``.npz``: the router brokers each request
+    as ``/prefill`` on the prefill replica and ``/import`` on the paged
+    decode replica; ``prompts`` must come back with ``want`` (the dense
+    engine's ids).  Prints the router-side lone TTFT beside the engine's
+    (``engine_lone_ttft``), the handoff bytes, the router's
+    ``mlcomp_fleet_*`` families, and a report server's ``/fleet/metrics``
+    over the registry.  The replicas are killed and the weights deleted on
+    the way out."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from mlcomp_tpu_torch.fleet.registry import read_registry
+    from mlcomp_tpu_torch.io.weights import init_params, load_npz, save_npz
+    from mlcomp_tpu_torch.ops.quant import quantize_leaf
+    from mlcomp_tpu_torch.report.server import start_in_thread
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    weights = f"{tmp}/weights.npz"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
+    proc = None
+    report = None
+    try:
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed, device=torch.device(device))
+        save_npz(weights, params)
+        write_s = time.perf_counter() - t0
+        # why a file's weights must reach the card before quantization: the
+        # card rounds the scale's division by 127 otherwise than the host
+        leaf = params["DecoderLayer_0"]["gate"]["kernel"]
+        on_card, on_host = quantize_leaf(leaf), quantize_leaf(leaf.cpu())
+        host_vs_card = {"leaf": "DecoderLayer_0/gate " + "x".join(map(str, leaf.shape)),
+                        "codes_differing": int((on_card["q8"].cpu() != on_host["q8"]).sum()),
+                        "scales_differing": int((on_card["q8_scale"].cpu()
+                                                 != on_host["q8_scale"]).sum()),
+                        "scales": on_host["q8_scale"].numel()}
+        del params, leaf, on_card, on_host
+        size = os.path.getsize(weights)
+        t0 = time.perf_counter()
+        tree = load_npz(weights)
+        load_s = time.perf_counter() - t0
+        del tree
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        with open(f"{tmp}/model.yml", "w") as f:
+            yaml.safe_dump({"model": cfg}, f)
+        reg = f"{tmp}/registry.json"
+        rport = free_port()
+        lo = free_port()
+        t0 = time.perf_counter()
+        proc = spawn_cli(tmp, "fleet", [
+            "fleet", "--model", f"{tmp}/model.yml", "--ckpt", weights, "--phase-split", "1:1",
+            "--port", str(rport), "--port-range", f"{lo}:{lo + 41}", "--registry", reg,
+            "--health-poll", "0.5", "--log-dir", f"{tmp}/replicas",
+            "--serve-arg", f"{serve_args} --device {device}"], env)
+        rurl = f"http://127.0.0.1:{rport}"
+        wait_router(rurl, lambda st: st.get("live_by_phase") == {
+            "both": 0, "prefill": 1, "decode": 1}, proc, "the phase-split fleet")
+        ready_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as ex:
+            replies = list(ex.map(
+                lambda p: http(rurl + "/generate", {"prompt": p, "max_new_tokens": len(want[0])}),
+                prompts))
+        wall = time.perf_counter() - t0
+        bad = [i for i, (c, r, _) in enumerate(replies) if c != 200 or r.get("ids") != want[i]]
+        if bad:
+            raise AssertionError(f"two-hop requests {bad} differ from the dense engine's: "
+                                 f"{replies[bad[0]][0]} {str(replies[bad[0]][1])[:300]}")
+        if not all(h["x-mlcomp-replica"].startswith("decode") for _, _, h in replies):
+            raise AssertionError("a request did not end on the decode replica")
+
+        def sse(body):
+            req = urllib.request.Request(rurl + "/generate",
+                                         data=json.dumps({**body, "stream": True}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            first, n = None, 0
+            with urllib.request.urlopen(req, timeout=300) as r:
+                for line in r:
+                    if line.startswith(b"data: ") and b'"token"' in line:
+                        n += 1
+                        first = first if first is not None else time.perf_counter() - t
+            if first is None or n != lone_new:
+                raise AssertionError(f"the router's SSE stream gave {n} tokens")
+            return first * 1e3
+
+        lone = sorted(sse({"prompt": lone_prompt, "max_new_tokens": lone_new}) for _ in range(3))
+        st = http(rurl + "/healthz")[1]
+        c = st["counts"]
+        n_req = len(prompts) + len(lone)
+        if c["handoffs"] != n_req or c["handoff_failures"] or c["handoff_bytes"] <= 0:
+            raise AssertionError(f"router counts {c}")
+        prom = http(rurl + "/metrics")[1]
+        families = sorted({ln.split("{")[0].split(" ")[0] for ln in prom.splitlines()
+                           if ln.startswith("mlcomp_fleet_")})
+        fleet_lines = [ln for ln in prom.splitlines() if ln.startswith("mlcomp_fleet_")
+                       and not ln.split("{")[0].split(" ")[0].endswith("_bucket")]
+        # a report server pointed at the registry sees both daemons
+        urls = sorted(e["url"] for e in read_registry(reg).values())
+        os.environ["MLCOMP_TPU_SERVE_REGISTRY"] = reg
+        try:
+            report, report_port = start_in_thread(f"{tmp}/report.sqlite")
+            fm = http(f"http://127.0.0.1:{report_port}/fleet/metrics")[1]
+        finally:
+            del os.environ["MLCOMP_TPU_SERVE_REGISTRY"]
+        up = sorted(ln for ln in fm.splitlines() if ln.startswith("mlcomp_fleet_daemon_up"))
+        if len(urls) != 2 or up != sorted(f'mlcomp_fleet_daemon_up{{daemon="{u[7:]}"}} 1'
+                                          for u in urls):
+            raise AssertionError(f"/fleet/metrics over the registry {urls}: {up}")
+    finally:
+        if report is not None:
+            report.shutdown()
+            report.server_close()
+        if proc is not None:
+            end_procs([proc], timeout=60)
+        kill_matching(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {
+        "config": "the serving configuration, --phase-split 1:1", "serve_args": serve_args,
+        "weights_npz_bytes": size, "npz_write_s": write_s, "npz_load_s": load_s,
+        "host_vs_card_quantization": host_vs_card,
+        "ready_s": ready_s, "requests": len(prompts), "wall_s": wall,
+        "greedy_equal_dense": len(prompts),
+        "router_lone_sse_ttft_ms": {"median": lone[1], "spread": [lone[0], lone[-1]], "n": 3,
+                                    "loadavg": list(os.getloadavg())},
+        "engine_lone_sse_ttft_ms": engine_lone_ttft,
+        "handoffs": c["handoffs"], "handoff_bytes": c["handoff_bytes"],
+        "handoff_bytes_per_request": c["handoff_bytes"] / c["handoffs"],
+        "router_fleet_families": families, "router_fleet_samples": fleet_lines,
+        "report_fleet_daemon_up": up, "phase_s": time.perf_counter() - t_phase, "card": smi,
+    }
+    log(f"fleet --phase-split 1:1 ({smi}): weights {size} bytes written in {write_s:.1f} s, "
+        f"read in {load_s:.1f} s; ready in {ready_s:.1f} s; {len(prompts)} greedy prompts "
+        f"through prefill -> import in {wall:.2f} s with the dense engine's ids; router lone "
+        f"TTFT {lone[1]:.1f} ms (engine alone {engine_lone_ttft['median']:.1f}); "
+        f"{c['handoff_bytes']} handoff bytes over {c['handoffs']} handoffs; phase "
+        f"{result['phase_s']:.1f} s")
+    log("router families: " + " ".join(families))
+    log("int8 quantization of one leaf, host against card: " + json.dumps(host_vs_card))
+    return result
 
 
 def main() -> int:
@@ -1745,6 +2206,9 @@ def main() -> int:
     from mlcomp_tpu_torch.kvpool.transfer import HandoffError
 
     hand_prompts = [bodies[i]["prompt"] for i in greedy] + [alone]
+    # the dense engine's ids of these prompts (the fleet phase's two-hop
+    # path is held to them too; `want` is a name later phases reuse)
+    hand_want = list(want)
     pre = DecodeEngine(pmodel, prefill_only=True, kv_page_tokens=page_t, **engine_kw)
     dec = DecodeEngine(pmodel, slots=BATCH, kv_layout="paged", kv_page_tokens=page_t,
                        max_slots=BATCH, **engine_kw)
@@ -2892,6 +3356,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 11c. daemons and report: the same DAG through the supervisor and
+    # worker daemons, the report server, then two scheduler-launched replicas
+    log("phase daemons and report")
+    daemons_result = daemons_phase(gq_cfg, {n: r["status"] for n, r in gq_rows.items()},
+                                   tr_steps, "cuda", smi)
+
+    # ---- 11d. fleet: `cli fleet --phase-split 1:1` on the serving
+    # configuration, the router brokering prefill -> KV pages -> import
+    log("phase fleet")
+    fleet_result = fleet_phase(
+        CFG, SEED, hand_prompts, hand_want, lone_prompt, 16, ttft_lone,
+        f"--quantize kernel --batch-sizes 1,{BATCH} --prompt-buckets {PROMPT} --max-new-buckets"
+        f" {NEW} --prefill-chunk {CHUNK} --kv-page-tokens {page_t} --max-slots {BATCH}",
+        "cuda", smi)
+
     # ---- 12. summary
     # each kernel's work in one decode step at B=8 (B1, B2, B3), in one
     # 8x512 prefill (B5) or in one admission chunk at index 256 (B4); B1's
@@ -3057,6 +3536,8 @@ def main() -> int:
     log(json.dumps({"disagg": disagg}))
     log(json.dumps({"spec": spec_result}))
     log(json.dumps({"train_to_serve": t2s_result}))
+    log(json.dumps({"daemons": daemons_result}))
+    log(json.dumps({"fleet": fleet_result}))
     log(json.dumps({"prefix_cache": {"dense": pc_dense, "paged": pc_paged, "card": smi}}))
     log(json.dumps({"daemon": daemon}))
     log(json.dumps({"train": {**train_result, "parity": {

@@ -9,8 +9,10 @@ port's ``models.generation.generate``.  Each finds the upstream
 checkpoint through an explicit ``ckpt_dir`` arg or through the result of
 the task it depends on, and restores weights only
 (``io.checkpoint.restore_eval_state``), so the train task's optimizer
-config need not be repeated.  ``valid``'s ``report:`` is dropped with a
-warning until the report server comes (ROADMAP §A).
+config need not be repeated.  ``valid`` stores a ``report:`` section's
+dashboard layout; its classification and segmentation reports wait for the
+port's classifier models (ROADMAP §A, A11's ``mnist_cnn``): until then such
+a section logs a warning and the task validates without it.
 """
 
 from __future__ import annotations
@@ -85,10 +87,18 @@ class ValidExecutor(Executor):
 
     def work(self, ctx: ExecutionContext) -> Optional[Dict[str, Any]]:
         cfg = dict(self.args)
-        if cfg.pop("report", None) is not None:
-            ctx.log("reports are not ported yet; the task validates without one",
-                    level="warning")
+        report_cfg = cfg.pop("report", None)
         trainer = _restore_trainer(ctx, cfg, "validating")
+        if report_cfg is not None:
+            from mlcomp_tpu_torch.report.artifacts import publish_layout
+
+            publish_layout(ctx, report_cfg)
+        # a layout-only section declares dashboard panels and asks for no
+        # data report
+        layout_only = isinstance(report_cfg, dict) and set(report_cfg) == {"layout"}
+        if report_cfg is not None and report_cfg is not False and not layout_only:
+            ctx.log("classification and segmentation reports wait for the port's classifier "
+                    "models (mnist_cnn); the task validates without one", level="warning")
         stats = trainer.eval_epoch("valid")
         for k, v in stats.items():
             ctx.metric(f"valid/{k}", v)

@@ -44,9 +44,11 @@ class TrainExecutor(Executor):
         cfg = dict(self.args)
         # declarative dashboard layout (report/artifacts.py): a train
         # task's `report: {layout: [...]}` picks its metric panels
-        if cfg.pop("report", None) is not None:
-            ctx.log("report layouts are not ported yet; the task trains without one",
-                    level="warning")
+        report_cfg = cfg.pop("report", None)
+        if report_cfg is not None:
+            from mlcomp_tpu_torch.report.artifacts import publish_layout
+
+            publish_layout(ctx, report_cfg)
         storage = ModelStorage(cfg.pop("storage_root", None))
         project = cfg.pop("project", "default")
         # Default storage namespace: dag id + the dag row's creation time.

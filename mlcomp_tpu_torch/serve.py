@@ -913,15 +913,24 @@ def load_service(model_cfg: Dict[str, Any], ckpt_path: Optional[str] = None,
     from mlcomp_tpu_torch.io.weights import init_params, load_npz
     from mlcomp_tpu_torch.models import create_model
     from mlcomp_tpu_torch.models.transformer import fuse_decode_params
+    from mlcomp_tpu_torch.ops.quant import as_tensor, is_quantized_leaf, tree_map_with_path
     from mlcomp_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     model_cfg = dict(model_cfg)
     decode_fused = bool(model_cfg.pop("decode_fused", False))
-    if params is None and ckpt_path and os.path.isdir(ckpt_path):
-        params = read_weights(ckpt_path)["params"]
-    elif params is None:
-        params = load_npz(ckpt_path) if ckpt_path else init_params(model_cfg, 0)
+    if params is None:
+        if ckpt_path and os.path.isdir(ckpt_path):
+            params = read_weights(ckpt_path)["params"]
+        else:
+            params = load_npz(ckpt_path) if ckpt_path else init_params(model_cfg, 0)
+        # weights from a file reach the device before the int8 quantization:
+        # CUDA computes the scale's division by 127 as a multiply by its
+        # reciprocal, one ulp off the CPU's, so codes quantized on the host
+        # differ from those of the same tree handed over on the card
+        params = tree_map_with_path(
+            lambda _, leaf: ({k: as_tensor(v).to(dev) for k, v in leaf.items()}
+                             if is_quantized_leaf(leaf) else as_tensor(leaf).to(dev)), params)
     if decode_fused:
         params = fuse_decode_params(params)
     model = create_model({**model_cfg, "decode_fused": decode_fused}, device=dev)

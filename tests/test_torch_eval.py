@@ -188,12 +188,17 @@ def test_generate_executor_equals_the_jax_executor(tmp_path):
 def test_valid_and_infer_executors_restore_the_checkpoint(tmp_path):
     """``valid`` and ``infer`` on a checkpoint of the same weights, through
     each package's executor: the port's ``valid/loss`` equals the JAX
-    executor's within 1e-5 relative (the port drops ``report:`` with a
-    warning), and its ``preds`` equal the JAX executor's within 1e-5.  The
-    weights are not a fresh init's, so a restore that missed would show."""
+    executor's within 1e-5 relative (an empty ``report: {layout: []}`` is
+    logged as rejected, as the JAX executor's ``publish_layout`` logs it,
+    and the task goes on), and its ``preds`` equal the JAX executor's within
+    1e-5.  The weights are not a fresh init's, so a restore that missed
+    would show."""
+    from types import SimpleNamespace
+
     from mlcomp_tpu.executors.base import ExecutionContext as JCtx
     from mlcomp_tpu.executors.infer import InferExecutor as JInfer
     from mlcomp_tpu.executors.infer import ValidExecutor as JValid
+    from mlcomp_tpu.report.artifacts import publish_layout as j_publish_layout
 
     tree = init_params(MODEL, seed=4)
     _port_ckpt(tmp_path / "pck", tree, 3)
@@ -216,7 +221,10 @@ def test_valid_and_infer_executors_restore_the_checkpoint(tmp_path):
     want = JValid(**{**CFG, "ckpt_dir": str(tmp_path / "jck")})(jctx("v"))
     assert set(stats) == set(want) == {"loss"} and metrics == {"valid/loss": stats["loss"]}
     assert stats["loss"] == pytest.approx(want["loss"], rel=1e-5)
-    assert any(lv == "warning" and "report" in m for lv, m in logs)
+    jlogs = []
+    j_publish_layout(SimpleNamespace(report=None, log=lambda m, level="info": jlogs.append(
+        (level, m))), {"layout": []})
+    assert jlogs and jlogs[0][0] == "error" and jlogs[0] in logs
     assert any("restored checkpoint" in m for _, m in logs)
 
     res = create_executor("infer", {**CFG, "ckpt_dir": str(tmp_path / "pck"),

@@ -48,6 +48,23 @@ def test_the_module_walk_covers_the_prefix_cache_and_obs_modules():
         assert f"mlcomp_tpu_torch.{name}" in mods, name
 
 
+def test_the_module_walk_covers_the_control_plane():
+    mods = set(_modules())
+    for name in ("scheduler.pool", "report.server", "report.artifacts", "fleet.registry",
+                 "fleet.manager", "fleet.router", "fleet.autoscale", "executors.serve"):
+        assert f"mlcomp_tpu_torch.{name}" in mods, name
+
+
+def test_no_port_source_spawns_the_jax_cli():
+    """The copies of the pool and the fleet manager launch the port's CLI;
+    the reference's launch lines name its own."""
+    for path in list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        text = path.read_text()
+        assert "mlcomp_tpu.cli" not in text, path.relative_to(REPO)
+    assert "mlcomp_tpu_torch.cli worker" in (PORT / "scheduler" / "pool.py").read_text()
+    assert '"mlcomp_tpu_torch.cli", "serve"' in (PORT / "fleet" / "manager.py").read_text()
+
+
 def test_import_leaves_jax_out_of_the_process():
     code = (
         "import importlib, sys\n"

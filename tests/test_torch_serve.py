@@ -306,7 +306,8 @@ def test_cli_paged_flags_reach_the_engine(tmp_path, monkeypatch, continuous):
     real = serve_mod.load_service
 
     def load(model_cfg, ckpt_path=None, **kw):
-        svc = real(model_cfg, params=TREE, device="cpu", **kw)
+        assert kw["device"] == "cpu"           # the CLI's --device
+        svc = real(model_cfg, params=TREE, **kw)
         built.append(svc)
         return svc
 
@@ -320,7 +321,7 @@ def test_cli_paged_flags_reach_the_engine(tmp_path, monkeypatch, continuous):
     cfg.write_text(yaml.safe_dump({"model": {k: v for k, v in CFG.items() if k != "kv_quant"}}))
     base = ["serve", "--model", str(cfg), "--ckpt", "w.npz", "--kv-quant", "--quantize",
             "kernel", "--batch-sizes", "1,2,4", "--prompt-buckets", "8,16",
-            "--max-new-buckets", "4,8", "--kv-layout", "paged"]
+            "--max-new-buckets", "4,8", "--kv-layout", "paged", "--device", "cpu"]
     assert main(base + ["--kv-page-tokens", "4", "--kv-pages", "40", "--max-slots", "6"]) == 0
     assert main(base) == 0
     st = [svc.stats()["engine"] for svc in built]
