@@ -121,9 +121,29 @@ without printing a result:
    ``mlcomp_fleet_*`` families, and a report server over the registry
    listing both daemons in ``/fleet/metrics``.  Each of these phases ends
    every process it starts and deletes its files, on failure too.
+11e. model zoo: the repo's five baseline DAGs through ``cli dag`` in this
+   process at their published widths, one card's cuts on one printed
+   ``reduced`` line (resources to one chip, no mesh): configs/mnist.yml
+   (plus a valid with ``report: classification``), grid_search.yml (6
+   train tasks and the noop), unet_segmentation.yml (its valid with
+   ``report: segmentation``), resnet50_imagenet.yml (on-device random
+   resized crop and flip, batch 256 on the card), bert_finetune.yml as
+   published and with ``model.pad_mode: window``, and a Trainer config of
+   vit_b16 (224 x 224, batch 64, 6 steps).  Every task must end in
+   ``success`` with finite losses and the reports must be stored;
+   BERT-window and ViT must launch B5 12 times a train step and an eval
+   batch and the backward kernels 12 times a train step, the other models
+   no flash kernel.  On one batch of BERT-window (padded rows) and ViT,
+   every kernel call of a train step is held against its plain version on
+   its own inputs with the kernel phase's rule, and the logits against the
+   plain model's within 2^-7 (|ref| + the head's absolute terms).  One
+   ResNet-50 step is profiled (device time by kernel group, idle share);
+   B5 and B9 at the BERT and ViT shapes get their device times (kernel and
+   the dh-64 padding apart) beside SDPA's.
 12. summary: ``serve``, ``engine``, ``paged_engine``, ``disagg``, ``spec``,
-   ``train_to_serve``, ``daemons``, ``fleet``, ``prefix_cache``, ``daemon``,
-   ``train`` and ``kernels`` JSON lines, then, last, the device line.
+   ``train_to_serve``, ``daemons``, ``fleet``, ``zoo``, ``prefix_cache``,
+   ``daemon``, ``train`` and ``kernels`` JSON lines, then, last, the
+   device line.
 
 The kernel phase (3) also holds the flash-attention backward (B9-B11), and
 the forward (B5) whose (out, lse) it takes, at the training shape, a GQA
@@ -167,6 +187,12 @@ LONE_REPEATS, STEADY_WINDOWS = 3, 3
 # the train phase: one card's share of configs/multihost_lm.yml's batch
 # (16 sequences over dp 8), and the steps after the first that it times
 TRAIN_BATCH, TRAIN_STEPS = 2, 5
+# the model zoo phase: configs/resnet50_imagenet.yml's global batch (256 over
+# dp 8 on the TPU) on the one card, and ViT-B/16's Trainer config
+ZOO_RESNET_BATCH = 256
+ZOO_VIT = {"batch": 64, "steps": 6}
+ZOO_DAGS = ("mnist", "grid_search", "unet_segmentation", "resnet50_imagenet", "bert_finetune",
+            "bert_finetune_window", "vit_b16")
 
 # data-sheet peaks (dense): memory bytes/s, bf16 tensor FLOP/s
 PEAKS = {
@@ -719,6 +745,524 @@ def fleet_phase(cfg, seed, prompts, want, lone_prompt, lone_new, engine_lone_ttf
         f"{result['phase_s']:.1f} s")
     log("router families: " + " ".join(families))
     log("int8 quantization of one leaf, host against card: " + json.dumps(host_vs_card))
+    return result
+
+
+def flash_bwd_abs(q, k, v, out, lse, do, causal, sc, lo, hi):
+    """The sum of the absolute terms behind each gradient of the flash
+    backward: sum_k p (|dp| + |delta|) scale |k| for dq, the same over
+    queries with |q| for dk, sum_q p |dO| for dv (the ref_abs of the
+    backward's tolerance)."""
+    b, s_q, h, d = q.shape
+    s_k, h_kv = k.shape[1], k.shape[2]
+    rep = h // h_kv
+    dev = q.device
+    qg = q.float().reshape(b, s_q, h_kv, rep, d)
+    dog = do.float().reshape(b, s_q, h_kv, rep, d)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(b, h_kv, rep, s_q)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * sc
+    cols = torch.arange(s_k, device=dev)
+    live = ((cols[None] >= lo[:, None]) & (cols[None] < hi[:, None]))[:, None, None, None]
+    if causal:
+        live = live & (torch.arange(s_q, device=dev)[:, None] >= cols[None])
+    p = torch.where(live, torch.exp(s - lse.reshape(b, h_kv, rep, s_q)[..., None]),
+                    torch.zeros_like(s))
+    del s
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
+    w = p * (dp.abs() + delta.abs()[..., None]) * sc
+    del dp
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", w, k.float().abs()).reshape(b, s_q, h, d)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", w, qg.abs())
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog.abs())
+    return dq, dk, dv
+
+
+def zoo_step_ms(trace_path: str) -> dict:
+    """ms per train step from a Trainer's ``trace`` spans: the time from
+    each step's start to the next one's (the last step of an epoch to its
+    epoch's end, which follows the host's read of the summed losses),
+    every step but the run's first; the median with its spread."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"]
+    starts = sorted(e["ts"] for e in spans if e.get("name") == "step")
+    epochs = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans if e.get("name") == "train_epoch")
+    gaps = []
+    for lo, hi in epochs:
+        inside = [t for t in starts if lo <= t <= hi] + [hi]
+        gaps += [(b - a) / 1e3 for a, b in zip(inside, inside[1:])]
+    gaps = sorted(gaps[1:])
+    evals = sorted(e["dur"] / 1e3 for e in spans if e.get("name") == "eval_epoch")
+    return {"median": gaps[len(gaps) // 2], "spread": [gaps[0], gaps[-1]], "n": len(gaps),
+            "steps": len(starts), "eval_epoch_ms": evals}
+
+
+def zoo_phase(device, smi, bw, flops):
+    """Phase "model zoo": the repo's five baseline DAGs and ViT-B/16 through
+    ``cli dag`` in this process, each at its published widths (cuts on the
+    printed ``reduced`` line): every task must end in ``success`` with
+    finite losses, the valid reports must be stored, BERT with ``pad_mode:
+    window`` and ViT must launch the flash forward (B5) 12 times a train
+    step and an eval batch and the backward kernels 12 times a train step,
+    and the other models none; then one train step of BERT-window and of
+    ViT on one batch, with the kernels and with their plain versions on
+    the card: every kernel call within the kernel phase's 2^-7 (|ref| +
+    ref_abs) of its plain version on its own inputs, the logits within
+    2^-7 (|ref| + the head's absolute terms); then one profiled ResNet-50
+    step, and the device times (torch.profiler, CUDA events beside) of B5
+    and B9 at the BERT and ViT shapes beside SDPA's."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from mlcomp_tpu_torch import cli as port_cli
+    from mlcomp_tpu_torch.db.store import Store
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+    from mlcomp_tpu_torch.train.losses import create_loss
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    configs = {}
+    for name in ZOO_DAGS[:5]:
+        with open(Path(REPO) / "configs" / f"{name}.yml") as f:
+            configs[name] = yaml.safe_load(f)
+    reduced = {}
+    for name, cfg in configs.items():
+        for tname, task in cfg["executors"].items():
+            if "resources" in task and task["resources"] != {"chips": 1}:
+                reduced[f"{name}.{tname}.resources"] = f"{task['resources']} -> {{'chips': 1}}"
+                task["resources"] = {"chips": 1}
+            args = task.get("args") or {}
+            if "mesh" in args:
+                reduced[f"{name}.{tname}.mesh"] = f"{args.pop('mesh')} -> none (one card)"
+    # additions: mnist's valid with a classification report; U-Net's valid
+    # with a segmentation report
+    mnist_ex = configs["mnist"]["executors"]
+    mnist_ex["valid_report"] = {**mnist_ex["valid"], "args": {
+        **mnist_ex["valid"]["args"], "report": "classification"}}
+    reduced["mnist.valid_report"] = "added: valid with report: classification"
+    configs["unet_segmentation"]["executors"]["valid"]["args"]["report"] = "segmentation"
+    reduced["unet_segmentation.valid.report"] = "added: segmentation"
+    rtrain = configs["resnet50_imagenet"]["executors"]["train"]["args"]
+    if ZOO_RESNET_BATCH != rtrain["data"]["train"]["batch_size"]:
+        reduced["resnet50_imagenet.train.batch_size"] = (
+            f"{rtrain['data']['train']['batch_size']} -> {ZOO_RESNET_BATCH} (one chip's share)")
+        rtrain["data"]["train"]["batch_size"] = ZOO_RESNET_BATCH
+    window = json.loads(json.dumps(configs["bert_finetune"]))
+    window["info"]["name"] = "bert_finetune_window"
+    for task in window["executors"].values():
+        task["args"]["model"]["pad_mode"] = "window"
+        if "dag_name" in task["args"]:
+            task["args"]["dag_name"] = "bert_finetune_window"
+    reduced["bert_finetune_window"] = "bert_finetune.yml with model.pad_mode: window"
+    configs["bert_finetune_window"] = window
+    vb, vsteps = ZOO_VIT["batch"], ZOO_VIT["steps"]
+    configs["vit_b16"] = {"info": {"name": "vit_b16", "project": "vision"}, "executors": {"train": {
+        "type": "train", "args": {
+            "model": {"name": "vit_b16", "num_classes": 1000, "dtype": "bfloat16"},
+            "optimizer": {"name": "adamw", "lr": 1e-3, "weight_decay": 0.05, "grad_clip": 1.0},
+            "loss": "cross_entropy", "metrics": ["accuracy"], "epochs": 1,
+            "data": {"train": {"name": "synthetic_images", "n": vb * vsteps, "batch_size": vb},
+                     "valid": {"name": "synthetic_images", "n": vb, "seed": 1,
+                               "batch_size": vb}},
+            "project": "vision", "dag_name": "vit_b16"}}}}
+    reduced["vit_b16"] = (f"a Trainer config of our own (no ViT YAML in configs/): vit_b16 at "
+                          f"224x224, 1000 classes, batch {vb}, {vsteps} steps, adamw")
+    log("reduced (model zoo): " + json.dumps(reduced))
+    traced = {"unet_segmentation", "resnet50_imagenet", "bert_finetune", "bert_finetune_window",
+              "vit_b16"}
+    bwd_counters = ("bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches")
+    # the two models that attend through the flash kernels, by their depth
+    layers = {n: create_model(configs[n]["executors"]["train"]["args"]["model"], "cpu").layers
+              for n in ("bert_finetune_window", "vit_b16")}
+    dags = {}
+    try:
+        for name in ZOO_DAGS:
+            cfg = configs[name]
+            d = f"{tmp}/{name}"
+            os.makedirs(d)
+            for tname, task in cfg["executors"].items():
+                if task.get("type") == "train":
+                    task["args"]["storage_root"] = f"{d}/storage"
+                    if name in traced:
+                        task["args"]["trace"] = {"path": f"{d}/{tname}_trace.json"}
+            with open(f"{d}/dag.yml", "w") as f:
+                yaml.safe_dump(cfg, f)
+            fa.launches = 0
+            for c in bwd_counters:
+                setattr(fa, c, 0)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = port_cli.main(["dag", f"{d}/dag.yml", "--db", f"{d}/db.sqlite", "--workdir", d,
+                                "--device", device])
+            wall = time.perf_counter() - t0
+            counts = {"B5": fa.launches, **{c: getattr(fa, c) for c in bwd_counters}}
+            store = Store(f"{d}/db.sqlite")
+            try:
+                rows = store.task_rows(1)
+                statuses = {r["name"]: r["status"] for r in rows}
+                losses = {r["name"]: [v for _, v in store.metric_series(r["id"], "train/loss")]
+                          for r in rows if r["name"].startswith("train")}
+                reports = {r["name"]: [(p["name"], p["kind"]) for p in store.reports(r["id"])]
+                           for r in rows}
+                errors = {r["name"]: r["error"] for r in rows if r["status"] != "success"}
+            finally:
+                store.close()
+            if rc != 0 or any(s != "success" for s in statuses.values()):
+                raise AssertionError(f"zoo {name}: rc {rc}, {statuses}, {errors}")
+            if not all(v and all(math.isfinite(x) for x in v) for v in losses.values()):
+                raise AssertionError(f"zoo {name}: train losses {losses}")
+            res = {"wall_s": wall, "statuses": statuses, "train_loss": losses,
+                   "launches": counts, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            steps = 0
+            for tname in cfg["executors"]:
+                tp = f"{d}/{tname}_trace.json"
+                if os.path.exists(tp):
+                    res[f"{tname}_ms_per_step"] = zoo_step_ms(tp)
+                    steps += res[f"{tname}_ms_per_step"]["steps"]
+            if name in layers:
+                # forward batches: every train step, the train task's eval
+                # each epoch and the valid task's pass
+                evals = 0
+                for task in cfg["executors"].values():
+                    a = task["args"]
+                    dv = a["data"].get("valid")
+                    if dv is not None:
+                        nb = -(-dv["n"] // dv.get("batch_size", a.get("batch_size", 64)))
+                        evals += nb * (a.get("epochs", 1) if task.get("type") == "train" else 1)
+                want = {"B5": layers[name] * (steps + evals),
+                        **{c: layers[name] * steps for c in bwd_counters}}
+                if counts != want or steps == 0:
+                    raise AssertionError(f"zoo {name}: flash launches {counts}, want {want} "
+                                         f"({steps} train steps, {evals} eval batches)")
+            elif any(counts.values()):
+                raise AssertionError(f"zoo {name}: a flash kernel ran: {counts}")
+            if name == "mnist" and not reports.get("valid_report"):
+                raise AssertionError(f"zoo mnist: no classification report: {reports}")
+            if name == "unet_segmentation" and not reports.get("valid"):
+                raise AssertionError(f"zoo unet: no segmentation report: {reports}")
+            res["reports"] = {k: v for k, v in reports.items() if v}
+            dags[name] = res
+            log(f"zoo {name}: {json.dumps(res)}")
+
+        # BERT-window and ViT on one batch: one train step's forward and
+        # backward with the kernels, then with their plain versions.  Every
+        # kernel call of the kernels' step is recorded and held against the
+        # plain version on its own inputs with the kernel phase's rule:
+        # |kernel - plain| <= 2^-7 (|ref| + ref_abs), ref_abs the sum of the
+        # absolute terms (the plain forward on |v|; flash_bwd_abs).  The
+        # model's logits are held with the same rule, ref_abs the sum of the
+        # absolute terms of the head's product (|x| |W| + |b|, the head's
+        # input from the plain run).  The loss, the gradient norm and each
+        # parameter gradient's error are printed, not held: one bf16 step of
+        # an attention output in one layer moves everything after it, so
+        # through 12 layers the loss moves by ~0.2% between two right
+        # answers; the k bias's exact gradient is 0 (it shifts every logit
+        # of a row alike) and the last layer's q and k gradients come from
+        # one query (the CLS row) as sums that cancel, so both sides give
+        # rounding noise there.
+        def plain_fwd(q, k, v, causal=False, scale=None, kv_start=None, kv_stop=None):
+            b_, s_k = q.shape[0], k.shape[1]
+            return fa.flash_attention_plain(q, k, v, causal, scale, fa._window(kv_start, b_, 0, dev),
+                                            fa._window(kv_stop, b_, s_k, dev))
+
+        def plain_bwd(q, k, v, out, lse, do, causal, scale, kv_start=None, kv_stop=None,
+                      g_lse=None):
+            b_, s_k = q.shape[0], k.shape[1]
+            return fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale,
+                                                fa._window(kv_start, b_, 0, dev),
+                                                fa._window(kv_stop, b_, s_k, dev), g_lse)
+
+        def within(label, out, ref, ref_abs):
+            diff = (out.float() - ref.float()).abs()
+            limit = 2.0 ** -7 * (ref.float().abs() + ref_abs.float())
+            ratio = float((diff / limit.clamp_min(1e-30)).max())
+            if not math.isfinite(ratio) or ratio > 1.0:
+                raise AssertionError(f"zoo parity {label}: |kernel - plain| at {ratio:.3f} of "
+                                     "2^-7 (|ref| + ref_abs)")
+            return ratio
+
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        ids = torch.randint(1, 30522, (32, 128), generator=g, device=dev)
+        stop = torch.randint(16, 129, (32,), generator=g, device=dev)
+        start = torch.randint(0, 16, (32,), generator=g, device=dev)
+        cols = torch.arange(128, device=dev)
+        right, left = cols[None] < stop[:, None], cols[None] >= start[:, None]
+        # rows 0-15 right-padded, rows 16-31 left-padded: one pad run each
+        ids = torch.where(torch.cat([right[:16], left[16:]]), ids, torch.zeros_like(ids))
+        batches = {
+            "bert_finetune_window": ({**configs["bert_finetune_window"]["executors"]["train"]
+                                      ["args"]["model"]}, ids,
+                                     torch.randint(0, 2, (32,), generator=g, device=dev)),
+            "vit_b16": (dict(configs["vit_b16"]["executors"]["train"]["args"]["model"]),
+                        torch.rand((vb, 224, 224, 3), generator=g, device=dev),
+                        torch.randint(0, 1000, (vb,), generator=g, device=dev)),
+        }
+        ce = create_loss("cross_entropy")
+        import mlcomp_tpu_torch.models.bert as zoo_bert
+        import mlcomp_tpu_torch.models.vit as zoo_vit
+        from mlcomp_tpu_torch.models.zoo import dense as zoo_dense
+
+        head_in = {}
+
+        def rec_dense(scope, x_, features, dtype, n_contract=1, use_bias=True):
+            if scope.path[-1] in ("head", "cls_head", "mlm_head"):
+                head_in.update(x=x_.detach(), path="/".join(scope.path))
+            return zoo_dense(scope, x_, features, dtype, n_contract, use_bias)
+
+        parity = {}
+        for name, (mcfg, x, y) in batches.items():
+            model = create_model(mcfg, device=dev)
+            model.load_variables(*model.init_variables(SEED, dev, (1,) + tuple(x.shape[1:])),
+                                 train=True)
+            model.train()
+
+            def run():
+                for p_ in model.params.values():
+                    p_.grad = None
+                out_ = model(x)
+                loss_ = ce(out_, {"x": x, "y": y})
+                loss_.backward()
+                res_ = {"loss": loss_.detach().float(), "logits": out_.detach().float()}
+                res_.update({k_: p_.grad.float() for k_, p_ in model.params.items()})
+                for p_ in model.params.values():
+                    p_.grad = None
+                return res_
+
+            calls = []
+            f0, b0 = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+            def rec_fwd(q, k, v, causal=False, scale=None, kv_start=None, kv_stop=None):
+                res_ = f0(q, k, v, causal, scale, kv_start, kv_stop)
+                calls.append(("fwd", (q, k, v, causal, scale, kv_start, kv_stop), res_))
+                return res_
+
+            def rec_bwd(q, k, v, out, lse, do, causal, scale, kv_start=None, kv_stop=None,
+                        g_lse=None):
+                res_ = b0(q, k, v, out, lse, do, causal, scale, kv_start, kv_stop, g_lse)
+                calls.append(("bwd", (q, k, v, out, lse, do, causal, scale, kv_start, kv_stop),
+                              res_))
+                return res_
+
+            fa.launches = 0
+            for c in bwd_counters:
+                setattr(fa, c, 0)
+            fa.flash_attention_fwd, fa.flash_attention_bwd = rec_fwd, rec_bwd
+            try:
+                got = run()
+            finally:
+                fa.flash_attention_fwd, fa.flash_attention_bwd = f0, b0
+            one = {"B5": fa.launches, **{c: getattr(fa, c) for c in bwd_counters}}
+            if set(one.values()) != {layers[name]} or len(calls) != 2 * layers[name]:
+                raise AssertionError(f"zoo parity {name}: launches {one}, {len(calls)} calls")
+            call_ratio = {"fwd": 0.0, "bwd": 0.0}
+            for i, (kind_, a, res_) in enumerate(calls):
+                if kind_ == "fwd":
+                    q, k, v, causal, sc, lo, hi = a
+                    lo_t = fa._window(lo, q.shape[0], 0, dev)
+                    hi_t = fa._window(hi, q.shape[0], k.shape[1], dev)
+                    ref_ = fa.flash_attention_plain(q, k, v, causal, sc, lo_t, hi_t)[0]
+                    abs_ = fa.flash_attention_plain(q, k, v.abs(), causal, sc, lo_t, hi_t)[0]
+                    call_ratio["fwd"] = max(call_ratio["fwd"],
+                                            within(f"{name} B5 call {i}", res_[0], ref_, abs_))
+                else:
+                    q, k, v, out, lse, do, causal, sc, lo, hi = a
+                    lo_t = fa._window(lo, q.shape[0], 0, dev)
+                    hi_t = fa._window(hi, q.shape[0], k.shape[1], dev)
+                    refs = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, sc,
+                                                        lo_t, hi_t)
+                    abss = flash_bwd_abs(q, k, v, out, lse, do, causal, sc, lo_t, hi_t)
+                    for n_, o_, r_, ab_ in zip(("dq", "dk", "dv"), res_, refs, abss):
+                        call_ratio["bwd"] = max(call_ratio["bwd"], within(
+                            f"{name} B9 call {i} {n_}", o_, r_, ab_))
+                    del refs, abss
+            del calls
+            fa.flash_attention_fwd, fa.flash_attention_bwd = plain_fwd, plain_bwd
+            zoo_bert.dense = zoo_vit.dense = rec_dense
+            try:
+                ref = run()
+            finally:
+                fa.flash_attention_fwd, fa.flash_attention_bwd = f0, b0
+                zoo_bert.dense = zoo_vit.dense = zoo_dense
+            w_head = model.params[head_in["path"] + "/kernel"].detach().float()
+            b_head = model.params[head_in["path"] + "/bias"].detach().float()
+            logit_abs = head_in["x"].float().abs() @ w_head.abs() + b_head.abs()
+            logit_ratio = within(f"{name} logits", got["logits"], ref["logits"], logit_abs)
+            loss_rel = float((got["loss"] - ref["loss"]).abs() / ref["loss"].abs())
+            leaves = [k_ for k_ in ref if k_ not in ("loss", "logits")]
+            gn_k = float(torch.sqrt(sum((got[k_] ** 2).sum() for k_ in leaves)))
+            gn_p = float(torch.sqrt(sum((ref[k_] ** 2).sum() for k_ in leaves)))
+            leaf_ratio = {k_: float(((got[k_] - ref[k_]).abs() / (2.0 ** -7 * (
+                ref[k_].abs() + ref[k_].abs().max())).clamp_min(1e-30)).max()) for k_ in leaves}
+            leaf_rel = {k_: float((got[k_] - ref[k_]).norm() / ref[k_].norm().clamp_min(1e-30))
+                        for k_ in leaves}
+            parity[name] = {
+                "calls_err_over_limit": call_ratio, "logits_err_over_limit": logit_ratio,
+                "logits_max_abs_err": float((got["logits"] - ref["logits"]).abs().max()),
+                "loss_kernels": float(got["loss"]), "loss_plain": float(ref["loss"]),
+                "loss_relative_err": loss_rel,
+                "grad_norm_kernels": gn_k, "grad_norm_plain": gn_p, "leaves": len(leaves),
+                "leaf_err_over_limit_largest": sorted(leaf_ratio.items(), key=lambda kv: -kv[1])[:5],
+                "leaf_relative_err_largest": sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:5],
+                "leaf_relative_err_median": sorted(leaf_rel.values())[len(leaf_rel) // 2],
+                "launches_one_step": one}
+            log(f"zoo parity {name}: {json.dumps(parity[name])}")
+            del model, got, ref
+            torch.cuda.empty_cache()
+
+        # where a ResNet-50 step's device time goes: one profiled train step
+        # of the DAG's train configuration (its batch, augmentation, loss
+        # and optimizer), after one unprofiled step; kernels grouped by name
+        from mlcomp_tpu_torch.train.loop import Trainer
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        rargs = {k: v for k, v in configs["resnet50_imagenet"]["executors"]["train"][
+            "args"].items() if k not in ("trace", "storage_root", "project", "dag_name")}
+        rargs["data"] = {"train": {**rargs["data"]["train"], "n": 2 * ZOO_RESNET_BATCH}}
+        rtr = Trainer(rargs, device=device)
+        rbatches = list(rtr._loader("train"))
+        rtr._train_step(rtr.state, rbatches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p_:
+            rtr._train_step(rtr.state, rbatches[1])
+            torch.cuda.synchronize()
+        step_wall = (time.perf_counter() - t0) * 1e3
+        per_kernel, launches_ = {}, 0
+        for evt in p_.key_averages():
+            us = getattr(evt, "device_time_total", None)
+            us = getattr(evt, "cuda_time_total", 0.0) if us is None else us
+            if us:
+                per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + us / 1e3
+                launches_ += evt.count
+        groups = (("convolution", r"conv|cudnn|dgrad|wgrad|fprop|implicit"),
+                  ("matmul", r"gemm|cutlass|sm90|xmma"),
+                  ("pooling", r"pool"),
+                  ("copy and pad", r"copy|pad|cat|index"),
+                  ("elementwise and reductions", r"elementwise|vectorized|reduce|unrolled"))
+        by_group = {}
+        for key_, ms_ in per_kernel.items():
+            g_ = next((n_ for n_, rx in groups if re.search(rx, key_, re.I)), "other")
+            by_group[g_] = by_group.get(g_, 0.0) + ms_
+        busy = sum(per_kernel.values())
+        resnet_profile = {
+            "step_wall_ms_profiled": step_wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / step_wall), "kernel_launches": launches_,
+            "device_ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": [(k_[:90], v_) for k_, v_ in
+                               sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]]}
+        log(f"zoo resnet50 profiled step: {json.dumps(resnet_profile)}")
+        del rtr, rbatches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # B5 and B9 device times at the two models' attention shapes
+        def by_kernel(prof_, iters):
+            out_ = {"kernel": 0.0, "other": 0.0}
+            for evt in prof_.key_averages():
+                us = getattr(evt, "device_time_total", None)
+                us = getattr(evt, "cuda_time_total", 0.0) if us is None else us
+                if not us:
+                    continue
+                kernel_ = re.search(r"flash_\w*kernel", evt.key) is not None
+                out_["kernel" if kernel_ else "other"] += us / 1e3 / iters
+            return out_
+
+        def profiled(fn, iters=10):
+            """Device time by torch.profiler (kernel and other), and the
+            call's time by CUDA events (median of five windows), which
+            stands where the profiler reports no device time."""
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p_:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            out_ = by_kernel(p_, iters)
+            if not out_["kernel"] + out_["other"]:
+                log("zoo flash: no device time in the profile; events: "
+                    + json.dumps([e.key[:60] for e in p_.key_averages()][:8]))
+            ev = time_ms([fn], iters=iters, warmup=2)
+            out_["events_ms"], out_["events_ms_spread"] = float(ev), list(ev.spread)
+            return out_
+
+        def bound(nbytes, ops):
+            t_b, t_o = nbytes / bw, ops / flops
+            return {"bound_ms": max(t_b, t_o) * 1e3,
+                    "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        shapes = {"bert_window 32x128x12x64": (32, 128, True),
+                  "vit_b16 64x196x12x64": (64, 196, False)}
+        flash_times = {}
+        for label, (b, s, win) in shapes.items():
+            q, k, v, do = (torch.randn(b, s, 12, 64, generator=g, device=dev).bfloat16()
+                           for _ in range(4))
+            lo = torch.zeros(b, dtype=torch.int32, device=dev) if win else None
+            hi = torch.full((b,), s, dtype=torch.int32, device=dev) if win else None
+            sc = 64 ** -0.5
+            out, lse = fa.flash_attention_fwd(q, k, v, False, sc, lo, hi)
+            fwd = profiled(lambda: fa.flash_attention_fwd(q, k, v, False, sc, lo, hi))
+            bwd = profiled(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, False, sc, lo, hi))
+            lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+            with torch.no_grad():
+                lib_f = profiled(lambda: sdpa(lq, lk, lv, scale=sc))
+            lq, lk, lv = (t.requires_grad_() for t in (lq, lk, lv))
+            graph = sdpa(lq, lk, lv, scale=sc)
+            lib_b = profiled(lambda: torch.autograd.grad(graph, (lq, lk, lv), ldo,
+                                                         retain_graph=True))
+            lo_t, hi_t = fa._window(lo, b, 0, dev), fa._window(hi, b, s, dev)
+            plain_f = time_ms([lambda: fa.flash_attention_plain(q, k, v, False, sc, lo_t, hi_t)],
+                              iters=3, warmup=1)
+            plain_b = time_ms([lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, False,
+                                                                    sc, lo_t, hi_t)],
+                              iters=3, warmup=1)
+            w64 = fa.flash_work(b, s, s, 12, 12, 64, False, lo, hi)
+            w128 = fa.flash_work(b, s, s, 12, 12, 128, False, lo, hi)
+            flash_times[label] = {
+                key_: {"device_ms": m["kernel"] + m["other"], "kernel_ms": m["kernel"],
+                       "pad_and_slice_ms": m["other"], "events_ms": m["events_ms"],
+                       "events_ms_spread": m["events_ms_spread"],
+                       "sdpa_device_ms": lib["kernel"] + lib["other"],
+                       "sdpa_events_ms": lib["events_ms"], **bound(w64[f"{f_}_bytes"], w64[f"{f_}_ops"]),
+                       "bound_ms_at_dh128": bound(w128[f"{f_}_bytes"], w128[f"{f_}_ops"])["bound_ms"]}
+                for key_, f_, m, lib in (("B5", "fwd", fwd, lib_f), ("B9", "bwd", bwd, lib_b))}
+            flash_times[label]["B5"]["plain_ms"] = float(plain_f)
+            flash_times[label]["B9"]["plain_ms"] = float(plain_b)
+            log(f"zoo flash {label}: {json.dumps(flash_times[label])}")
+            del q, k, v, do, out, lse, lq, lk, lv, ldo, graph
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rn = dags["resnet50_imagenet"]
+    rstep = rn["train_ms_per_step"]
+    n_valid = configs["resnet50_imagenet"]["executors"]["train"]["args"]["data"]["valid"]["n"]
+    result = {
+        "reduced": reduced, "card": smi,
+        "resnet50": {"batch": ZOO_RESNET_BATCH, "ms_per_step": rstep,
+                     "train_images_s": ZOO_RESNET_BATCH * 1e3 / rstep["median"],
+                     "valid_images_s": n_valid * 1e3 / rstep["eval_epoch_ms"][-1],
+                     "peak_gb": rn["peak_gb"]},
+        "ms_per_step": {n: dags[n]["train_ms_per_step"] for n in
+                        ("unet_segmentation", "bert_finetune", "bert_finetune_window", "vit_b16")},
+        "dag_wall_s": {n: r["wall_s"] for n, r in dags.items()},
+        "statuses": {n: r["statuses"] for n, r in dags.items()},
+        "launches": {n: r["launches"] for n, r in dags.items()},
+        "reports": {n: r["reports"] for n, r in dags.items() if r["reports"]},
+        "resnet50_profiled_step": resnet_profile,
+        "parity": parity, "flash": flash_times, "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"model zoo ({smi}): ResNet-50 {result['resnet50']['train_images_s']:.1f} images/s "
+        f"training ({rstep['median']:.1f} ms/step, {rstep['spread']}), "
+        f"{result['resnet50']['valid_images_s']:.1f} images/s valid, peak {rn['peak_gb']:.2f} GB; "
+        f"phase {result['phase_s']:.1f} s")
     return result
 
 
@@ -1383,28 +1927,7 @@ def main() -> int:
     # can land one bf16 step apart (2^-8 of the term), and round the output
     # (2^-8 of it); f32 sums in other orders add ~2^-20.  A missed mask, a
     # wrong tile or a lost GQA head moves a gradient by whole terms.
-    def bwd_abs(q, k, v, out, lse, do, causal, sc, lo, hi):
-        b, s_q, h, d = q.shape
-        s_k, h_kv = k.shape[1], k.shape[2]
-        rep = h // h_kv
-        qg = q.float().reshape(b, s_q, h_kv, rep, d)
-        dog = do.float().reshape(b, s_q, h_kv, rep, d)
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(b, h_kv, rep, s_q)
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * sc
-        cols = torch.arange(s_k, device=dev)
-        live = ((cols[None] >= lo[:, None]) & (cols[None] < hi[:, None]))[:, None, None, None]
-        if causal:
-            live = live & (torch.arange(s_q, device=dev)[:, None] >= cols[None])
-        p = torch.where(live, torch.exp(s - lse.reshape(b, h_kv, rep, s_q)[..., None]),
-                        torch.zeros_like(s))
-        del s
-        dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
-        w = p * (dp.abs() + delta.abs()[..., None]) * sc
-        del dp
-        dq = torch.einsum("bgrqk,bkgd->bqgrd", w, k.float().abs()).reshape(b, s_q, h, d)
-        dk = torch.einsum("bgrqk,bqgrd->bkgd", w, qg.abs())
-        dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog.abs())
-        return dq, dk, dv
+    bwd_abs = flash_bwd_abs
 
     def bwd_case(key, label, b, s, h, h_kv, d, causal, lo=None, hi=None, fwd_row=False):
         sc = 1.0 / math.sqrt(d)
@@ -3371,6 +3894,14 @@ def main() -> int:
         f" {NEW} --prefill-chunk {CHUNK} --kv-page-tokens {page_t} --max-slots {BATCH}",
         "cuda", smi)
 
+    # ---- 11e. model zoo: the five baseline DAGs and ViT-B/16 through `cli dag`
+    log("phase model zoo")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_result = zoo_phase("cuda", smi, bw, flops)
+    zoo_bwd = sum(zoo_result["launches"][n]["bwd_dq_launches"]
+                  for n in ("bert_finetune_window", "vit_b16"))
+
     # ---- 12. summary
     # each kernel's work in one decode step at B=8 (B1, B2, B3), in one
     # 8x512 prefill (B5) or in one admission chunk at index 256 (B4); B1's
@@ -3389,7 +3920,7 @@ def main() -> int:
         "B8": ("bf16-KV paged decode step: K and V of every layer",
                [(kernels["B8"].rows[0], 2 * layers)]),
         "B9": ("BERT finetune backward 32x128, 12 heads of 64, key padding, one call (the JAX "
-               "package's rectangular grid; not on the LM train path)",
+               "package's rectangular grid: BERT with pad_mode window and ViT train steps)",
                [(row_of("B9", CASE_B), 1)]),
         "B10": ("train step 2x4096: every layer's backward (delta, dq, dk/dv), causal",
                 [(row_of("B10", CASE_A), layers)]),
@@ -3402,7 +3933,9 @@ def main() -> int:
                    **{key: train_counts[key] for key in train_keys}}
     paths = {**{key: "dense engine serve" for key in dense_keys},
              "B6": "paged engine serve", "B7": f"paged spec engine (spec_k {SPEC_K})",
-             "B8": "bf16-KV paged engine", **{key: "train (cli dag)" for key in train_keys}}
+             "B8": "bf16-KV paged engine", **{key: "train (cli dag)" for key in train_keys},
+             "B9": "model zoo: BERT (pad_mode window) and ViT-B/16 train steps (cli dag)"}
+    path_counts["B9"] = zoo_bwd
     entries = []
     for key, (label, weighted) in scopes.items():
         k = kernels[key]
@@ -3461,12 +3994,16 @@ def main() -> int:
                 for r in kernels[key].rows if r["rows"] <= qm.GEMV_ROWS and "ms" in r]
         if key == "B5":
             entry["launches_train_path"] = train_counts["B5"]
+            entry["launches_zoo_path"] = {n: zoo_result["launches"][n]["B5"]
+                                          for n in ("bert_finetune_window", "vit_b16")}
+            entry["zoo"] = {k_: v["B5"] for k_, v in zoo_result["flash"].items()}
             entry["train_step"] = {"scope": "train step 2x4096: every layer's forward, causal",
                                    **total([(row_of("B5", TRAIN_B5_CASE), layers)])}
         if key == "B10":
             entry["gqa"] = {"scope": "2x4096, 16 q heads on 4 kv heads, causal, one call",
                             **total([(row_of("B10", CASE_C), 1)])}
         if key == "B9":
+            entry["zoo"] = {k_: v["B9"] for k_, v in zoo_result["flash"].items()}
             entry["ragged"] = {"scope": "3x1000, 16 q heads on 8 kv heads, causal, left "
                                         "padding, one call", **total([(row_of("B9", CASE_E), 1)])}
         if key == "B4":
@@ -3538,6 +4075,7 @@ def main() -> int:
     log(json.dumps({"train_to_serve": t2s_result}))
     log(json.dumps({"daemons": daemons_result}))
     log(json.dumps({"fleet": fleet_result}))
+    log(json.dumps({"zoo": zoo_result}))
     log(json.dumps({"prefix_cache": {"dense": pc_dense, "paged": pc_paged, "card": smi}}))
     log(json.dumps({"daemon": daemon}))
     log(json.dumps({"train": {**train_result, "parity": {

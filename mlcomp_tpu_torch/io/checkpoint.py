@@ -9,7 +9,9 @@ writes into a temporary directory and renames it, so a reader sees a
 whole checkpoint or none; the newest ``max_to_keep`` are kept.
 :class:`AsyncCheckpointWriter` copies the state to the host before
 ``save`` returns (the next step may update the parameters in place) and
-writes it on a background thread.
+writes it on a background thread.  A model with BatchNorm statistics
+carries them as ``model_state`` (``batch_stats/<flax path>``), which every
+reader below restores beside the weights and the average averages.
 
 The eval side reads weights only: :func:`read_weights` (the flax-layout
 params tree, EMA weights preferred), :func:`restore_eval_state` (those
@@ -159,20 +161,21 @@ def _flat_weights(payload: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def read_weights(directory: str | Path, step: Optional[int] = None) -> Dict[str, Any]:
     """Weights-only read to the host: ``{"params": the flax-layout tree
     (nested dicts of CPU tensors in the training shapes), "model_state":
-    {}, "step"}``, preferring the EMA weights when the checkpoint carries
-    them.  Needs no TrainState: the building block of ``serve --ckpt DIR``
+    {"batch_stats": tree} or {}, "step"}``, preferring the EMA weights when
+    the checkpoint carries them.  Needs no TrainState: the building block of ``serve --ckpt DIR``
     and of :func:`average_checkpoints`."""
     from mlcomp_tpu_torch.io.weights import unflatten
 
     payload = _read(directory, step)
-    return {"params": unflatten(dict(_flat_weights(payload))), "model_state": {},
+    return {"params": unflatten(dict(_flat_weights(payload))),
+            "model_state": unflatten(dict(payload.get("model_state") or {})),
             "step": int(payload["step"])}
 
 
 def restore_eval_state(directory: str | Path, state: Any, step: Optional[int] = None) -> Any:
     """Weights-only restore for the eval/infer/generate executors: the
-    checkpoint's weights (EMA preferred) into ``state.params`` in place
-    and its step; the optimizer state on disk is never read, so these
+    checkpoint's weights (EMA preferred) into ``state.params`` and its
+    BatchNorm statistics into ``state.model_state``, in place, and its step; the optimizer state on disk is never read, so these
     stages need not repeat the train task's optimizer config.  The EMA
     weights become the parameters, and ``state.ema_params`` is dropped, as
     in the JAX package.  Returns ``state``."""
@@ -187,6 +190,13 @@ def restore_eval_state(directory: str | Path, state: Any, step: Optional[int] = 
                 raise ValueError(f"checkpoint leaf {k} is {tuple(src[k].shape)}; the model's "
                                  f"is {tuple(p.shape)}")
             p.copy_(src[k])
+        stats = payload.get("model_state") or {}
+        missing = sorted(set(state.model_state) - set(stats))
+        if missing:
+            raise ValueError(f"checkpoint under {directory} lacks {missing[:3]}... (another "
+                             "model?)")
+        for k, t in state.model_state.items():
+            t.copy_(stats[k])
     state.ema_params = None
     state.step = int(payload["step"])
     return state
@@ -208,7 +218,8 @@ def average_checkpoints(sources: Sequence[Any], out_dir: str | Path,
                         weights: Optional[Sequence[float]] = None) -> str:
     """Weight-space average of checkpoints (SWA, a model soup): ``sources``
     are ``"dir"`` or ``"dir:step"`` strings (or (dir, step) pairs), each
-    contributing its EMA weights when it has them; ``weights`` (normalised)
+    contributing its EMA weights when it has them, and its BatchNorm
+    statistics (``model_state``) averaged alike; ``weights`` (normalised)
     default to equal.  The sums run in float64, as the JAX package's
     average does, and each leaf casts back to the first source's dtype.
     The result is saved weights-only at the largest source step; it
@@ -224,20 +235,25 @@ def average_checkpoints(sources: Sequence[Any], out_dir: str | Path,
     total = float(sum(weights))
     if total <= 0:
         raise ValueError("weights must sum to a positive value")
-    acc: Optional[Dict[str, np.ndarray]] = None
-    dtypes: Dict[str, torch.dtype] = {}
+    acc: Optional[Dict[str, Dict[str, np.ndarray]]] = None
+    dtypes: Dict[str, Dict[str, torch.dtype]] = {}
     max_step = 0
     for (d, step), w in zip(parsed, weights):
         payload = _read(d, step)
         max_step = max(max_step, int(payload["step"]))
-        flat = _flat_weights(payload)
+        trees = {"params": _flat_weights(payload), "model_state": payload.get("model_state") or {}}
         if acc is None:
-            acc = {k: np.zeros(tuple(v.shape), np.float64) for k, v in flat.items()}
-            dtypes = {k: v.dtype for k, v in flat.items()}
-        elif set(flat) != set(acc) or any(tuple(flat[k].shape) != acc[k].shape for k in acc):
+            acc = {part: {k: np.zeros(tuple(v.shape), np.float64) for k, v in flat.items()}
+                   for part, flat in trees.items()}
+            dtypes = {part: {k: v.dtype for k, v in flat.items()} for part, flat in trees.items()}
+        elif any(set(flat) != set(acc[part])
+                 or any(tuple(flat[k].shape) != acc[part][k].shape for k in flat)
+                 for part, flat in trees.items()):
             raise ValueError(f"checkpoint {d} has a different parameter structure")
-        for k, v in flat.items():
-            acc[k] += v.detach().double().numpy() * (float(w) / total)
+        for part, flat in trees.items():
+            for k, v in flat.items():
+                acc[part][k] += v.detach().double().numpy() * (float(w) / total)
     out = {"step": max_step,
-           "params": {k: torch.from_numpy(a).to(dtypes[k]) for k, a in acc.items()}}
+           **{part: {k: torch.from_numpy(a).to(dtypes[part][k]) for k, a in flat.items()}
+              for part, flat in acc.items()}}
     return _write(Path(out_dir).absolute(), out, max_step, max_to_keep=3)

@@ -6,7 +6,12 @@ Trees keep the flax layout: nested dicts keyed by flax module names
 (H, dh, d)), leaves numpy arrays or tensors, quantized leaves
 ``{"q8", "q8_scale"}``.  :func:`from_flax_params` flattens such a tree
 into the state ``TransformerLM.load_state`` takes, folding every
-projection to its 2-D (m, n) operand.
+projection to its 2-D (m, n) operand.  The zoo's models (models/zoo.py)
+keep their trees as they are, flattened by path (:func:`flatten`): a
+Conv kernel stays HWIO and a ``DenseGeneral`` kernel (d, H, dh) or
+(H, dh, d), and the layer reads it in that shape.  :func:`init_params`
+draws either family's tree, :func:`init_variables` a zoo model's
+``(params, model_state)`` with its BatchNorm statistics.
 """
 
 from __future__ import annotations
@@ -54,15 +59,49 @@ def from_flax_params(tree, fold: bool = True) -> Dict[str, torch.Tensor]:
     return state
 
 
-def init_params(cfg: Dict[str, Any], seed: int = 0, device: Optional[torch.device] = None):
-    """A ``transformer_lm`` params tree in the flax layout (unfused
+def flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """A nested tree's leaves keyed by their paths joined with ``/`` (a
+    flat dict passes through); the inverse of :func:`unflatten`."""
+    flat: Dict[str, Any] = {}
+    for key, leaf in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(leaf, dict):
+            flat.update(flatten(leaf, path + "/"))
+        else:
+            flat[path] = leaf
+    return flat
+
+
+def init_variables(model_cfg: Dict[str, Any], seed: int = 0, device=None,
+                   sample_shape=None):
+    """A zoo model's ``(params, model_state)``, flax-layout trees with the
+    paths, shapes and initialisers of the JAX package's ``init_model``
+    (``model_state`` is ``{"batch_stats": ...}`` for the BatchNorm
+    families, else ``{}``).  ``sample_shape`` is the input's shape, which
+    fixes the leaves that depend on it (an MLP's first kernel, ViT's
+    ``pos_emb``); each family has a default.  ``device`` as in
+    :func:`init_params`."""
+    from mlcomp_tpu_torch.models import create_model
+
+    model = create_model(dict(model_cfg), device="cpu")
+    return model.init_variables(seed, device=device, sample_shape=sample_shape)
+
+
+def init_params(cfg: Dict[str, Any], seed: int = 0, device: Optional[torch.device] = None,
+                sample_shape=None):
+    """A params tree drawn from ``seed``: a zoo model's (``cfg["name"]`` is
+    not ``transformer_lm``; see :func:`init_variables`), or else a
+    ``transformer_lm`` params tree in the flax layout (unfused
     projections, as training writes them), drawn from ``seed``.
 
     With ``device=None`` the draw is numpy's (``default_rng(seed)``) and the
     leaves are numpy f32 arrays: the CPU tests feed the same tree to both
     packages.  With a ``device`` the draw is a seeded ``torch.Generator``
     on that device, which is fast at full width (a different stream from
-    numpy's).  Kernels are normal(0, 1/sqrt(fan_in)); norms are ones."""
+    numpy's).  The LM's kernels are normal(0, 1/sqrt(fan_in)); norms are
+    ones."""
+    if cfg.get("name", "transformer_lm") != "transformer_lm":
+        return init_variables(cfg, seed, device, sample_shape)[0]
     hidden, heads = cfg["hidden"], cfg["heads"]
     kv_heads = cfg.get("kv_heads") or heads
     mlp = cfg.get("mlp_dim") or hidden * 4

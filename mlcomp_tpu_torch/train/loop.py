@@ -10,15 +10,21 @@ place; no ``torch.compile`` and no CUDA graph.  Per-step losses and
 metrics stay on the device and are summed there; the host reads them once
 per epoch, as the JAX loop does.
 
+The step's randomness (augmentation draws, mixup's permutation) comes from
+a ``torch.Generator`` on the batch's device seeded with ``seed + 1``, and
+mixup's lambda from a host ``torch.Generator`` with the same seed: other
+streams than the JAX package's ``PRNGKey(seed + 1)`` folds, so augmented
+or mixed steps do not repeat the JAX package's draws.
+
 Not ported yet, and refused with ``NotImplementedError``: a ``mesh`` with
-an axis larger than 1 and ``seq_parallel`` (A12), ``profile`` (A13),
-``augment`` and ``mixup`` (the image recipes).  ``Trainer(cfg)`` runs on
-``cuda``; pass ``device="cpu"`` for the CPU.
+an axis larger than 1 and ``seq_parallel`` (A12) and ``profile`` (A13).
+``Trainer(cfg)`` runs on ``cuda``; pass ``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -34,18 +40,76 @@ from mlcomp_tpu_torch.utils.device import resolve_device
 from mlcomp_tpu_torch.utils.trace import Tracer, get_tracer, set_tracer
 
 
-def make_train_step(loss_fn, metric_fns: Dict[str, Callable], grad_accum: int = 1):
+def _gamma(gen: torch.Generator, a: float) -> float:
+    """A Gamma(a, 1) draw from ``gen`` (Marsaglia and Tsang)."""
+    if a < 1.0:
+        u = 1.0 - torch.rand((), generator=gen).item()     # in (0, 1]
+        return _gamma(gen, a + 1.0) * u ** (1.0 / a)
+    d = a - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    while True:
+        x = torch.randn((), generator=gen).item()
+        v = (1.0 + c * x) ** 3
+        if v <= 0.0:
+            continue
+        u = 1.0 - torch.rand((), generator=gen).item()
+        if math.log(u) < 0.5 * x * x + d - d * v + d * math.log(v):
+            return d * v
+
+
+def beta_draw(gen: torch.Generator, a: float) -> float:
+    """A Beta(a, a) draw from ``gen``: mixup's lambda."""
+    g1, g2 = _gamma(gen, a), _gamma(gen, a)
+    return g1 / (g1 + g2)
+
+
+def mixup_batch(batch: Dict[str, torch.Tensor], lam: torch.Tensor, perm: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+    """Blend each example with its partner ``perm`` by the shared ``lam``
+    (f32, the dominant weight): x becomes lam x + (1 - lam) x[perm], and the
+    partners' labels ride in the batch as ``_mix_y`` (so a grad_accum split
+    keeps each row's partner in its microbatch).  The JAX step's mixup
+    checks and arithmetic."""
+    if "y" not in batch:
+        raise ValueError(
+            "mixup needs labeled batches (y); it is a classification recipe — drop it for "
+            "LM/unlabeled training")
+    xb = batch["x"]
+    if not torch.is_floating_point(xb):
+        raise ValueError(
+            f"mixup blends float inputs; x is {xb.dtype} (token ids?) — an integer blend "
+            "would silently zero the batch")
+    x = lam.to(xb.dtype) * xb + (1.0 - lam).to(xb.dtype) * xb[perm]
+    return {**batch, "x": x, "_mix_y": batch["y"][perm]}
+
+
+def make_train_step(loss_fn, metric_fns: Dict[str, Callable], grad_accum: int = 1,
+                    augment_fn=None, mixup_alpha: float = 0.0, seed: int = 0, device=None):
     """The train step: ``step(state, batch) -> stats`` (device scalars).
+
+    The model runs in train mode.  ``augment_fn(gen, x)`` (data/augment.py)
+    rewrites ``batch["x"]`` first, without gradients; ``mixup_alpha > 0``
+    then blends the batch (:func:`mixup_batch`, lambda ~ Beta(alpha,
+    alpha), the larger of lambda and 1 - lambda) and the loss becomes
+    lam loss(y) + (1 - lam) loss(y[perm]); metrics score against y.  Both
+    draw from generators seeded with ``seed + 1``, the batches' ``device``'s
+    and the host's.
 
     ``grad_accum > 1`` splits the batch into that many equal microbatches,
     sums their gradients in f32 (the parameters' ``.grad``) and applies the
     optimizer once to the mean: the microbatch-mean semantics of the JAX
     step (masked losses weigh each microbatch's mean equally).  Loss and
-    metrics report the microbatch average."""
+    metrics report the microbatch average; BatchNorm statistics update
+    once a microbatch, in order, as the JAX step's scan carries them."""
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed + 1)
+    host_gen = torch.Generator().manual_seed(seed + 1)
 
-    def grads_of(model, batch):
+    def grads_of(model, batch, lam):
         outputs = model(batch["x"])
         loss = loss_fn(outputs, batch)
+        if lam is not None:
+            # convex label combination: exact mixup for CE-family losses
+            loss = lam * loss + (1.0 - lam) * loss_fn(outputs, {**batch, "y": batch["_mix_y"]})
         loss.backward()
         with torch.no_grad():
             stats = {"loss": loss.detach()}
@@ -54,17 +118,29 @@ def make_train_step(loss_fn, metric_fns: Dict[str, Callable], grad_accum: int = 
         return stats
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
         params = state.params
         for p in params.values():
             p.grad = None
+        if augment_fn is not None:
+            with torch.no_grad():
+                batch = {**batch, "x": augment_fn(gen, batch["x"])}
+        lam = None
+        if mixup_alpha > 0.0:
+            x = batch["x"]
+            w = beta_draw(host_gen, mixup_alpha)
+            lam = torch.tensor(max(w, 1.0 - w), dtype=torch.float32).to(x.device)
+            perm = torch.randperm(x.shape[0], generator=gen, device=x.device)
+            with torch.no_grad():
+                batch = mixup_batch(batch, lam, perm)
         if grad_accum == 1:
-            stats = grads_of(state.model, batch)
+            stats = grads_of(state.model, batch, lam)
         else:
             b = batch["x"].shape[0]
             if b % grad_accum:
                 raise ValueError(f"batch size {b} not divisible by grad_accum={grad_accum}")
             m = b // grad_accum
-            per = [grads_of(state.model, {k: v[i * m:(i + 1) * m] for k, v in batch.items()})
+            per = [grads_of(state.model, {k: v[i * m:(i + 1) * m] for k, v in batch.items()}, lam)
                    for i in range(grad_accum)]
             stats = {k: torch.stack([s[k] for s in per]).mean() for k in per[0]}
             with torch.no_grad():
@@ -90,15 +166,20 @@ def metric_improved(value: float, best: Optional[float], mode: str,
     return value < best - min_delta if mode == "min" else value > best + min_delta
 
 
-def make_eval_step(loss_fn, metric_fns: Dict[str, Callable]):
+def make_eval_step(loss_fn, metric_fns: Dict[str, Callable], with_outputs: bool = False):
+    """``step(state, batch) -> stats`` in eval mode (EMA weights when the
+    state tracks them); ``with_outputs`` also returns the outputs, for the
+    valid executor's report, which reads both from one forward."""
+
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
+        state.model.eval()
         with state.eval_params() as model:
             outputs = model(batch["x"])
         stats = {"loss": loss_fn(outputs, batch)}
         for name, fn in metric_fns.items():
             stats[name] = fn(outputs, batch)
-        return stats
+        return (stats, outputs) if with_outputs else stats
 
     return eval_step
 
@@ -111,9 +192,6 @@ def _refuse(cfg: Dict[str, Any]) -> None:
             f"mesh {wide}: sharded training is not ported to mlcomp_tpu_torch yet (ROADMAP A12)")
     if cfg.get("profile"):
         raise NotImplementedError("profile: device profiling is not ported yet (ROADMAP A13)")
-    for key in ("augment", "mixup"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key}: the image recipes are not ported yet (ROADMAP A11)")
 
 
 class Trainer:
@@ -121,11 +199,15 @@ class Trainer:
 
     cfg keys: model{name,...}, optimizer{name,lr,...}, loss, metrics[list],
     data{train{...}, valid{...}}, epochs, batch_size, seed, grad_accum, ema,
-    early_stop, trace.  The weights come from
-    ``io.weights.init_params(model cfg, seed, device)``.
+    early_stop, trace, augment, mixup.  The weights are drawn from ``seed``:
+    ``io.weights.init_params`` for ``transformer_lm``, the model's own
+    ``init_variables`` (params and BatchNorm statistics, shapes from the
+    first split's first example, as the JAX Trainer's ``init_model``) for
+    the zoo.
     """
 
     def __init__(self, cfg: Dict[str, Any], device=None):
+        from mlcomp_tpu_torch.data.augment import build_augment
         from mlcomp_tpu_torch.data.datasets import create_dataset
         from mlcomp_tpu_torch.io.weights import from_flax_params, init_params
         from mlcomp_tpu_torch.models import create_model
@@ -134,17 +216,11 @@ class Trainer:
         self.cfg = dict(cfg)
         self.device = resolve_device(device)
         self.seed = int(cfg.get("seed", 0))
-        model_cfg = dict(cfg["model"])
-        self.model = create_model(model_cfg, device=self.device)
-        m = self.model
-        arch = {"vocab_size": m.vocab_size, "hidden": m.hidden, "layers": len(m.layers),
-                "heads": m.heads, "kv_heads": m.kv_heads, "mlp_dim": m.mlp_dim}
-        params = init_params(arch, self.seed, device=self.device)
-        self.model.load_state(from_flax_params(params, fold=False), train=True)
         self.loss_fn = create_loss(cfg.get("loss", "cross_entropy"))
         self.metric_fns = create_metrics(cfg.get("metrics", ["accuracy"]))
         self.tx = create_optimizer(cfg.get("optimizer", {"name": "adam", "lr": 1e-3}))
         self.epochs = int(cfg.get("epochs", 1))
+        augment_fn = build_augment(cfg.get("augment"))
 
         # host-side span tracing: cfg trace: true | {path: out.json}; the
         # tracer is installed globally only for the duration of fit()
@@ -167,10 +243,27 @@ class Trainer:
         if not self.loaders:
             raise ValueError("Trainer needs at least one data split configured")
 
+        self.model = create_model(dict(cfg["model"]), device=self.device)
+        m = self.model
+        if hasattr(m, "load_variables"):
+            # the zoo: shapes from one example of the first split, as the
+            # JAX Trainer's init_model reads them
+            split0 = "train" if "train" in self.loaders else next(iter(self.loaders))
+            sample_shape = (1,) + tuple(self.loaders[split0].data["x"].shape[1:])
+            params, model_state = m.init_variables(self.seed, self.device, sample_shape)
+            m.load_variables(params, model_state, train=True)
+        else:
+            arch = {"vocab_size": m.vocab_size, "hidden": m.hidden, "layers": len(m.layers),
+                    "heads": m.heads, "kv_heads": m.kv_heads, "mlp_dim": m.mlp_dim}
+            params = init_params(arch, self.seed, device=self.device)
+            m.load_state(from_flax_params(params, fold=False), train=True)
+
         self.state = TrainState.create(self.model, self.tx,
                                        ema_decay=float(cfg.get("ema", 0.0) or 0.0))
-        self._train_step = make_train_step(self.loss_fn, self.metric_fns,
-                                           grad_accum=int(cfg.get("grad_accum", 1)))
+        self._train_step = make_train_step(
+            self.loss_fn, self.metric_fns, grad_accum=int(cfg.get("grad_accum", 1)),
+            augment_fn=augment_fn, mixup_alpha=float(cfg.get("mixup", 0.0) or 0.0),
+            seed=self.seed, device=self.device)
         self._eval_step = make_eval_step(self.loss_fn, self.metric_fns)
 
     def _loader(self, split: str) -> DataLoader:
@@ -288,6 +381,7 @@ class Trainer:
         rows of non-drop_last tail batches stripped via ``valid``).
         ``return_labels=True`` also returns the labels of the same batches."""
         outs, labels = [], []
+        self.model.eval()
         for batch in self._loader(split):
             with self.state.eval_params() as model:
                 out = model(batch["x"]).float().cpu().numpy()

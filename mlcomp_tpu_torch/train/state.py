@@ -8,6 +8,10 @@ optimizer (a :class:`~mlcomp_tpu_torch.train.optim.Transform`) and its
 state, and the EMA parameters (``ema`` config; eval and predict prefer
 them).  ``params`` maps each parameter's flax path to the live tensor,
 so optimizer state, checkpoints and tests use the JAX package's names.
+``model_state`` maps ``batch_stats/<flax path>`` to the model's live
+BatchNorm statistics (the JAX state's ``{"batch_stats": ...}``; empty for
+a model without them): train-mode steps update them in place, eval and
+predict read them, and the EMA never touches them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ from mlcomp_tpu_torch.train.optim import Transform, apply_updates
 
 class TrainState:
     def __init__(self, model: nn.Module, params: Dict[str, torch.Tensor], tx: Transform,
-                 ema_decay: float = 0.0):
+                 ema_decay: float = 0.0, model_state: Optional[Dict[str, torch.Tensor]] = None):
         self.step = 0
         self.model = model
         self.params = params
+        self.model_state = dict(model_state or {})
         self.tx = tx
         self.opt_state = tx.init(params)
         self.ema_decay = float(ema_decay)
@@ -35,8 +40,10 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, tx: Transform, ema_decay: float = 0.0) -> "TrainState":
-        """A state over ``model.flax_params()`` (the trainable leaves)."""
-        return cls(model, dict(model.flax_params()), tx, ema_decay)
+        """A state over ``model.flax_params()`` (the trainable leaves) and,
+        where the model has them, ``model.model_state()``."""
+        model_state = model.model_state() if hasattr(model, "model_state") else {}
+        return cls(model, dict(model.flax_params()), tx, ema_decay, model_state)
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
         """One optimizer update from ``grads`` (by flax path), in place."""
@@ -70,7 +77,8 @@ class TrainState:
 
     def state_dict(self) -> Dict[str, Any]:
         return {"step": self.step, "params": {k: p.detach() for k, p in self.params.items()},
-                "opt_state": self.opt_state, "ema_params": self.ema_params}
+                "opt_state": self.opt_state, "ema_params": self.ema_params,
+                "model_state": dict(self.model_state)}
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Restore in place onto the current parameters' devices.  An EMA
@@ -84,6 +92,10 @@ class TrainState:
                 src = sd["ema_params"]
             for k, p in self.params.items():
                 p.copy_(src[k])
+            saved_stats = sd.get("model_state") or {}
+            for k, t in self.model_state.items():
+                if k in saved_stats:
+                    t.copy_(saved_stats[k])
         dev = next(iter(self.params.values())).device
         self.opt_state = _to_device(sd["opt_state"], dev)
         if self.ema_params is not None:

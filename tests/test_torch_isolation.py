@@ -55,6 +55,14 @@ def test_the_module_walk_covers_the_control_plane():
         assert f"mlcomp_tpu_torch.{name}" in mods, name
 
 
+def test_the_module_walk_covers_the_model_zoo():
+    mods = set(_modules())
+    for name in ("models.zoo", "models.mlp", "models.cnn", "models.resnet", "models.unet",
+                 "models.bert", "models.vit", "data.augment", "executors.infer",
+                 "io.weights", "io.checkpoint", "train.state", "train.loop"):
+        assert f"mlcomp_tpu_torch.{name}" in mods, name
+
+
 def test_no_port_source_spawns_the_jax_cli():
     """The copies of the pool and the fleet manager launch the port's CLI;
     the reference's launch lines name its own."""

@@ -270,5 +270,19 @@ def test_ema_tracks_and_eval_uses_it():
 @pytest.mark.parametrize("key,value", [("mesh", {"dp": 8}), ("profile", {"dir": "x"}),
                                        ("mixup", 0.2), ("augment", {"flip": True})])
 def test_unported_trainer_options_are_refused(key, value):
-    with pytest.raises(NotImplementedError):
-        Trainer({**_lm_cfg(ADAMW), key: value}, device="cpu")
+    """``mesh`` and ``profile`` are not ported: NotImplementedError.
+    ``augment`` and ``mixup`` are, and on this LM config each is refused
+    as the JAX Trainer refuses it: a typo'd augment op when the Trainer is
+    built, mixup of token ids at the first step (ValueError)."""
+    cfg = {**_lm_cfg(ADAMW), key: value}
+    if key in ("mesh", "profile"):
+        with pytest.raises(NotImplementedError):
+            Trainer(cfg, device="cpu")
+    elif key == "augment":
+        with pytest.raises(ValueError, match="unknown ops"):
+            Trainer(cfg, device="cpu")
+    else:
+        t = Trainer(cfg, device="cpu")
+        ids = _t(np.random.default_rng(9).integers(1, 256, (2, 128)))
+        with pytest.raises(ValueError, match="mixup blends float inputs"):
+            t._train_step(t.state, {"x": ids, "y": ids})
