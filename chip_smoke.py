@@ -22,10 +22,11 @@ without printing a result:
    rows, the admission chunk's 1-row lm_head, 32 and 64 rows at every
    decode shape, ragged 3, 13 and 57 rows and an f32 x for the norm; the
    tiled path (more than 64 rows) its CTAs and D splits, also at ragged
-   row counts.  Their device times from torch.profiler, and one profiled
-   decode step of the engine's model (which fails if it holds a
-   qmm_reduce_kernel), are taken after the train phase (11), where the
-   profiler cannot touch the serving phases' host timings.  The
+   row counts.  Their device times (CUDA events around calls queued
+   behind a spin), and one profiled decode step of the engine's model
+   (which fails if it holds a qmm_reduce_kernel), are taken after the
+   train phase (11), where the profiler cannot touch the serving phases'
+   host timings.  The
    single-query decode (B3, and B6 through a page table: the split body,
    each window over a thread-block cluster) is held at the decode step
    (8 rows), one lone request (a 460-slot window), GQA 16 on 4, head dim
@@ -41,8 +42,8 @@ without printing a result:
    ``chunk_plan`` picks, must give the same bits on a rerun, and B7 must
    equal B4 bit for bit.  The page gather (B8) must equal pages[table] on
    a bf16 K leaf, an int8 code leaf and a bf16 scale leaf.  The device
-   times (torch.profiler) of B3, B4, B6, B7 and B8 and of their library
-   calls come after the train phase too.
+   times (queued CUDA events) of B3, B4, B6, B7 and B8 and of their
+   library calls come after the train phase too.
 4. window serve: the 1.2B all-int8 transformer_lm (int8 weights through
    the int8 matmul, int8 KV cache, fused qkv/gate_up, 16 layers, random
    weights from a seed) behind the HTTP server on 127.0.0.1 through the
@@ -93,7 +94,7 @@ without printing a result:
    peak memory.
 11. train parity: one step's loss and gradient norm with the kernels and
    with their plain versions; one profiled step (device time by kernel);
-   then the kernels' torch.profiler device times (B1-B4, B6-B8) and one
+   then the kernels' device times (B1-B4, B6-B8; queued CUDA events) and one
    profiled decode step of the dense engine's model and the same step
    through pages: each must run its attention as 16 launches of the split
    body (no launch of the old ``attend_kernel``), and the paged step's
@@ -137,13 +138,39 @@ without printing a result:
    every kernel call of a train step is held against its plain version on
    its own inputs with the kernel phase's rule, and the logits against the
    plain model's within 2^-7 (|ref| + the head's absolute terms).  One
-   ResNet-50 step is profiled (device time by kernel group, idle share);
-   B5 and B9 at the BERT and ViT shapes get their device times (kernel and
-   the dh-64 padding apart) beside SDPA's.
+   ResNet-50 step is profiled (device time by kernel group, idle share;
+   the pass fails without device time); B5 and B9 at the BERT and ViT
+   shapes get their device times (queued CUDA events, failing unless the
+   flash kernels launch every call) beside SDPA's.
+   Then (ROADMAP §C6) the same step with SDPA in the attention's place:
+   the SDPA and plain steps against each other give the noise floor of
+   bf16 attention in loss and gradient norm, printed beside the kernels'
+   gap, which is held within C6_FLOOR_MULTIPLE x the floor.
+11f. attention dims and dtypes (ROADMAP §C5): the flash forward and
+   backward at head dim 256 (bf16) and on f32 at head dims 128 and 256,
+   each against its plain version at the three TPU grids' shapes (an empty
+   row where windows are), bit-equal on a rerun, with times, SDPA's and
+   the bound (f32 at the card's CUDA-core rate); one train step of the
+   1.2B LM with 8 heads of 256 (the dh-256 kernels 16 times each; loss and
+   gradient norm against the plain step); an f32 BERT-window step and an
+   f32 LM step with heads of 256 (cut on a ``reduced`` line) against their
+   plain steps; the 1.2B LM's ``remat`` and ``fused_loss`` steps against
+   its plain step (loss within 1e-5 relative, gradient norm within 1e-4),
+   each with its peak memory.
+11g. moe: ``moe_lm`` at the serving widths (hidden 2048, 16 layers, 8
+   experts of 8192 top-2 in every second layer, ~2.95 B parameters)
+   served with ``--quantize kernel --kv-quant`` through the continuous
+   engine: greedy requests alone equal inside a batch of 8, B1 launched
+   16 times per MoE layer per decode step (the int8 expert slices), the
+   quantized scan's first token equal to entry dequant's on the 8 of 64
+   prompts with the widest entry-dequant top-2 margin; then 4 train steps
+   at 2 x 2048 with adafactor (the cross-entropy must fall, the aux loss
+   stay within MOE_AUX_BOUND x its balanced floor), peak memory.
 12. summary: ``serve``, ``engine``, ``paged_engine``, ``disagg``, ``spec``,
    ``train_to_serve``, ``daemons``, ``fleet``, ``zoo``, ``prefix_cache``,
-   ``daemon``, ``train`` and ``kernels`` JSON lines, then, last, the
-   device line.
+   ``daemon``, ``train``, ``attention_dims``, ``moe`` and ``kernels`` JSON
+   lines (the kernels line lists the flash kernels' dh-256 and f32
+   instances beside B1-B11), then, last, the device line.
 
 The kernel phase (3) also holds the flash-attention backward (B9-B11), and
 the forward (B5) whose (out, lse) it takes, at the training shape, a GQA
@@ -191,6 +218,12 @@ TRAIN_BATCH, TRAIN_STEPS = 2, 5
 # dp 8 on the TPU) on the one card, and ViT-B/16's Trainer config
 ZOO_RESNET_BATCH = 256
 ZOO_VIT = {"batch": 64, "steps": 6}
+# the spin (GPU clock cycles, ~50 ms on an H100) that queued_device_ms
+# puts in front of the calls it times
+SPIN_CYCLES = 100_000_000
+# ROADMAP §C6: the zoo's kernel step is held within this multiple of the
+# noise floor of bf16 attention (the SDPA step against the plain step)
+C6_FLOOR_MULTIPLE = 4.0
 ZOO_DAGS = ("mnist", "grid_search", "unet_segmentation", "resnet50_imagenet", "bert_finetune",
             "bert_finetune_window", "vit_b16")
 
@@ -809,8 +842,8 @@ def zoo_phase(device, smi, bw, flops):
     the card: every kernel call within the kernel phase's 2^-7 (|ref| +
     ref_abs) of its plain version on its own inputs, the logits within
     2^-7 (|ref| + the head's absolute terms); then one profiled ResNet-50
-    step, and the device times (torch.profiler, CUDA events beside) of B5
-    and B9 at the BERT and ViT shapes beside SDPA's."""
+    step, and the device times (queued CUDA events, the calls' CUDA-event
+    times beside) of B5 and B9 at the BERT and ViT shapes beside SDPA's."""
     import shutil
     import tempfile
 
@@ -1007,6 +1040,22 @@ def zoo_phase(device, smi, bw, flops):
         import mlcomp_tpu_torch.models.vit as zoo_vit
         from mlcomp_tpu_torch.models.zoo import dense as zoo_dense
 
+        zoo_attention = zoo_bert.dot_product_attention
+        sdpa_ = torch.nn.functional.scaled_dot_product_attention
+
+        def sdpa_attention(q, k, v, mask=None, causal=False, scale=None, kv_start=None,
+                           kv_stop=None):
+            """The oracle: SDPA on (B, H, S, D) views, windows as a mask (no
+            row of these batches is empty)."""
+            m_ = None
+            if kv_start is not None or kv_stop is not None:
+                cols_ = torch.arange(k.shape[1], device=q.device)
+                lo_ = fa._window(kv_start, q.shape[0], 0, q.device)
+                hi_ = fa._window(kv_stop, q.shape[0], k.shape[1], q.device)
+                m_ = ((cols_[None] >= lo_[:, None]) & (cols_[None] < hi_[:, None]))[:, None, None]
+            return sdpa_(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=m_,
+                         is_causal=causal and m_ is None, scale=scale).transpose(1, 2)
+
         head_in = {}
 
         def rec_dense(scope, x_, features, dtype, n_contract=1, use_bias=True):
@@ -1088,6 +1137,14 @@ def zoo_phase(device, smi, bw, flops):
             finally:
                 fa.flash_attention_fwd, fa.flash_attention_bwd = f0, b0
                 zoo_bert.dense = zoo_vit.dense = zoo_dense
+            # the oracle (ROADMAP §C6): SDPA in the attention's place, the
+            # same weights and batch.  The two steps without the kernels
+            # against each other give the noise floor of bf16 attention
+            zoo_bert.dot_product_attention = sdpa_attention
+            try:
+                oracle = run()
+            finally:
+                zoo_bert.dot_product_attention = zoo_attention
             w_head = model.params[head_in["path"] + "/kernel"].detach().float()
             b_head = model.params[head_in["path"] + "/bias"].detach().float()
             logit_abs = head_in["x"].float().abs() @ w_head.abs() + b_head.abs()
@@ -1096,6 +1153,15 @@ def zoo_phase(device, smi, bw, flops):
             leaves = [k_ for k_ in ref if k_ not in ("loss", "logits")]
             gn_k = float(torch.sqrt(sum((got[k_] ** 2).sum() for k_ in leaves)))
             gn_p = float(torch.sqrt(sum((ref[k_] ** 2).sum() for k_ in leaves)))
+            gn_o = float(torch.sqrt(sum((oracle[k_] ** 2).sum() for k_ in leaves)))
+            floor = {"loss": float((oracle["loss"] - ref["loss"]).abs() / ref["loss"].abs()),
+                     "grad_norm": abs(gn_o - gn_p) / gn_p}
+            gap = {"loss": loss_rel, "grad_norm": abs(gn_k - gn_p) / gn_p}
+            if any(gap[k_] > C6_FLOOR_MULTIPLE * floor[k_] for k_ in gap):
+                raise AssertionError(
+                    f"zoo parity {name}: the kernels' step is {gap} (relative) from the plain "
+                    f"step, past {C6_FLOOR_MULTIPLE} x the bf16 noise floor {floor} (the SDPA "
+                    "step against the plain step)")
             leaf_ratio = {k_: float(((got[k_] - ref[k_]).abs() / (2.0 ** -7 * (
                 ref[k_].abs() + ref[k_].abs().max())).clamp_min(1e-30)).max()) for k_ in leaves}
             leaf_rel = {k_: float((got[k_] - ref[k_]).norm() / ref[k_].norm().clamp_min(1e-30))
@@ -1106,12 +1172,15 @@ def zoo_phase(device, smi, bw, flops):
                 "loss_kernels": float(got["loss"]), "loss_plain": float(ref["loss"]),
                 "loss_relative_err": loss_rel,
                 "grad_norm_kernels": gn_k, "grad_norm_plain": gn_p, "leaves": len(leaves),
+                "c6": {"loss_sdpa": float(oracle["loss"]), "grad_norm_sdpa": gn_o,
+                       "noise_floor": floor, "kernels_gap": gap,
+                       "floor_multiple": C6_FLOOR_MULTIPLE},
                 "leaf_err_over_limit_largest": sorted(leaf_ratio.items(), key=lambda kv: -kv[1])[:5],
                 "leaf_relative_err_largest": sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:5],
                 "leaf_relative_err_median": sorted(leaf_rel.values())[len(leaf_rel) // 2],
                 "launches_one_step": one}
             log(f"zoo parity {name}: {json.dumps(parity[name])}")
-            del model, got, ref
+            del model, got, ref, oracle
             torch.cuda.empty_cache()
 
         # where a ResNet-50 step's device time goes: one profiled train step
@@ -1150,6 +1219,9 @@ def zoo_phase(device, smi, bw, flops):
             g_ = next((n_ for n_, rx in groups if re.search(rx, key_, re.I)), "other")
             by_group[g_] = by_group.get(g_, 0.0) + ms_
         busy = sum(per_kernel.values())
+        if busy <= 0:
+            raise AssertionError("zoo resnet50 profiled step: no device time "
+                                 f"(events {[e.key[:60] for e in p_.key_averages()][:8]})")
         resnet_profile = {
             "step_wall_ms_profiled": step_wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / step_wall), "kernel_launches": launches_,
@@ -1162,32 +1234,12 @@ def zoo_phase(device, smi, bw, flops):
         torch.cuda.empty_cache()
 
         # B5 and B9 device times at the two models' attention shapes
-        def by_kernel(prof_, iters):
-            out_ = {"kernel": 0.0, "other": 0.0}
-            for evt in prof_.key_averages():
-                us = getattr(evt, "device_time_total", None)
-                us = getattr(evt, "cuda_time_total", 0.0) if us is None else us
-                if not us:
-                    continue
-                kernel_ = re.search(r"flash_\w*kernel", evt.key) is not None
-                out_["kernel" if kernel_ else "other"] += us / 1e3 / iters
-            return out_
-
-        def profiled(fn, iters=10):
-            """Device time by torch.profiler (kernel and other), and the
-            call's time by CUDA events (median of five windows), which
-            stands where the profiler reports no device time."""
-            for _ in range(2):
-                fn()
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p_:
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-            out_ = by_kernel(p_, iters)
-            if not out_["kernel"] + out_["other"]:
-                log("zoo flash: no device time in the profile; events: "
-                    + json.dumps([e.key[:60] for e in p_.key_averages()][:8]))
+        def timed(fn, iters=10, kernel=True):
+            """Device time of one call (``queued_device_ms``; a flash pass
+            fails unless the flash kernels launch every call), and the
+            call's time by CUDA events (median of five windows)."""
+            out_ = {"device": device_ms_of(fn, (lambda: fa.launches + fa.bwd_dq_launches)
+                                            if kernel else None, iters)}
             ev = time_ms([fn], iters=iters, warmup=2)
             out_["events_ms"], out_["events_ms_spread"] = float(ev), list(ev.spread)
             return out_
@@ -1208,15 +1260,15 @@ def zoo_phase(device, smi, bw, flops):
             hi = torch.full((b,), s, dtype=torch.int32, device=dev) if win else None
             sc = 64 ** -0.5
             out, lse = fa.flash_attention_fwd(q, k, v, False, sc, lo, hi)
-            fwd = profiled(lambda: fa.flash_attention_fwd(q, k, v, False, sc, lo, hi))
-            bwd = profiled(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, False, sc, lo, hi))
+            fwd = timed(lambda: fa.flash_attention_fwd(q, k, v, False, sc, lo, hi))
+            bwd = timed(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, False, sc, lo, hi))
             lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
             with torch.no_grad():
-                lib_f = profiled(lambda: sdpa(lq, lk, lv, scale=sc))
+                lib_f = timed(lambda: sdpa(lq, lk, lv, scale=sc), kernel=False)
             lq, lk, lv = (t.requires_grad_() for t in (lq, lk, lv))
             graph = sdpa(lq, lk, lv, scale=sc)
-            lib_b = profiled(lambda: torch.autograd.grad(graph, (lq, lk, lv), ldo,
-                                                         retain_graph=True))
+            lib_b = timed(lambda: torch.autograd.grad(graph, (lq, lk, lv), ldo,
+                                                         retain_graph=True), kernel=False)
             lo_t, hi_t = fa._window(lo, b, 0, dev), fa._window(hi, b, s, dev)
             plain_f = time_ms([lambda: fa.flash_attention_plain(q, k, v, False, sc, lo_t, hi_t)],
                               iters=3, warmup=1)
@@ -1226,10 +1278,9 @@ def zoo_phase(device, smi, bw, flops):
             w64 = fa.flash_work(b, s, s, 12, 12, 64, False, lo, hi)
             w128 = fa.flash_work(b, s, s, 12, 12, 128, False, lo, hi)
             flash_times[label] = {
-                key_: {"device_ms": m["kernel"] + m["other"], "kernel_ms": m["kernel"],
-                       "pad_and_slice_ms": m["other"], "events_ms": m["events_ms"],
+                key_: {"device_ms": m["device"], "events_ms": m["events_ms"],
                        "events_ms_spread": m["events_ms_spread"],
-                       "sdpa_device_ms": lib["kernel"] + lib["other"],
+                       "sdpa_device_ms": lib["device"],
                        "sdpa_events_ms": lib["events_ms"], **bound(w64[f"{f_}_bytes"], w64[f"{f_}_ops"]),
                        "bound_ms_at_dh128": bound(w128[f"{f_}_bytes"], w128[f"{f_}_ops"])["bound_ms"]}
                 for key_, f_, m, lib in (("B5", "fwd", fwd, lib_f), ("B9", "bwd", bwd, lib_b))}
@@ -1263,6 +1314,636 @@ def zoo_phase(device, smi, bw, flops):
         f"training ({rstep['median']:.1f} ms/step, {rstep['spread']}), "
         f"{result['resnet50']['valid_images_s']:.1f} images/s valid, peak {rn['peak_gb']:.2f} GB; "
         f"phase {result['phase_s']:.1f} s")
+    return result
+
+
+# phase "moe": moe_lm at the serving configuration's widths (the 1.2B LM's
+# attention, an 8-expert top-2 FFN in every second layer), served with
+# `serve --quantize kernel --kv-quant` through the continuous engine, then
+# trained a few steps at one card's share of a batch
+MOE_CFG = {"name": "moe_lm", "vocab_size": 32768, "hidden": 2048, "layers": 16, "heads": 16,
+           "n_experts": 8, "d_ff": 8192, "k": 2, "moe_every": 2, "capacity_factor": 1.25,
+           "dtype": "bfloat16", "kv_quant": True}
+MOE_SERVE = {"requests": 8, "new": 32, "first_token_prompts": 8, "first_token_pool": 64,
+             "first_token_len": 256}
+MOE_TRAIN = {"batch": 2, "seq": 2048, "steps": 4,
+             "optimizer": {"name": "adafactor", "lr": 1e-2}}
+# the moe train steps' aux loss is held within this multiple of its balanced
+# floor (the sum of the MoE layers' aux weights)
+MOE_AUX_BOUND = 2.0
+# phase "attention dims and dtypes": the LM step with heads of 256 is the
+# train phase's 1.2B LM with 8 heads; the f32 LM step with heads of 256 is
+# cut to ATTN_F32_LM's depth and batch (printed on its `reduced` line)
+ATTN_LM_HEADS = 8
+ATTN_F32_LM = {"layers": 2, "batch": 1, "seq": 2048}
+# the kernel checks (label, dtype, B, S, H, Hkv, dh, causal, windows, timing
+# iterations): bf16 at head dim 256 at the LM's shape (B10's grid), GQA,
+# windows over 2048 keys (B11's), a BERT-sized batch with key padding (B9's
+# rectangle) and a ragged S; f32 at head dims 128 and 256 and BERT's 64
+# (padded to 128).  Every windowed case holds an empty row
+ATTN_CASES = [
+    ("LM training 2x4096, 8 heads of 256, causal", "bf16", 2, 4096, 8, 8, 256, True, None, 10),
+    ("GQA 2x4096, 8 q heads on 2 kv heads of 256, causal", "bf16", 2, 4096, 8, 2, 256, True,
+     None, 10),
+    ("4x2048 key-padding windows, 8 heads of 256, one empty row", "bf16", 4, 2048, 8, 8, 256,
+     False, "windows", 10),
+    ("32x128, 4 heads of 256, key padding, one empty row", "bf16", 32, 128, 4, 4, 256, False,
+     "padding", 10),
+    ("ragged 3x1000, 8 q heads on 4 kv heads of 192, causal", "bf16", 3, 1000, 8, 4, 192, True,
+     None, 10),
+    ("f32 LM 1x2048, 16 heads of 128, causal", "f32", 1, 2048, 16, 16, 128, True, None, 3),
+    ("f32 2x1024 key-padding windows, 8 heads of 128, one empty row", "f32", 2, 1024, 8, 8,
+     128, False, "windows", 3),
+    ("f32 LM 1x2048, 8 heads of 256, causal", "f32", 1, 2048, 8, 8, 256, True, None, 3),
+    ("f32 2x1024 key-padding windows, 4 heads of 256, one empty row", "f32", 2, 1024, 4, 4,
+     256, False, "windows", 3),
+    ("f32 BERT 32x128, 12 heads of 64, key padding, one empty row", "f32", 32, 128, 12, 12, 64,
+     False, "padding", 3),
+]
+# f32 peaks outside the tensor cores (FFMA), dense, per card (data sheets)
+F32_PEAKS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H100 NVL": 60e12, "H200": 67e12}
+
+
+def queued_device_ms(fn, iters=10) -> float:
+    """Device time of one call by CUDA events around ``iters`` calls queued
+    behind a spin kernel: the host enqueues every call while the card
+    spins, so the card runs them back to back and the events see the
+    calls' device time, the gaps between them included, and not the host's
+    launch overhead.  The spin doubles until the host's enqueueing fits
+    inside it."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / iters
+        cycles *= 2
+    raise AssertionError(f"queued device time: the host's {host_ms:.2f} ms of enqueueing "
+                         "outran every spin")
+
+
+def device_ms_of(fn, counter=None, iters=10):
+    """Device time of one call (``queued_device_ms``); ``counter`` reads
+    the launch count of the kernel the call must run: the pass fails when
+    it did not launch once a call."""
+    before = counter() if counter else 0
+    ms = queued_device_ms(fn, iters)
+    if counter and counter() - before < iters + 2:
+        raise AssertionError(f"device time: the kernel launched {counter() - before} times in "
+                             f"{iters + 2} calls")
+    return ms
+
+
+def attention_dims_phase(device, smi, bw, flops, f32_flops):
+    """Phase "attention dims and dtypes" (ROADMAP §C5): the flash kernels'
+    new instances, bf16 at head dim 256 and f32 at 128 and 256, each held
+    against its plain version at shapes that reach every TPU grid (B10's
+    causal, B11's windows, B9's rectangle, with an empty row where windows
+    are) with the kernel phase's rule (2^-7 (|ref| + ref_abs) for bf16;
+    2^-16 for f32, whose sums differ only in order, ~2^-20 of ref_abs, and
+    by the SFU-free expf's ulps), bit-equal on a rerun, with times beside
+    the plain version's, SDPA's (events and device) and the card's bound.
+    Then the paths: one train step of the 1.2B LM with 8 heads of 256 (the
+    dh-256 kernels launch 16 times each; loss and gradient norm against the
+    plain step with the train parity's rule), an f32 BERT-window step and
+    an f32 LM step with heads of 256 (the f32 kernels; against their plain
+    steps), and the 1.2B LM's `remat: true` and `fused_loss: true` steps
+    against its plain step (loss within 1e-5 relative, gradient norm within
+    1e-4), each with its peak memory."""
+    import yaml
+
+    from mlcomp_tpu_torch.io.weights import from_flax_params, init_params
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+    from mlcomp_tpu_torch.train.losses import create_loss
+    from mlcomp_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"fwd_dh256": [], "bwd_dh256": [], "fwd_f32": [], "bwd_f32": []}
+
+    def bound(nbytes, ops, peak):
+        t_b, t_o = nbytes / bw, ops / peak
+        return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_b, t_o) * 1e3,
+                "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+    def held(label, out, ref, ref_abs, tol):
+        diff = (out.float() - ref.float()).abs()
+        limit = tol * (ref.float().abs() + ref_abs.float())
+        ratio = float((diff / limit.clamp_min(1e-30)).max())
+        if not math.isfinite(ratio) or ratio > 1.0:
+            raise AssertionError(f"{label}: |kernel - plain| at {ratio:.3f} of its limit")
+        return float(diff.max()), ratio
+
+    def case(label, dtype, b, s, h, h_kv, d, causal, lo=None, hi=None, iters=10):
+        f32 = dtype == torch.float32
+        tol, peak = (2.0 ** -16, f32_flops) if f32 else (2.0 ** -7, flops)
+        sc = d ** -0.5
+        q, k, v, do = (torch.randn(b, s, hh, d, generator=g, device=dev).to(dtype)
+                       for hh in (h, h_kv, h_kv, h))
+        lo_t, hi_t = fa._window(lo, b, 0, dev), fa._window(hi, b, s, dev)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, sc, lo, hi)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, sc, lo, hi)
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, causal, sc, lo, hi)
+        grads2 = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, sc, lo, hi)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)
+                and all(torch.equal(x, y) for x, y in zip(grads, grads2))):
+            raise AssertionError(f"{label}: two runs on the same inputs differ")
+        del out2, lse2, grads2
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal, sc, lo_t, hi_t)
+        ref_abs = fa.flash_attention_plain(q, k, v.abs(), causal, sc, lo_t, hi_t)[0]
+        f_err, f_ratio = held(f"{label} forward", out, ref, ref_abs, tol)
+        live = ref_lse > -1e29
+        lse_err = float((lse - ref_lse).abs()[live].max())
+        if bool((lse[~live] != -1e30).any()) or bool((out.float().abs().sum(-1)
+                                                      [live.transpose(1, 2) == 0] != 0).any()):
+            raise AssertionError(f"{label}: an empty row's output is not 0 with lse -1e30")
+        del ref, ref_abs
+        refs = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, sc, lo_t, hi_t)
+        abss = flash_bwd_abs(q, k, v, out, lse, do, causal, sc, lo_t, hi_t)
+        b_err = b_ratio = 0.0
+        for n_, a_, r_, ab_ in zip(("dq", "dk", "dv"), grads, refs, abss):
+            e_, rt_ = held(f"{label} backward {n_}", a_, r_, ab_, tol)
+            b_err, b_ratio = max(b_err, e_), max(b_ratio, rt_)
+        del refs, abss
+        if lo is not None or hi is not None:
+            for row in (hi_t <= lo_t).nonzero().flatten().tolist():
+                if any(bool(x[row].float().abs().max() != 0) for x in (out, *grads)):
+                    raise AssertionError(f"{label}: the empty row {row} is not all zeros")
+        torch.cuda.empty_cache()
+        kf = time_ms([lambda: fa.flash_attention_fwd(q, k, v, causal, sc, lo, hi)],
+                     iters=iters, warmup=2)
+        kb = time_ms([lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal, sc, lo, hi)],
+                     iters=iters, warmup=2)
+        pf = time_ms([lambda: fa.flash_attention_plain(q, k, v, causal, sc, lo_t, hi_t)],
+                     iters=1, warmup=1, windows=3)
+        pb = time_ms([lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, sc,
+                                                           lo_t, hi_t)],
+                     iters=1, warmup=1, windows=3)
+        dkf = device_ms_of(lambda: fa.flash_attention_fwd(q, k, v, causal, sc, lo, hi),
+                           lambda: fa.f32_fwd_launches if f32 else fa.fwd_dh256_launches)
+        dkb = device_ms_of(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal, sc,
+                                                          lo, hi),
+                           lambda: fa.f32_bwd_launches if f32 else fa.bwd_dh256_launches)
+        # the yardstick: SDPA on copies in its (B, H, S, D) layout, the kv
+        # heads repeated for GQA, windows as a boolean mask
+        rep = h // h_kv
+        mask = None
+        if lo is not None or hi is not None:
+            cols = torch.arange(s, device=dev)
+            mask = ((cols[None] >= lo_t[:, None]) & (cols[None] < hi_t[:, None]))[:, None, None]
+            if causal:
+                mask = mask & (cols[:, None] >= cols[None, :])
+        lq = q.transpose(1, 2).contiguous()
+        lk, lv = (t.repeat_interleave(rep, 2).transpose(1, 2).contiguous() for t in (k, v))
+        ldo = do.transpose(1, 2).contiguous()
+
+        def lib_f():
+            with torch.no_grad():
+                sdpa(lq, lk, lv, attn_mask=mask, is_causal=causal and mask is None, scale=sc)
+
+        lf = time_ms([lib_f], iters=iters, warmup=2)
+        dlf = device_ms_of(lib_f)
+        lq, lk, lv = (t.requires_grad_() for t in (lq, lk, lv))
+        graph = sdpa(lq, lk, lv, attn_mask=mask, is_causal=causal and mask is None, scale=sc)
+
+        def lib_b():
+            torch.autograd.grad(graph, (lq, lk, lv), ldo, retain_graph=True)
+
+        lb = time_ms([lib_b], iters=iters, warmup=2)
+        dlb = device_ms_of(lib_b)
+        del graph, lq, lk, lv, ldo
+        win = lo is not None or hi is not None
+        work = fa.flash_work(b, s, s, h, h_kv, d, causal, lo, hi, itemsize=4 if f32 else 2)
+        grid = bwd_grid(causal, win, s)
+        common = dict(case=label, dtype="f32" if f32 else "bf16", b=b, s=s, h=h, h_kv=h_kv,
+                      dh=d, kernel_dh=fa.kernel_dh(d), causal=causal, windowed=win,
+                      live_pairs=work["live_pairs"], bit_equal_reruns=True)
+        key = "f32" if f32 else "dh256"
+        fwd_row = dict(common, max_abs_err=f_err, err_over_limit=f_ratio, lse_err=lse_err,
+                       ms=kf, device_ms=dkf, plain_ms=pf, library_ms=lf, library_device_ms=dlf,
+                       **bound(work["fwd_bytes"], work["fwd_ops"], peak))
+        bwd_row = dict(common, grid=grid, replaces_row=GRID_KEYS[grid], max_abs_err=b_err,
+                       err_over_limit=b_ratio, ms=kb, device_ms=dkb, plain_ms=pb,
+                       library_ms=lb, library_device_ms=dlb,
+                       **bound(work["bwd_bytes"], work["bwd_ops"], peak))
+        for part, row in (("fwd", fwd_row), ("bwd", bwd_row)):
+            for f_, v_ in list(row.items()):
+                if isinstance(v_, Ms):
+                    row[f"{f_}_spread"] = list(v_.spread)
+            rows[f"{part}_{key}"].append(row)
+            log(f"  {part} {json.dumps(row)}")
+        del q, k, v, do, out, lse, grads
+        torch.cuda.empty_cache()
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    for label, dt, b, s, h, h_kv, d, causal, win, iters in ATTN_CASES:
+        lo = hi = None
+        if win == "windows":
+            # windows inside the keys, the last row's empty
+            lo = torch.randint(0, s // 4, (b,), generator=g, **i32)
+            hi = lo + torch.randint(s // 8, s * 3 // 4, (b,), generator=g, **i32)
+            hi[-1] = lo[-1]
+        elif win == "padding":
+            # key padding from 0, row 5's (or the last's) empty
+            lo = torch.zeros(b, **i32)
+            hi = torch.randint(16, s + 1, (b,), generator=g, **i32)
+            hi[min(5, b - 1)] = 0
+        case(label, torch.float32 if dt == "f32" else torch.bfloat16, b, s, h, h_kv, d, causal,
+             lo, hi, iters)
+
+    # ---- the paths.  Every count is set to 0 just before a path and read
+    # just after it
+    counters = ("launches", "bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches",
+                "fwd_dh256_launches", "bwd_dh256_launches", "f32_fwd_launches",
+                "f32_bwd_launches")
+
+    def reset():
+        for c_ in counters:
+            setattr(fa, c_, 0)
+
+    def counts():
+        return {c_: getattr(fa, c_) for c_ in counters}
+
+    def plain_fwd(q, k, v, causal=False, scale=None, kv_start=None, kv_stop=None):
+        b_, s_k = q.shape[0], k.shape[1]
+        return fa.flash_attention_plain(q, k, v, causal, scale, fa._window(kv_start, b_, 0, dev),
+                                        fa._window(kv_stop, b_, s_k, dev))
+
+    def plain_bwd(q, k, v, out, lse, do, causal, scale, kv_start=None, kv_stop=None,
+                  g_lse=None):
+        b_, s_k = q.shape[0], k.shape[1]
+        return fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale,
+                                            fa._window(kv_start, b_, 0, dev),
+                                            fa._window(kv_stop, b_, s_k, dev), g_lse)
+
+    @contextmanager
+    def plain_attention():
+        saved = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+        fa.flash_attention_fwd, fa.flash_attention_bwd = plain_fwd, plain_bwd
+        try:
+            yield
+        finally:
+            fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+
+    def loss_and_gnorm(model, params, loss_fn, x, y=None):
+        for p_ in params.values():
+            p_.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        batch = {"x": x} if y is None else {"x": x, "y": y}
+        loss_ = loss_fn(model(x), batch)
+        loss_.backward()
+        gn = torch.sqrt(sum((p_.grad.float() ** 2).sum() for p_ in params.values()))
+        res = (loss_.item(), gn.item(), torch.cuda.max_memory_allocated() / 1e9)
+        for p_ in params.values():
+            p_.grad = None
+        return res
+
+    with open(Path(REPO) / "configs" / "multihost_lm.yml") as f:
+        lm_dag = yaml.safe_load(f)
+    largs = lm_dag["executors"]["pretrain"]["args"]
+    lm_model = dict(largs["model"])
+    seq = largs["data"]["train"]["seq_len"]
+    paths = {}
+
+    # the 1.2B LM with 8 heads of 256: one Trainer step (configs/
+    # multihost_lm.yml's optimizer and loss, one card's 2 x 4096), then
+    # loss and gradient norm with the kernels and with their plain versions
+    # (the train parity's rule: 1e-3 relative, 2%)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pcfg = {k_: v_ for k_, v_ in largs.items() if k_ not in ("mesh", "project", "dag_name")}
+    pcfg["model"] = {**lm_model, "heads": ATTN_LM_HEADS}
+    pcfg["data"] = {"train": {**largs["data"]["train"], "batch_size": TRAIN_BATCH,
+                              "n": TRAIN_BATCH}}
+    trainer = Trainer(pcfg, device=device)
+    x_lm = torch.randint(1, lm_model["vocab_size"], (TRAIN_BATCH, seq), generator=g, device=dev)
+    reset()
+    stats = trainer._train_step(trainer.state, {"x": x_lm})
+    step_loss = float(stats["loss"])
+    step_counts = counts()
+    l_k, g_k, peak_k = loss_and_gnorm(trainer.model, trainer.state.params, trainer.loss_fn, x_lm)
+    with plain_attention():
+        l_p, g_p, peak_p = loss_and_gnorm(trainer.model, trainer.state.params, trainer.loss_fn,
+                                          x_lm)
+    n_layers = lm_model["layers"]
+    if (step_counts["fwd_dh256_launches"] != n_layers or step_counts["bwd_dh256_launches"]
+            != n_layers or step_counts["f32_fwd_launches"] or not math.isfinite(step_loss)):
+        raise AssertionError(f"LM with heads of 256: step loss {step_loss}, launches "
+                             f"{step_counts}; want {n_layers} of each dh-256 kernel")
+    if abs(l_k - l_p) > 1e-3 * abs(l_p) or abs(g_k - g_p) > 0.02 * g_p:
+        raise AssertionError(f"LM with heads of 256: loss {l_k} vs plain {l_p}, gradient norm "
+                             f"{g_k} vs {g_p}")
+    paths["lm_heads_256"] = {
+        "model": f"configs/multihost_lm.yml's LM with heads {lm_model['heads']} -> "
+                 f"{ATTN_LM_HEADS} (head dim {lm_model['hidden'] // ATTN_LM_HEADS})",
+        "batch": [TRAIN_BATCH, seq], "step_loss": step_loss, "launches_one_step": step_counts,
+        "loss_kernels": l_k, "loss_plain": l_p, "grad_norm_kernels": g_k, "grad_norm_plain": g_p,
+        "peak_gb_kernels": peak_k, "peak_gb_plain": peak_p,
+        "tolerance": "loss 1e-3 relative, gradient norm 2%"}
+    log(f"attention dims: LM with heads of 256: {json.dumps(paths['lm_heads_256'])}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # remat and the fused CE head on the 1.2B LM as published (heads of
+    # 128): the same weights and batch, loss within 1e-5 relative and
+    # gradient norm within 1e-4 of the plain step's (remat recomputes the
+    # same products; the fused head sums the same f32 logits in chunks)
+    tree = init_params({**lm_model, "name": "transformer_lm"}, SEED, device=dev)
+    steps = {}
+    for label, extra, loss_name in (("plain", {}, "lm_cross_entropy"),
+                                    ("remat", {"remat": True}, "lm_cross_entropy"),
+                                    ("fused_loss", {"fused_loss": True},
+                                     "lm_cross_entropy_fused")):
+        m = create_model({**lm_model, **extra}, device=device)
+        m.load_state(from_flax_params(tree, fold=False), train=True)
+        m.train()
+        reset()
+        l_, g_, peak_ = loss_and_gnorm(m, m.flax_params(), create_loss(loss_name), x_lm)
+        steps[label] = {"loss": l_, "grad_norm": g_, "peak_gb": peak_, "launches": counts()}
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label in ("remat", "fused_loss"):
+        s_, p_ = steps[label], steps["plain"]
+        # remat runs each layer's forward again in the backward
+        want_fwd = (2 if label == "remat" else 1) * n_layers
+        if abs(s_["loss"] - p_["loss"]) > 1e-5 * abs(p_["loss"]) or \
+                abs(s_["grad_norm"] - p_["grad_norm"]) > 1e-4 * p_["grad_norm"] or \
+                s_["launches"]["launches"] != want_fwd or \
+                s_["launches"]["bwd_dq_launches"] != n_layers:
+            raise AssertionError(f"{label} step: {s_} against the plain step {p_}")
+    paths["remat_and_fused_loss"] = {**steps, "tolerance": "loss 1e-5 relative, gradient norm "
+                                                           "1e-4 relative"}
+    log(f"attention dims: remat and fused_loss: {json.dumps(steps)}")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 paths: BERT-window (configs/bert_finetune.yml's model, pad_mode
+    # window, dtype float32) and an LM with heads of 256 in f32, cut to
+    # ATTN_F32_LM; each against its plain step (f32: loss within 1e-5
+    # relative, gradient norm within 1e-4)
+    with open(Path(REPO) / "configs" / "bert_finetune.yml") as f:
+        bert_cfg = yaml.safe_load(f)["model"]
+    bert_cfg = {**bert_cfg, "pad_mode": "window", "dtype": "float32"}
+    ids = torch.randint(1, bert_cfg["vocab_size"], (32, 128), generator=g, device=dev)
+    stop = torch.randint(16, 129, (32,), generator=g, device=dev)
+    ids = torch.where(torch.arange(128, device=dev)[None] < stop[:, None], ids,
+                      torch.zeros_like(ids))
+    y = torch.randint(0, bert_cfg["num_classes"], (32,), generator=g, device=dev)
+    bert = create_model(bert_cfg, device=device)
+    bert.load_variables(*bert.init_variables(SEED, dev, (1, 128)), train=True)
+    bert.train()
+    ce = create_loss("cross_entropy")
+    reset()
+    l_k, g_k, peak_k = loss_and_gnorm(bert, bert.params, ce, ids, y)
+    bert_counts = counts()
+    with plain_attention():
+        l_p, g_p, _ = loss_and_gnorm(bert, bert.params, ce, ids, y)
+    n_bert = bert.layers
+    if bert_counts["f32_fwd_launches"] != n_bert or bert_counts["f32_bwd_launches"] != n_bert \
+            or abs(l_k - l_p) > 1e-5 * abs(l_p) or abs(g_k - g_p) > 1e-4 * g_p:
+        raise AssertionError(f"f32 BERT-window step: loss {l_k} vs {l_p}, gradient norm {g_k} "
+                             f"vs {g_p}, launches {bert_counts}")
+    paths["f32_bert_window"] = {"batch": [32, 128], "loss_kernels": l_k, "loss_plain": l_p,
+                                "grad_norm_kernels": g_k, "grad_norm_plain": g_p,
+                                "peak_gb": peak_k, "launches_one_step": bert_counts}
+    log(f"attention dims: f32 BERT-window: {json.dumps(paths['f32_bert_window'])}")
+    del bert
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f_cfg = {**lm_model, "name": "transformer_lm", "heads": ATTN_LM_HEADS,
+             "layers": ATTN_F32_LM["layers"], "dtype": "float32"}
+    reduced = {"f32 LM with heads of 256": (
+        f"configs/multihost_lm.yml's LM in f32 with {ATTN_LM_HEADS} heads, layers "
+        f"{lm_model['layers']} -> {ATTN_F32_LM['layers']}, batch {TRAIN_BATCH}x{seq} -> "
+        f"{ATTN_F32_LM['batch']}x{ATTN_F32_LM['seq']} (the f32 kernels run on the CUDA cores)")}
+    log("reduced (attention dims and dtypes): " + json.dumps(reduced))
+    m = create_model(f_cfg, device=device)
+    m.load_state(from_flax_params(init_params(f_cfg, SEED, device=dev), fold=False), train=True)
+    m.train()
+    x_f = torch.randint(1, f_cfg["vocab_size"], (ATTN_F32_LM["batch"], ATTN_F32_LM["seq"]),
+                        generator=g, device=dev)
+    lm_ce = create_loss("lm_cross_entropy")
+    reset()
+    l_k, g_k, peak_k = loss_and_gnorm(m, m.flax_params(), lm_ce, x_f)
+    f_counts = counts()
+    with plain_attention():
+        l_p, g_p, _ = loss_and_gnorm(m, m.flax_params(), lm_ce, x_f)
+    if f_counts["f32_fwd_launches"] != f_cfg["layers"] or \
+            f_counts["f32_bwd_launches"] != f_cfg["layers"] or \
+            abs(l_k - l_p) > 1e-5 * abs(l_p) or abs(g_k - g_p) > 1e-4 * g_p:
+        raise AssertionError(f"f32 LM with heads of 256: loss {l_k} vs {l_p}, gradient norm "
+                             f"{g_k} vs {g_p}, launches {f_counts}")
+    paths["f32_lm_heads_256"] = {"loss_kernels": l_k, "loss_plain": l_p, "grad_norm_kernels": g_k,
+                                 "grad_norm_plain": g_p, "peak_gb": peak_k,
+                                 "launches_one_step": f_counts}
+    log(f"attention dims: f32 LM with heads of 256: {json.dumps(paths['f32_lm_heads_256'])}")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"rows": rows, "paths": paths, "reduced": reduced, "card": smi,
+              "phase_s": time.perf_counter() - t_phase}
+    log(f"attention dims and dtypes ({smi}): phase {result['phase_s']:.1f} s")
+    return result
+
+
+def moe_phase(device, smi, bw, flops):
+    """Phase "moe": ``moe_lm`` at MOE_CFG's widths (random weights from the
+    seed) served as ``serve --quantize kernel --kv-quant`` serves it, through
+    the continuous engine: MOE_SERVE's greedy requests sent alone must give
+    the tokens they get inside one batch of 8; the int8 experts' slices run
+    through B1 (16 launches in each MoE layer per decode step, on top of
+    the dense layers' projections and the head, counted over decode steps);
+    the first new token of the quantized scan must equal entry-dequant
+    decoding's (tests/test_quant.py's check) on the prompts whose
+    entry-dequant top-2 margin is widest; then MOE_TRAIN's Trainer steps at
+    the same widths: objective and aux loss finite, the cross-entropy lower
+    after the last step than at the first, and the aux loss of every step
+    within MOE_AUX_BOUND x its balanced floor."""
+    from mlcomp_tpu_torch.io.weights import flatten, init_params
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.models.generation import generate, load_decode_weights
+    from mlcomp_tpu_torch.ops.cuda import quant_matmul as qm
+    from mlcomp_tpu_torch.serve import load_service
+    from mlcomp_tpu_torch.train.loop import Trainer, sown_losses
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cpu_rng = torch.Generator().manual_seed(SEED + 17)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    vocab, n_new = MOE_CFG["vocab_size"], MOE_SERVE["new"]
+    params = init_params(MOE_CFG, SEED, device=dev)
+    n_params = sum(t.numel() for t in flatten(params).values())
+    t0 = time.perf_counter()
+    service = load_service(MOE_CFG, params=params, device=device, quantize="kernel",
+                           batch_sizes=(1, BATCH), prompt_buckets=(PROMPT,),
+                           max_new_buckets=(n_new,), prefill_chunk=CHUNK)
+    model, eng = service.model, service.engine
+    if service.batcher != "continuous" or model.fold_norms:
+        raise AssertionError(f"moe service: batcher {service.batcher}, fold_norms "
+                             f"{model.fold_norms}")
+    blk = model.layers[1].moe
+    if not (isinstance(blk.w1, dict) and blk.w1["q8"].dtype == torch.int8
+            and tuple(blk.w1["q8_scale"].shape) == (MOE_CFG["n_experts"], 1, MOE_CFG["d_ff"])):
+        raise AssertionError("moe service: the stacked experts are not int8 with per-expert "
+                             "per-channel scales")
+    # the modules' buffers and the stacked int8 experts (plain attributes)
+    int8_gb = (sum(t.numel() * t.element_size() for t in model.state_dict().values())
+               + sum(t.numel() * t.element_size() for _, b in model.moe_blocks()
+                     for w in (b.w1, b.w2) for t in w.values())) / 1e9
+    load_s = time.perf_counter() - t0
+    log(f"moe: {n_params / 1e9:.3f} B parameters; load_service (continuous, int8 kernel, "
+        f"int8 KV) {load_s:.2f} s, {int8_gb:.2f} GB of weights on the card")
+
+    prompts = [torch.randint(1, vocab, (n,), generator=cpu_rng).tolist()
+               for n in torch.linspace(100, 500, MOE_SERVE["requests"]).long().tolist()]
+    eng.submit(prompts[0][:16], 2, _count=False).result(timeout=600)   # warm
+    qm.launches = qm.norm_launches = 0
+    t0 = time.perf_counter()
+    batched = [f.result(timeout=600)["ids"] for f in [eng.submit(p, n_new) for p in prompts]]
+    batch_wall = time.perf_counter() - t0
+    serve_counts = {"B1": qm.launches, "B2": qm.norm_launches}
+    alone = [eng.submit(p, n_new).result(timeout=600)["ids"] for p in prompts]
+    if alone != batched:
+        raise AssertionError(f"moe: greedy requests alone differ from the batch of "
+                             f"{len(prompts)}: {sum(a != b for a, b in zip(alone, batched))} "
+                             "requests differ")
+    if serve_counts["B1"] <= 0 or serve_counts["B2"]:
+        raise AssertionError(f"moe serve launches {serve_counts}: want B1 and no norm prologue")
+
+    # B1 per decode step and decode ms per step, at 8 rows: generate with
+    # 1 and with 1 + n new tokens, the difference over n steps
+    x8 = torch.randint(1, vocab, (BATCH, 200), generator=g, device=dev)
+    times, b1 = {}, {}
+    for n in (1, 1 + n_new):
+        generate(model, x8, n)
+        torch.cuda.synchronize()
+        qm.launches = qm.norm_launches = 0
+        t0 = time.perf_counter()
+        generate(model, x8, n)
+        torch.cuda.synchronize()
+        times[n], b1[n] = time.perf_counter() - t0, (qm.launches, qm.norm_launches)
+    per_step_b1 = (b1[1 + n_new][0] - b1[1][0]) / n_new
+    n_moe = MOE_CFG["layers"] // MOE_CFG["moe_every"]
+    n_dense = MOE_CFG["layers"] - n_moe
+    want_b1 = n_dense * 7 + n_moe * (4 + 2 * MOE_CFG["n_experts"]) + 1
+    if per_step_b1 != want_b1 or b1[1 + n_new][1] != b1[1][1]:
+        raise AssertionError(f"moe decode step: {per_step_b1} B1 launches a step, B2 "
+                             f"{b1[1 + n_new][1] - b1[1][1]}; want {want_b1} (16 in each of "
+                             f"the {n_moe} MoE layers) and no B2")
+    decode_ms = (times[1 + n_new] - times[1]) * 1e3 / n_new
+
+    # the first new token: the quantized scan against entry dequant (the int8
+    # tree dequantized once to bf16) on prompts of one length, no padding.
+    # The two round differently (bf16 weights against int8 codes scaled in
+    # f32), so random weights leave some top-2 margins below the logits'
+    # difference: the check holds the prompts of a pool whose entry-dequant
+    # margin is widest, chosen from the reference alone
+    xf = torch.randint(1, vocab, (MOE_SERVE["first_token_pool"],
+                                  MOE_SERVE["first_token_len"]), generator=g, device=dev)
+
+    def last_logits(m_):
+        with torch.inference_mode():
+            return torch.cat([m_(xc, last_only=True)[:, -1].float()
+                              for xc in xf.split(MOE_SERVE["first_token_prompts"])])
+
+    lk = last_logits(model)
+    del service, model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    deq = create_model({k_: v_ for k_, v_ in MOE_CFG.items()}, device=device)
+    load_decode_weights(deq, params, quantize="int8")
+    ld = last_logits(deq)
+    del deq
+    gc.collect()
+    torch.cuda.empty_cache()
+    top2 = ld.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    held_rows = margin.topk(MOE_SERVE["first_token_prompts"]).indices
+    same = lk.argmax(-1) == ld.argmax(-1)
+    diff = float((lk - ld).abs().max())
+    if not bool(same[held_rows].all()):
+        raise AssertionError(f"moe: the quantized scan's first token differs from entry "
+                             f"dequant's on {int((~same[held_rows]).sum())} of the "
+                             f"{len(held_rows)} widest-margin prompts (margins "
+                             f"{margin[held_rows].tolist()}, largest logit difference {diff})")
+    first_token = {"pool": int(xf.shape[0]), "held": len(held_rows),
+                   "equal_held": int(same[held_rows].sum()), "equal_pool": int(same.sum()),
+                   "max_abs_logit_diff": diff,
+                   "smallest_held_top2_margin": float(margin[held_rows].min())}
+
+    # training: MOE_TRAIN's steps through the Trainer's step on its
+    # loader's first batch (the step adds every MoE layer's aux loss to the
+    # objective, as the JAX step adds its sown collection).  The reported
+    # loss is the objective; its CE part must fall, which on uniform random
+    # tokens it does in a few steps only on a batch seen again.  The aux
+    # loss need not fall there: it starts near its balanced floor (the aux
+    # weight a layer), and the CE's pull on the router moves it either way,
+    # as it does under the JAX trainer (tests/test_torch_moe.py holds the
+    # two trainers' aux losses step by step).  Every step's aux loss is held
+    # within MOE_AUX_BOUND x the floor: top-2 routing collapsed onto two
+    # experts gives E / 2 x, onto one E x
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer({
+        "model": {k_: v_ for k_, v_ in MOE_CFG.items() if k_ != "kv_quant"},
+        "optimizer": MOE_TRAIN["optimizer"], "loss": "lm_cross_entropy", "metrics": [],
+        "seed": SEED, "data": {"train": {"name": "synthetic_tokens", "n": MOE_TRAIN["batch"],
+                                         "seq_len": MOE_TRAIN["seq"], "vocab_size": vocab,
+                                         "batch_size": MOE_TRAIN["batch"]}}}, device=device)
+    batches = list(trainer._loader("train")) * MOE_TRAIN["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    losses, auxes, step_s = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        st = trainer._train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(st["loss"]))
+        auxes.append(float(sum(a.detach() for a in sown_losses(trainer.model))))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ces = [l_ - a_ for l_, a_ in zip(losses, auxes)]
+    aux_floor = sum(b_.aux_weight for _, b_ in trainer.model.moe_blocks())
+    if len(losses) != MOE_TRAIN["steps"] or not all(math.isfinite(v) for v in losses + auxes) \
+            or not ces[-1] < ces[0] or not 0 < max(auxes) <= MOE_AUX_BOUND * aux_floor:
+        raise AssertionError(f"moe train: objective {losses}, aux losses {auxes} (balanced "
+                             f"floor {aux_floor}, bound {MOE_AUX_BOUND} x)")
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {
+        "config": MOE_CFG, "parameters": n_params, "int8_weights_gb": int8_gb,
+        "serve": {"requests": len(prompts), "new_tokens": n_new, "batch_wall_s": batch_wall,
+                  "lone_equal_batched": len(prompts), "launches": serve_counts,
+                  "load_s": load_s},
+        "decode": {"rows": 8, "b1_launches_per_step": per_step_b1,
+                   "b1_per_moe_layer": 2 * MOE_CFG["n_experts"], "ms_per_step": decode_ms},
+        "first_token": first_token,
+        "train": {"batch": [MOE_TRAIN["batch"], MOE_TRAIN["seq"]], "steps": MOE_TRAIN["steps"],
+                  "optimizer": MOE_TRAIN["optimizer"], "objective": losses, "ce": ces,
+                  "aux_losses": auxes, "aux_balanced_floor": aux_floor,
+                  "aux_bound": MOE_AUX_BOUND * aux_floor, "step_s": step_s,
+                  "peak_gb": peak},
+        "card": smi, "phase_s": time.perf_counter() - t_phase}
+    log(f"moe ({smi}): {json.dumps(result)}")
     return result
 
 
@@ -1408,18 +2089,11 @@ def main() -> int:
         return [(rows[s], c) for s, c in shapes.items()]
 
     def device_ms(fns, iters=20):
-        """Device time of one call from torch.profiler: the kernels' own
-        time, without the host's launch overhead that CUDA events see when
-        the card outruns the host."""
-        for i in range(2):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fns[i % len(fns)]()
-            torch.cuda.synchronize()
-        return sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-                   for e in prof.key_averages()) / iters / 1e3
+        """Device time of one call, the calls cycled over ``fns``
+        (``queued_device_ms``): without the host's launch overhead that
+        plain CUDA events see when the card outruns the host."""
+        calls = iter(range(10 ** 9))
+        return queued_device_ms(lambda: fns[next(calls) % len(fns)](), iters)
 
     def qmm_operands(rows, d, n, copies, x_f32=False, gen=g):
         """x (bf16, or f32 for the norm prologue of an f32 model), ``copies``
@@ -1580,7 +2254,7 @@ def main() -> int:
         return pairs, window, bound_of(nbytes, 4 * pairs * h * d)
 
     # every B3, B4, B6 and B7 case's operands (one copy), for their device
-    # times from torch.profiler after the serving phases
+    # times after the serving phases
     chunk_inputs = [chunk_inputs_b3]
 
     # B4: an admission chunk (1, 256) at cache index 256 of a 512-token
@@ -3632,9 +4306,7 @@ def main() -> int:
 
     # B1 and B2 at every timed shape (the decode path's rows, the tiled
     # path's prefill and admission-chunk rows): device time of the kernel
-    # and of bf16 torch.matmul (on the normed x for B2) from torch.profiler.
-    # Measured last, so that the profiler's tracing stays out of the
-    # serving phases' host timings
+    # and of bf16 torch.matmul (on the normed x for B2), queued CUDA events
     for key in ("B1", "B2"):
         for r in kernels[key].rows:
             if "ms" not in r:
@@ -3902,6 +4574,19 @@ def main() -> int:
     zoo_bwd = sum(zoo_result["launches"][n]["bwd_dq_launches"]
                   for n in ("bert_finetune_window", "vit_b16"))
 
+    # ---- 11f. attention dims and dtypes: the flash kernels at head dim 256
+    # and on f32 (ROADMAP §C5), their paths, remat and the fused CE head
+    log("phase attention dims and dtypes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn_result = attention_dims_phase("cuda", smi, bw, flops, F32_PEAKS[card])
+
+    # ---- 11g. moe: moe_lm served through int8 expert slices (B1), trained
+    log("phase moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_result = moe_phase("cuda", smi, bw, flops)
+
     # ---- 12. summary
     # each kernel's work in one decode step at B=8 (B1, B2, B3), in one
     # 8x512 prefill (B5) or in one admission chunk at index 256 (B4); B1's
@@ -3953,7 +4638,7 @@ def main() -> int:
             "scope": label, **total(weighted),
         }
         if all("device_ms" in r for r, _ in weighted):
-            # device time (torch.profiler) over the same scope
+            # device time (queued CUDA events) over the same scope
             entry.update({f: sum(r[f] * c for r, c in weighted)
                           for f in ("device_ms", "library_device_ms")})
         if key == "B1":
@@ -3978,7 +4663,7 @@ def main() -> int:
                 **{f: sum(r[f] * c for r, c in weighted)
                    for f in ("device_ms", "library_device_ms")}}
         if key in ("B1", "B2"):
-            # the decode path: device time (torch.profiler) of one decode
+            # the decode path: device time (queued CUDA events) of one decode
             # step's calls at 8 rows, per shape and as the profiled step
             # read it; and every timed shape of 64 rows or fewer
             weighted = by_shape(key, b1_step if key == "B1" else b2_step, BATCH)
@@ -4027,7 +4712,45 @@ def main() -> int:
                                    "device_ms", "bound_ms", "bound_by", "library_ms",
                                    "library_device_ms", "plain_ms", "err_over_limit") if f in r}
                 for r in kernels[key].rows]
+        if key == "B1":
+            entry["launches_moe_path"] = {
+                "serve": moe_result["serve"]["launches"]["B1"],
+                "per_decode_step": moe_result["decode"]["b1_launches_per_step"],
+                "per_moe_layer_per_decode_step": moe_result["decode"]["b1_per_moe_layer"],
+                "path": "moe: moe_lm served through the continuous engine (int8 expert slices)"}
         entries.append(entry)
+    # the flash kernels' instances at head dim 256 and on f32, each with the
+    # launches of the path that runs it (counts set to 0 just before it)
+    ap = attn_result["paths"]
+    f32_paths = [ap["f32_bert_window"]["launches_one_step"],
+                 ap["f32_lm_heads_256"]["launches_one_step"]]
+    lm256 = ap["lm_heads_256"]["launches_one_step"]
+    path_256 = "attention dims: the 1.2B LM with 8 heads of 256, one train step"
+    path_f32 = "attention dims: the f32 BERT-window step and the f32 LM step with heads of 256"
+    for key, name, source, launches, path in (
+            ("fwd_dh256", "flash_attention_fwd (bf16, head dim 256)",
+             "mlcomp_tpu_torch/csrc/flash_attention.cu", lm256["fwd_dh256_launches"], path_256),
+            ("bwd_dh256", "flash_attention_bwd (bf16, head dim 256)",
+             "mlcomp_tpu_torch/csrc/flash_attention_bwd.cu", lm256["bwd_dh256_launches"],
+             path_256),
+            ("fwd_f32", "flash_attention_fwd (f32, head dims 128 and 256)",
+             "mlcomp_tpu_torch/csrc/flash_attention_f32.cu",
+             sum(c["f32_fwd_launches"] for c in f32_paths), path_f32),
+            ("bwd_f32", "flash_attention_bwd (f32, head dims 128 and 256)",
+             "mlcomp_tpu_torch/csrc/flash_attention_f32.cu",
+             sum(c["f32_bwd_launches"] for c in f32_paths), path_f32)):
+        rows_ = attn_result["rows"][key]
+        head = rows_[0]
+        replaces = kernels[GRID_KEYS[head["grid"]] if "grid" in head else "B5"].replaces
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "path": path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows_),
+            "err_over_limit": max(r["err_over_limit"] for r in rows_),
+            "scope": f"{head['case']}, one call",
+            **{f: head[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                    "bytes", "ops", "device_ms", "library_device_ms")},
+            "cases": rows_})
     log(json.dumps({"serve": {
         "prefill_ms": pre_s * 1e3, "decode_ms_per_step": step_ms,
         "decode_tok_s": BATCH * 1e3 / step_ms, "e2e_tok_s": BATCH * NEW / full_s,
@@ -4076,6 +4799,8 @@ def main() -> int:
     log(json.dumps({"daemons": daemons_result}))
     log(json.dumps({"fleet": fleet_result}))
     log(json.dumps({"zoo": zoo_result}))
+    log(json.dumps({"attention_dims": {k: v for k, v in attn_result.items() if k != "rows"}}))
+    log(json.dumps({"moe": moe_result}))
     log(json.dumps({"prefix_cache": {"dense": pc_dense, "paged": pc_paged, "card": smi}}))
     log(json.dumps({"daemon": daemon}))
     log(json.dumps({"train": {**train_result, "parity": {

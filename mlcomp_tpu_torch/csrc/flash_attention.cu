@@ -40,6 +40,16 @@
 // and no register rebalancing (setmaxnreg) is required.  cp.async rather
 // than TMA keeps the kernel free of tensor maps (cuTensorMapEncodeTiled).
 
+// Head dims.  The kernel is a template on the head dim DH, instantiated at
+// 128 (the tiles above) and 256; the wrapper zero-pads d <= 128 to 128 and
+// 128 < d <= 256 to 256, as the TPU wrapper pads to a lane multiple.  At
+// DH = 256 the 128-key tiles do not fit (Q and two stages of K and V would
+// take 320 KB of shared memory against 227 KB, and a 64 x 256 O beside a
+// 64 x 128 S would spill): K/V tiles shrink to 64 keys (a 64 KB Q tile and
+// two stages of 32 KB K and V tiles, 193 KB), S to 32 registers (m64n64),
+// and O is two 64 x 128 accumulators, each a P V product against one half
+// of the V tile.  `flash_attention.resources()` prints both instances.
+//
 // Semantics follow the TPU kernel: logits (q . k) * scale in f32, masked
 // to -1e30; p = exp(s - m_new), and 0 for masked logits, so a row whose
 // causal-and-window key set is empty outputs 0 (not a uniform average);
@@ -59,52 +69,74 @@ namespace {
 using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int DH = 128, BQ = 128, BKV = 128, THREADS = 256;
-constexpr int Q_BYTES = BQ * DH * 2;
-constexpr int KV_BYTES = BKV * DH * 2;
-// Q, then two stages of K and of V; 1024 bytes of slack to align the base
-constexpr int SMEM_BYTES = Q_BYTES + 4 * KV_BYTES + 1024;
+constexpr int BQ = 128, THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// S = Q K^T for one warpgroup's 64 rows and one tile of 128 keys, raw
+// the tiles of one head dim: keys a K/V tile, S accumulators a thread,
+// 128-column O halves, shared memory
+template <int DH>
+struct Fwd {
+  static constexpr int BKV = DH == 128 ? 128 : 64;
+  static constexpr int NS = BKV / 2;          // S (64 x BKV) floats a thread
+  static constexpr int NO = DH / 128;         // O accumulators of 64 x 128
+  static constexpr int Q_BYTES = BQ * DH * 2;
+  static constexpr int KV_BYTES = BKV * DH * 2;
+  // Q, then two stages of K and of V; 1024 bytes of slack to align the base
+  static constexpr int SMEM_BYTES = Q_BYTES + 4 * KV_BYTES + 1024;
+};
+static_assert(Fwd<128>::SMEM_BYTES <= 232448 && Fwd<256>::SMEM_BYTES <= 232448,
+              "shared memory of one CTA");
+
+// S = Q K^T for one warpgroup's 64 rows and one tile of BKV keys, raw
 // (unscaled) logits, issued and committed as one wgmma group
 // (the first step overwrites s: no instruction but wgmma defines it, so
 // ptxas keeps the products asynchronous)
-__device__ __forceinline__ void qk_tile(float (&s)[64], uint32_t q_tile, uint32_t k_tile) {
+template <int DH>
+__device__ __forceinline__ void qk_tile(float (&s)[Fwd<DH>::NS], uint32_t q_tile,
+                                        uint32_t k_tile) {
   fence_operands(s);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk)
-    wgmma_ss_n128(s, desc_kmajor(q_tile, BQ, kk), desc_kmajor(k_tile, BKV, kk), kk > 0);
+    wgmma_ss(s, desc_kmajor(q_tile, BQ, kk), desc_kmajor(k_tile, Fwd<DH>::BKV, kk), kk > 0);
   wgmma_commit();
   fence_operands(s);
 }
 
-// O += P V for one warpgroup: P (64 x 128) as bf16 register A fragments,
-// V (128 keys x 128) MN-major; issued and committed as one wgmma group
-__device__ __forceinline__ void pv_tile(float (&o)[64], const uint32_t (&pa)[32],
+// O += P V for one warpgroup: P (64 x BKV) as bf16 register A fragments,
+// V (BKV keys x DH) MN-major, one 64 x 128 accumulator a 128-column half;
+// issued and committed as one wgmma group
+template <int DH>
+__device__ __forceinline__ void pv_tile(float (&o)[Fwd<DH>::NO][64],
+                                        const uint32_t (&pa)[Fwd<DH>::NS / 2],
                                         uint32_t v_tile) {
-  fence_operands(o);
+  constexpr int BKV = Fwd<DH>::BKV;
+#pragma unroll
+  for (int hh = 0; hh < Fwd<DH>::NO; ++hh) fence_operands(o[hh]);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
-    wgmma_rs_n128(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                  desc_mnmajor(v_tile, BKV, kk));
+  for (int hh = 0; hh < Fwd<DH>::NO; ++hh)
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_rs_n128(o[hh], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                    desc_mnmajor(v_tile + hh * 2 * BKV * 128, BKV, kk));
   wgmma_commit();
-  fence_operands(o);
+#pragma unroll
+  for (int hh = 0; hh < Fwd<DH>::NO; ++hh) fence_operands(o[hh]);
 }
 
 // The online softmax of one tile of raw logits, in place: masks (only when
 // `masked`), moves the running max m (raw units) and sum l, returns each
 // row's rescale factor in alpha and leaves p = exp((s - m) * scale) in s,
 // selected to 0 on masked logits
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], bool masked, int kv0, int row0,
                                              int col0, int lo, int hi, int causal, float c) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int x = 0; x < 64; ++x) {
+  for (int x = 0; x < NS; ++x) {
     if (masked) {
       const int col = kv0 + 8 * (x >> 2) + col0 + (x & 1);
       const int row = row0 + 8 * ((x >> 1) & 1);
@@ -123,7 +155,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     mneg[i] = -mx[i] * c;
   }
 #pragma unroll
-  for (int x = 0; x < 64; ++x) {
+  for (int x = 0; x < NS; ++x) {
     const int i = (x >> 1) & 1;
     float p = ex2(fmaf(s[x], c, mneg[i]));
     if (masked) p = s[x] > NEG_INF / 2 ? p : 0.f;   // selected, never exp of a mask
@@ -134,12 +166,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ps[i];
 }
 
+template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ kv_lo,
                  const int* __restrict__ kv_hi, bf16* __restrict__ out,
                  float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int causal,
                  float scale) {
+  using C = Fwd<DH>;
+  constexpr int BKV = C::BKV, NS = C::NS, NO = C::NO;
+  constexpr int Q_BYTES = C::Q_BYTES, KV_BYTES = C::KV_BYTES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base, sK = base + Q_BYTES, sV = sK + 2 * KV_BYTES;
@@ -161,13 +197,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t q_stride = (size_t)H * DH, kv_stride = (size_t)Hkv * DH;
   const bf16* kb = k + ((size_t)b * Sk * Hkv + hk) * DH;
   const bf16* vb = v + ((size_t)b * Sk * Hkv + hk) * DH;
-  load_tile<BQ, THREADS>(sQ, q + ((size_t)b * Sq * H + h) * DH, q0, Sq, q_stride, tid);
+  load_tile<BQ, THREADS, DH>(sQ, q + ((size_t)b * Sq * H + h) * DH, q0, Sq, q_stride, tid);
   if (n_tiles > 0) {
-    load_tile<BKV, THREADS>(sK, kb, kv_begin, Sk, kv_stride, tid);
-    load_tile<BKV, THREADS>(sV, vb, kv_begin, Sk, kv_stride, tid);
+    load_tile<BKV, THREADS, DH>(sK, kb, kv_begin, Sk, kv_stride, tid);
+    load_tile<BKV, THREADS, DH>(sV, vb, kv_begin, Sk, kv_stride, tid);
   }
   if (n_tiles > 1)
-    load_tile<BKV, THREADS>(sK + KV_BYTES, kb, kv_begin + BKV, Sk, kv_stride, tid);
+    load_tile<BKV, THREADS, DH>(sK + KV_BYTES, kb, kv_begin + BKV, Sk, kv_stride, tid);
   cp_async_commit();
 
   const uint32_t sQw = sQ + wg * 64 * 128;               // this warpgroup's 64 rows
@@ -181,22 +217,25 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return kv0 < lo || kv0 + BKV > hi || (causal && kv0 + BKV - 1 > wg_row0);
   };
 
-  float o[64], s[64];
+  float o[NO][64], s[NS];
 #pragma unroll
-  for (int x = 0; x < 64; ++x) o[x] = 0.f;
+  for (int hh = 0; hh < NO; ++hh)
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o[hh][x] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
-  uint32_t pa[32];   // P of the current tile as bf16 register A fragments
+  uint32_t pa[NS / 2];   // P of the current tile as bf16 register A fragments
 
   if (n_tiles > 0) {
     cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();
-    qk_tile(s, sQw, sK);
+    qk_tile<DH>(s, sQw, sK);
     wgmma_wait<0>();
     fence_operands(s);
-    softmax_tile(s, m, l, alpha, masked_at(kv_begin), kv_begin, row0, col0, lo, hi, causal, c);
+    softmax_tile<NS>(s, m, l, alpha, masked_at(kv_begin), kv_begin, row0, col0, lo, hi,
+                     causal, c);
 #pragma unroll
-    for (int r = 0; r < 32; ++r) pa[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
+    for (int r = 0; r < NS / 2; ++r) pa[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
   }
 
   // Tile j: S of tile j + 1 and O += P_j V_j issue back to back as one
@@ -214,29 +253,37 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     const int kv_next = kv_begin + (j + 1) * BKV;
     if (j + 2 < n_tiles)
-      load_tile<BKV, THREADS>(sK + (j & 1) * KV_BYTES, kb, kv_next + BKV, Sk, kv_stride, tid);
-    load_tile<BKV, THREADS>(sV + ((j + 1) & 1) * KV_BYTES, vb, kv_next, Sk, kv_stride, tid);
+      load_tile<BKV, THREADS, DH>(sK + (j & 1) * KV_BYTES, kb, kv_next + BKV, Sk, kv_stride,
+                                  tid);
+    load_tile<BKV, THREADS, DH>(sV + ((j + 1) & 1) * KV_BYTES, vb, kv_next, Sk, kv_stride,
+                                tid);
     cp_async_commit();
 
-    qk_tile(s, sQw, sK + ((j + 1) & 1) * KV_BYTES);
-    pv_tile(o, pa, sV + (j & 1) * KV_BYTES);
+    qk_tile<DH>(s, sQw, sK + ((j + 1) & 1) * KV_BYTES);
+    pv_tile<DH>(o, pa, sV + (j & 1) * KV_BYTES);
     wgmma_wait<0>();
     fence_operands(s);
-    fence_operands(o);
-    softmax_tile(s, m, l, alpha, masked_at(kv_next), kv_next, row0, col0, lo, hi, causal, c);
 #pragma unroll
-    for (int x = 0; x < 64; ++x) o[x] *= alpha[(x >> 1) & 1];
-    fence_operands(o);
+    for (int hh = 0; hh < NO; ++hh) fence_operands(o[hh]);
+    softmax_tile<NS>(s, m, l, alpha, masked_at(kv_next), kv_next, row0, col0, lo, hi, causal,
+                     c);
 #pragma unroll
-    for (int r = 0; r < 32; ++r) pa[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
+    for (int hh = 0; hh < NO; ++hh) {
+#pragma unroll
+      for (int x = 0; x < 64; ++x) o[hh][x] *= alpha[(x >> 1) & 1];
+      fence_operands(o[hh]);
+    }
+#pragma unroll
+    for (int r = 0; r < NS / 2; ++r) pa[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
   }
   if (n_tiles > 0) {
     cp_async_wait<0>();   // V of the last tile
     fence_proxy_async();
     __syncthreads();
-    pv_tile(o, pa, sV + ((n_tiles - 1) & 1) * KV_BYTES);
+    pv_tile<DH>(o, pa, sV + ((n_tiles - 1) & 1) * KV_BYTES);
     wgmma_wait<0>();
-    fence_operands(o);
+#pragma unroll
+    for (int hh = 0; hh < NO; ++hh) fence_operands(o[hh]);
   }
 
 #pragma unroll
@@ -252,10 +299,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.f / ls;
     bf16* orow = out + (((size_t)b * Sq + row) * H + h) * DH + col0;
 #pragma unroll
-    for (int jj = 0; jj < 16; ++jj) {
-      const uint32_t pr = pack_bf16(o[4 * jj + 2 * i] * inv, o[4 * jj + 2 * i + 1] * inv);
-      *reinterpret_cast<uint32_t*>(orow + 8 * jj) = pr;
-    }
+    for (int hh = 0; hh < NO; ++hh)
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const uint32_t pr =
+            pack_bf16(o[hh][4 * jj + 2 * i] * inv, o[hh][4 * jj + 2 * i + 1] * inv);
+        *reinterpret_cast<uint32_t*>(orow + 128 * hh + 8 * jj) = pr;
+      }
     // m is in raw logit units: lse = m * scale + log(l), and -1e30 + log(1)
     // for a row that saw no live key
     const float ms = m[i] > NEG_INF / 2 ? m[i] * scale : NEG_INF;
@@ -263,46 +313,67 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// q (B, Sq, H, 128) bf16; k/v (B, Sk, Hkv, 128) bf16; kv_lo/kv_hi (B,)
-// int32 or null; out (B, Sq, H, 128) bf16; lse (B, H, Sq) f32.  causal
-// needs Sq == Sk.  Returns cudaGetLastError().
-int flash_fwd_launch(const void* q, const void* k, const void* v,
-                     const void* kv_lo, const void* kv_hi, void* out, void* lse,
-                     int B, int H, int Hkv, int Sq, int Sk, int causal,
-                     float scale, void* stream) {
-  cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       SMEM_BYTES);
+template <int DH>
+int fwd_launch(const void* q, const void* k, const void* v, const void* kv_lo,
+               const void* kv_hi, void* out, void* lse, int B, int H, int Hkv, int Sq, int Sk,
+               int causal, float scale, void* stream) {
+  constexpr int SMEM = Fwd<DH>::SMEM_BYTES;
+  cudaFuncSetAttribute(flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<DH><<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(kv_lo), static_cast<const int*>(kv_hi),
       static_cast<bf16*>(out), static_cast<float*>(lse), H, Hkv, Sq, Sk, causal, scale);
   return (int)cudaGetLastError();
 }
 
-// The forward kernel's resources, six ints: registers per thread, static
-// shared bytes, dynamic shared bytes, local (spill) bytes per thread,
-// threads per CTA, CTAs per SM.  Returns the first CUDA error.
-int flash_fwd_resources(int* res) {
-  cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       SMEM_BYTES);
+template <int DH>
+int fwd_resources(int* res) {
+  constexpr int SMEM = Fwd<DH>::SMEM_BYTES;
+  cudaFuncSetAttribute(flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_kernel<DH>);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, flash_fwd_kernel, THREADS,
-                                                      SMEM_BYTES);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, flash_fwd_kernel<DH>, THREADS,
+                                                      SMEM);
   res[0] = a.numRegs;
   res[1] = (int)a.sharedSizeBytes;
-  res[2] = SMEM_BYTES;
+  res[2] = SMEM;
   res[3] = (int)a.localSizeBytes;
   res[4] = THREADS;
   res[5] = ctas;
   return (int)err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, Sq, H, DH) bf16; k/v (B, Sk, Hkv, DH) bf16 with DH 128 or 256;
+// kv_lo/kv_hi (B,) int32 or null; out (B, Sq, H, DH) bf16; lse (B, H, Sq)
+// f32.  causal needs Sq == Sk.  Returns cudaGetLastError() (or
+// cudaErrorInvalidValue for another DH).
+int flash_fwd_launch(const void* q, const void* k, const void* v,
+                     const void* kv_lo, const void* kv_hi, void* out, void* lse,
+                     int B, int H, int Hkv, int Sq, int Sk, int DH, int causal,
+                     float scale, void* stream) {
+  if (DH == 128)
+    return fwd_launch<128>(q, k, v, kv_lo, kv_hi, out, lse, B, H, Hkv, Sq, Sk, causal, scale,
+                           stream);
+  if (DH == 256)
+    return fwd_launch<256>(q, k, v, kv_lo, kv_hi, out, lse, B, H, Hkv, Sq, Sk, causal, scale,
+                           stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The forward kernel's resources at DH 128, then at DH 256, six ints each:
+// registers per thread, static shared bytes, dynamic shared bytes, local
+// (spill) bytes per thread, threads per CTA, CTAs per SM.  Returns the
+// first CUDA error.
+int flash_fwd_resources(int* res) {
+  const int err = fwd_resources<128>(res);
+  return err ? err : fwd_resources<256>(res + 6);
 }
 
 }  // extern "C"

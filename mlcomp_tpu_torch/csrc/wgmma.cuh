@@ -118,22 +118,25 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows, int k) 
 }
 
 // MN-major operand: 16-row step k of a (rows x 128) swizzled tile, all 128
-// columns
+// columns (columns 128..255 of a (rows x 256) tile: the tile's address plus
+// two column blocks, 2 x rows x 128 bytes)
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows, int k) {
   return make_desc(tile + k * 2048, rows * 128, 1024);
 }
 
-// asynchronous copy of rows [row0, row0 + ROWS) of a (n_rows x 128) bf16
-// matrix with a row stride of `stride` elements into a swizzled tile;
-// rows past n_rows are zero-filled.  THREADS threads share the copy.
-template <int ROWS, int THREADS>
+// asynchronous copy of rows [row0, row0 + ROWS) of a (n_rows x DH) bf16
+// matrix with a row stride of `stride` elements into a swizzled tile of
+// DH / 64 column blocks; rows past n_rows are zero-filled.  THREADS
+// threads share the copy.
+template <int ROWS, int THREADS, int DH = 128>
 __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* src, int row0,
                                           int n_rows, size_t stride, int tid) {
-  static_assert((ROWS * 16) % THREADS == 0, "whole chunks per thread");
+  constexpr int CHUNKS = DH / 8;   // 16-byte chunks a row
+  static_assert((ROWS * CHUNKS) % THREADS == 0, "whole chunks per thread");
 #pragma unroll
-  for (int it = 0; it < ROWS * 16 / THREADS; ++it) {
+  for (int it = 0; it < ROWS * CHUNKS / THREADS; ++it) {
     const int i = tid + it * THREADS;
-    const int r = i >> 4, c = i & 15;
+    const int r = i / CHUNKS, c = i % CHUNKS;
     const bool valid = row0 + r < n_rows;
     const __nv_bfloat16* g = valid ? src + (size_t)(row0 + r) * stride + c * 8 : src;
     cp_async_16(tile + (c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4), g, valid);
@@ -192,6 +195,18 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// the shared-memory product at N = 64 or 128, picked by the accumulator's
+// size
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  wgmma_ss_n64(d, desc_a, desc_b, accumulate);
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  wgmma_ss_n128(d, desc_a, desc_b, accumulate);
 }
 
 // D (64 x 128, f32, registers) += A (64 x 16, bf16 pairs in registers, the

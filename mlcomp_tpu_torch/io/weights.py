@@ -90,9 +90,13 @@ def init_variables(model_cfg: Dict[str, Any], seed: int = 0, device=None,
 def init_params(cfg: Dict[str, Any], seed: int = 0, device: Optional[torch.device] = None,
                 sample_shape=None):
     """A params tree drawn from ``seed``: a zoo model's (``cfg["name"]`` is
-    not ``transformer_lm``; see :func:`init_variables`), or else a
-    ``transformer_lm`` params tree in the flax layout (unfused
-    projections, as training writes them), drawn from ``seed``.
+    neither ``transformer_lm`` nor ``moe_lm``; see :func:`init_variables`),
+    or else an LM's params tree in the flax layout (unfused projections, as
+    training writes them), drawn from ``seed``.  A ``moe_lm`` names its
+    layers as flax does: ``MoELayer_{j}`` for every ``moe_every``-th layer
+    (attention, ``RMSNorm_0`` and ``moe`` with ``router/kernel`` (d, E),
+    ``experts_w1`` (E, d, d_ff) and ``experts_w2`` (E, d_ff, d)), and
+    ``DecoderLayer_{j}`` with ``d_ff`` for the others.
 
     With ``device=None`` the draw is numpy's (``default_rng(seed)``) and the
     leaves are numpy f32 arrays: the CPU tests feed the same tree to both
@@ -100,11 +104,13 @@ def init_params(cfg: Dict[str, Any], seed: int = 0, device: Optional[torch.devic
     on that device, which is fast at full width (a different stream from
     numpy's).  The LM's kernels are normal(0, 1/sqrt(fan_in)); norms are
     ones."""
-    if cfg.get("name", "transformer_lm") != "transformer_lm":
+    name = cfg.get("name", "transformer_lm")
+    if name not in ("transformer_lm", "moe_lm"):
         return init_variables(cfg, seed, device, sample_shape)[0]
     hidden, heads = cfg["hidden"], cfg["heads"]
     kv_heads = cfg.get("kv_heads") or heads
-    mlp = cfg.get("mlp_dim") or hidden * 4
+    moe = name == "moe_lm"
+    mlp = (cfg.get("d_ff") if moe else cfg.get("mlp_dim")) or hidden * 4
     vocab = cfg["vocab_size"]
     dh = hidden // heads
     if device is None:
@@ -125,20 +131,37 @@ def init_params(cfg: Dict[str, Any], seed: int = 0, device: Optional[torch.devic
             return torch.ones((n,), device=device)
 
     tree: Dict[str, Any] = {"emb": {"embedding": normal((vocab, hidden), hidden)}}
+    every = int(cfg.get("moe_every", 2)) if moe else 0
+    n_dense = n_moe = 0
     for i in range(cfg["layers"]):
-        tree[f"DecoderLayer_{i}"] = {
-            "attn": {
+        attn = {
+            "RMSNorm_0": {"scale": ones(hidden)},
+            "q": {"kernel": normal((hidden, heads, dh), hidden)},
+            "k": {"kernel": normal((hidden, kv_heads, dh), hidden)},
+            "v": {"kernel": normal((hidden, kv_heads, dh), hidden)},
+            "out": {"kernel": normal((heads, dh, hidden), heads * dh)},
+        }
+        if moe and (i + 1) % every == 0:
+            e = int(cfg.get("n_experts", 8))
+            tree[f"MoELayer_{n_moe}"] = {
+                "attn": attn,
                 "RMSNorm_0": {"scale": ones(hidden)},
-                "q": {"kernel": normal((hidden, heads, dh), hidden)},
-                "k": {"kernel": normal((hidden, kv_heads, dh), hidden)},
-                "v": {"kernel": normal((hidden, kv_heads, dh), hidden)},
-                "out": {"kernel": normal((heads, dh, hidden), heads * dh)},
-            },
+                "moe": {
+                    "router": {"kernel": normal((hidden, e), hidden)},
+                    "experts_w1": normal((e, hidden, mlp), hidden),
+                    "experts_w2": normal((e, mlp, hidden), mlp),
+                },
+            }
+            n_moe += 1
+            continue
+        tree[f"DecoderLayer_{n_dense}"] = {
+            "attn": attn,
             "RMSNorm_0": {"scale": ones(hidden)},
             "gate": {"kernel": normal((hidden, mlp), hidden)},
             "up": {"kernel": normal((hidden, mlp), hidden)},
             "down": {"kernel": normal((mlp, hidden), mlp)},
         }
+        n_dense += 1
     tree["RMSNorm_0"] = {"scale": ones(hidden)}
     tree["lm_head"] = {"kernel": normal((hidden, vocab), hidden)}
     return tree

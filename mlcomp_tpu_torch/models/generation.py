@@ -182,7 +182,9 @@ def prep_decode_variables(model, params, quant_kernel: bool = False):
         if use_quant_kernel:
             params = fold_kernel_leaves(params)
     model.load_state(from_flax_params(params))
-    model.fold_norms = use_quant_kernel
+    # a model whose norms also feed other products (moe_lm's router and
+    # experts) keeps them out of the kernels' prologues
+    model.fold_norms = use_quant_kernel and getattr(model, "fold_norms_eligible", True)
     return model
 
 

@@ -48,6 +48,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mlcomp_tpu_torch.kvpool.attn import PagedKV, PagedLayer
 from mlcomp_tpu_torch.models import MODELS
@@ -60,6 +61,7 @@ from mlcomp_tpu_torch.ops.cuda.decode_attention import (
     pick_buffer_len,
     quantize_kv,
 )
+from mlcomp_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
 from mlcomp_tpu_torch.ops.quant import Int8Linear, as_tensor, is_quantized_leaf
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -363,6 +365,11 @@ class DecoderLayer(nn.Module):
             self.up = Dense((mlp_dim,), 1, dtype)
         self.down = Dense((hidden,), 1, dtype)
 
+    def ffn_linears(self, pre: str):
+        """``(owner, attribute name, flax path)`` of the FFN's projections."""
+        names = ("gate_up",) if self.decode_fused else ("gate", "up")
+        return [(self, n, (pre, n, "kernel")) for n in names + ("down",)]
+
     def forward(self, x, positions, cache=None, index=0, kv_mask=None, kv_start=None,
                 fold=False, cursor=None):
         x = self.attn(x, positions, cache, index, kv_mask, kv_start, fold, cursor)
@@ -418,13 +425,16 @@ class TransformerLM(nn.Module):
         super().__init__()
         if dtype not in _DTYPES or head_dtype not in _DTYPES:
             raise ValueError(f"dtype/head_dtype must be one of {sorted(_DTYPES)}")
-        for key, on in (("remat", remat), ("fused_loss", fused_loss),
-                        ("fused_loss_chunk", fused_loss_chunk is not None),
-                        ("seq_parallel", seq_parallel)):
-            if on:
-                raise NotImplementedError(
-                    f"transformer_lm {key}: not ported to mlcomp_tpu_torch yet (ROADMAP A11, "
-                    "A12)")
+        if seq_parallel:
+            raise NotImplementedError(
+                "transformer_lm seq_parallel: not ported to mlcomp_tpu_torch yet (ROADMAP A12)")
+        # remat: each decoder layer's activations are recomputed in the
+        # backward (torch.utils.checkpoint), off at decode.  fused_loss: a
+        # forward without a cache returns the per-token next-token CE (B, S)
+        # through the chunked fused head (ops/fused_ce.py) in place of the
+        # (B, S, V) logits; pair it with ``loss: lm_cross_entropy_fused``
+        self.remat, self.fused_loss = bool(remat), bool(fused_loss)
+        self.fused_loss_chunk = int(fused_loss_chunk or 512)
         self.vocab_size, self.hidden, self.heads = vocab_size, hidden, heads
         self.kv_heads = kv_heads or heads
         self.mlp_dim = mlp_dim or hidden * 4
@@ -449,24 +459,31 @@ class TransformerLM(nn.Module):
             layer.attn.init_cache(batch_size, max_len, self.device) for layer in self.layers
         ])
 
+    def arch(self) -> dict:
+        """The config keys that shape the weights (``io.weights.init_params``)."""
+        return {"name": "transformer_lm", "vocab_size": self.vocab_size,
+                "hidden": self.hidden, "layers": len(self.layers), "heads": self.heads,
+                "kv_heads": self.kv_heads, "mlp_dim": self.mlp_dim}
+
+    def layer_names(self) -> List[str]:
+        """Each layer's flax module name (``DecoderLayer_{i}``, kept under
+        remat as the JAX model keeps it)."""
+        return [f"DecoderLayer_{i}" for i in range(len(self.layers))]
+
     def linears(self):
         """``(owner, attribute name, flax path)`` of every projection."""
         out = []
-        for i, layer in enumerate(self.layers):
-            pre = f"DecoderLayer_{i}"
+        for pre, layer in zip(self.layer_names(), self.layers):
             names = ("qkv",) if self.decode_fused else ("q", "k", "v")
             for n in names + ("out",):
                 out.append((layer.attn, n, (pre, "attn", n, "kernel")))
-            names = ("gate_up",) if self.decode_fused else ("gate", "up")
-            for n in names + ("down",):
-                out.append((layer, n, (pre, n, "kernel")))
+            out.extend(layer.ffn_linears(pre))
         out.append((self, "lm_head", ("lm_head", "kernel")))
         return out
 
     def norms(self):
         out = [(self.norm, ("RMSNorm_0", "scale"))]
-        for i, layer in enumerate(self.layers):
-            pre = f"DecoderLayer_{i}"
+        for pre, layer in zip(self.layer_names(), self.layers):
             out.append((layer.attn.norm, (pre, "attn", "RMSNorm_0", "scale")))
             out.append((layer.norm, (pre, "RMSNorm_0", "scale")))
         return out
@@ -534,7 +551,9 @@ class TransformerLM(nn.Module):
                 kv_mask: Optional[torch.Tensor] = None,
                 last_only: bool = False, cache_cursor: Optional[torch.Tensor] = None,
                 kv_start: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Logits (B, S, V) f32, or (B, 1, V) with ``last_only``.  With a
+        """Logits (B, S, V) f32, or (B, 1, V) with ``last_only``; with
+        ``fused_loss`` a forward without a cache returns the per-token
+        next-token losses (B, S) f32 instead.  With a
         ``cache``, ``positions`` are required (the caller owns the decode
         cursor), and the valid slots are ``kv_mask`` (B, max_len; False =
         left padding) or the window start ``kv_start`` (B,).  Without
@@ -562,11 +581,23 @@ class TransformerLM(nn.Module):
             if cache_cursor is not None:
                 cursor = RowCursors.of(cache_cursor, s, cache.layers[0])
         for li, layer in enumerate(self.layers):
+            if cache is None and self.remat and torch.is_grad_enabled():
+                h = checkpoint(layer, h, positions, use_reentrant=False)
+                continue
             h = layer(h, positions, None if cache is None else cache.layers[li], index,
                       kv_mask, kv_start, self.fold_norms, cursor)
         if cache is not None and cache_cursor is None:
             cache.index += s
         if last_only:
             h = h[:, -1:]
+        if cache is None and self.fused_loss:
+            # the next-token CE against the shifted ids; the last position's
+            # label is a dummy that the loss drops.  The chunk is the largest
+            # divisor of S that fits the configured one
+            labels = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1).long()
+            chunk = min(self.fused_loss_chunk, s)
+            while s % chunk:
+                chunk -= 1
+            return fused_linear_cross_entropy(self.norm(h), self.lm_head.kernel, labels, chunk)
         (logits,) = _project(h, self.norm, [self.lm_head], self.fold_norms)
         return logits.float()

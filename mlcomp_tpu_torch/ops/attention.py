@@ -1,14 +1,22 @@
 """Attention dispatch: one call site for the models.
 
-The counterpart of mlcomp_tpu/ops/attention.py.  Without a dense mask a
-CUDA tensor runs the flash-attention kernels (ops/cuda/flash_attention.py)
-and a CPU tensor their plain versions, differentiable on both through the
-kernels' backward; a dense mask always takes :func:`reference_attention`,
-as in the JAX package.
+The counterpart of mlcomp_tpu/ops/attention.py, with its rule.  The
+``MLCOMP_TPU_FLASH`` switch (on, off, auto) picks the flash path, where
+"on the TPU" reads "always": a CUDA tensor runs the flash-attention
+kernels (ops/cuda/flash_attention.py) and a CPU tensor their plain
+versions, differentiable on both through the kernels' backward.  Off, and
+with a dense mask (a warning when the switch is forced on), attention
+takes :func:`reference_attention`; so do shapes no kernel takes, which
+the wrapper refuses with ``NotImplementedError`` (causal with Sq != Sk, as
+the JAX wrapper does, and head dims above 256), after the JAX package's
+warning.  S < 128, which the JAX kernel refuses, stays on the kernels.
+Anything else the kernels raise propagates.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Optional
 
 import torch
@@ -63,8 +71,29 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
     """Multi-head attention over (B, S, H, D) tensors.  ``mask``: True =
     attend; ``kv_start``/``kv_stop``: (B,) per-row key windows, which keep
     the flash path where a dense mask does not."""
-    if mask is not None:
-        return reference_attention(q, k, v, mask=mask, causal=causal, scale=scale,
-                                   kv_start=kv_start, kv_stop=kv_stop)
-    return flash_attention(q, k, v, causal=causal, scale=scale,
-                           kv_start=kv_start, kv_stop=kv_stop)
+    raw = os.environ.get("MLCOMP_TPU_FLASH", "auto").strip().lower()
+    forced = raw in ("1", "true", "on", "yes")
+    disabled = raw in ("0", "false", "off", "no")
+    if not disabled:
+        if mask is not None:
+            # the kernels cover causal/full/kv-window; dense masks take the
+            # reference path (key padding: use kv_start/kv_stop)
+            if forced:
+                warnings.warn(
+                    "MLCOMP_TPU_FLASH forced on but a dense mask was passed; "
+                    "using reference path",
+                    stacklevel=2,
+                )
+        else:
+            try:
+                return flash_attention(q, k, v, causal=causal, scale=scale,
+                                       kv_start=kv_start, kv_stop=kv_stop)
+            except NotImplementedError as e:
+                # a fallback is loud: the reference path is O(S^2) memory
+                warnings.warn(
+                    f"flash attention unavailable ({type(e).__name__}: {e}); using "
+                    f"O(S^2) reference path on {q.device.type.upper()}",
+                    stacklevel=2,
+                )
+    return reference_attention(q, k, v, mask=mask, causal=causal, scale=scale,
+                               kv_start=kv_start, kv_stop=kv_stop)

@@ -9,6 +9,16 @@ and :func:`flash_attention_lse` are differentiable through
 forward saves q, k, v, out and lse, the backward runs the delta, dq and
 dk/dv kernels.  A CUDA tensor launches the kernels; a CPU tensor takes
 :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`.
+
+The kernels take bf16 (csrc/flash_attention.cu, flash_attention_bwd.cu:
+wgmma) and f32 (csrc/flash_attention_f32.cu: the CUDA cores) at head dims
+128 and 256; smaller heads zero-pad up to the next of the two.  The
+wrapper raises ``NotImplementedError`` only where no kernel exists: causal
+with Sq != Sk (as the JAX wrapper does) and, on a CUDA tensor, head dims
+above 256.  ``ops.attention.dot_product_attention`` then falls back loudly
+to its reference path, as the JAX dispatcher does.  The tiles take a
+ragged S, so S < 128, which the JAX kernel refuses for its lane width,
+stays on the kernels here.
 """
 
 from __future__ import annotations
@@ -21,13 +31,20 @@ import torch
 from mlcomp_tpu_torch.ops.cuda import build
 
 NEG_INF = -1e30
-_KERNEL_DH = 128   # the kernel's head dim; smaller heads zero-pad up to it
+KERNEL_DHS = (128, 256)   # the kernels' head dims; smaller heads zero-pad up
+# the source (library) of the forward and backward kernels of each dtype
+_LIBS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd", "flash"),
+         torch.float32: ("flash_attention_f32", "flash_attention_f32", "flash_f32")}
 
 launches = 0
 # the backward's three kernels
 bwd_delta_launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+# the instances beside bf16 at dh 128, counted again on their own: the
+# forward and the backward (one a backward) at bf16 dh 256, and on f32
+fwd_dh256_launches = bwd_dh256_launches = 0
+f32_fwd_launches = f32_bwd_launches = 0
 
 
 def flash_attention_plain(q, k, v, causal, scale, kv_start, kv_stop
@@ -64,53 +81,111 @@ def _window(x, b: int, default: int, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32).contiguous()
 
 
+def kernel_dh(d: int) -> int:
+    """The kernel instance a head dim runs on: the smallest of KERNEL_DHS
+    that holds it (the rest zero-pads)."""
+    for kd in KERNEL_DHS:
+        if d <= kd:
+            return kd
+    raise NotImplementedError(f"head dim {d} > {KERNEL_DHS[-1]}")
+
+
+def kernel_refusal(s_q: int, s_k: int, d: int, causal: bool) -> Optional[str]:
+    """Why no kernel takes these shapes, or None: causal with Sq != Sk (the
+    JAX wrapper's refusal, in its words) and head dims above the largest
+    instance."""
+    if causal and s_q != s_k:
+        return f"causal flash needs Sq == Sk; got {s_q}/{s_k}"
+    if d > KERNEL_DHS[-1]:
+        return f"head dim {d} > {KERNEL_DHS[-1]}"
+    return None
+
+
+def runs_kernels(t: torch.Tensor) -> bool:
+    """True where a tensor launches the kernels (CUDA); a CPU tensor takes
+    the plain versions, any other device raises."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {t.device}")
+    return t.device.type == "cuda"
+
+
+def _kernel_inputs(d: int, *ts: torch.Tensor):
+    """The kernels' operands: one dtype they take, the head dim zero-padded
+    to its instance (zero columns add nothing to q.k, dO.v or dO.O, and the
+    columns they produce are sliced off), contiguous."""
+    if ts[0].dtype not in _LIBS or any(t.dtype != ts[0].dtype for t in ts):
+        raise TypeError("the kernels take bf16 or f32 tensors of one dtype; got "
+                        + ", ".join(str(t.dtype) for t in ts))
+    kd = kernel_dh(d)
+    if d < kd:
+        ts = tuple(torch.nn.functional.pad(t, (0, kd - d)) for t in ts)
+    return kd, tuple(t.contiguous() for t in ts)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None,
                         kv_start: Optional[torch.Tensor] = None,
                         kv_stop: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, Sq, H, D); k/v (B, Sk, Hkv, D); kv_start/kv_stop (B,) int32.
-    Returns (out (B, Sq, H, D) in q.dtype, lse (B, H, Sq) f32)."""
-    global launches
+    Returns (out (B, Sq, H, D) in q.dtype, lse (B, H, Sq) f32).  Raises
+    ``NotImplementedError`` where :func:`kernel_refusal` refuses on a CUDA
+    tensor, and on causal with Sq != Sk on any device."""
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     if h % h_kv:
         raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
-    if causal and s_q != s_k:
-        raise NotImplementedError(f"causal flash needs Sq == Sk; got {s_q}/{s_k}")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     lo = _window(kv_start, b, 0, q.device)
     hi = _window(kv_stop, b, s_k, q.device)
-    if q.device.type == "cpu":
+    if not runs_kernels(q):
+        # the plain version's diagonal is position-aligned like the kernels':
+        # an offset causal mask is the reference path's
+        if causal and s_q != s_k:
+            raise NotImplementedError(f"causal flash needs Sq == Sk; got {s_q}/{s_k}")
         return flash_attention_plain(q, k, v, causal, scale, lo, hi)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"the kernel takes bf16 q/k/v; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d > _KERNEL_DH:
-        raise NotImplementedError(f"head dim {d} > {_KERNEL_DH}")
-    if d < _KERNEL_DH:
-        # zero columns add nothing to q.k and give output columns that
-        # are sliced off below
-        pad = (0, _KERNEL_DH - d)
-        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    why = kernel_refusal(s_q, s_k, d, causal)
+    if why:
+        raise NotImplementedError(why)
+    return _launch_fwd(q, k, v, lo, hi, causal, scale)
+
+
+def _launch_fwd(q, k, v, lo, hi, causal: bool, scale: float):
+    global launches
+    b, s_q, h, d = q.shape
+    s_k, h_kv = k.shape[1], k.shape[2]
+    kd, (q, k, v) = _kernel_inputs(d, q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = build.function("flash_attention", "flash_fwd_launch",
-                            [p] * 7 + [i] * 6 + [ctypes.c_float, p])
+    stem, _, prefix = _LIBS[q.dtype]
+    launch = build.function(stem, f"{prefix}_fwd_launch", [p] * 7 + [i] * 7 + [ctypes.c_float, p])
     err = launch(
         *(t.data_ptr() for t in (q, k, v, lo, hi, out, lse)),
-        b, h, h_kv, s_q, s_k, int(bool(causal)), scale, build.stream_ptr(q.device),
+        b, h, h_kv, s_q, s_k, kd, int(bool(causal)), scale, build.stream_ptr(q.device),
     )
-    build.check(err, "flash_attention")
+    build.check(err, stem)
     launches += 1
+    _count_instance("fwd", q.dtype, kd)
     return out[..., :d], lse
 
 
+def _count_instance(kind: str, dtype, kd: int) -> None:
+    global fwd_dh256_launches, bwd_dh256_launches, f32_fwd_launches, f32_bwd_launches
+    if dtype == torch.float32:
+        if kind == "fwd":
+            f32_fwd_launches += 1
+        else:
+            f32_bwd_launches += 1
+    elif kd == 256:
+        if kind == "fwd":
+            fwd_dh256_launches += 1
+        else:
+            bwd_dh256_launches += 1
+
+
 def flash_work(b: int, s_q: int, s_k: int, h: int, h_kv: int, d: int, causal: bool,
-               kv_start=None, kv_stop=None) -> dict:
+               kv_start=None, kv_stop=None, itemsize: int = 2) -> dict:
     """The work behind the flash kernels' bounds for one call on these
     inputs: ``live_pairs``, the (batch, query, key) pairs of the causal-and-
     window mask; ``live_rows``, the (batch, query) rows with a live key;
@@ -119,7 +194,8 @@ def flash_work(b: int, s_q: int, s_k: int, h: int, h_kv: int, d: int, causal: bo
     (q of live rows, k/v of live keys read once; out and lse written) and
     the backward's (10 x pairs x H x dh: q.k and dO.v recomputed, dq, dk
     and dv; q/out/dO of live rows and k/v of live keys read, lse read, dq,
-    dk and dv written).  Windows given add 4 bytes per batch row each."""
+    dk and dv written), at ``itemsize`` bytes an element (2 for bf16, 4 for
+    f32).  Windows given add 4 bytes per batch row each."""
     lo = _window(kv_start, b, 0, "cpu").long().clamp(0, s_k)
     hi = _window(kv_stop, b, s_k, "cpu").long().clamp(0, s_k)
     width = (hi - lo).clamp_min(0)
@@ -135,19 +211,25 @@ def flash_work(b: int, s_q: int, s_k: int, h: int, h_kv: int, d: int, causal: bo
     return dict(
         live_pairs=pairs, live_rows=live_rows, live_keys=live_keys,
         fwd_ops=4 * pairs * h * d, bwd_ops=10 * pairs * h * d,
-        fwd_bytes=(live_rows * h + 2 * live_keys * h_kv) * d * 2 + b * s_q * h * d * 2
-        + b * h * s_q * 4 + win_bytes,
-        bwd_bytes=(3 * live_rows * h + 2 * live_keys * h_kv) * d * 2
-        + (b * s_q * h + 2 * b * s_k * h_kv) * d * 2 + b * h * s_q * 4 + win_bytes,
+        fwd_bytes=(live_rows * h + 2 * live_keys * h_kv) * d * itemsize
+        + b * s_q * h * d * itemsize + b * h * s_q * 4 + win_bytes,
+        bwd_bytes=(3 * live_rows * h + 2 * live_keys * h_kv) * d * itemsize
+        + (b * s_q * h + 2 * b * s_k * h_kv) * d * itemsize + b * h * s_q * 4 + win_bytes,
     )
 
 
 def resources() -> dict:
     """Each flash kernel's resources on the card (``build.resources``):
-    {"fwd" | "bwd_delta" | "bwd_dq" | "bwd_dkv": {field: int}}."""
-    return {**build.resources("flash_attention", "flash_fwd_resources", ("fwd",)),
+    {"fwd" | "bwd_delta" | "bwd_dq" | "bwd_dkv" (bf16, dh 128), the same
+    names ending "_256" (bf16, dh 256) and "f32_<name>" / "f32_<name>_256"
+    (f32): {field: int}}."""
+    names = ("fwd", "bwd_delta", "bwd_dq", "bwd_dkv")
+    return {**build.resources("flash_attention", "flash_fwd_resources", ("fwd", "fwd_256")),
             **build.resources("flash_attention_bwd", "flash_bwd_resources",
-                              ("bwd_delta", "bwd_dq", "bwd_dkv"))}
+                              names[1:] + tuple(n + "_256" for n in names[1:])),
+            **build.resources("flash_attention_f32", "flash_f32_resources",
+                              tuple(f"f32_{n}" for n in names)
+                              + tuple(f"f32_{n}_256" for n in names))}
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale, kv_start, kv_stop,
@@ -193,52 +275,49 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool, scale: float,
     the output cotangent ``do`` and the optional lse cotangent ``g_lse``
     (B, H, Sq).  CUDA tensors launch the delta, dq and dk/dv kernels; CPU
     tensors take :func:`flash_attention_bwd_plain`."""
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    lo = _window(kv_start, b, 0, q.device)
+    hi = _window(kv_stop, b, s_k, q.device)
+    if not runs_kernels(q):
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale, lo, hi, g_lse)
+    why = kernel_refusal(s_q, s_k, d, causal)
+    if why:
+        raise NotImplementedError(why)
+    return _launch_bwd(q, k, v, out, lse, do.to(q.dtype), causal, scale, lo, hi, g_lse)
+
+
+def _launch_bwd(q, k, v, out, lse, do, causal: bool, scale: float, lo, hi, g_lse):
     global bwd_delta_launches, bwd_dq_launches, bwd_dkv_launches
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
-    lo = _window(kv_start, b, 0, q.device)
-    hi = _window(kv_stop, b, s_k, q.device)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale, lo, hi, g_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
-    if not (q.dtype == k.dtype == v.dtype == out.dtype == torch.bfloat16):
-        raise TypeError(f"the kernels take bf16 q/k/v/out; got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}, {out.dtype}")
-    if d > _KERNEL_DH:
-        raise NotImplementedError(f"head dim {d} > {_KERNEL_DH}")
-    do = do.to(q.dtype)
-    if d < _KERNEL_DH:
-        # zero columns add nothing to q.k, dO.v or dO.O; the gradient
-        # columns they produce are sliced off below
-        pad = (0, _KERNEL_DH - d)
-        q, k, v, out, do = (torch.nn.functional.pad(t, pad) for t in (q, k, v, out, do))
-    q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
+    kd, (q, k, v, out, do) = _kernel_inputs(d, q, k, v, out, do)
     lse = lse.float().contiguous()
     g = None if g_lse is None else g_lse.float().contiguous()
     p, i = ctypes.c_void_p, ctypes.c_int
     stream = build.stream_ptr(q.device)
+    _, stem, prefix = _LIBS[q.dtype]
     delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    launch = build.function("flash_attention_bwd", "flash_bwd_delta_launch",
-                            [p] * 4 + [i] * 3 + [p])
+    launch = build.function(stem, f"{prefix}_bwd_delta_launch", [p] * 4 + [i] * 4 + [p])
     err = launch(do.data_ptr(), out.data_ptr(), None if g is None else g.data_ptr(),
-                 delta.data_ptr(), b, h, s_q, stream)
-    build.check(err, "flash_attention_bwd delta")
+                 delta.data_ptr(), b, h, s_q, kd, stream)
+    build.check(err, f"{stem} delta")
     bwd_delta_launches += 1
     dq = torch.empty_like(q)
-    launch = build.function("flash_attention_bwd", "flash_bwd_dq_launch",
-                            [p] * 9 + [i] * 6 + [ctypes.c_float, p])
+    launch = build.function(stem, f"{prefix}_bwd_dq_launch",
+                            [p] * 9 + [i] * 7 + [ctypes.c_float, p])
     err = launch(*(t.data_ptr() for t in (q, k, v, do, lse, delta, lo, hi, dq)),
-                 b, h, h_kv, s_q, s_k, int(bool(causal)), scale, stream)
-    build.check(err, "flash_attention_bwd dq")
+                 b, h, h_kv, s_q, s_k, kd, int(bool(causal)), scale, stream)
+    build.check(err, f"{stem} dq")
     bwd_dq_launches += 1
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    launch = build.function("flash_attention_bwd", "flash_bwd_dkv_launch",
-                            [p] * 10 + [i] * 6 + [ctypes.c_float, p])
+    launch = build.function(stem, f"{prefix}_bwd_dkv_launch",
+                            [p] * 10 + [i] * 7 + [ctypes.c_float, p])
     err = launch(*(t.data_ptr() for t in (q, k, v, do, lse, delta, lo, hi, dk, dv)),
-                 b, h, h_kv, s_q, s_k, int(bool(causal)), scale, stream)
-    build.check(err, "flash_attention_bwd dk/dv")
+                 b, h, h_kv, s_q, s_k, kd, int(bool(causal)), scale, stream)
+    build.check(err, f"{stem} dk/dv")
     bwd_dkv_launches += 1
+    _count_instance("bwd", q.dtype, kd)
     return dq[..., :d], dk[..., :d], dv[..., :d]
 
 

@@ -142,7 +142,11 @@ def kernel_consumable(leaf) -> bool:
 def dequantize_nonkernel_params(params, dtype=torch.bfloat16):
     """Dequantize every quantized leaf except those the int8 kernel will
     take: 2-D and attention ``.../kernel`` leaves that are
-    kernel-consumable, and ``.../embedding`` (a row gather)."""
+    kernel-consumable, ``.../embedding`` (a row gather), and stacked MoE
+    experts (``experts_w1``/``experts_w2``, (E, in, out) with both slice
+    dims multiples of 128), whose 2-D slices :func:`expert_matmul` feeds
+    to the kernel one expert at a time; other expert shapes dequantize
+    here, as in the JAX package."""
     def visit(path, leaf):
         if not is_quantized_leaf(leaf):
             return leaf
@@ -152,9 +156,27 @@ def dequantize_nonkernel_params(params, dtype=torch.bfloat16):
         if key == "kernel" and kernel_consumable(leaf):
             if leaf[_QKEY].ndim == 2 or _attn_reduce_axes(path) is not None:
                 return leaf
+        q = leaf[_QKEY]
+        if (key in ("experts_w1", "experts_w2") and q.ndim == 3
+                and q.shape[-2] % 128 == 0 and q.shape[-1] % 128 == 0):
+            return leaf
         return dequantize_leaf(leaf, dtype)
 
     return tree_map_with_path(visit, params)
+
+
+def expert_matmul(x: torch.Tensor, leaf, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ dequant(leaf)`` for a 2-D quantized slice (one expert of a
+    stacked MoE weight: q8 (in, out), scale (1, out)).  A kernel-consumable
+    slice runs the int8 kernel (B1: the decode body at 64 rows or fewer,
+    the tiled body above); any other dequantizes inline."""
+    if kernel_consumable(leaf):
+        q8 = as_tensor(leaf[_QKEY])
+        scale = as_tensor(leaf[_SKEY]).float().reshape(-1).contiguous()
+        rows = x.reshape(-1, q8.shape[0]).bfloat16().contiguous()
+        out = quant_matmul(rows, q8.contiguous(), scale)
+        return out.reshape(*x.shape[:-1], q8.shape[1]).to(dtype)
+    return x.to(dtype) @ dequantize_leaf(leaf, dtype)
 
 
 def fold_kernel_leaves(params):

@@ -83,6 +83,14 @@ def mixup_batch(batch: Dict[str, torch.Tensor], lam: torch.Tensor, perm: torch.T
     return {**batch, "x": x, "_mix_y": batch["y"][perm]}
 
 
+def sown_losses(model) -> list:
+    """The auxiliary objectives the model's last forward left (the JAX
+    modules' sown ``losses`` collection, e.g. MoE's load-balance loss): the
+    train step adds each one to the loss.  Per step, not state."""
+    fn = getattr(model, "sown_losses", None)
+    return fn() if fn is not None else []
+
+
 def make_train_step(loss_fn, metric_fns: Dict[str, Callable], grad_accum: int = 1,
                     augment_fn=None, mixup_alpha: float = 0.0, seed: int = 0, device=None):
     """The train step: ``step(state, batch) -> stats`` (device scalars).
@@ -94,6 +102,9 @@ def make_train_step(loss_fn, metric_fns: Dict[str, Callable], grad_accum: int = 
     lam loss(y) + (1 - lam) loss(y[perm]); metrics score against y.  Both
     draw from generators seeded with ``seed + 1``, the batches' ``device``'s
     and the host's.
+
+    The loss adds every auxiliary objective the forward sowed
+    (:func:`sown_losses`), as the JAX step adds its ``losses`` collection.
 
     ``grad_accum > 1`` splits the batch into that many equal microbatches,
     sums their gradients in f32 (the parameters' ``.grad``) and applies the
@@ -110,6 +121,8 @@ def make_train_step(loss_fn, metric_fns: Dict[str, Callable], grad_accum: int = 
         if lam is not None:
             # convex label combination: exact mixup for CE-family losses
             loss = lam * loss + (1.0 - lam) * loss_fn(outputs, {**batch, "y": batch["_mix_y"]})
+        for aux in sown_losses(model):
+            loss = loss + aux.sum()
         loss.backward()
         with torch.no_grad():
             stats = {"loss": loss.detach()}
@@ -253,9 +266,7 @@ class Trainer:
             params, model_state = m.init_variables(self.seed, self.device, sample_shape)
             m.load_variables(params, model_state, train=True)
         else:
-            arch = {"vocab_size": m.vocab_size, "hidden": m.hidden, "layers": len(m.layers),
-                    "heads": m.heads, "kv_heads": m.kv_heads, "mlp_dim": m.mlp_dim}
-            params = init_params(arch, self.seed, device=self.device)
+            params = init_params(m.arch(), self.seed, device=self.device)
             m.load_state(from_flax_params(params, fold=False), train=True)
 
         self.state = TrainState.create(self.model, self.tx,

@@ -1,9 +1,9 @@
 """Loss function registry: the port of mlcomp_tpu/train/losses.py.
 
 A loss is a function ``(outputs, batch) -> scalar`` picked by name from
-the YAML config.  Every loss of the JAX package is here except
-``lm_cross_entropy_fused``, which needs the fused head
-(``ops/fused_ce.py``, not ported yet).
+the YAML config.  Every loss of the JAX package is here;
+``lm_cross_entropy_fused`` takes the per-token losses of a model built
+with ``fused_loss: true`` (ops/fused_ce.py).
 """
 
 from __future__ import annotations
@@ -121,6 +121,20 @@ def lm_cross_entropy(logits, batch):
     return masked_mean(per, batch)
 
 
+@LOSSES.register("lm_cross_entropy_fused")
+def lm_cross_entropy_fused(outputs, batch):
+    """Pairs with ``model.fused_loss: true``: the model already computed
+    per-token CE losses (B, S) through the chunked fused head
+    (ops/fused_ce.py); the final position carries a dummy label and is
+    dropped here."""
+    if outputs.dim() != 2:
+        raise ValueError(
+            "lm_cross_entropy_fused expects per-token losses (B, S) — set fused_loss: true "
+            "on the model (and note decode/logits consumers can't run against fused outputs)")
+    per = outputs[:, :-1].mean(dim=-1)
+    return masked_mean(per, batch)
+
+
 @LOSSES.register("dice")
 def dice_loss(logits, batch, eps: float = 1e-6):
     """Soft dice over one-hot classes; void pixels (labels outside [0, C))
@@ -144,9 +158,5 @@ def create_loss(cfg):
     else:
         kwargs = dict(cfg)
         name = kwargs.pop("name")
-    if name.strip().lower() == "lm_cross_entropy_fused":
-        raise NotImplementedError(
-            "lm_cross_entropy_fused needs the fused head (ops/fused_ce.py), not ported "
-            "yet (ROADMAP A11)")
     fn = LOSSES.get(name)
     return functools.partial(fn, **kwargs) if kwargs else fn

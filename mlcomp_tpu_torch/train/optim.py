@@ -10,10 +10,11 @@ optax's step count (0 on the first update).  The trainer adds the updates
 to the parameters in place.
 
 Ported: the ``constant``, ``cosine``, ``warmup_cosine``, ``step`` and
-``linear_warmup`` schedules; ``sgd``, ``adam``, ``adamw`` and
-``adafactor`` (optax's chain with its defaults); ``grad_clip`` as
-``clip_by_global_norm`` chained first.  ``lamb``, ``lars``, ``rmsprop``
-and ``accum_steps`` raise ``NotImplementedError`` (ROADMAP A11).
+``linear_warmup`` schedules; ``sgd``, ``adam``, ``adamw``, ``lamb``,
+``lars``, ``rmsprop`` and ``adafactor`` (optax's chains with its
+defaults, adafactor's ``momentum`` included); ``grad_clip`` as
+``clip_by_global_norm`` chained first; ``accum_steps`` as
+``optax.MultiSteps`` around the whole.
 """
 
 from __future__ import annotations
@@ -203,6 +204,66 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Transform(init, update)
 
 
+def scale_by_rms(decay: float = 0.9, eps: float = 1e-8) -> Transform:
+    """``optax.scale_by_rms`` (no bias correction, eps inside the root):
+    ``nu = (1 - decay) g^2 + decay nu``, the update ``g / sqrt(nu + eps)``."""
+    def update(updates, state, params):
+        nu = {k: (1 - decay) * (g * g) + decay * state[k] for k, g in updates.items()}
+        return {k: torch.rsqrt(nu[k] + eps) * g for k, g in updates.items()}, nu
+
+    return Transform(lambda params: {k: torch.zeros_like(p) for k, p in params.items()},
+                     update)
+
+
+def scale_by_trust_ratio(trust_coefficient: float = 1.0, eps: float = 0.0) -> Transform:
+    """``optax.scale_by_trust_ratio``: each leaf times ``trust_coefficient
+    |p| / (|u| + eps)`` (2-norms over the whole leaf), or 1 where either
+    norm is 0."""
+    def fn(updates, params):
+        out = {}
+        for k, u in updates.items():
+            pn = torch.linalg.vector_norm(params[k])
+            un = torch.linalg.vector_norm(u)
+            ratio = trust_coefficient * pn / (un + eps)
+            out[k] = u * torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(ratio), ratio)
+        return out
+
+    return _stateless(fn)
+
+
+def ema(decay: float) -> Transform:
+    """``optax.ema(decay, debias=False)``: the update is the running
+    ``(1 - decay) u + decay ema``."""
+    def update(updates, state, params):
+        new = {k: (1 - decay) * u + decay * state[k] for k, u in updates.items()}
+        return new, new
+
+    return Transform(lambda params: {k: torch.zeros_like(p) for k, p in params.items()},
+                     update)
+
+
+def multi_steps(inner: Transform, k_steps: int) -> Transform:
+    """``optax.MultiSteps(inner, every_k_schedule=k_steps)``: the running
+    mean of k gradients (``acc + (g - acc) / (n + 1)``), handed to ``inner``
+    on every k-th update; the updates in between are zero and ``inner``'s
+    state does not move."""
+    def init(params):
+        return {"mini_step": 0, "inner": inner.init(params),
+                "acc": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(updates, state, params):
+        n = state["mini_step"]
+        acc = {k: a + (updates[k] - a) / float(n + 1) for k, a in state["acc"].items()}
+        if n < k_steps - 1:
+            zeros = {k: torch.zeros_like(u) for k, u in updates.items()}
+            return zeros, {"mini_step": n + 1, "inner": state["inner"], "acc": acc}
+        out, inner_state = inner.update(acc, state["inner"], params)
+        return out, {"mini_step": 0, "inner": inner_state,
+                     "acc": {k: torch.zeros_like(a) for k, a in acc.items()}}
+
+    return Transform(init, update)
+
+
 def add_decayed_weights(weight_decay: float) -> Transform:
     """``u + weight_decay * p`` for every leaf (optax's default mask)."""
     return _stateless(lambda u, p: {k: v + weight_decay * p[k] for k, v in u.items()})
@@ -303,15 +364,28 @@ def adamw(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4, **_) -> Transf
                  scale_by_learning_rate(_sched(lr)))
 
 
-def _not_ported(name: str):
-    def factory(**_):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to mlcomp_tpu_torch yet (ROADMAP A11)")
-    return factory
+@OPTIMIZERS.register("lamb")
+def lamb(lr=1e-3, weight_decay: float = 0.0, **_) -> Transform:
+    """``optax.lamb`` (b1 0.9, b2 0.999, eps 1e-6)."""
+    return chain(scale_by_adam(0.9, 0.999, 1e-6), add_decayed_weights(weight_decay),
+                 scale_by_trust_ratio(), scale_by_learning_rate(_sched(lr)))
 
 
-for _name in ("lamb", "lars", "rmsprop"):
-    OPTIMIZERS.register(_name, obj=_not_ported(_name))
+@OPTIMIZERS.register("lars")
+def lars(lr=0.1, weight_decay: float = 1e-4, momentum: float = 0.9,
+         trust_coefficient: float = 0.001, **_) -> Transform:
+    """``optax.lars``: layer-wise adaptive rate scaling (eps 0, no
+    nesterov)."""
+    return chain(add_decayed_weights(weight_decay), scale_by_trust_ratio(trust_coefficient),
+                 scale_by_learning_rate(_sched(lr)), trace(momentum))
+
+
+@OPTIMIZERS.register("rmsprop")
+def rmsprop(lr=1e-3, decay: float = 0.9, eps: float = 1e-8, momentum: float = 0.0,
+            **_) -> Transform:
+    """``optax.rmsprop`` (not centered; the momentum trace chained last)."""
+    return chain(scale_by_rms(decay, eps), scale_by_learning_rate(_sched(lr)),
+                 trace(momentum))
 
 
 @OPTIMIZERS.register("adafactor")
@@ -322,9 +396,7 @@ def adafactor(lr=None, min_dim_size_to_factor: int = 128, decay_rate: float = 0.
               factored: bool = True, **_) -> Transform:
     """``optax.adafactor``'s chain: factored rms scaling, block-rms
     clipping, the learning rate, the parameter-scale factor, optional
-    decayed weights, then a sign flip."""
-    if momentum is not None:
-        raise NotImplementedError("adafactor momentum is not ported (ROADMAP A11)")
+    momentum (an ema) and decayed weights, then a sign flip."""
     parts = [scale_by_factored_rms(factored, decay_rate, decay_offset,
                                    min_dim_size_to_factor, eps)]
     if clipping_threshold is not None:
@@ -333,6 +405,8 @@ def adafactor(lr=None, min_dim_size_to_factor: int = 128, decay_rate: float = 0.
         parts.append(scale_by_learning_rate(_sched(lr), flip_sign=False))
     if multiply_by_parameter_scale:
         parts.append(scale_by_param_block_rms())
+    if momentum is not None:
+        parts.append(ema(momentum))
     if weight_decay_rate is not None:
         parts.append(add_decayed_weights(weight_decay_rate))
     parts.append(scale(-1.0))
@@ -341,19 +415,19 @@ def adafactor(lr=None, min_dim_size_to_factor: int = 128, decay_rate: float = 0.
 
 def create_optimizer(cfg: Union[str, Dict[str, Any]]) -> Transform:
     """Build from ``{name: adam, lr: ..., grad_clip: ..., ...}``;
-    ``grad_clip`` chains ``clip_by_global_norm`` first."""
+    ``grad_clip`` chains ``clip_by_global_norm`` first and ``accum_steps``
+    wraps the whole in :func:`multi_steps`."""
     if isinstance(cfg, str):
         cfg = {"name": cfg}
     cfg = dict(cfg)
     name = cfg.pop("name")
     grad_clip = cfg.pop("grad_clip", None)
-    if int(cfg.pop("accum_steps", 1)) > 1:
-        raise NotImplementedError(
-            "accum_steps (optax.MultiSteps) is not ported (ROADMAP A11); "
-            "use the trainer's grad_accum")
+    accum_steps = int(cfg.pop("accum_steps", 1))
     tx = OPTIMIZERS.get(name)(**cfg)
     if grad_clip:
         tx = chain(clip_by_global_norm(float(grad_clip)), tx)
+    if accum_steps > 1:
+        tx = multi_steps(tx, accum_steps)
     return tx
 
 

@@ -100,8 +100,16 @@ def test_metrics_match_jax(name):
 
 
 def test_fused_loss_is_refused_until_its_head_is_ported():
-    with pytest.raises(NotImplementedError):
-        losses.create_loss("lm_cross_entropy_fused")
+    # the head is ported (ops/fused_ce.py): the loss takes per-token losses
+    # (B, S) as the JAX loss does, and refuses logits as it does
+    fn = losses.create_loss("lm_cross_entropy_fused")
+    per = np.random.default_rng(0).random((3, 9)).astype(np.float32)
+    batch = {"x": np.zeros((3, 9), np.int32)}
+    jb, tb = _batch_pair(batch)
+    want = float(jlosses.LOSSES.get("lm_cross_entropy_fused")(jnp.asarray(per), jb))
+    np.testing.assert_allclose(float(fn(_t(per), tb)), want, rtol=1e-6)
+    with pytest.raises(ValueError, match="per-token losses"):
+        fn(_t(np.zeros((3, 9, 5), np.float32)), tb)
 
 
 SCHEDULES = [
@@ -164,8 +172,18 @@ def test_optimizers_match_optax(cfg):
 
 @pytest.mark.parametrize("name", ["lamb", "lars", "rmsprop"])
 def test_unported_optimizers_are_refused(name):
-    with pytest.raises(NotImplementedError):
-        optim.create_optimizer({"name": name, "lr": 0.1})
+    # ported now: each builds with the JAX package's defaults and takes
+    # optax's first step (tests/test_torch_train_recipes.py holds five)
+    rng = np.random.default_rng(1)
+    p = rng.standard_normal((32, 16), dtype=np.float32)
+    g = rng.standard_normal((32, 16), dtype=np.float32)
+    tx = joptim.create_optimizer({"name": name, "lr": 0.1})
+    upd, _ = tx.update({"w": jnp.asarray(g)}, tx.init({"w": jnp.asarray(p)}),
+                       {"w": jnp.asarray(p)})
+    ttx = optim.create_optimizer({"name": name, "lr": 0.1})
+    tp = {"w": _t(p.copy())}
+    tupd, _ = ttx.update({"w": _t(g)}, ttx.init(tp), tp)
+    np.testing.assert_allclose(tupd["w"].numpy(), np.asarray(upd["w"]), rtol=1e-5, atol=1e-7)
 
 
 def test_loader_batches_equal_the_jax_loaders():
