@@ -9,6 +9,20 @@ without printing a result:
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
 2. build: compiles every kernel in mlcomp_tpu_torch/csrc with nvcc.
+2b. device profile (``device_profile_phase``, in a child process so that
+   the profiler's session leaves this process's later host timings
+   alone), early, before the long phases: the continuous daemon on the
+   1.2B all-int8 LM (dense, then
+   paged) decodes 8 requests while ``GET /profile?dispatches=8`` captures
+   them with torch.profiler; the capture must name B1, B2 and B3 (B6 on
+   paged) with as many events as their wrappers counted launches over the
+   window, give 0 < device time <= wall, a host gap >= 0 and a roofline
+   share in (0, 1.05], and ``/metrics`` and ``/trace`` must carry the A13
+   families and the ``engine.device`` track.  A Trainer over
+   configs/multihost_lm.yml's model with ``profile:`` must write a trace
+   holding B5 and B10's kernels 16 times a profiled step; the native host
+   library must build and be engaged, and MLCOMP_TPU_NATIVE_SHUFFLE's
+   epoch must be the seed's permutation.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes of the 1.2B transformer_lm (hidden 2048, 16
    heads, mlp 8192, vocab 32768), with its time, the plain version's, one
@@ -166,7 +180,9 @@ without printing a result:
    prompts with the widest entry-dequant top-2 margin; then 4 train steps
    at 2 x 2048 with adafactor (the cross-entropy must fall, the aux loss
    stay within MOE_AUX_BOUND x its balanced floor), peak memory.
-12. summary: ``serve``, ``engine``, ``paged_engine``, ``disagg``, ``spec``,
+12. summary: ``device_profile`` (the captures' device time per decode step
+   beside the kernel phase's B1 + B2 + B3 of one step, two sources),
+   ``serve``, ``engine``, ``paged_engine``, ``disagg``, ``spec``,
    ``train_to_serve``, ``daemons``, ``fleet``, ``zoo``, ``prefix_cache``,
    ``daemon``, ``train``, ``attention_dims``, ``moe`` and ``kernels`` JSON
    lines (the kernels line lists the flash kernels' dh-256 and f32
@@ -189,6 +205,7 @@ import math
 import os
 import queue
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -278,6 +295,23 @@ def time_ms(fns, iters=20, warmup=3, windows=5) -> Ms:
     out = Ms(per[len(per) // 2])
     out.spread = (per[0], per[-1])
     return out
+
+
+@contextmanager
+def profiled(activities=None):
+    """torch.profiler (the card's activity by default) over the enclosed
+    work, with ``utils.profile.EDGE_S`` of idle time at each edge: the
+    profiler keeps only the card's records inside the window's bounds on
+    the host's clock, and a window whose launches began as it opened has
+    lost its first kernels.  Time the work inside the body."""
+    from mlcomp_tpu_torch.utils.profile import EDGE_S
+
+    acts = activities or [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(EDGE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(EDGE_S)
 
 
 def copies_for(nbytes: int) -> int:
@@ -1197,11 +1231,11 @@ def zoo_phase(device, smi, bw, flops):
         rbatches = list(rtr._loader("train"))
         rtr._train_step(rtr.state, rbatches[0])
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p_:
+        with profiled() as p_:
+            t0 = time.perf_counter()
             rtr._train_step(rtr.state, rbatches[1])
             torch.cuda.synchronize()
-        step_wall = (time.perf_counter() - t0) * 1e3
+            step_wall = (time.perf_counter() - t0) * 1e3
         per_kernel, launches_ = {}, 0
         for evt in p_.key_averages():
             us = getattr(evt, "device_time_total", None)
@@ -1947,6 +1981,262 @@ def moe_phase(device, smi, bw, flops):
     return result
 
 
+# the device profile phase: the decode dispatches a capture asks for (GET
+# /profile?dispatches=N) while its requests decode, and the Trainer's
+# profiled window (global steps [start_step, start_step + num_steps) of
+# `steps` steps at TRAIN_BATCH x 4096 tokens)
+PROFILE_DISPATCHES = 8
+PROFILE_PROMPTS = 8
+# new tokens a profiled request asks for: twice the serving phases', so that
+# the first request still decodes when the last one is admitted
+PROFILE_NEW = 2 * NEW
+PROFILE_TRAIN = {"steps": 3, "start_step": 1, "num_steps": 2}
+# the roofline share a capture may show: past the data sheet's bandwidth
+# by no more than the clock's slack
+PROFILE_ROOFLINE_MAX = 1.05
+
+
+def capture_kernel(key: str, name: str) -> bool:
+    """Whether a kernel name as a capture gives it (``devprof.short_op``)
+    is ``key``'s: B1 the int8 matmul without the norm prologue (the decode
+    kernel's NORM = false instances and the tiled kernel), B2 its NORM =
+    true instances, B3/B6 the single-query decode body (B6 is the same body
+    through the page table), B5 the flash forward, B10's three backward
+    kernels."""
+    gemv = name.startswith("qmm_gemv_tc_kernel<")
+    return {"B1": (gemv and ", false," in name) or name == "qmm_wgmma_kernel",
+            "B2": gemv and ", true," in name,
+            "B3/B6": name.startswith("attend_split_kernel<"),
+            "B5": name.startswith("flash_fwd_kernel"),
+            "B10 delta": name.startswith("flash_bwd_delta_kernel"),
+            "B10 dq": name.startswith("flash_bwd_dq_kernel"),
+            "B10 dk/dv": name.startswith("flash_bwd_dkv_kernel")}[key]
+
+
+def device_profile_phase(dev, smi, bw):
+    """Phase 2b: the engine's on-demand device capture, the Trainer's
+    profiled window and the native host library, on the card.
+
+    The continuous daemon serves the 1.2B all-int8 LM over HTTP (dense,
+    then ``kv_layout="paged"`` with 128-slot pages); 8 requests decode and,
+    once all 8 hold a slot, ``GET /profile?dispatches=8`` captures the
+    next dispatches.  The capture must name B1, B2 and B3 (B6 on paged)
+    among its kernels, hold exactly as many events of each as its wrapper
+    counted launches over the window (a record the profiler lost fails the
+    phase), give 0 < device time <= wall, a host gap >= 0 and a roofline
+    share in (0, PROFILE_ROOFLINE_MAX]; ``/metrics`` must carry the four
+    A13 families and ``/trace`` the ``engine.device`` track.  Then a
+    Trainer over configs/multihost_lm.yml's model (2 x 4096, 3 steps)
+    with ``profile: {start_step: 1, num_steps: 2}`` must write a trace
+    holding the flash forward (B5) and B10's backward kernels, 16 launches
+    of each a step.  Last, the native library must have built and be
+    engaged, and an epoch under MLCOMP_TPU_NATIVE_SHUFFLE must be a
+    permutation, the same for the same seed."""
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+    import yaml
+
+    from mlcomp_tpu_torch import native
+    from mlcomp_tpu_torch.data.loader import DataLoader
+    from mlcomp_tpu_torch.io.weights import init_params
+    from mlcomp_tpu_torch.obs import devprof
+    from mlcomp_tpu_torch.serve import load_service, make_http_server
+    from mlcomp_tpu_torch.train.loop import Trainer
+
+    log("phase device profile")
+    t_phase = time.perf_counter()
+    hbm = devprof.hbm_gbps(dev)
+    if hbm is None or (not os.environ.get("MLCOMP_TPU_HBM_GBPS") and hbm * 1e9 != bw):
+        raise AssertionError(f"the engine's roofline bandwidth {hbm} GB/s is not this card's "
+                             f"data sheet's {bw / 1e9} GB/s")
+    params = init_params(CFG, SEED, device=dev)
+    rng = torch.Generator().manual_seed(SEED + 2)
+    prompts = [torch.randint(1, CFG["vocab_size"], (n,), generator=rng).tolist()
+               for n in torch.linspace(64, 200, PROFILE_PROMPTS).long().tolist()]
+    captures = {}
+    for layout in ("dense", "paged"):
+        kw = {"kv_layout": "paged", "kv_page_tokens": 128} if layout == "paged" else {}
+        service = load_service(CFG, params=params, device=str(dev), quantize="kernel",
+                               batch_sizes=(1, BATCH), prompt_buckets=(PROMPT,),
+                               max_new_buckets=(PROFILE_NEW,), prefill_chunk=CHUNK, **kw)
+        eng = service.engine
+        httpd = make_http_server(service, "127.0.0.1", 0, model_name="transformer_lm-1.2b")
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            http(url + "/generate", {"prompt": prompts[0][:16], "max_new_tokens": 2})
+            with ThreadPoolExecutor(PROFILE_PROMPTS) as ex:
+                futs = [ex.submit(http, url + "/generate",
+                                  {"prompt": p, "max_new_tokens": PROFILE_NEW})
+                        for p in prompts]
+                # every request admitted and decoding: the window holds
+                # decode dispatches only
+                t_wait = time.perf_counter()
+                while not (eng._adm is None and not eng._pending and not eng._queue.qsize()
+                           and sum(s is not None for s in eng._host) == PROFILE_PROMPTS):
+                    if time.perf_counter() - t_wait > 120:
+                        raise AssertionError(f"{layout}: the {PROFILE_PROMPTS} requests never "
+                                             f"decoded together: {eng.stats()}")
+                    time.sleep(0.005)
+                code, att, _ = http(f"{url}/profile?dispatches={PROFILE_DISPATCHES}",
+                                    timeout=300)
+                done = [f.result() for f in futs]
+            if code != 200:
+                raise AssertionError(f"{layout}: GET /profile answered {code}: {att}")
+            for c, res, _ in done:
+                if c != 200 or len(res["ids"]) != PROFILE_NEW:
+                    raise AssertionError(f"{layout}: a profiled request failed: {c} {res}")
+            _, metrics_text, _ = http(url + "/metrics")
+            _, trace_doc, _ = http(url + "/trace")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join(timeout=10)
+            service.close()
+        attn_key, other = (("decode_attention", "paged_decode_attention") if layout == "dense"
+                           else ("paged_decode_attention", "decode_attention"))
+        launches = att["launches"]
+        want = {"B1": launches["quant_matmul"], "B2": launches["quant_matmul_norm"],
+                "B3/B6": launches[attn_key]}
+        events = {key: sum(k["count"] for k in att["kernels"] if capture_kernel(key, k["name"]))
+                  for key in want}
+        if min(events.values()) <= 0 or events != want or launches[other]:
+            raise AssertionError(f"{layout} capture: kernel events {events} against the "
+                                 f"wrappers' launches over the window {launches} (a record "
+                                 f"the profiler lost, or a kernel missing from the "
+                                 f"attribution); kernels {att['kernels']}")
+        util = att["roofline_utilization"]
+        if not (0 < att["device_time_ms"] <= att["wall_ms"] and att["host_gap_ms"] >= 0
+                and util is not None and 0 < util <= PROFILE_ROOFLINE_MAX):
+            raise AssertionError(f"{layout} capture out of bounds: device "
+                                 f"{att['device_time_ms']} ms, wall {att['wall_ms']} ms, host "
+                                 f"gap {att['host_gap_ms']} ms, roofline share {util}")
+        families = {line.split()[2] for line in metrics_text.splitlines()
+                    if line.startswith("# TYPE ")}
+        a13 = {"mlcomp_engine_device_time_ms", "mlcomp_engine_profile_captures_total",
+               "mlcomp_engine_device_time_ms_per_dispatch", "mlcomp_engine_roofline_utilization"}
+        tracks = {e.get("args", {}).get("name") for e in trace_doc["traceEvents"]
+                  if e.get("ph") == "M"}
+        if not a13 <= families or "engine.device" not in tracks:
+            raise AssertionError(f"{layout}: /metrics lacks {sorted(a13 - families)} or /trace "
+                                 f"lacks the engine.device track ({sorted(filter(None, tracks))})")
+        # device forwards in the window: a decode_scan_kK dispatch runs K
+        steps = sum(f["dispatches"] * int(re.match(r"decode_scan_k(\d+)", fam).group(1))
+                    for fam, f in att["families"].items())
+        captures[layout] = {
+            **{k: att[k] for k in ("dispatches", "requested_dispatches", "wall_ms",
+                                   "device_time_ms", "host_gap_ms", "device_time_ms_per_dispatch",
+                                   "host_gap_ms_per_dispatch", "roofline_ms_per_dispatch",
+                                   "roofline_utilization", "hbm_gbps", "families",
+                                   "device_events", "launches")},
+            "decode_steps": steps, "device_ms_per_step": att["device_time_ms"] / steps,
+            "kernel_events": events, "top_kernels": att["kernels"][:8]}
+        log(f"device profile, {layout} engine ({smi}): {json.dumps(captures[layout])}")
+        del service, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the Trainer's profiled window on the training configuration
+    with open(Path(REPO) / "configs" / "multihost_lm.yml") as f:
+        targs = yaml.safe_load(f)["executors"]["pretrain"]["args"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    cfg = {k: v for k, v in targs.items() if k not in ("mesh", "project", "dag_name")}
+    cfg["data"]["train"].update(batch_size=TRAIN_BATCH,
+                                n=TRAIN_BATCH * PROFILE_TRAIN["steps"])
+    cfg["profile"] = {"dir": tmp, "start_step": PROFILE_TRAIN["start_step"],
+                      "num_steps": PROFILE_TRAIN["num_steps"]}
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=str(dev))
+    layers = trainer.model.arch()["layers"]
+    trainer.fit()
+    train_s = time.perf_counter() - t0
+    trace = devprof.load_trace(trainer.profiler.trace_path)
+    by_name = Counter(devprof.short_op(e["name"]) for e in trace.events
+                      if e.get("cat") == "kernel")
+    seq = cfg["data"]["train"]["seq_len"]
+    grid = GRID_KEYS[bwd_grid(True, False, seq)]
+    train_events = {key: sum(c for n, c in by_name.items() if capture_kernel(key, n))
+                    for key in ("B5", "B10 delta", "B10 dq", "B10 dk/dv")}
+    want_n = layers * PROFILE_TRAIN["num_steps"]
+    if grid != "B10" or set(train_events.values()) != {want_n}:
+        raise AssertionError(f"profiled train window: {train_events} flash kernel events, want "
+                             f"{want_n} of each ({layers} layers x {PROFILE_TRAIN['num_steps']} "
+                             f"steps, the {grid} grid)")
+    train_att = devprof.attribution(trace, top_kernels=8)
+    train_profile = {"trace_bytes": os.path.getsize(trainer.profiler.trace_path),
+                     "window_steps": PROFILE_TRAIN["num_steps"], "batch": [TRAIN_BATCH, seq],
+                     "kernel_events": train_events,
+                     "device_time_ms": train_att["device_time_ms"],
+                     "top_kernels": train_att["kernels"], "fit_s": train_s}
+    log(f"device profile, Trainer window ({smi}): {json.dumps(train_profile)}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the native host library: built here with g++, engaged, and the
+    # native shuffle a permutation that a seed repeats
+    lib = native.lib()
+    engaged = native.dag_analyze(np.array([0, 0, 1]), np.array([0]),
+                                 np.array([2, 0], dtype=np.int8), np.array([0, 0]))
+    if lib is None or engaged is None or [r.tolist() for r in engaged] != [[1], []]:
+        raise AssertionError(f"the native library did not build or is not engaged: {lib}, "
+                             f"{engaged}")
+    n_rows = 1 << 16
+    data = {"x": np.arange(n_rows * 4, dtype=np.float32).reshape(n_rows, 4),
+            "y": np.arange(n_rows, dtype=np.int64)}
+    os.environ["MLCOMP_TPU_NATIVE_SHUFFLE"] = "1"
+    try:
+        orders = [torch.cat([b["y"].cpu() for b in DataLoader(
+            data, batch_size=4096, shuffle=True, seed=SEED, device=str(dev))]).tolist()
+            for _ in range(2)]
+    finally:
+        del os.environ["MLCOMP_TPU_NATIVE_SHUFFLE"]
+    numpy_order = np.arange(n_rows)
+    np.random.RandomState(SEED).shuffle(numpy_order)
+    if (sorted(orders[0]) != list(range(n_rows)) or orders[0] != orders[1]
+            or orders[0] != native.shuffled_indices(n_rows, SEED).tolist()
+            or orders[0] == numpy_order.tolist()):
+        raise AssertionError("MLCOMP_TPU_NATIVE_SHUFFLE: the epoch is not the native "
+                             "permutation of its seed")
+    result = {"captures": captures, "train": train_profile,
+              "native": {"library": str(native.so_path()), "engaged": True,
+                         "shuffle_rows": n_rows, "permutation": True, "same_for_seed": True},
+              "card": smi, "phase_s": time.perf_counter() - t_phase}
+    log(f"device profile: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+def device_profile_process(smi, bw) -> dict:
+    """:func:`device_profile_phase` in a child process (the kernels already
+    built, so it loads them): its output interleaves with this one's, and
+    its result comes back as JSON.  Fails when the child fails."""
+    import tempfile
+
+    fd, out = tempfile.mkstemp(prefix="chip_smoke_devprof_", suffix=".json")
+    os.close(fd)
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
+            "from mlcomp_tpu_torch.ops.cuda import build; build.build_all(); "
+            "r = cs.device_profile_phase(torch.device('cuda'), sys.argv[2], float(sys.argv[3])); "
+            "json.dump(r, open(sys.argv[4], 'w'))")
+    try:
+        proc = subprocess.run([sys.executable, "-c", code, REPO, smi, repr(bw), out], cwd=REPO,
+                              timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"the device profile phase failed (exit {proc.returncode}; "
+                                 "its output above)")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        os.unlink(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -1972,6 +2262,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 2b. device profile: early, before the long phases (late in a long
+    # run the profiler has lost records on this card's machine), and in a
+    # process of its own: a profiler session with the card's activity can
+    # leave its process slower at every later launch, and the serving
+    # phases below time the host
+    devprof_result = device_profile_process(smi, bw)
 
     from mlcomp_tpu_torch.ops.cuda import decode_attention as da
     from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
@@ -4266,12 +4563,12 @@ def main() -> int:
     # of the step is what this profile is for, so a profile without device
     # time for them fails the run
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     batch_p = {"x": x_par}
     trainer._train_step(trainer.state, batch_p)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer._train_step(trainer.state, batch_p)
         torch.cuda.synchronize()
@@ -4375,15 +4672,13 @@ def main() -> int:
         torch.cuda.synchronize()
         qm.launches = qm.norm_launches = 0
         da.launches = da.paged_launches = da.split_launches = 0
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             dense_logits = decode_step(1)
-            torch.cuda.synchronize()
         qmm_counts = (qm.launches, qm.norm_launches)
         dense_attn = (da.launches, da.paged_launches, da.split_launches)
         da.launches = da.paged_launches = da.split_launches = 0
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as pprof:
+        with profiled() as pprof:
             paged_logits = decode_step(1, paged_kv)
-            torch.cuda.synchronize()
         paged_attn = (da.launches, da.paged_launches, da.split_launches)
     step_qmm = {"B1": {"launches": 0, "device_ms": 0.0}, "B2": {"launches": 0, "device_ms": 0.0}}
     reduce_launches = 0
@@ -4719,6 +5014,34 @@ def main() -> int:
                 "per_moe_layer_per_decode_step": moe_result["decode"]["b1_per_moe_layer"],
                 "path": "moe: moe_lm served through the continuous engine (int8 expert slices)"}
         entries.append(entry)
+    # the launches the device profile phase's captures counted (its windows'
+    # wrapper counters, each equal to the capture's events of the kernel)
+    pcap = devprof_result["captures"]
+    cap_launches = {
+        "B1": {lay: c["launches"]["quant_matmul"] for lay, c in pcap.items()},
+        "B2": {lay: c["launches"]["quant_matmul_norm"] for lay, c in pcap.items()},
+        "B3": {"dense": pcap["dense"]["launches"]["decode_attention"]},
+        "B6": {"paged": pcap["paged"]["launches"]["paged_decode_attention"]},
+        "B5": {"train window": devprof_result["train"]["kernel_events"]["B5"]},
+        "B10": {"train window": devprof_result["train"]["kernel_events"]["B10 dq"]}}
+    for entry, key in zip(entries, scopes):
+        if key in cap_launches:
+            entry["launches_device_profile"] = cap_launches[key]
+    # a capture's device time per decode step beside the kernel phase's
+    # B1 + B2 + B3 of one decode step at 8 rows: two sources (torch.profiler
+    # over the served engine; CUDA events around calls queued behind a spin)
+    by_key = dict(zip(scopes, entries))
+    kernel_step = (by_key["B1"]["decode_step"]["device_ms"]
+                   + by_key["B2"]["decode_step"]["device_ms"] + by_key["B3"]["device_ms"])
+    log(json.dumps({"device_profile": {
+        **devprof_result,
+        "dense_device_ms_per_step": pcap["dense"]["device_ms_per_step"],
+        "dense_device_time_ms_per_dispatch": pcap["dense"]["device_time_ms_per_dispatch"],
+        "kernel_phase_b1_b2_b3_ms_per_step": kernel_step,
+        "sources": "the capture: torch.profiler's device lanes over the served engine's "
+                   "decode dispatches (every kernel of a step); the kernel phase: CUDA events "
+                   "around B1, B2 and B3 calls queued behind a spin, at one decode step's "
+                   "shapes (those three kernels only)"}}))
     # the flash kernels' instances at head dim 256 and on f32, each with the
     # launches of the path that runs it (counts set to 0 just before it)
     ap = attn_result["paths"]

@@ -11,6 +11,9 @@ import os
 from collections import deque
 from typing import Dict, Iterable, List, Mapping, Set
 
+import numpy as np
+
+from mlcomp_tpu_torch import native
 from mlcomp_tpu_torch.dag.schema import DagSpec, TaskSpec, TaskStatus
 
 
@@ -139,23 +142,54 @@ def ready_tasks(
 
 
 class DagAnalyzer:
-    """Per-DAG scheduling analysis: ready tasks by priority (then
-    declaration order) and the doomed set.  The port's copy keeps the
-    Python walk only; the reference's native fast path
-    (mlcomp_tpu/native/schedcore.cpp) is not ported."""
+    """Per-DAG scheduling analysis with a native fast path.
+
+    Builds the dependency CSR once (task sets are immutable after submit),
+    then each ``analyze`` call returns ``(ready, doomed)`` in one O(V+E)
+    native pass (``mlcomp_tpu_torch/native/schedcore.cpp``); the Python
+    walk below is the always-available fallback with the same results.
+    Ready tasks come back sorted by (-priority, declaration order)."""
 
     def __init__(self, tasks: Iterable[TaskSpec]):
         self.tasks = list(tasks)
         self._index = {t.name: i for i, t in enumerate(self.tasks)}
+        offsets = [0]
+        deps: List[int] = []
+        for t in self.tasks:
+            deps.extend(self._index[d] for d in t.depends)
+            offsets.append(len(deps))
+        self._dep_off = np.asarray(offsets, dtype=np.int64)
+        self._deps = np.asarray(deps, dtype=np.int64)
+        self._prio = np.asarray([t.resources.priority for t in self.tasks], dtype=np.int64)
+
+    _STATUS_CODE = {
+        TaskStatus.NOT_RAN: 0,
+        TaskStatus.SUCCESS: 2,
+        TaskStatus.FAILED: 3,
+        TaskStatus.SKIPPED: 3,
+        TaskStatus.STOPPED: 3,
+    }
 
     def analyze(
         self, statuses: Mapping[str, TaskStatus]
     ) -> tuple[List[TaskSpec], Set[str]]:
-        ready = sorted(
-            ready_tasks(self.tasks, statuses),
-            key=lambda t: (-t.resources.priority, self._index[t.name]),
+        status = np.asarray(
+            [self._STATUS_CODE.get(statuses.get(t.name, TaskStatus.NOT_RAN), 1)
+             for t in self.tasks],
+            dtype=np.int8,
         )
-        return ready, doomed_tasks(self.tasks, statuses)
+        res = native.dag_analyze(self._dep_off, self._deps, status, self._prio)
+        if res is None:  # no toolchain, or a cycle: the Python walk
+            ready = sorted(
+                ready_tasks(self.tasks, statuses),
+                key=lambda t: (-t.resources.priority, self._index[t.name]),
+            )
+            return ready, doomed_tasks(self.tasks, statuses)
+        ready_idx, doomed_idx = res
+        return (
+            [self.tasks[i] for i in ready_idx],
+            {self.tasks[i].name for i in doomed_idx},
+        )
 
 
 def doomed_tasks(

@@ -7,18 +7,24 @@ it by repeating the last row and masks the pad rows through ``valid``.
 A one-deep prefetch thread assembles batch k+1 on the host while the
 device runs batch k; on a CUDA device each host batch goes into pinned
 memory and is copied ``non_blocking``, so the copy overlaps the device's
-work as well.  The reference's native shuffle (``MLCOMP_TPU_NATIVE_SHUFFLE``)
-is not ported.
+work as well.  As in the reference, ``MLCOMP_TPU_NATIVE_SHUFFLE`` opts into
+the native Fisher-Yates permutation (``mlcomp_tpu_torch/native``), and the
+rows of a batch are gathered on the native thread pool with the
+interpreter lock released; either falls back to numpy, with the same rows,
+where the library did not build.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from mlcomp_tpu_torch import native
 
 
 class DataLoader:
@@ -58,11 +64,24 @@ class DataLoader:
     def _host_batches(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = np.arange(self.n)
         if self.shuffle:
-            np.random.RandomState(self.seed + self._epoch).shuffle(idx)
+            # index permutation: numpy's RNG by default (reproducible across
+            # installs); the native Fisher-Yates when explicitly opted in
+            nidx = None
+            if os.environ.get("MLCOMP_TPU_NATIVE_SHUFFLE"):
+                nidx = native.shuffled_indices(self.n, self.seed + self._epoch)
+            if nidx is not None:
+                idx = nidx
+            else:
+                np.random.RandomState(self.seed + self._epoch).shuffle(idx)
         self._epoch += 1
         for b in range(len(self)):
             sel = idx[b * self.batch_size : (b + 1) * self.batch_size]
-            batch = {k: v[sel] for k, v in self.data.items()}
+            # gather on the native thread pool (a memcpy without the
+            # interpreter lock); numpy where the library is missing
+            batch = {}
+            for k, v in self.data.items():
+                g = native.gather_rows(v, sel)
+                batch[k] = g if g is not None else v[sel]
             if self.pad_to_batch and len(sel) < self.batch_size:
                 # fixed batch shapes: pad the ragged tail, mask via 'valid'
                 pad = self.batch_size - len(sel)

@@ -84,8 +84,20 @@ become Python code that launches into preallocated device tensors updated
 in place.  The static buffers leave room to capture one CUDA graph per K
 rung; none is captured yet.
 
+- On-demand device capture (``profile(dispatches=N)``, ``GET /profile``):
+  the loop opens a ``torch.profiler`` window at its next boundary with
+  work, closes it after N dispatches behind a synchronize of the card, and
+  resolves the capture with the device/host split (``obs/devprof.py``),
+  the kernels by name, the wrappers' launches over the window and the
+  roofline share: the bytes a dispatch must move over the card's memory
+  bandwidth (``MLCOMP_TPU_HBM_GBPS``, else the card's data sheet; none on
+  the CPU).  The device spans join the flight recorder as the
+  ``engine.device`` track; ``stats()["device"]`` and the
+  ``mlcomp_engine_device_time_ms`` / ``_roofline_utilization`` families
+  carry the last capture (else the steady-state estimate).
+
 Not in this engine (the JAX engine has them; see ROADMAP.md): meshes and
-distributed gangs (A12), device profiling and the roofline gauges (A13).
+distributed gangs (A12).
 """
 
 from __future__ import annotations
@@ -93,6 +105,8 @@ from __future__ import annotations
 import itertools
 import math
 import queue
+import shutil
+import tempfile
 import threading
 import time
 import warnings
@@ -126,11 +140,14 @@ from mlcomp_tpu_torch.kvpool.transfer import (
 )
 from mlcomp_tpu_torch.models.generation import sample_token_rowwise_keyed
 from mlcomp_tpu_torch.models.speculative import ngram_propose
+from mlcomp_tpu_torch.obs import devprof
 from mlcomp_tpu_torch.obs.metrics import DEFAULT_MS_BUCKETS, Registry
+from mlcomp_tpu_torch.ops.cuda import launch_counts
 from mlcomp_tpu_torch.ops.cuda.quant_matmul import GEMV_ROWS
 from mlcomp_tpu_torch.ops.quant import Int8Linear
 from mlcomp_tpu_torch.serve import _bucket, _fail_future, left_pad_row
 from mlcomp_tpu_torch.utils.faults import inject as _inject_fault
+from mlcomp_tpu_torch.utils.profile import StepProfiler
 from mlcomp_tpu_torch.utils.trace import Tracer, make_trace_id, null_tracer, valid_trace_id
 
 _POISON = object()  # close() wakes a blocked queue.get with this
@@ -155,6 +172,14 @@ class EngineStalled(RuntimeError):
     ``dispatch_stall_timeout``) or found the drive loop dead."""
 
     status = "engine_stalled"
+
+
+class ProfileBusy(RuntimeError):
+    """A second ``profile()`` arrived while a device capture was already
+    armed or mid-window: one capture at a time (the profiler session is
+    process-global).  HTTP maps this to 409."""
+
+    status = "profile_busy"
 
 
 def _set_result(fut: Future, result) -> None:
@@ -422,7 +447,7 @@ class DecodeEngine:
             "prefill_chunks": 0, "emitted_tokens": 0, "fused_chunks": 0,
             "admissions_overlapped": 0, "deadline_exceeded": 0, "cancelled": 0,
             "cache_degraded": 0, "watchdog_stalls": 0, "watchdog_restarts": 0,
-            "dispatch_k_changes": 0,
+            "dispatch_k_changes": 0, "profile_captures": 0,
         }
         if self.spec_k is not None:
             # live row-forwards across verifies: emitted_tokens / spec_rows
@@ -474,7 +499,23 @@ class DecodeEngine:
             "Host-observed decode-stream stall per completed admission (staged chunks run "
             "while rows decode + the insert boundary; ~0 when every chunk rides a fused "
             "dispatch)", buckets=DEFAULT_MS_BUCKETS)
+        self._hist_device = self.metrics.histogram(
+            "mlcomp_engine_device_time_ms",
+            "Device-lane busy ms per dispatch (one observation per /profile capture: "
+            "interval union over the card's lanes / dispatches)", buckets=DEFAULT_MS_BUCKETS)
         self.metrics.register_collector(self._collect_metrics)
+        # on-demand device capture (GET /profile): one armed or active
+        # capture at a time; HTTP threads arm it under _prof_lock, the loop
+        # thread starts, stops and attributes it at dispatch boundaries
+        self._prof_lock = threading.Lock()
+        self._profile: Optional[Dict[str, Any]] = None
+        self._last_attr: Optional[Dict[str, Any]] = None
+        # the roofline: one forward reads every weight once, plus its KV
+        # working set; the bandwidth is MLCOMP_TPU_HBM_GBPS or the card's
+        # data sheet, None on the CPU (no roofline there)
+        self._w_bytes = sum(t.numel() * t.element_size()
+                            for t in itertools.chain(model.parameters(), model.buffers()))
+        self._hbm_gbps = devprof.hbm_gbps(self.device)
         self.step_count = 0
         self._stop = threading.Event()
         # watchdog state: _busy_since marks when the loop thread entered a
@@ -822,6 +863,66 @@ class DecodeEngine:
             return False
         return True
 
+    def profile(self, dispatches: int = 8, trace_dir: Optional[str] = None) -> Future:
+        """Arm a windowed device capture around the next ``dispatches``
+        dispatch boundaries (``GET /profile``).  The drive loop opens a
+        ``torch.profiler`` window at its next boundary with work (the
+        ``utils/profile.StepProfiler`` idiom), closes it behind a
+        synchronize of the card after N resolved dispatches, reads the
+        trace (``obs/devprof.py``) and resolves the returned Future with
+        the attribution: ``device_time_ms`` (interval union over the
+        card's lanes), ``host_gap_ms`` (wall the card sat idle: launch
+        cost, pipeline bubble, admission stall), the kernels by name, the
+        wrappers' ``launches`` over the window, and the roofline share per
+        dispatch family.  The device spans also join the flight recorder
+        as the ``engine.device`` track.
+
+        One capture at a time (the profiler session is process-global): a
+        second arm raises :class:`ProfileBusy` (HTTP 409).  A capture's
+        failure fails its future only."""
+        n = int(dispatches)
+        if not 1 <= n <= 1024:
+            # the trace is read on the loop thread at the window's close:
+            # the cap keeps that stall proportionate
+            raise ValueError(f"dispatches must be in [1, 1024], got {dispatches}")
+        if self._broken is not None:
+            raise RuntimeError(f"decode engine is down: {self._broken!r}") from self._broken
+        if self._stop.is_set():
+            raise RuntimeError("decode engine closed")
+        fut: Future = Future()
+        with self._prof_lock:
+            if self._profile is not None:
+                raise ProfileBusy("a device-profile capture is already armed or in flight; "
+                                  "retry after it resolves")
+            d = trace_dir or tempfile.mkdtemp(prefix="mlcomp_devprof_")
+            self._profile = {
+                "n": n, "dir": d, "future": fut, "owns_dir": trace_dir is None,
+                # the card's lanes only: recording host operators would add
+                # host time to every launch of the window it measures
+                "profiler": StepProfiler(d, start_step=0, num_steps=n, device=self.device,
+                                         host_ops=False),
+                "families": {}, "t0": None, "t1": None, "resolved": 0,
+            }
+        if self._stop.is_set() or self._broken is not None:
+            # close() (or a dying loop) may have drained the profile between
+            # the checks above and the arm: resolve it here (idempotent)
+            self._finish_profile(error=self._broken or RuntimeError("decode engine closed"))
+        return fut
+
+    def profile_cancel(self, fut: Future) -> bool:
+        """Disarm a capture that has NOT started tracing (the HTTP layer's
+        timeout path).  An open window is never cancelled from outside: the
+        loop thread owns it and closes it at its boundary."""
+        with self._prof_lock:
+            pr = self._profile
+            if pr is None or pr["future"] is not fut or pr["profiler"].active:
+                return False
+            self._profile = None
+        _fail_future(fut, RuntimeError("profile capture cancelled"))
+        if pr["owns_dir"]:
+            shutil.rmtree(pr["dir"], ignore_errors=True)
+        return True
+
     @property
     def healthy(self) -> bool:
         """False once the drive loop is broken, abandoned or dead (until a
@@ -892,7 +993,28 @@ class DecodeEngine:
             }
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.stats()
+        # the device/host split: the last capture's, else the steady-state
+        # estimate
+        out["device"] = self._device_summary()
         return out
+
+    @property
+    def _forwards(self) -> int:
+        """Model forwards one dispatch runs: the current K, one a verify."""
+        return 1 if self.spec_k is not None else self.steps_per_dispatch
+
+    def _kv_dense_bytes(self) -> int:
+        """Bytes of the dense layout's whole KV buffer."""
+        return sum(t.numel() * t.element_size() for layer in self._d["cache"].layers
+                   for t in vars(layer).values())
+
+    def _kv_live_bytes(self) -> int:
+        """Paged: bytes of the live page mappings, counted per slot-table
+        entry (a shared prefix page is read once for each row that maps
+        it).  A read from another thread may see the tables mid-update: a
+        torn count is acceptable monitoring."""
+        return int((self._pool.tables[: len(self._host)] >= RESERVED_PAGES).sum()) * (
+            self._layout.page_bytes())
 
     def _kv_bytes_moved_per_dispatch(self) -> int:
         """Estimated KV bytes one dispatch moves through device memory: K
@@ -900,24 +1022,35 @@ class DecodeEngine:
         page mappings through the table (the int8 family), or the live pages
         gathered into each layer's dense view and that view read (the bf16
         family's gather path)."""
-        fw = 1 if self.spec_k is not None else self.steps_per_dispatch
+        fw = self._forwards
         if self._pool is None:
-            return fw * sum(t.numel() * t.element_size() for layer in self._d["cache"].layers
-                            for t in vars(layer).values())
-        live = int((self._pool.tables[: len(self._host)] >= RESERVED_PAGES).sum()) * (
-            self._layout.page_bytes())
+            return fw * self._kv_dense_bytes()
+        live = self._kv_live_bytes()
         specs = self._layout.kv_specs
         if any(s.field == "kq" for s in specs):
             return fw * live
         dense = len(self._host) * sum(int(np.prod(s.shape)) * s.dtype.itemsize for s in specs)
         return fw * (live + 2 * dense)
 
+    def _roofline_bytes(self) -> int:
+        """Bytes one dispatch MUST move: every weight once a forward, plus
+        its KV working set (the dense buffer, or the live pages)."""
+        kv = self._kv_live_bytes() if self._pool is not None else self._kv_dense_bytes()
+        return self._forwards * (self._w_bytes + kv)
+
+    def _roofline_ms(self) -> Optional[float]:
+        """The least time the card could take for a dispatch: its bytes over
+        the memory bandwidth; None where there is none (the CPU)."""
+        if self._hbm_gbps is None:
+            return None
+        return self._roofline_bytes() / (self._hbm_gbps * 1e9) * 1e3
+
     def _collect_metrics(self) -> None:
         """Scrape-time collector: the engine's monotonic stats into the
         registry (``set_total`` keeps counters monotonic across scrapes);
         the hot path pays nothing for /metrics.  The JAX engine's
         families, less those whose subject the port has no module for yet:
-        meshes (A12), device profiles and rooflines (A13)."""
+        meshes (A12)."""
         m = self.metrics
         st = self._stats
 
@@ -989,13 +1122,22 @@ class DecodeEngine:
             p["hidden_ms"] / busy if busy > 0 else 0.0)
         ctr("mlcomp_engine_trace_events_dropped_total", "Flight-recorder ring evictions",
             self.recorder.dropped)
-        done = st["dispatches"]
-        if done:
-            # the steady-state estimate: the pipeline's measured hidden
-            # host work per dispatch (no device capture in the port yet)
+        ctr("mlcomp_engine_profile_captures_total",
+            "On-demand device-profile captures completed (/profile)", st["profile_captures"])
+        dev = self._device_summary()
+        if dev["device_time_ms_per_dispatch"] is not None:
+            gau("mlcomp_engine_device_time_ms_per_dispatch",
+                "Device-lane busy ms per dispatch (last capture, else the steady-state "
+                "estimate: dispatch wall minus measured host work)",
+                dev["device_time_ms_per_dispatch"])
+        if dev["host_overhead_ms_per_dispatch"] is not None:
             gau("mlcomp_engine_host_overhead_ms_per_dispatch",
                 "Non-device ms per dispatch (capture host gap, else the pipeline's measured "
-                "hidden host work)", round(p["hidden_ms"] / done, 3))
+                "hidden host work)", dev["host_overhead_ms_per_dispatch"])
+        if dev["roofline_utilization"] is not None:
+            gau("mlcomp_engine_roofline_utilization",
+                "Roofline dispatch time / measured device time (1.0 = decode runs at what "
+                "the card's memory can deliver)", dev["roofline_utilization"])
         if self._pool is not None:
             ps = self._pool_stats()
             gau("mlcomp_engine_kv_pages_total", "Allocatable device KV pages (paged layout; "
@@ -1082,7 +1224,12 @@ class DecodeEngine:
             warnings.warn(f"decode engine close(): step thread did not exit within {timeout}s; "
                           "abandoning it", stacklevel=2)
             self._drain_queue(err)
+            pr = self._profile
+            if pr is not None:
+                # fail the waiter; the wedged loop still owns any open window
+                _fail_future(pr["future"], self._broken)
             return
+        self._finish_profile(error=err)   # a backstop: the loop's own drain runs first
         for i in range(len(self._host)):
             self._finish(i, error=err)
         self._fail_admission(err)
@@ -1997,6 +2144,11 @@ class DecodeEngine:
                     self._stats["fused_chunks"] += 1
         finally:
             self._busy_since = None
+        pr = self._profile
+        if pr is not None and pr["profiler"].active:
+            # the capture window's dispatch families
+            fam = self._family_name(fused.chunk if fused is not None else None)
+            pr["families"][fam] = pr["families"].get(fam, 0) + 1
         # each dispatch carries the slots it may advance a row: the lazy
         # page allocator prices the in-flight window by it
         self._inflight.append(_Inflight(host, event, time.perf_counter(), self._steps_hi(), seq))
@@ -2033,6 +2185,12 @@ class DecodeEngine:
         p = self._pstats
         p["hidden_ms"] += (t_block - inf.t_issue) * 1e3
         p["wait_ms"] += (t_done - t_block) * 1e3
+        pr = self._profile
+        if pr is not None and pr["profiler"].active:
+            # the card finished this dispatch now: where an open capture
+            # window's wall ends (not at the later boundary, which may have
+            # blocked in the idle queue pump)
+            pr["t_last"] = t_done
         self.recorder.async_end("dispatch", inf.seq, cat="disp")
         toks = arr[0].astype(np.int64)
         lps = arr[1]
@@ -2153,6 +2311,9 @@ class DecodeEngine:
             # resolve; unread in-flight outputs are dropped
             err = self._broken or RuntimeError("decode engine closed")
             self._inflight.clear()
+            # an armed or open capture dies with the loop: close the window,
+            # fail its future; never a dangling profiler session
+            self._finish_profile(error=err)
             for i in range(len(self._host)):
                 self._finish(i, error=err)
             self._fail_admission(err)
@@ -2297,6 +2458,8 @@ class DecodeEngine:
                         and all(s is None for s in self._host))
                 self._boundary_maintenance(block_s=0.2 if idle else 0.0)
                 self._adaptive_tick()
+                # on-demand device capture: open or close its window here
+                self._profile_tick()
                 if self._pool is not None:
                     self._elastic_tick()
                 issued = self._admission_tick()
@@ -2316,6 +2479,227 @@ class DecodeEngine:
                     self._unhealthy_reason = f"drive loop error: {type(e).__name__}: {e}"
                 self._inflight.clear()
                 return
+
+    # ---------------------------------------------------- device capture
+
+    def _family_name(self, fused_chunk: Optional[int]) -> str:
+        """The dispatch family a capture attributes to: the K-step decode or
+        the spec verify, with the fused chunk's width as a suffix when an
+        admission chunk rode the dispatch."""
+        base = (f"spec_verify_k{self.spec_k}" if self.spec_k is not None
+                else f"decode_scan_k{self.steps_per_dispatch}")
+        return base if fused_chunk is None else f"{base}+prefill_c{fused_chunk}"
+
+    def _sync_device(self) -> None:
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+
+    def _profile_tick(self) -> None:
+        """Advance the armed or open capture at this boundary.  Open the
+        window once there is device work to record (rows, an admission or
+        queued requests), after the dispatches in flight resolved and the
+        card went idle, so that the window holds exactly the launches made
+        inside it; close it after N resolved dispatches (or early once the
+        traffic drained, with what ran) behind a synchronize of the card.
+        A capture's failure fails its future only; only the shared
+        in-flight drains may raise out of here, and those are engine
+        failures."""
+        pr = self._profile
+        if pr is None:
+            return
+        prof = pr["profiler"]
+        if not prof.active:
+            if not (self._adm is not None or self._pending
+                    or any(s is not None for s in self._host)):
+                return  # stay armed until traffic arrives
+            self._drain_inflight()
+            start_err: Optional[Exception] = None
+            with self._prof_lock:
+                if self._profile is not pr:
+                    return  # cancelled between the read and the start
+                try:
+                    self._sync_device()
+                    pr["launches0"] = launch_counts()
+                    prof.step(0)
+                except Exception as e:
+                    start_err = e
+            if start_err is not None:
+                self._finish_profile(error=start_err)
+                return
+            pr["t0"] = time.perf_counter()
+            pr["resolved0"] = self._stats["dispatches"]
+            self.recorder.instant("profile_start", track="engine.loop", dispatches=pr["n"])
+            return
+        resolved = self._stats["dispatches"] - pr["resolved0"]
+        idle = (not self._inflight and self._adm is None and not self._pending
+                and all(s is None for s in self._host))
+        if resolved < pr["n"] and not (idle and resolved > 0):
+            if idle:
+                # the traffic that opened the window retired before any
+                # dispatch resolved: close and fail rather than hold the
+                # profiler (and every later capture) until new traffic
+                self._finish_profile(error=RuntimeError(
+                    "capture window closed empty: the traffic that opened it was retired "
+                    "before any dispatch resolved"))
+            return
+        self._drain_inflight()
+        pr["resolved"] = self._stats["dispatches"] - pr["resolved0"]
+        # t1 before the stop: writing the trace is neither launch cost nor
+        # bubble, and must not inflate host_gap_ms
+        self._busy_since = time.perf_counter()
+        try:
+            self._sync_device()
+            pr["t1"] = time.perf_counter()
+            pr["launches1"] = launch_counts()
+            prof.close()
+        except Exception as e:
+            self._finish_profile(error=e)
+            return
+        finally:
+            self._busy_since = None
+        self._finish_profile()
+
+    def _finish_profile(self, error: Optional[Exception] = None) -> None:
+        """Complete (or abort) the capture: close its window if still open,
+        attribute it on success, remove its directory when the engine made
+        it, resolve its future.  Never raises: it runs on every teardown
+        path."""
+        with self._prof_lock:
+            pr, self._profile = self._profile, None
+        if pr is None:
+            return
+        try:
+            pr["profiler"].close()  # idempotent; stops an open window
+        except Exception as e:
+            error = error or e
+        if error is None and pr["future"].done():
+            # the watchdog failed this waiter while the window was wedged:
+            # its wall is stall-inflated, and no one reads it
+            error = RuntimeError("capture discarded: its waiter was already failed "
+                                 "(watchdog stall verdict stands)")
+        attr = None
+        if error is None:
+            try:
+                with self.recorder.span("profile_attribute", track="engine.loop",
+                                        dispatches=pr.get("resolved")):
+                    attr = self._attribute_capture(pr)
+            except Exception as e:
+                error = e
+        if pr["owns_dir"]:
+            shutil.rmtree(pr["dir"], ignore_errors=True)
+        if error is not None:
+            self.recorder.instant("profile_error", track="engine.loop",
+                                  error=f"{type(error).__name__}: {error}")
+            _fail_future(pr["future"], error)
+            return
+        self._last_attr = attr
+        self._stats["profile_captures"] += 1
+        per = attr.get("device_time_ms_per_dispatch")
+        if per is not None:
+            self._hist_device.observe(per)
+        _set_result(pr["future"], attr)
+
+    def _attribute_capture(self, pr: Dict[str, Any]) -> Dict[str, Any]:
+        """Read the capture and split its window into device work and host
+        gap, per dispatch family (a split pro rata by dispatch count: exact
+        for the usual one-family window).  The window's wall ends at the
+        last resolve's readback (``t_last``), not at the closing boundary,
+        which may have blocked in the idle queue pump."""
+        trace = devprof.load_trace(pr["profiler"].trace_path)
+        wall_ms = ((pr.get("t_last") or pr["t1"]) - pr["t0"]) * 1e3
+        att = devprof.attribution(trace, wall_ms=wall_ms, top_kernels=20)
+        n = int(pr.get("resolved") or 0)
+        att["dispatches"] = n
+        att["requested_dispatches"] = pr["n"]
+        att["launches"] = {k: pr["launches1"][k] - pr["launches0"][k] for k in pr["launches0"]}
+        roof_ms = self._roofline_ms()
+        att["hbm_gbps"] = self._hbm_gbps
+        att["roofline_ms_per_dispatch"] = None if roof_ms is None else round(roof_ms, 4)
+        dev, gap = att["device_time_ms"], att["host_gap_ms"]
+        if n:
+            per = dev / n
+            util = round(roof_ms / per, 4) if roof_ms is not None and per > 0 else None
+            att["device_time_ms_per_dispatch"] = round(per, 4)
+            att["host_gap_ms_per_dispatch"] = round(gap / n, 4)
+            att["roofline_utilization"] = util
+            total = sum(pr["families"].values()) or 1
+            # a family's own utilization only where it is exact (one family
+            # in the window); the window's figure above stays measured
+            fam_util = util if len(pr["families"]) == 1 else None
+            att["families"] = {
+                fam: {"dispatches": c, "device_time_ms": round(dev * c / total, 4),
+                      "host_gap_ms": round(gap * c / total, 4),
+                      "roofline_utilization": fam_util}
+                for fam, c in sorted(pr["families"].items())}
+        else:
+            att["device_time_ms_per_dispatch"] = None
+            att["host_gap_ms_per_dispatch"] = None
+            att["roofline_utilization"] = None
+            att["families"] = {}
+        self._merge_device_track(trace, pr)
+        return att
+
+    def _merge_device_track(self, trace, pr: Dict[str, Any]) -> None:
+        """Fold the capture's device spans into the flight recorder as the
+        ``engine.device`` track, so that ``GET /trace`` shows the host's
+        issue/resolve spans above the kernels they launched.  The earliest
+        device event is anchored at the window's start on the recorder's
+        clock (host and card share no epoch)."""
+        spans, dropped = devprof.device_spans_us(trace)
+        if not spans or pr.get("t0") is None:
+            return
+        base_us = self.recorder.to_trace_us(pr["t0"])
+        for ts, dur, name in spans:
+            self.recorder.complete(devprof.short_op(name), base_us + ts, dur,
+                                   track="engine.device")
+        self.recorder.instant("device_capture", track="engine.device",
+                              dispatches=pr.get("resolved"), spans=len(spans), dropped=dropped)
+
+    def _device_summary(self) -> Dict[str, Any]:
+        """The device/host split behind ``stats()["device"]`` and the
+        roofline gauges: the last capture's measured attribution when one
+        exists, else the steady-state ESTIMATE (dispatch wall less the
+        pipeline's measured hidden host work), honest only when the
+        pipeline saturates; a capture is ground truth."""
+        p = dict(self._pstats)
+        done = self._stats["dispatches"]
+        roof_ms = self._roofline_ms()
+        ss = None
+        if done:
+            wall = (p["hidden_ms"] + p["wait_ms"]) / done
+            host = p["hidden_ms"] / done
+            dev_est = max(wall - host, 0.0)
+            ss = {"dispatch_wall_ms": round(wall, 3), "host_overhead_ms": round(host, 3),
+                  "device_time_ms_est": round(dev_est, 3),
+                  "roofline_utilization_est": (round(roof_ms / dev_est, 4)
+                                               if roof_ms is not None and dev_est > 0 else None)}
+        cap = self._last_attr
+        per = host_ms = util = None
+        if cap is not None:
+            per = cap.get("device_time_ms_per_dispatch")
+            host_ms = cap.get("host_gap_ms_per_dispatch")
+            util = cap.get("roofline_utilization")
+            # stats() recurs on every scrape: the capture's summary numbers,
+            # not its parse products (the full dict went to its caller)
+            cap = {k: v for k, v in cap.items()
+                   if k not in ("kernels", "planes", "device_lanes", "device_events")}
+        if per is None and ss is not None:
+            per = ss["device_time_ms_est"]
+            host_ms = ss["host_overhead_ms"]
+            util = ss["roofline_utilization_est"]
+        return {
+            "hbm_gbps": self._hbm_gbps,
+            "roofline_bytes_per_dispatch": self._roofline_bytes(),
+            "kv_bytes_moved_per_dispatch": self._kv_bytes_moved_per_dispatch(),
+            "roofline_ms_per_dispatch": None if roof_ms is None else round(roof_ms, 4),
+            "device_time_ms_per_dispatch": per,
+            "host_overhead_ms_per_dispatch": host_ms,
+            "roofline_utilization": util,
+            "source": "capture" if cap is not None else "estimate" if ss is not None else None,
+            "captures": self._stats["profile_captures"],
+            "steady_state": ss,
+            "last_capture": cap,
+        }
 
     # ---------------------------------------------------------- watchdog
 
@@ -2366,6 +2750,11 @@ class DecodeEngine:
             if req["stream"] is not None and not req["future"].done():
                 req["stream"].put(None)
             _fail_future(req["future"], err)
+        # an armed or open capture is a waiter too; its window stays
+        # loop-owned (the loop's _finish_profile loses this race)
+        pr = self._profile
+        if pr is not None:
+            _fail_future(pr["future"], err)
 
     def _maybe_restart(self) -> bool:
         """One bounded restart of a dead drive loop on a fresh device state;

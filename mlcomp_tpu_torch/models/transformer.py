@@ -61,6 +61,7 @@ from mlcomp_tpu_torch.ops.cuda.decode_attention import (
     pick_buffer_len,
     quantize_kv,
 )
+from mlcomp_tpu_torch.ops.cuda.quant_matmul import row_matmul
 from mlcomp_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
 from mlcomp_tpu_torch.ops.quant import Int8Linear, as_tensor, is_quantized_leaf
 
@@ -112,7 +113,7 @@ class Dense(nn.Module):
             x = norm(x)
         lead = x.shape[: x.dim() - self.n_contract]
         kernel = self.kernel.reshape(-1, math.prod(self.feats))
-        y = x.reshape(-1, kernel.shape[0]).to(self.dtype) @ kernel.to(self.dtype)
+        y = row_matmul(x.reshape(-1, kernel.shape[0]).to(self.dtype), kernel.to(self.dtype))
         return y.reshape(*lead, *self.feats)
 
 

@@ -152,40 +152,43 @@ def quantize_kv(x: torch.Tensor, eps: float = 1e-8) -> Tuple[torch.Tensor, torch
 
 
 def decode_attention_plain(q, k8, ks, v8, vs, kv_start, kv_stop, scale):
-    """Plain version of the single-query kernel: the one-query chunk, as on
-    the card (:func:`decode_attention_chunk_plain`)."""
-    return decode_attention_chunk_plain(q[:, None], k8, ks, v8, vs, kv_start, kv_stop,
-                                        scale)[:, 0]
-
-
-def decode_attention_chunk_plain(q, k8, ks, v8, vs, kv_start, kv_stop0, scale):
-    """Plain version of the kernel, one pass over the whole buffer with its
-    arithmetic: logits (q . k) * scale * ks in f32, masked to -1e30, p zero
-    for masked slots, the V scale folded into p and rounded to q.dtype,
-    l == 0 gives 0.  q (B, S, H, dh); query j's window is
-    ``[kv_start, kv_stop0 + j)``."""
-    b, s_q, h, dh = q.shape
+    """Plain version of the single-query kernel, with its arithmetic:
+    logits (q . k) * scale * ks in f32, masked to -1e30, p zero for masked
+    slots, the V scale folded into p and rounded to q.dtype, l == 0 gives
+    0.  q (B, H, dh); the window is ``[kv_start, kv_stop)``.  On the card a
+    one-query chunk runs it (:func:`decode_attention_chunk_plain`)."""
+    b, h, dh = q.shape
     h_kv, l_buf = k8.shape[1], k8.shape[2]
     rep = h // h_kv
-    qg = q.float().reshape(b, s_q, h_kv, rep, dh)
-    s = torch.einsum("bsgrd,bgld->bgsrl", qg, k8.float()) * scale
-    s = s * ks.float()[:, :, :, None]                   # (B, Hkv, 1, 1, L)
+    qg = q.float().reshape(b, h_kv, rep, dh)
+    s = torch.einsum("bgrd,bgld->bgrl", qg, k8.float()) * scale
+    s = s * ks.float()                                  # (B, Hkv, 1, L)
     slots = torch.arange(l_buf, device=q.device)
-    stops = kv_stop0[:, None] + torch.arange(s_q, device=q.device)[None]      # (B, S)
-    live = (slots[None, None] >= kv_start[:, None, None]) & (slots[None, None] < stops[..., None])
-    live = live[:, None, :, None, :]                    # (B, 1, S, 1, L)
+    live = (slots[None] >= kv_start[:, None]) & (slots[None] < kv_stop[:, None])
+    live = live[:, None, None, :]                       # (B, 1, 1, L)
     s = torch.where(live, s, torch.full_like(s, NEG_INF))
     m = s.amax(-1, keepdim=True)
     p = torch.where(live & (m > NEG_INF / 2), torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(-1, keepdim=True)
     # a masked slot's p * vs is selected to 0, never multiplied: its scale
     # may be anything a page held
-    pv = torch.where(live, p * vs.float()[:, :, :, None], torch.zeros_like(p))
+    pv = torch.where(live, p * vs.float(), torch.zeros_like(p))
     pv = pv.to(q.dtype).float()
-    acc = torch.einsum("bgsrl,bgld->bsgrd", pv, v8.float())
-    l = l[..., 0].permute(0, 2, 1, 3)[..., None]        # (B, S, Hkv, rep, 1)
+    acc = torch.einsum("bgrl,bgld->bgrd", pv, v8.float())
     out = acc / torch.where(l == 0, torch.ones_like(l), l)
-    return out.to(q.dtype).reshape(b, s_q, h, dh)
+    return out.to(q.dtype).reshape(b, h, dh)
+
+
+def decode_attention_chunk_plain(q, k8, ks, v8, vs, kv_start, kv_stop0, scale):
+    """Plain version of the chunk kernel: q (B, S, H, dh), query j's window
+    ``[kv_start, kv_stop0 + j)``.  Each query goes through
+    :func:`decode_attention_plain` on its own, so that a row's bits do not
+    depend on how many queries the call holds (ROADMAP §C1, §C7): a batched
+    product's reduction order follows its shape on the CPU's BLAS, and a
+    verify row must give the bits of the same token decoded alone."""
+    return torch.stack([decode_attention_plain(q[:, j].contiguous(), k8, ks, v8, vs, kv_start,
+                                               kv_stop0 + j, scale)
+                        for j in range(q.shape[1])], 1)
 
 
 def pages_to_dense(kq_pages, ks_pages, vq_pages, vs_pages, table):

@@ -38,6 +38,20 @@ launches = 0        # kernel launches without the norm prologue (B1)
 norm_launches = 0   # kernel launches with the norm prologue (B2)
 
 
+def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (M, K) @ w (K, N)`` whose rows do not depend on M on the CPU.
+    A CPU BLAS picks its blocking, and so its order of sums, from the
+    shape: one row inside a product of 8 rows is not the same row alone
+    (ROADMAP §C7).  So there each row is its own one-row product, all of
+    them in one batched call, as the card's kernels keep a row's sums
+    (§C1).  Where autograd must differentiate it, or on the card, a plain
+    matmul."""
+    if x.device.type != "cpu" or (torch.is_grad_enabled()
+                                  and (x.requires_grad or w.requires_grad)):
+        return x @ w
+    return torch.bmm(x[:, None], w.expand(x.shape[0], *w.shape))[:, 0]
+
+
 def quant_matmul_plain(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
                        norm_scale: Optional[torch.Tensor] = None,
                        norm_eps: float = 1e-6) -> torch.Tensor:
@@ -50,7 +64,7 @@ def quant_matmul_plain(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
         xb = (x32 * inv * norm_scale.float()).bfloat16()
     else:
         xb = x.bfloat16()
-    acc = xb.float() @ q8.float()
+    acc = row_matmul(xb.float(), q8.float())
     return (acc * scale.float()).bfloat16()
 
 

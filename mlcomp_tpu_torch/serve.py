@@ -71,6 +71,16 @@ HTTP handler threads enqueue requests and wait on futures.  HTTP surface
     GET  /slo, GET /metrics/history?window_s=N -> the SLO burn rates and
         the metrics-history ring (``obs/slo.py``, ``obs/history.py``; 404
         with ``metrics_history_interval=0``)
+    GET  /profile?dispatches=N -> arm a ``torch.profiler`` capture around
+        the engine's next N dispatch boundaries (default 8, at most 256)
+        and answer with its attribution JSON: device_time_ms, host_gap_ms,
+        the kernels by name, the wrappers' launches over the window, the
+        roofline share per dispatch family.  The capture's device spans
+        join the flight recorder, so a later /trace shows them under the
+        host spans.  It needs decode traffic to complete (the window is
+        dispatch-gated): 504 ``profile_timeout`` (the capture disarmed)
+        when none came; 404 on the window batcher, 400 on a bad N, 409
+        ``profile_busy`` while another capture is armed or open
 
 Admission control: the paged layout's free-page gate (always on) and the
 optional ``max_queue_depth`` / ``max_concurrent_requests`` caps answer
@@ -735,6 +745,23 @@ class GenerationService:
                              "metrics_history_interval=0")
         return self.history.query(window_s=window_s)
 
+    def profile(self, dispatches: int = 8) -> Future:
+        """Arm an on-demand device capture (behind GET /profile): resolves
+        to the attribution JSON once the engine's next ``dispatches``
+        dispatch boundaries were captured and read.  Raises for batchers
+        without a drive loop (HTTP 404, as /trace) and ``ProfileBusy``
+        while another capture is in flight (HTTP 409)."""
+        if self.engine is None:
+            raise ValueError("device profiling needs the continuous batcher; this service "
+                             f"runs the {self.batcher} batcher")
+        return self.engine.profile(dispatches=dispatches)
+
+    def profile_cancel(self, fut: Future) -> bool:
+        """Disarm a capture that has not started (the HTTP timeout path)."""
+        if self.engine is None:
+            return False
+        return self.engine.profile_cancel(fut)
+
     def close(self) -> None:
         self._stop.set()
         if self.history is not None:
@@ -1042,6 +1069,38 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
                     return self._json(service.metrics_history(window_s=window_s))
                 except ValueError as e:
                     return self._json({"error": f"{type(e).__name__}: {e}"}, 404)
+            if route == "/profile":
+                from mlcomp_tpu_torch.engine import ProfileBusy
+
+                if service.engine is None:
+                    return self._json({"error": "device profiling needs the continuous "
+                                       f"batcher; this service runs the {service.batcher} "
+                                       "batcher"}, 404)
+                try:
+                    qs = parse_qs(query)
+                    n = int(qs["dispatches"][0]) if qs.get("dispatches") else 8
+                    # tighter than the engine's [1, 1024]: the trace is read
+                    # on the drive loop at the window's close
+                    if not 1 <= n <= 256:
+                        raise ValueError(f"dispatches must be in [1, 256], got {n}")
+                except (ValueError, TypeError) as e:
+                    return self._json({"error": f"{type(e).__name__}: {e}"}, 400)
+                try:
+                    fut = service.profile(dispatches=n)
+                except ProfileBusy as e:
+                    return self._json({"error": str(e), "status": e.status}, 409)
+                except Exception as e:
+                    return self._json({"error": f"{type(e).__name__}: {e}"}, 500)
+                try:
+                    # the capture is dispatch-gated: it needs decode traffic
+                    return self._json(fut.result(timeout=service.request_timeout_s + 30.0))
+                except FutTimeout:
+                    service.profile_cancel(fut)
+                    return self._json({"error": "capture did not complete (no decode traffic "
+                                       "inside the window?)", "status": "profile_timeout"},
+                                      504)
+                except Exception as e:
+                    return self._json({"error": f"{type(e).__name__}: {e}"}, 500)
             if route == "/cache/stats":
                 stats = service.cache_stats()
                 if stats is None:

@@ -4,7 +4,8 @@ The port of mlcomp_tpu/train/loop.py, with its config keys and behaviour:
 ``grad_accum`` (the microbatch-mean gradient, summed in f32), ``ema``,
 ``early_stop``, resume-aware ``fit`` (``epochs_done`` from the step
 count), ``eval_epoch``, ``predict``, preemption between steps, and the
-``data``/``step`` spans when ``trace`` is set.  The step is eager
+``data``/``step`` spans when ``trace`` is set, and a ``torch.profiler``
+window over the steps ``profile`` names.  The step is eager
 PyTorch: forward, loss, ``backward()``, then the optimizer's update in
 place; no ``torch.compile`` and no CUDA graph.  Per-step losses and
 metrics stay on the device and are summed there; the host reads them once
@@ -17,7 +18,7 @@ streams than the JAX package's ``PRNGKey(seed + 1)`` folds, so augmented
 or mixed steps do not repeat the JAX package's draws.
 
 Not ported yet, and refused with ``NotImplementedError``: a ``mesh`` with
-an axis larger than 1 and ``seq_parallel`` (A12) and ``profile`` (A13).
+an axis larger than 1 and ``seq_parallel`` (A12).
 ``Trainer(cfg)`` runs on ``cuda``; pass ``device="cpu"`` for the CPU.
 """
 
@@ -37,6 +38,7 @@ from mlcomp_tpu_torch.train.metrics import create_metrics
 from mlcomp_tpu_torch.train.optim import create_optimizer
 from mlcomp_tpu_torch.train.state import TrainState, param_count
 from mlcomp_tpu_torch.utils.device import resolve_device
+from mlcomp_tpu_torch.utils.profile import create_profiler
 from mlcomp_tpu_torch.utils.trace import Tracer, get_tracer, set_tracer
 
 
@@ -203,8 +205,6 @@ def _refuse(cfg: Dict[str, Any]) -> None:
     if wide:
         raise NotImplementedError(
             f"mesh {wide}: sharded training is not ported to mlcomp_tpu_torch yet (ROADMAP A12)")
-    if cfg.get("profile"):
-        raise NotImplementedError("profile: device profiling is not ported yet (ROADMAP A13)")
 
 
 class Trainer:
@@ -212,11 +212,11 @@ class Trainer:
 
     cfg keys: model{name,...}, optimizer{name,lr,...}, loss, metrics[list],
     data{train{...}, valid{...}}, epochs, batch_size, seed, grad_accum, ema,
-    early_stop, trace, augment, mixup.  The weights are drawn from ``seed``:
-    ``io.weights.init_params`` for ``transformer_lm``, the model's own
-    ``init_variables`` (params and BatchNorm statistics, shapes from the
-    first split's first example, as the JAX Trainer's ``init_model``) for
-    the zoo.
+    early_stop, trace, profile{dir, start_step, num_steps}, augment, mixup.
+    The weights are drawn from ``seed``: ``io.weights.init_params`` for
+    ``transformer_lm``, the model's own ``init_variables`` (params and
+    BatchNorm statistics, shapes from the first split's first example, as
+    the JAX Trainer's ``init_model``) for the zoo.
     """
 
     def __init__(self, cfg: Dict[str, Any], device=None):
@@ -244,6 +244,9 @@ class Trainer:
             tc = trace_cfg if isinstance(trace_cfg, dict) else {}
             self.trace_path = tc.get("path", "trace.json")
             self.tracer = Tracer(self.trace_path)
+        # device profiling: a torch.profiler window over global steps
+        # [start_step, start_step + num_steps), written into dir
+        self.profiler = create_profiler(cfg.get("profile"), device=self.device)
 
         self.loaders: Dict[str, DataLoader] = {}
         for split, dcfg in cfg.get("data", {}).items():
@@ -292,6 +295,7 @@ class Trainer:
         agg: Dict[str, Any] = {}
         n = 0
         tracer = self.tracer if self.tracer is not None else get_tracer()
+        global_step = self.state.step
         it = iter(self._loader("train"))
         while True:
             if preemption_requested():
@@ -304,11 +308,18 @@ class Trainer:
                 batch = next(it, None)
             if batch is None:
                 break
+            if self.profiler is not None:
+                # opens or closes the window; a close synchronizes the card
+                # first, so queued launches stay inside the window
+                self.profiler.step(global_step + n)
             with tracer.span("step", n=n):
                 stats = self._train_step(self.state, batch)
             for k, v in stats.items():
                 agg[k] = agg.get(k, 0.0) + v  # device-side accumulation
             n += 1
+        if self.profiler is not None:
+            # a window still open closes here: eval work stays out of it
+            self.profiler.close()
         return {k: float(v) / max(n, 1) for k, v in agg.items()}
 
     def eval_epoch(self, split: str = "valid") -> Dict[str, float]:
@@ -382,6 +393,8 @@ class Trainer:
         finally:
             if self.tracer is not None:
                 set_tracer(None)
+            if self.profiler is not None:
+                self.profiler.close()
         if self.trace_path and self.tracer is not None:
             self.tracer.save(self.trace_path)
         return last

@@ -7,8 +7,8 @@ aware) and serializes them to Chrome trace-event JSON, viewable in
 and step dispatch in spans when ``cfg["trace"]`` is set.  Host spans
 measure host time: under CUDA's asynchronous launches a long ``step``
 span means the host waited on the device (a full launch queue, a sync).
-The reference's ``device_profile`` and ``annotate`` (jax.profiler) are
-not copied; a torch.profiler reader replaces them later (ROADMAP A13).
+``device_profile`` and ``annotate`` are the reference's, on
+``torch.profiler`` in place of ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -382,3 +382,28 @@ def set_tracer(tracer: Optional[Tracer]) -> None:
 def get_tracer() -> Tracer:
     """The installed tracer, or a no-op one."""
     return _current[0] if _current else _NULL
+
+
+@contextmanager
+def device_profile(log_dir: str, device=None):
+    """Capture a torch.profiler profile of the enclosed work into
+    ``log_dir`` (Kineto's Chrome trace JSON, read by ``obs/devprof.py``):
+    host operators, and on a CUDA ``device`` the card's kernels, copies
+    and fills, the card synchronized before the stop."""
+    from mlcomp_tpu_torch.utils.profile import StepProfiler
+
+    prof = StepProfiler(log_dir, start_step=0, num_steps=1, device=device)
+    prof.step(0)
+    try:
+        yield log_dir
+    finally:
+        prof.close()
+
+
+def annotate(name: str):
+    """Named region visible in the profile's host track (and, on the
+    card, its GPU annotation track): use around code inside a profiled
+    section (cheap; a no-op outside profiling)."""
+    import torch
+
+    return torch.profiler.record_function(name)

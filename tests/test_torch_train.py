@@ -288,14 +288,24 @@ def test_ema_tracks_and_eval_uses_it():
 @pytest.mark.parametrize("key,value", [("mesh", {"dp": 8}), ("profile", {"dir": "x"}),
                                        ("mixup", 0.2), ("augment", {"flip": True})])
 def test_unported_trainer_options_are_refused(key, value):
-    """``mesh`` and ``profile`` are not ported: NotImplementedError.
-    ``augment`` and ``mixup`` are, and on this LM config each is refused
-    as the JAX Trainer refuses it: a typo'd augment op when the Trainer is
-    built, mixup of token ids at the first step (ValueError)."""
+    """``mesh`` is not ported: NotImplementedError.  ``profile`` is: the
+    Trainer builds the JAX Trainer's profiler window from it (the capture
+    itself is held in tests/test_torch_devprof.py).  ``augment`` and
+    ``mixup`` are, and on this LM config each is refused as the JAX
+    Trainer refuses it: a typo'd augment op when the Trainer is built,
+    mixup of token ids at the first step (ValueError)."""
     cfg = {**_lm_cfg(ADAMW), key: value}
-    if key in ("mesh", "profile"):
+    if key == "mesh":
         with pytest.raises(NotImplementedError):
             Trainer(cfg, device="cpu")
+    elif key == "profile":
+        from mlcomp_tpu.utils.profile import create_profiler as j_create_profiler
+
+        want = j_create_profiler(value)
+        prof = Trainer(cfg, device="cpu").profiler
+        assert (prof.dir, prof.start_step, prof.stop_step) == (
+            want.dir, want.start_step, want.stop_step)
+        assert not prof.active and not prof.done
     elif key == "augment":
         with pytest.raises(ValueError, match="unknown ops"):
             Trainer(cfg, device="cpu")
