@@ -57,7 +57,11 @@ without printing a result:
    equal B4 bit for bit.  The page gather (B8) must equal pages[table] on
    a bf16 K leaf, an int8 code leaf and a bf16 scale leaf.  The device
    times (queued CUDA events) of B3, B4, B6, B7 and B8 and of their
-   library calls come after the train phase too.
+   library calls come after the train phase too.  The flash forward and
+   causal backward (B5, B10) at configs/longcontext_lm.yml's attention
+   (1 x 32768, 16 heads of 64) are held leaf by leaf (out, dq, dk, dv)
+   against f32 attention: each within LONG_LEAF_MULTIPLE x SDPA's
+   relative error (ROADMAP §C8).
 4. window serve: the 1.2B all-int8 transformer_lm (int8 weights through
    the int8 matmul, int8 KV cache, fused qkv/gate_up, 16 layers, random
    weights from a seed) behind the HTTP server on 127.0.0.1 through the
@@ -180,11 +184,47 @@ without printing a result:
    prompts with the widest entry-dequant top-2 margin; then 4 train steps
    at 2 x 2048 with adafactor (the cross-entropy must fall, the aux loss
    stay within MOE_AUX_BOUND x its balanced floor), peak memory.
+11h. parallel (A12's training half), last, in a process of its own
+   (``parallel_process``).  NCCL refuses two ranks on one device, so it
+   runs (a) a world of one rank over NCCL (a DeviceMesh of size 1: a
+   4096-token step of configs/longcontext_lm.yml's LM through the sharded
+   state must give the unsharded step's loss, gradient norm within 1e-6)
+   and (b) a gang of two processes on the one card over gloo
+   (``MLCOMP_TPU_DIST_BACKEND=gloo``; the ring's point-to-point exchanges
+   staged through pinned host memory, printed as the ``transport``).  On
+   the gang: ``ring_attention`` alone at one longcontext layer (1 x 32768
+   split two ways, 16 heads of 64) against the unsharded flash kernels
+   within 2^-7 of each tensor's largest value, launching B5, B9 and B10;
+   configs/longcontext_lm.yml's LM at full width (seq 32768, batch 1,
+   mesh {sp: 2}) one step each of ``ring`` (at PAR_RING_SEQ tokens),
+   ``ring_flash`` (B5, B9 and B10 must launch) and ``ulysses`` (B5 and
+   B10), loss and gradient norm against the unsharded step that runs the
+   same attention at the same length (plain for ``ring``, the kernels for
+   the others); configs/multihost_lm.yml's 1.2B
+   LM at {fsdp: 2} and {tp: 2}, two steps each, the first held the same
+   way against the unsharded kernel step.  Each is held within
+   C6_FLOOR_MULTIPLE x the noise floor of bf16 attention; tp within that
+   multiple of the larger of the floor and tp's own noise on plain
+   attention (a tp step on plain attention, its optimizer not run,
+   against the unsharded plain step; printed beside sp's, the ``ring``
+   step's gap, under ``sharding_noise``).  The floor is the
+   largest gap among the unsharded steps on SDPA (three runs: its
+   backward is not deterministic), on plain attention (the ring's einsum
+   tiles on one rank) and on f32 attention, all on one Trainer whose
+   optimizer does not run, measured in the same call, no flash kernel
+   among them.  The unsharded kernel step is held within the same
+   multiple of the floor from the f32-attention step, and its first and
+   last layer's attention leaf by leaf (``long_flash_leaves``, ROADMAP
+   §C8).  ``transformer_lm_pp`` at pp 2 with two virtual stages a rank
+   against its sequential step (2e-3); step ms and peak memory per rank.
+   Then configs/multihost_lm.yml through the local runner as two gang
+   slots on the card (cuts on ``reduced`` lines): both slots must succeed
+   and the checkpoint load into an unsharded Trainer.
 12. summary: ``device_profile`` (the captures' device time per decode step
    beside the kernel phase's B1 + B2 + B3 of one step, two sources),
    ``serve``, ``engine``, ``paged_engine``, ``disagg``, ``spec``,
    ``train_to_serve``, ``daemons``, ``fleet``, ``zoo``, ``prefix_cache``,
-   ``daemon``, ``train``, ``attention_dims``, ``moe`` and ``kernels`` JSON
+   ``daemon``, ``train``, ``attention_dims``, ``moe``, ``parallel`` and ``kernels`` JSON
    lines (the kernels line lists the flash kernels' dh-256 and f32
    instances beside B1-B11), then, last, the device line.
 
@@ -2237,6 +2277,699 @@ def device_profile_process(smi, bw) -> dict:
         os.unlink(out)
 
 
+# ---- the phase "parallel": A12's training half on one card
+#
+# One card holds one device, and NCCL refuses two ranks on one device, so
+# the phase runs (a) a world of one rank over NCCL (a DeviceMesh of size 1:
+# the NCCL path and the sharded placement on the card) and (b) a gang of
+# two processes on the one card over gloo, whose card tensors travel in
+# gloo's collectives except point-to-point, which parallel/collectives.py
+# stages through pinned host memory (its "gloo-host-staged" count).
+PAR_LONG_SEQ = 32768          # configs/longcontext_lm.yml's seq_len
+PAR_LONG_BATCH = 1            # one sequence: mesh {sp: 2} over the two ranks
+PAR_MH_SEQ = 4096             # configs/multihost_lm.yml's seq_len
+PAR_MH_BATCH = 2              # the global batch of its {fsdp: 2} / {tp: 2} steps
+PAR_MH_STEPS = 2
+PAR_DAG = {"chips": 1, "hosts": 2, "mesh": {"dp": 2}, "batch_per_rank": 2, "steps": 2}
+PAR_PP = {"name": "transformer_lm_pp", "vocab_size": 32000, "hidden": 1024, "layers": 4,
+          "heads": 16, "dtype": "bfloat16", "n_microbatches": 2}
+PAR_PP_SEQ, PAR_PP_BATCH = 2048, 4
+PAR_WORLD1_SEQ = 4096         # the world-of-one NCCL step's sequence
+PAR_RING_ALONE = (1, 32768, 16, 64)   # one longcontext layer's q/k/v
+PAR_RING_TOL = 2.0 ** -7
+PAR_SP_MODES = ("ring", "ring_flash", "ulysses")
+# the ``ring`` mode (plain einsum tiles, ~36 s a step at 32768 tokens on
+# the one-card gang) runs at this length, against the unsharded plain
+# step at the same length
+PAR_RING_SEQ = 8192
+# ROADMAP §C8: at 32768 tokens each of the flash kernels' tensors (out,
+# dq, dk, dv) stays within this multiple of SDPA's relative error from
+# the f32 attention
+LONG_LEAF_MULTIPLE = 1.5
+
+
+def _par_configs():
+    """configs/longcontext_lm.yml's and configs/multihost_lm.yml's train
+    args, as the phase runs them."""
+    import yaml
+
+    with open(Path(REPO) / "configs" / "longcontext_lm.yml") as f:
+        lc = yaml.safe_load(f)["executors"]["train"]["args"]
+    with open(Path(REPO) / "configs" / "multihost_lm.yml") as f:
+        mh_doc = yaml.safe_load(f)
+    mh = mh_doc["executors"]["pretrain"]["args"]
+    lc_cfg = {"model": dict(lc["model"]), "optimizer": lc["optimizer"], "loss": lc["loss"],
+              "metrics": [], "epochs": 1, "seed": SEED,
+              "data": {"train": {**lc["data"]["train"], "n": PAR_LONG_BATCH,
+                                 "seq_len": PAR_LONG_SEQ, "batch_size": PAR_LONG_BATCH}}}
+    mh_cfg = {"model": dict(mh["model"]), "optimizer": mh["optimizer"], "loss": mh["loss"],
+              "metrics": [], "epochs": 1, "seed": SEED,
+              "data": {"train": {**mh["data"]["train"], "n": PAR_MH_BATCH,
+                                 "seq_len": PAR_MH_SEQ, "batch_size": PAR_MH_BATCH}}}
+    pp_cfg = {"model": dict(PAR_PP), "optimizer": lc["optimizer"], "loss": "lm_cross_entropy",
+              "metrics": [], "epochs": 1, "seed": SEED,
+              "data": {"train": {"name": "synthetic_tokens", "n": PAR_PP_BATCH,
+                                 "seq_len": PAR_PP_SEQ, "vocab_size": PAR_PP["vocab_size"],
+                                 "batch_size": PAR_PP_BATCH}}}
+    return lc_cfg, mh_cfg, pp_cfg, mh_doc
+
+
+def _ring_cfg(lc_cfg):
+    """configs/longcontext_lm.yml's train args at PAR_RING_SEQ tokens."""
+    return {**lc_cfg, "data": {"train": {**lc_cfg["data"]["train"], "seq_len": PAR_RING_SEQ}}}
+
+
+def _par_batch(cfg, seed):
+    import numpy as np
+
+    d = cfg["data"]["train"]
+    rng = np.random.default_rng(seed)
+    return {"x": rng.integers(1, d["vocab_size"], (d["batch_size"], d["seq_len"])
+                              ).astype(np.int64)}
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gb(dev):
+    return torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+
+
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _fa_counts():
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+
+    return {"B5": fa.launches, "B9": fa.bwd_dq_launches - fa.bwd_causal_launches,
+            "B10": fa.bwd_causal_launches}
+
+
+def _par_step(trainer, batch, dev, attention=None, update=True):
+    """One train step of ``trainer`` on ``batch`` (a global host batch; a
+    sharded trainer's rank keeps its rows): loss, gradient norm (of the
+    gradients the optimizer receives), ms and the flash launches.
+    ``attention`` takes the dispatch rule's place in the model's layers;
+    without ``update`` the optimizer does not run, so the state stays as
+    it was."""
+    from mlcomp_tpu_torch.models import transformer as tr
+    from mlcomp_tpu_torch.parallel.distributed import global_batch_from_host
+    from mlcomp_tpu_torch.parallel.sharding import full_tensor
+
+    state = trainer.state
+    seen = {}
+    apply = state.apply_gradients
+
+    def capture(grads):
+        seen["sq"] = sum((g.float() * g.float()).sum() for g in grads.values())
+        if update:
+            apply(grads)
+
+    state.apply_gradients = capture
+    saved = tr.dot_product_attention
+    if attention is not None:
+        tr.dot_product_attention = attention
+    if trainer.mesh is not None:
+        b = global_batch_from_host(batch, trainer.mesh, dev)
+    else:
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    c0 = _fa_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    try:
+        stats = trainer._train_step(state, b)
+        loss = float(stats["loss"])
+        _sync(dev)
+    finally:
+        del state.apply_gradients
+        tr.dot_product_attention = saved
+    ms = (time.perf_counter() - t0) * 1e3
+    c1 = _fa_counts()
+    return {"loss": loss, "grad_norm": math.sqrt(float(full_tensor(seen["sq"]))), "ms": ms,
+            "launches": {k: c1[k] - c0[k] for k in c1}}
+
+
+def _par_trainer(cfg, dev, weights):
+    """A Trainer for ``cfg`` (its ``mesh`` if any) starting from
+    ``weights``, the flat flax-path host weights of ``init_params``."""
+    from mlcomp_tpu_torch.parallel.sharding import load_into
+    from mlcomp_tpu_torch.train.loop import Trainer
+
+    t = Trainer(cfg, device=dev)
+    if weights is not None:
+        with torch.no_grad():
+            for k, p in t.state.params.items():
+                load_into(p, weights[k])
+    return t
+
+
+def _par_weights(cfg):
+    """The flat host weights every process of the phase starts from (the
+    seed's CPU draw, which a sharded Trainer makes itself)."""
+    from mlcomp_tpu_torch.io.weights import from_flax_params, init_params
+    from mlcomp_tpu_torch.models import create_model
+
+    arch = create_model(dict(cfg["model"]), device="cpu").arch()
+    return from_flax_params(init_params(arch, SEED, device=torch.device("cpu")), fold=False)
+
+
+def _free(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _par_gap(got, ref):
+    return {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_norm": abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]}
+
+
+def _sdpa_attention(q, k, v, causal=False, scale=None, **_):
+    """SDPA over (B, S, H, D) tensors (its flash backend on the card's bf16)."""
+    import torch.nn.functional as F
+
+    o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                       is_causal=causal, scale=scale)
+    return o.transpose(1, 2)
+
+
+def _plain_attention(q, k, v, causal=False, scale=None, **_):
+    """Plain PyTorch attention: the ring's einsum tiles on one rank (O(S)
+    memory)."""
+    from mlcomp_tpu_torch.parallel.ring import ring_attention
+
+    return ring_attention(q, k, v, None, causal=causal, scale=scale)
+
+
+def _f32_attention(q, k, v, causal=False, scale=None, **_):
+    """Attention in f32: SDPA's memory-efficient path on f32 copies of q,
+    k and v (the math path in a CPU rehearsal), rounded back."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION if q.is_cuda else SDPBackend.MATH):
+        return _sdpa_attention(q.float(), k.float(), v.float(), causal, scale).to(q.dtype)
+
+
+# the unsharded steps that give the noise floor of bf16 attention: SDPA
+# three times (its backward adds dq in no fixed order, so its gradients
+# differ from run to run), plain attention and f32 attention
+PAR_SOUND = {"sdpa": _sdpa_attention, "sdpa_2": _sdpa_attention, "sdpa_3": _sdpa_attention,
+             "plain": _plain_attention, "f32": _f32_attention}
+
+
+def _par_references(dev, lc_cfg, mh_cfg, pp_cfg):
+    """The unsharded first steps on the gang's weights and batches, each
+    model's on one Trainer whose optimizer does not run (so every step
+    starts from the same state): the kernel step and, for the noise floor
+    of bf16 attention (ROADMAP §C6, §C8), the PAR_SOUND steps, none of
+    which runs a flash kernel.  The floor is the largest gap between two
+    of those; the kernel step is held within C6_FLOOR_MULTIPLE x the floor
+    of the f32-attention step.  The longcontext kernel step also hands its
+    first and last layer's attention inputs and output cotangents to
+    :func:`long_flash_leaves`."""
+    from mlcomp_tpu_torch.models import transformer as tr
+
+    out, failures = {}, []
+    for name, cfg in (("longcontext", lc_cfg), ("multihost", mh_cfg), ("pipeline", pp_cfg)):
+        batch = _par_batch(cfg, 1)
+        row = {}
+        _reset_peak(dev)
+        t = _par_trainer(cfg, dev, _par_weights(cfg))
+        captured = []
+        spy = (_capturing(tr.dot_product_attention, cfg["model"]["layers"], captured)
+               if name == "longcontext" else None)
+        row["kernels"] = _par_step(t, batch, dev, spy, update=False)
+        row["kernels"]["peak_gb"] = _peak_gb(dev)
+        if name == "longcontext":
+            # the ``ring`` mode's counterpart, at its length
+            row["plain_ring_seq"] = _par_step(t, _par_batch(_ring_cfg(cfg), 1), dev,
+                                              _plain_attention, update=False)
+        if name != "pipeline":
+            for kind, attention in PAR_SOUND.items():
+                row[kind] = _par_step(t, batch, dev, attention, update=False)
+            sound = list(PAR_SOUND)
+            gaps = {f"{a}_{b}": _par_gap(row[a], row[b])
+                    for i, a in enumerate(sound) for b in sound[i + 1:]}
+            row["pair_gaps"] = gaps
+            row["floor"] = {k: max(g[k] for g in gaps.values()) for k in ("loss", "grad_norm")}
+            kg = _par_gap(row["kernels"], row["f32"])
+            row["kernels_vs_f32"] = kg
+            if dev.type == "cuda" and any(kg[k] > C6_FLOOR_MULTIPLE * row["floor"][k]
+                                          for k in kg):
+                failures.append(f"{name}: the unsharded kernel step {kg} from the f32-attention "
+                                f"step, past {C6_FLOOR_MULTIPLE} x the floor {row['floor']}")
+        del t
+        _free(dev)
+        if captured:
+            row["leaves"] = long_flash_leaves(
+                dev, {f"layer{i}": [*qkv, do] for i, qkv, do in captured})
+            captured.clear()
+        out[name] = row
+        log(f"parallel reference {name}: " + json.dumps(
+            {k: {kk: vv for kk, vv in v.items() if kk != "launches"} for k, v in row.items()
+             if k not in ("pair_gaps", "leaves")}))
+    return out, failures
+
+
+def _capturing(attention, n_layers, captured):
+    """``attention`` that also records, for the first and last layer of a
+    step, (layer, (q, k, v), output cotangent) into ``captured``."""
+    calls = [0]
+
+    def spy(q, k, v, **kw):
+        o = attention(q, k, v, **kw)
+        i = calls[0]
+        calls[0] += 1
+        if i in (0, n_layers - 1) and torch.is_grad_enabled():
+            qkv = [t.detach().clone() for t in (q, k, v)]
+            o.register_hook(lambda g, i=i, qkv=qkv: captured.append((i, qkv, g.detach().clone())))
+        return o
+
+    return spy
+
+
+def _leaf_gaps(got, ref):
+    """Per tensor of ``got`` against the f32 reference ``ref``: the
+    relative error of the whole tensor and the relative gap of its norm."""
+    out = {}
+    for name, g in got.items():
+        r = ref[name].float()
+        rn = float(r.norm())
+        out[name] = {"rel": float((g.float() - r).norm()) / rn,
+                     "norm_gap": (float(g.float().norm()) - rn) / rn}
+    return out
+
+
+def long_randn_inputs(dev, seq=PAR_LONG_SEQ):
+    """q, k, v and an output cotangent at configs/longcontext_lm.yml's
+    attention (1 x ``seq``, 16 heads of 64, bf16), standard normals."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    return [torch.randn((1, seq, 16, 64), generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(4)]
+
+
+def long_flash_leaves(dev, inputs):
+    """ROADMAP §C8, leaf by leaf: for each named (q, k, v, output
+    cotangent) of ``inputs`` (causal attention), out, dq, dk and dv of the
+    flash kernels (B5 forward, B10 backward), of SDPA and of the plain
+    einsum tiles, each on the bf16 inputs, against the plain tiles in f32.
+    Fails unless each of the kernels' tensors is within LONG_LEAF_MULTIPLE
+    x SDPA's relative error.  Returns {name: {kind: {tensor: gaps}}}."""
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+
+    runs = {"kernels": lambda q, k, v: fa.flash_attention(q, k, v, causal=True),
+            "sdpa": lambda q, k, v: _sdpa_attention(q, k, v, causal=True),
+            "plain": lambda q, k, v: _plain_attention(q, k, v, causal=True)}
+
+    def grads(fn, q, k, v, do):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do.to(out.dtype))
+        return {"out": out.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
+                "dv": leaves[2].grad}
+
+    res, failures = {}, []
+    for name, (q, k, v, do) in inputs.items():
+        launched = fa.bwd_causal_launches
+        ref = grads(runs["plain"], q.float(), k.float(), v.float(), do.float())
+        row = {kind: _leaf_gaps(grads(fn, q, k, v, do), ref) for kind, fn in runs.items()}
+        if fa.bwd_causal_launches == launched and q.is_cuda:
+            failures.append(f"{name}: B10 did not launch")
+        for t, gap in row["kernels"].items():
+            if gap["rel"] > LONG_LEAF_MULTIPLE * row["sdpa"][t]["rel"]:
+                failures.append(f"{name} {t}: the kernels {gap['rel']:.4g} from f32, past "
+                                f"{LONG_LEAF_MULTIPLE} x SDPA's {row['sdpa'][t]['rel']:.4g}")
+        res[name] = row
+        log(f"long flash leaves {name} ({tuple(q.shape)}): {json.dumps(row)}")
+        del ref
+        _free(dev)
+    if failures:
+        raise AssertionError("long flash leaves (ROADMAP §C8): " + "; ".join(failures))
+    return res
+
+
+def _par_rank(rank, world, port, dev_type, job, q):
+    """One rank of the phase's two-process gang on the one card; ``job``
+    holds the configs and sizes the parent chose."""
+    try:
+        q.put((rank, _par_rank_work(rank, world, port, torch.device(dev_type), job)))
+    except BaseException as e:  # the parent reports it
+        import traceback
+
+        q.put((rank, {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}))
+
+
+def _par_rank_work(rank, world, port, dev, job):
+    from mlcomp_tpu_torch.ops.cuda import build
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+    from mlcomp_tpu_torch.parallel import collectives as col
+    from mlcomp_tpu_torch.parallel.distributed import init_distributed
+    from mlcomp_tpu_torch.parallel.mesh import MeshSpec, make_mesh, set_current_mesh
+    from mlcomp_tpu_torch.parallel.ring import ring_attention_sharded
+
+    torch.set_num_threads(2)
+    if dev.type == "cuda":
+        build.build_all()
+    init_distributed(f"127.0.0.1:{port}", world, rank, device=dev)
+    mh_cfg, pp_cfg = job["mh"], job["pp"]
+    res = {"backend": torch.distributed.get_backend()}
+
+    # ring_attention alone at one longcontext layer's shapes, against the
+    # unsharded flash kernels on the whole sequence
+    mesh = make_mesh(MeshSpec(sp=world), device_type=dev.type)
+    b, s, h, d = job["ring_alone"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    qkv = [torch.randn((b, s, h, d), generator=g, device=dev, dtype=torch.bfloat16)
+           for _ in range(4)]
+    full = [t.clone().requires_grad_(True) for t in qkv[:3]]
+    ref = fa.flash_attention(*full, causal=True)
+    ref.backward(qkv[3])
+    cut = slice(rank * s // world, (rank + 1) * s // world)
+    loc = [t[:, cut].detach().clone().requires_grad_(True) for t in qkv[:3]]
+    c0 = _fa_counts()
+    col.reset_counts()
+    out = ring_attention_sharded(*loc, mesh, causal=True, use_flash=True)
+    out.backward(qkv[3][:, cut])
+    _sync(dev)
+    c1 = _fa_counts()
+    errs = {}
+    out = out.detach()
+    for label, got_, want in zip(("out", "dq", "dk", "dv"), (out, *[t.grad for t in loc]),
+                                 (ref[:, cut], *[t.grad[:, cut] for t in full])):
+        errs[label] = float((got_.float() - want.float()).abs().max()
+                            / want.float().abs().max().clamp_min(1e-30))
+    res["ring_alone"] = {"err_over_max": errs, "launches": {k: c1[k] - c0[k] for k in c1},
+                         "transport": dict(col.transport_counts)}
+    del qkv, full, ref, loc, out
+    _free(dev)
+
+    def run(name, cfg, steps, plain_first=False):
+        _reset_peak(dev)
+        col.reset_counts()
+        # a Trainer under a mesh draws the seed's host weights itself, the
+        # references' (_par_weights)
+        t0 = time.perf_counter()
+        t = _par_trainer(cfg, dev, None)
+        build_s = time.perf_counter() - t0
+        # ``plain_first``: the first batch on plain attention, the
+        # optimizer not run (this sharding's own noise)
+        plain = (_par_step(t, _par_batch(cfg, 1), dev, _plain_attention, update=False)
+                 if plain_first else None)
+        rows = [_par_step(t, _par_batch(cfg, 1 + i), dev) for i in range(steps)]
+        if plain is not None:
+            rows[0]["plain_step"] = plain
+        rows[0]["peak_gb"] = _peak_gb(dev)
+        rows[0]["build_s"] = build_s
+        rows[0]["wall_s"] = time.perf_counter() - t0
+        rows[0]["transport"] = dict(col.transport_counts)
+        rows[0]["later_steps_ms"] = [r["ms"] for r in rows[1:]]
+        res[name] = rows[0]
+        del t
+        set_current_mesh(None)
+        _free(dev)
+
+    for mode, cfg in job["sp"].items():
+        run(f"sp_{mode}", cfg, 1)
+    run("fsdp", {**mh_cfg, "mesh": {"fsdp": world}}, job["mh_steps"])
+    run("tp", {**mh_cfg, "mesh": {"tp": world}}, job["mh_steps"], plain_first=True)
+    run("pp", {**pp_cfg, "mesh": {"pp": world}}, 1)
+    torch.distributed.destroy_process_group()
+    return res
+
+
+def parallel_phase(dev, smi, world=2):
+    """The phase "parallel" (see the comment above ``PAR_LONG_SEQ``);
+    returns its JSON result.  Runs in a process of its own
+    (``parallel_process``): it spawns the gang's ranks and the DAG's gang
+    slots, each a process that reaches the card."""
+    import multiprocessing as mp
+
+    from mlcomp_tpu_torch.parallel import collectives as col
+    from mlcomp_tpu_torch.parallel.distributed import init_distributed
+    from mlcomp_tpu_torch.parallel.mesh import set_current_mesh
+
+    t_phase = time.perf_counter()
+    lc_cfg, mh_cfg, pp_cfg, mh_doc = _par_configs()
+    reduced = [
+        f"configs/longcontext_lm.yml: mesh {{dp: 2, sp: 4}} -> {{sp: {world}}} (one card, "
+        f"{world} processes); batch 8 -> {PAR_LONG_BATCH}",
+        f"configs/longcontext_lm.yml, seq_parallel ring (the einsum tiles): seq_len "
+        f"{PAR_LONG_SEQ} -> {PAR_RING_SEQ}",
+        f"configs/multihost_lm.yml: mesh {{dp: 8}} -> {{fsdp: {world}}} and {{tp: {world}}}; "
+        f"batch 16 -> {PAR_MH_BATCH}; {PAR_MH_STEPS} steps",
+        f"configs/multihost_lm.yml as a DAG: resources {{chips: 4, hosts: 2}} -> "
+        f"{{chips: {PAR_DAG['chips']}, hosts: {PAR_DAG['hosts']}}}, mesh {{dp: 8}} -> "
+        f"{PAR_DAG['mesh']}, batch 16 -> {PAR_DAG['batch_per_rank'] * world} "
+        f"({PAR_DAG['batch_per_rank']} a rank), {PAR_DAG['steps']} steps, remat on (two "
+        "replicas of the 1.2B on one card)",
+        f"transformer_lm_pp: hidden {PAR_PP['hidden']}, {PAR_PP['layers']} layers on pp "
+        f"{world} ({PAR_PP['layers'] // world} virtual stages a rank), seq {PAR_PP_SEQ}",
+    ]
+    for r in reduced:
+        log(f"reduced: {r}")
+
+    # unsharded references (no process group: the Trainer's mesh is None)
+    refs, ref_failures = _par_references(dev, lc_cfg, mh_cfg, pp_cfg)
+    refs_s = time.perf_counter() - t_phase
+
+    # (a) a world of one rank over NCCL (gloo on the CPU): the placement
+    # code and the sharded step against the unsharded one
+    port = free_port()
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev)
+    backend1 = torch.distributed.get_backend()
+    w1_cfg = {**lc_cfg, "mesh": {}, "data": {"train": {**lc_cfg["data"]["train"],
+                                                       "seq_len": PAR_WORLD1_SEQ}}}
+    weights = _par_weights(w1_cfg)
+    col.reset_counts()
+    t = _par_trainer(w1_cfg, dev, weights)
+    one = _par_step(t, _par_batch(w1_cfg, 1), dev)
+    sharded_state = type(next(iter(t.state.params.values()))).__name__
+    del t
+    set_current_mesh(None)
+    torch.distributed.destroy_process_group()
+    t = _par_trainer({**w1_cfg, "mesh": None}, dev, weights)
+    alone = _par_step(t, _par_batch(w1_cfg, 1), dev)
+    del t, weights
+    _free(dev)
+    if one["loss"] != alone["loss"] or _par_gap(one, alone)["grad_norm"] > 1e-6:
+        raise AssertionError(f"parallel: the world-of-one {backend1} step {one} differs from "
+                             f"the unsharded step {alone}")
+    world1 = {"backend": backend1, "state": sharded_state, "step": one, "unsharded": alone}
+    log(f"parallel world of one: {json.dumps(world1)}")
+
+    # (b) the two-process gang on the one card
+    os.environ["MLCOMP_TPU_DIST_BACKEND"] = "gloo"
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    t0 = time.perf_counter()
+    sp = {mode: {**(_ring_cfg(lc_cfg) if mode == "ring" else lc_cfg), "mesh": {"sp": world}}
+          for mode in PAR_SP_MODES}
+    for mode, cfg in sp.items():
+        cfg["model"] = {**cfg["model"], "seq_parallel": mode}
+    job = {"sp": sp, "mh": mh_cfg, "pp": pp_cfg, "ring_alone": PAR_RING_ALONE,
+           "mh_steps": PAR_MH_STEPS}
+    procs = [ctx.Process(target=_par_rank, args=(r, world, port, dev.type, job, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        for _ in range(world):
+            r, out = q.get(timeout=900)
+            ranks[r] = out
+    finally:
+        end_procs_mp(procs)
+    gang_s = time.perf_counter() - t0
+    for r, out in ranks.items():
+        if "error" in out:
+            raise AssertionError(f"parallel gang rank {r} failed: {out['error']}")
+    # each sharded step against the unsharded step that runs the same
+    # attention (ring: the einsum tiles, plain; ring_flash and ulysses: the
+    # flash kernels), within C6_FLOOR_MULTIPLE x the noise floor of bf16
+    # attention (the unsharded SDPA, plain and f32-attention steps against
+    # each other); tp within that multiple of the larger of the floor and
+    # its own noise on plain attention.  Failures are gathered and raised
+    # once the DAG has run, so that one call measures every part.
+    failures, checks = list(ref_failures), {}
+    on_card = dev.type == "cuda"
+    counterpart = {"ring": "plain_ring_seq", "ring_flash": "kernels", "ulysses": "kernels"}
+    want = {"ring": (), "ring_flash": ("B5", "B9", "B10"), "ulysses": ("B5", "B10")}
+
+    def held(label, gap, floor, noise=None):
+        # ``noise``: the sharding's own gap on plain attention (a sharded
+        # plain step against the unsharded plain step), where given
+        checks[label] = gap
+        base = {k: max(floor[k], noise[k]) if noise else floor[k] for k in floor}
+        # (held on the card: a CPU rehearsal's tiny model has no such floor)
+        if on_card and any(gap[k] > C6_FLOOR_MULTIPLE * max(base[k], 1e-6) for k in gap):
+            failures.append(f"{label}: {gap} from its unsharded step, past "
+                            f"{C6_FLOOR_MULTIPLE} x {base} (the floor {floor}, the sharding's "
+                            f"own noise on plain attention {noise})")
+
+    gang_launches, sharding_noise = {}, {}
+    for r, out in ranks.items():
+        ra = out["ring_alone"]
+        if any(v > PAR_RING_TOL for v in ra["err_over_max"].values()):
+            failures.append(f"rank {r}: ring_flash alone against the unsharded flash kernels "
+                            f"{ra['err_over_max']}, past {PAR_RING_TOL}")
+        for k, v in ra["launches"].items():
+            gang_launches.setdefault("ring_alone", {}).setdefault(k, 0)
+            gang_launches["ring_alone"][k] += v
+        # each sharding's own noise on plain attention (no kernel): sp's is
+        # the ring's gap (at its length), tp's a tp step on plain attention
+        # against the unsharded plain step; tp is held against its own
+        tp_noise = _par_gap(out["tp"]["plain_step"], refs["multihost"]["plain"])
+        sharding_noise[r] = {"sp": _par_gap(out["sp_ring"], refs["longcontext"]["plain_ring_seq"]),
+                             "tp": tp_noise}
+        for mode in PAR_SP_MODES:
+            row = out[f"sp_{mode}"]
+            held(f"sp_{mode} rank {r}", _par_gap(row, refs["longcontext"][counterpart[mode]]),
+                 refs["longcontext"]["floor"])
+            for k, v in row["launches"].items():
+                gang_launches.setdefault(mode, {}).setdefault(k, 0)
+                gang_launches[mode][k] += v
+        held(f"fsdp rank {r}", _par_gap(out["fsdp"], refs["multihost"]["kernels"]),
+             refs["multihost"]["floor"])
+        held(f"tp rank {r}", _par_gap(out["tp"], refs["multihost"]["kernels"]),
+             refs["multihost"]["floor"], tp_noise)
+        gap = _par_gap(out["pp"], refs["pipeline"]["kernels"])
+        checks[f"pp rank {r}"] = gap
+        if any(v > 2e-3 for v in gap.values()):
+            failures.append(f"pp rank {r}: {gap} from the sequential step, past 2e-3")
+    if on_card:
+        for mode, keys in [("ring_alone", ("B5", "B9", "B10")), *want.items()]:
+            if not all(gang_launches[mode][k] for k in keys):
+                failures.append(f"{mode}: the gang launched {gang_launches[mode]}, not all of "
+                                f"{keys}")
+    for name in ("longcontext", "multihost"):
+        log(f"parallel: {name}'s unsharded kernel step against the f32-attention step "
+            f"{refs[name]['kernels_vs_f32']}; the floor's pairs {refs[name]['pair_gaps']}")
+    transports = {k for out in ranks.values() for k, v in out["ring_alone"]["transport"].items()
+                  if v}
+    transport = "gloo-host-staged" if "gloo-host-staged" in transports else sorted(transports)
+
+    # the gang through the DAG layer: configs/multihost_lm.yml as two gang
+    # slots on the one card
+    t0 = time.perf_counter()
+    dag = dag_gang_run(dev, mh_doc, world)
+    dag_s = time.perf_counter() - t0
+    result = {"card": smi, "world_of_one": world1, "gang_backend": ranks[0]["backend"],
+              "transport": transport, "references": refs, "references_s": refs_s,
+              "gang_s": gang_s, "dag_s": dag_s, "ranks": ranks, "gaps": checks,
+              "gang_launches": gang_launches, "sharding_noise": sharding_noise, "dag": dag,
+              "reduced": reduced,
+              "floor_multiple": C6_FLOOR_MULTIPLE, "ring_tolerance": PAR_RING_TOL,
+              "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"parallel_transport": transport, "backend": ranks[0]["backend"],
+                    "gaps": checks, "sharding_noise": sharding_noise,
+                    "gang_launches": gang_launches, "seconds": {"references": refs_s, "gang": gang_s, "dag": dag_s,
+                                "phase": result["phase_s"]},
+                    "rank0_runs_s": {k: [v.get("build_s"), v.get("wall_s")]
+                                     for k, v in ranks[0].items() if isinstance(v, dict)
+                                     and "wall_s" in v}}))
+    if failures:
+        raise AssertionError("parallel: " + "; ".join(failures))
+    return result
+
+
+def end_procs_mp(procs, timeout=30.0):
+    for p in procs:
+        p.join(timeout)
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+
+
+def dag_gang_run(dev, mh_doc, world):
+    """configs/multihost_lm.yml through the local runner (``cli dag``'s
+    path) as ``world`` gang slots on this machine's card; both slots must
+    succeed and the checkpoint load into an unsharded Trainer."""
+    import tempfile
+
+    import yaml
+
+    from mlcomp_tpu_torch.db.store import Store, TaskStatus
+    from mlcomp_tpu_torch.io.checkpoint import latest_step, restore_checkpoint
+    from mlcomp_tpu_torch.scheduler.local import run_dag_local
+    from mlcomp_tpu_torch.train.loop import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    try:
+        doc = json.loads(json.dumps(mh_doc))
+        ex = doc["executors"]["pretrain"]
+        ex["resources"] = {"chips": PAR_DAG["chips"], "hosts": PAR_DAG["hosts"]}
+        batch = PAR_DAG["batch_per_rank"] * world
+        ex["args"].update(mesh=PAR_DAG["mesh"], storage_root=f"{tmp}/storage",
+                          dag_name="chip-smoke-gang")
+        ex["args"]["model"] = {**ex["args"]["model"], "remat": True}
+        ex["args"]["data"]["train"].update(n=batch * PAR_DAG["steps"], batch_size=batch)
+        path = Path(tmp) / "multihost_lm.yml"
+        path.write_text(yaml.safe_dump(doc))
+        db = f"{tmp}/db.sqlite"
+        t0 = time.perf_counter()
+        statuses = run_dag_local(str(path), db_path=db, workdir=tmp, timeout_s=600,
+                                 device=dev.type)
+        wall = time.perf_counter() - t0
+        store = Store(db)
+        try:
+            row = store.task_rows(1)[0]
+            logs = [l["message"] for l in store.task_logs(row["id"])]
+            loss = [v for _, v in store.metric_series(row["id"], "train/loss")]
+        finally:
+            store.close()
+        if not all(s == TaskStatus.SUCCESS for s in statuses.values()):
+            raise AssertionError(f"parallel DAG gang: {statuses}: {row['error']}\n"
+                                 + "\n".join(logs[-20:]))
+        slots = [l for l in logs if "process_count=" in l]
+        if len(slots) != world:
+            raise AssertionError(f"parallel DAG gang: slots joined {slots}")
+        ckpt = Path(json.loads(row["result"])["ckpt_dir"])
+        step = latest_step(ckpt)
+        cfg = {k: v for k, v in ex["args"].items()
+               if k not in ("mesh", "project", "dag_name", "storage_root")}
+        t = Trainer(cfg, device=dev)
+        restore_checkpoint(ckpt, t.state)
+        if step != PAR_DAG["steps"] or t.state.step != step:
+            raise AssertionError(f"parallel DAG gang: checkpoint step {step}, loaded {t.state.step}")
+        del t
+        _free(dev)
+        return {"statuses": {k: str(v) for k, v in statuses.items()}, "wall_s": wall,
+                "train_loss": loss, "slots": slots, "checkpoint_step": step,
+                "loads_unsharded": True}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parallel_process(smi) -> dict:
+    """:func:`parallel_phase` in a child process (the kernels already
+    built, so its ranks load them); its result comes back as JSON."""
+    import tempfile
+
+    fd, out = tempfile.mkstemp(prefix="chip_smoke_parallel_", suffix=".json")
+    os.close(fd)
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
+            "from mlcomp_tpu_torch.ops.cuda import build; build.build_all(); "
+            "r = cs.parallel_phase(torch.device('cuda'), sys.argv[2]); "
+            "json.dump(r, open(sys.argv[3], 'w'))")
+    try:
+        env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+        proc = subprocess.run([sys.executable, "-c", code, REPO, smi, out], cwd=REPO,
+                              timeout=1000, env=env)
+        if proc.returncode:
+            raise AssertionError(f"the parallel phase failed (exit {proc.returncode}; its "
+                                 "output above)")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        os.unlink(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -3030,6 +3763,9 @@ def main() -> int:
     e_lo = torch.randint(0, 301, (3,), generator=g, device=dev, dtype=torch.int32)
     e_lo[2] = 1000
     bwd_case("B9", CASE_E, 3, 1000, heads, heads // 2, dh, True, e_lo)
+    # ROADMAP §C8: B5 and B10 at configs/longcontext_lm.yml's attention
+    # (1 x 32768), leaf by leaf against f32 attention beside SDPA
+    long_flash_leaves(dev, {"randn": long_randn_inputs(dev)})
 
     # B1/B2's decode path at the paged engine's 32 slots and at its most
     # rows (64), both kernels at every decode shape; ragged row counts
@@ -5116,6 +5852,14 @@ def main() -> int:
         "bf16_kv": {"requests": len(few), "new_tokens": n16, "wall_s": wall16,
                     "launches": counts16, "equal_dense": True},
         "card": smi}}))
+    # ---- the phase "parallel" (A12's training half): last, in a process of
+    # its own that starts the gang's processes (this one's card memory
+    # released first)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parallel: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
+    par_result = parallel_process(smi)
+
     log(json.dumps({"disagg": disagg}))
     log(json.dumps({"spec": spec_result}))
     log(json.dumps({"train_to_serve": t2s_result}))
@@ -5130,6 +5874,7 @@ def main() -> int:
         "loss_kernels": l_k, "loss_plain": l_p, "grad_norm_kernels": g_k,
         "grad_norm_plain": g_p, "tolerance": "loss 1e-3 relative, gradient norm 2%"},
         "profiled_step": profile_result}}))
+    log(json.dumps({"parallel": par_result}))
     log(json.dumps({"kernels": entries, "flash_resources": flash_resources,
                     "profiled_decode_step": {"quant_matmul": step_qmm,
                                              "qmm_reduce_kernel_launches": reduce_launches,

@@ -290,6 +290,11 @@ def _cmd_serve(args: argparse.Namespace) -> int:
 
     from mlcomp_tpu_torch.serve import load_service, resolve_storage_ckpt, serve_http
 
+    if args.mesh or args.distributed or args.sync_port is not None:
+        raise NotImplementedError(
+            "serve --mesh/--distributed/--sync-port: the engine under a mesh is not "
+            "ported yet (ROADMAP A12b); serve on one card")
+
     with open(args.model) as f:
         doc = yaml.safe_load(f)
     # a bare model mapping, or any YAML with a top-level ``model:`` section
@@ -665,6 +670,14 @@ def main(argv=None) -> int:
                     " load) or the CUDA int8 matmul ('kernel')")
     sv.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache read by the CUDA flash-decode kernel")
+    # the JAX command's sharded serving flags: refused until the engine
+    # runs under a mesh (ROADMAP A12b)
+    sv.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N...]",
+                    help="not ported yet (ROADMAP A12b): refused")
+    sv.add_argument("--distributed", action="store_true",
+                    help="not ported yet (ROADMAP A12b): refused")
+    sv.add_argument("--sync-port", type=int, default=None,
+                    help="not ported yet (ROADMAP A12b): refused")
     sv.add_argument("--batcher", default="auto",
                     choices=("auto", "continuous", "window", "speculative"),
                     help="'continuous' (the default, 'auto'): fixed decode slots,"

@@ -12,6 +12,13 @@ the native Fisher-Yates permutation (``mlcomp_tpu_torch/native``), and the
 rows of a batch are gathered on the native thread pool with the
 interpreter lock released; either falls back to numpy, with the same rows,
 where the library did not build.
+
+Under a mesh every process walks the same global batches (the order is
+the seed's) and feeds only its own rows: ``shard=(index, count)`` keeps
+rows ``[index * B / count, (index + 1) * B / count)`` of each global
+batch of ``batch_size`` B, the rank's (dp, fsdp) coordinate
+(``parallel.mesh.batch_sharding``), as the JAX loader's multi-host feed
+hands each process the slices its devices own.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +44,7 @@ class DataLoader:
         drop_last: bool = True,
         device: Optional[torch.device] = None,
         pad_to_batch: bool = True,
+        shard: Tuple[int, int] = (0, 1),
     ):
         # "_"-prefixed keys are dataset metadata (e.g. _class_names), not
         # batchable arrays — kept aside for consumers like report builders
@@ -54,6 +62,11 @@ class DataLoader:
         self.drop_last = drop_last
         self.device = torch.device("cpu") if device is None else torch.device(device)
         self.pad_to_batch = pad_to_batch
+        self.shard = (int(shard[0]), int(shard[1]))
+        if batch_size % self.shard[1]:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by the {self.shard[1]} data shards "
+                "(dp x fsdp)")
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -92,6 +105,10 @@ class DataLoader:
                 batch["valid"] = np.concatenate(
                     [np.ones(len(sel), np.float32), np.zeros(pad, np.float32)]
                 )
+            index, count = self.shard
+            if count > 1:
+                per = len(next(iter(batch.values()))) // count
+                batch = {k: v[index * per:(index + 1) * per] for k, v in batch.items()}
             yield batch
 
     def _host_tensors(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -97,7 +97,8 @@ rung; none is captured yet.
   carry the last capture (else the steady-state estimate).
 
 Not in this engine (the JAX engine has them; see ROADMAP.md): meshes and
-distributed gangs (A12).
+distributed gangs (A12b, the serving half of A12; ``serve --mesh`` and
+``--distributed`` are refused).
 """
 
 from __future__ import annotations
@@ -1050,7 +1051,7 @@ class DecodeEngine:
         registry (``set_total`` keeps counters monotonic across scrapes);
         the hot path pays nothing for /metrics.  The JAX engine's
         families, less those whose subject the port has no module for yet:
-        meshes (A12)."""
+        meshes (A12b)."""
         m = self.metrics
         st = self._stats
 

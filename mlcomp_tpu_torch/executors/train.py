@@ -127,7 +127,11 @@ class TrainExecutor(Executor):
         # epoch; closed before any latest_step/restore on these dirs
         from mlcomp_tpu_torch.io.checkpoint import AsyncCheckpointWriter
 
-        writer = AsyncCheckpointWriter(ckpt_dir)
+        from mlcomp_tpu_torch.parallel.distributed import sync_hosts
+
+        # a gang task: every slot saves (the shards' gather is collective),
+        # slot 0 alone writes
+        writer = AsyncCheckpointWriter(ckpt_dir, primary=ctx.primary)
         best_writer: Optional[AsyncCheckpointWriter] = None
 
         def on_epoch(epoch: int, stats: Dict[str, float]) -> None:
@@ -158,7 +162,7 @@ class TrainExecutor(Executor):
                         value=v, epoch=epoch, step=int(trainer.state.step)
                     )
                     if best_writer is None:
-                        best_writer = AsyncCheckpointWriter(best_dir)
+                        best_writer = AsyncCheckpointWriter(best_dir, primary=ctx.primary)
                     best_writer.save(trainer.state, step=int(trainer.state.step))
                     ctx.log(
                         f"new best {best_metric}={v:.4f} @ epoch {epoch}"
@@ -176,6 +180,9 @@ class TrainExecutor(Executor):
                 writer.close()
                 if best_writer is not None:
                     best_writer.close()
+                # the slots read the checkpoint directory only once the
+                # primary's writes are in it
+                sync_hosts("train-ckpt")
         except TaskPreempted:
             # checkpoint the consistent between-steps state so the
             # requeued attempt resumes here instead of the last epoch
@@ -194,7 +201,7 @@ class TrainExecutor(Executor):
                 raise
             cur = int(trainer.state.step)
             if latest_step(ckpt_dir) != cur:
-                save_checkpoint(ckpt_dir, trainer.state, step=cur)
+                save_checkpoint(ckpt_dir, trainer.state, step=cur, primary=ctx.primary)
             ctx.log(
                 f"preempted at step {cur}; checkpoint saved, task will "
                 f"resume on requeue",
@@ -207,7 +214,8 @@ class TrainExecutor(Executor):
             ctx.log(f"trace written to {trainer.trace_path}")
         cur = int(trainer.state.step)
         if latest_step(ckpt_dir) != cur:  # avoid re-saving the epoch save
-            save_checkpoint(ckpt_dir, trainer.state, step=cur)
+            save_checkpoint(ckpt_dir, trainer.state, step=cur, primary=ctx.primary)
+        sync_hosts("train-final")
         ckpt_path = str(Path(ckpt_dir) / str(cur))
         meta: Dict[str, Any] = {
             "final": final,
@@ -237,7 +245,8 @@ class TrainExecutor(Executor):
             final = meta_prior["final"]
             meta["final"] = final
             result["final"] = final
-        storage.write_meta(project, dag_name, ctx.task_name, meta)
+        if ctx.primary:
+            storage.write_meta(project, dag_name, ctx.task_name, meta)
         return result
 
 

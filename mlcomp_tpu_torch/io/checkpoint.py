@@ -18,6 +18,14 @@ params tree, EMA weights preferred), :func:`restore_eval_state` (those
 weights into a TrainState, for the valid/infer/generate executors) and
 :func:`average_checkpoints` (a weight-space average saved as a
 weights-only checkpoint, which both readers and ``serve --ckpt`` take).
+
+A sharded state (a Trainer under a mesh) saves the same file: its
+``state_dict`` gathers every shard (a collective, so every rank calls the
+save), and only the primary rank (gang slot 0, ``primary=True``) writes.
+So an unsharded Trainer and ``serve --ckpt`` load a sharded run's
+checkpoint, and restoring places each saved tensor's shards on the ranks
+(``TrainState.load_state_dict``), so an unsharded checkpoint resumes
+under a mesh.
 """
 
 from __future__ import annotations
@@ -74,11 +82,15 @@ def _write(directory: Path, host_state: Dict[str, Any], step: int, max_to_keep: 
 
 
 def save_checkpoint(directory: str | Path, state: Any, step: int,
-                    max_to_keep: int = 3) -> str:
+                    max_to_keep: int = 3, primary: bool = True) -> str:
     """Save ``state`` (a TrainState, or any object with ``state_dict()``,
-    or a plain dict) as step ``step``; returns the step directory."""
+    or a plain dict) as step ``step``; returns the step directory.  Every
+    rank of a sharded state calls it; only the ``primary`` one writes."""
     payload = state.state_dict() if hasattr(state, "state_dict") else state
-    return _write(Path(directory).absolute(), _to_host(payload), step, max_to_keep)
+    directory = Path(directory).absolute()
+    if not primary:
+        return str(directory / str(int(step)))
+    return _write(directory, _to_host(payload), step, max_to_keep)
 
 
 def restore_checkpoint(directory: str | Path, target: Any, step: Optional[int] = None) -> Any:
@@ -102,15 +114,20 @@ class AsyncCheckpointWriter:
     outstanding write; always ``close()`` before reading ``latest_step``
     or restoring from the same directory."""
 
-    def __init__(self, directory: str | Path, max_to_keep: int = 3):
+    def __init__(self, directory: str | Path, max_to_keep: int = 3, primary: bool = True):
         self.directory = Path(directory).absolute()
         self.max_to_keep = max_to_keep
+        # every rank of a sharded state saves (the gather is a collective);
+        # only the primary writes
+        self.primary = primary
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     def save(self, state: Any, step: int) -> None:
         self.wait()
         payload = state.state_dict() if hasattr(state, "state_dict") else state
+        if not self.primary:
+            return
         host = _to_host(payload)
 
         def run():

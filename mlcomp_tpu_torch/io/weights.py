@@ -30,7 +30,8 @@ def from_flax_params(tree, fold: bool = True) -> Dict[str, torch.Tensor]:
     its flax shape with ``fold=False``, the training layout), or
     ``<module path>/q8`` (m, n) int8 and ``<module path>/scale`` (n,) f32
     for an int8 leaf; ``emb/embedding`` or ``emb/q8``+``emb/scale``;
-    norm scales as they are."""
+    norm scales, and the pipelined LM's top-level leaves (its stacked
+    ``stages_*`` and ``final_norm``), as they are."""
     state: Dict[str, torch.Tensor] = {}
 
     def visit(path, leaf):
@@ -105,7 +106,7 @@ def init_params(cfg: Dict[str, Any], seed: int = 0, device: Optional[torch.devic
     numpy's).  The LM's kernels are normal(0, 1/sqrt(fan_in)); norms are
     ones."""
     name = cfg.get("name", "transformer_lm")
-    if name not in ("transformer_lm", "moe_lm"):
+    if name not in ("transformer_lm", "moe_lm", "transformer_lm_pp"):
         return init_variables(cfg, seed, device, sample_shape)[0]
     hidden, heads = cfg["hidden"], cfg["heads"]
     kv_heads = cfg.get("kv_heads") or heads
@@ -131,6 +132,25 @@ def init_params(cfg: Dict[str, Any], seed: int = 0, device: Optional[torch.devic
             return torch.ones((n,), device=device)
 
     tree: Dict[str, Any] = {"emb": {"embedding": normal((vocab, hidden), hidden)}}
+    if name == "transformer_lm_pp":
+        # the pipelined LM: each decoder leaf stacked over the layers
+        n = cfg["layers"]
+        ones_n = (lambda: np.ones((n, hidden), np.float32)) if device is None else (
+            lambda: torch.ones((n, hidden), device=device))
+        tree.update({
+            "stages_ln1": ones_n(),
+            "stages_q": normal((n, hidden, heads * dh), hidden),
+            "stages_k": normal((n, hidden, kv_heads * dh), hidden),
+            "stages_v": normal((n, hidden, kv_heads * dh), hidden),
+            "stages_out": normal((n, heads * dh, hidden), heads * dh),
+            "stages_ln2": ones_n(),
+            "stages_gate": normal((n, hidden, mlp), hidden),
+            "stages_up": normal((n, hidden, mlp), hidden),
+            "stages_down": normal((n, mlp, hidden), mlp),
+            "final_norm": ones(hidden),
+            "lm_head": {"kernel": normal((hidden, vocab), hidden)},
+        })
+        return tree
     every = int(cfg.get("moe_every", 2)) if moe else 0
     n_dense = n_moe = 0
     for i in range(cfg["layers"]):

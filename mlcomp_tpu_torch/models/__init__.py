@@ -1,4 +1,5 @@
-"""Model registry of the port: ``transformer_lm``, ``moe_lm`` and the zoo (``mlp``,
+"""Model registry of the port: ``transformer_lm``, ``moe_lm``,
+``transformer_lm_pp`` (models/pipeline_lm.py) and the zoo (``mlp``,
 ``mnist_cnn``, ``resnet18``/``50``/``101``, ``unet``, ``bert``/``bert_base``/
 ``bert_small``, ``vit``/``vit_b16``/``vit_s16``/``vit_tiny``)."""
 
@@ -16,6 +17,7 @@ def load_all() -> None:
     from mlcomp_tpu_torch.models import cnn as _cnn  # noqa: F401
     from mlcomp_tpu_torch.models import mlp as _mlp  # noqa: F401
     from mlcomp_tpu_torch.models import moe as _moe  # noqa: F401
+    from mlcomp_tpu_torch.models import pipeline_lm as _pipeline_lm  # noqa: F401
     from mlcomp_tpu_torch.models import resnet as _resnet  # noqa: F401
     from mlcomp_tpu_torch.models import transformer as _transformer  # noqa: F401
     from mlcomp_tpu_torch.models import unet as _unet  # noqa: F401

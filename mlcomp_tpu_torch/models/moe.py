@@ -215,6 +215,7 @@ class MoELM(TransformerLM):
             self._names.append(f"{cls}_{counts[cls]}")
             counts[cls] += 1
         self.layers = nn.ModuleList(mods)
+        self.set_seq_parallel()
         self.train(False)
 
     def arch(self) -> dict:

@@ -27,6 +27,17 @@ attends through the page table (the paged kernels, B6/B7) and the bf16
 family over each layer's gathered dense view (B8).  Paged attention runs
 only with per-row cursors.
 
+Under a mesh (the Trainer's ``current_mesh()``; ``parallel/``), a
+training forward runs the JAX package's parallel paths on this rank's
+share: ``seq_parallel`` (``ring``, ``ring_flash`` or ``ulysses``, checked
+even without an sp axis) shards the sequence over ``sp`` when that axis
+is wider than 1, each rank embedding its contiguous slice at its
+positions and every rank scoring the gathered logits; layers that
+hold tensor-parallel shards (``parallel/sharding.ShardedParams`` binds
+them and gives their modules the ``tp`` group) run column-parallel
+q/k/v, gate/up and ``lm_head`` and row-parallel out/down between the
+group's region edges.
+
 Two write contracts, as in the JAX package:
 
 - a global index (``cache.index``, a host integer the caller may set):
@@ -43,6 +54,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import List, Optional, Tuple, Union
 
 import torch
@@ -64,8 +76,38 @@ from mlcomp_tpu_torch.ops.cuda.decode_attention import (
 from mlcomp_tpu_torch.ops.cuda.quant_matmul import row_matmul
 from mlcomp_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
 from mlcomp_tpu_torch.ops.quant import Int8Linear, as_tensor, is_quantized_leaf
+from mlcomp_tpu_torch.parallel import collectives as col
+from mlcomp_tpu_torch.parallel.mesh import axis_size, current_mesh
+from mlcomp_tpu_torch.parallel.ring import ring_attention_sharded
+from mlcomp_tpu_torch.parallel.ulysses import ulysses_attention_sharded
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# the sequence-parallel attentions by ``seq_parallel`` mode
+_SP_ATTN = {
+    "ring": ring_attention_sharded,
+    # each block through the flash kernels (parallel/ring.py _ring_flash)
+    "ring_flash": partial(ring_attention_sharded, use_flash=True),
+    "ulysses": ulysses_attention_sharded,
+}
+
+
+def _sp_mode(seq_parallel) -> Optional[str]:
+    """The ``seq_parallel`` config as a mode name (True is ``ring``)."""
+    if not seq_parallel:
+        return None
+    mode = "ring" if seq_parallel is True else str(seq_parallel)
+    if mode not in _SP_ATTN:
+        raise ValueError(
+            f"seq_parallel={mode!r}: expected 'ring', 'ring_flash', or 'ulysses'")
+    return mode
+
+
+def _tp_group(mod):
+    """The mesh's tp group where ``mod`` holds a tensor-parallel shard of
+    its weight (``parallel.sharding.ShardedParams`` sets ``tp_group`` on
+    the modules it binds as such), else None."""
+    return getattr(mod, "tp_group", None)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float = 10000.0) -> torch.Tensor:
@@ -108,13 +150,29 @@ class Dense(nn.Module):
         self.feats, self.n_contract, self.dtype = tuple(feats), n_contract, dtype
         self.register_buffer("kernel", None)
 
+    def product_f32(self, x):
+        """``x @ kernel`` in f32, the kernel rounded to ``dtype`` (x already
+        holds ``dtype`` values): a row-parallel shard's partial sums, which
+        the tensor-parallel group adds in f32 before they round once, as one
+        product's sums do."""
+        lead = x.shape[: x.dim() - self.n_contract]
+        feats = tuple(self.kernel.shape[self.n_contract:])
+        kernel = self.kernel.reshape(-1, math.prod(feats)).to(self.dtype).float()
+        y = x.float().reshape(-1, kernel.shape[0]) @ kernel
+        return y.reshape(*lead, *feats)
+
     def forward(self, x, norm: Optional[nn.Module] = None):
         if norm is not None:
             x = norm(x)
         lead = x.shape[: x.dim() - self.n_contract]
-        kernel = self.kernel.reshape(-1, math.prod(self.feats))
+        kernel, feats = self.kernel, self.feats
+        if kernel.dim() == self.n_contract + len(feats):
+            # the flax shape, or a tensor-parallel shard of it: the output
+            # features are the kernel's own
+            feats = tuple(kernel.shape[self.n_contract:])
+        kernel = kernel.reshape(-1, math.prod(feats))
         y = row_matmul(x.reshape(-1, kernel.shape[0]).to(self.dtype), kernel.to(self.dtype))
-        return y.reshape(*lead, *self.feats)
+        return y.reshape(*lead, *feats)
 
 
 class Embed(nn.Module):
@@ -231,9 +289,19 @@ class SelfAttention(nn.Module):
             self.k = Dense((kv_heads, dh), 1, dtype)
             self.v = Dense((kv_heads, dh), 1, dtype)
         self.out = Dense((hidden,), 2, dtype)
+        # set by the LM: None, "ring", "ring_flash" or "ulysses"
+        self.seq_parallel: Optional[str] = None
 
     def forward(self, x, positions, cache=None, index: int = 0, kv_mask=None,
                 kv_start=None, fold: bool = False, cursor=None):
+        tp = None if cache is not None or self.decode_fused else _tp_group(self.q)
+        if tp is not None:
+            # column-parallel q/k/v on this rank's heads, row-parallel out
+            h = col.copy_to(self.norm(x), tp)
+            q, k, v = self.q(h), self.k(h), self.v(h)
+            q, k = apply_rope(q, positions), apply_rope(k, positions)
+            out = col.reduce_from(self.out.product_f32(self._train_attention(q, k, v)), tp)
+            return x + out.to(self.dtype)
         if self.decode_fused:
             (qkv,) = _project(x, self.norm, [self.qkv], fold)
             q = qkv[..., : self.heads, :]
@@ -244,12 +312,22 @@ class SelfAttention(nn.Module):
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
         if cache is None:
-            attn = dot_product_attention(q, k, v, causal=True)
+            attn = self._train_attention(q, k, v)
         elif self.kv_quant:
             attn = self._decode_attention_quant(q, k, v, cache, index, kv_start, cursor)
         else:
             attn = self._decode_attention(q, k, v, cache, index, kv_mask, kv_start, cursor)
         return x + self.out(attn)
+
+    def _train_attention(self, q, k, v):
+        """Causal attention without a cache: sharded over the mesh's sp
+        axis by the ``seq_parallel`` mode when that axis is wider than 1
+        (the sequence-sharded path only then), else the dispatch rule."""
+        if self.seq_parallel:
+            mesh = current_mesh()
+            if axis_size(mesh, "sp") > 1:
+                return _SP_ATTN[self.seq_parallel](q, k, v, mesh, causal=True)
+        return dot_product_attention(q, k, v, causal=True)
 
     def init_cache(self, b: int, max_len: int, device):
         dh = self.d_head
@@ -374,6 +452,12 @@ class DecoderLayer(nn.Module):
     def forward(self, x, positions, cache=None, index=0, kv_mask=None, kv_start=None,
                 fold=False, cursor=None):
         x = self.attn(x, positions, cache, index, kv_mask, kv_start, fold, cursor)
+        tp = None if cache is not None or self.decode_fused else _tp_group(self.gate)
+        if tp is not None:
+            # column-parallel gate/up on this rank's MLP slice, row-parallel down
+            h = col.copy_to(self.norm(x), tp)
+            out = col.reduce_from(self.down.product_f32(F.silu(self.gate(h)) * self.up(h)), tp)
+            return x + out.to(self.down.dtype)
         if self.decode_fused:
             (gu,) = _project(x, self.norm, [self.gate_up], fold)
             gate, up = gu[..., : self.mlp_dim], gu[..., self.mlp_dim:]
@@ -426,9 +510,9 @@ class TransformerLM(nn.Module):
         super().__init__()
         if dtype not in _DTYPES or head_dtype not in _DTYPES:
             raise ValueError(f"dtype/head_dtype must be one of {sorted(_DTYPES)}")
-        if seq_parallel:
-            raise NotImplementedError(
-                "transformer_lm seq_parallel: not ported to mlcomp_tpu_torch yet (ROADMAP A12)")
+        # validated even when the mesh has no sp axis, so that a typo'd
+        # mode fails on the first run rather than the first sharded one
+        self.seq_parallel = _sp_mode(seq_parallel)
         # remat: each decoder layer's activations are recomputed in the
         # backward (torch.utils.checkpoint), off at decode.  fused_loss: a
         # forward without a cache returns the per-token next-token CE (B, S)
@@ -453,6 +537,42 @@ class TransformerLM(nn.Module):
         ])
         self.norm = RMSNorm(hidden, self.dtype, self.device)
         self.lm_head = Dense((vocab_size,), 1, _DTYPES[head_dtype])
+        self.set_seq_parallel()
+
+    def set_seq_parallel(self) -> None:
+        """Hand the ``seq_parallel`` mode to every layer's attention."""
+        for layer in self.layers:
+            layer.attn.seq_parallel = self.seq_parallel
+
+    def tp_local_paths(self, tp: int) -> set:
+        """The flax paths that train tensor-parallel on a mesh with ``tp``
+        ranks (each rank computing on its ``spec_for`` shard): q/k/v/out
+        where both head counts divide tp, gate/up/down where the MLP width
+        does, the embedding where the hidden width does and ``lm_head``
+        where the vocabulary does (not under ``fused_loss``, whose head
+        takes the whole vocabulary).  ``ShardedParams`` gives the modules
+        holding these shards the tp group, which their forward reads."""
+        if tp <= 1:
+            return set()
+        out = set()
+        attn = self.heads % tp == 0 and self.kv_heads % tp == 0
+        mlp = self.mlp_dim % tp == 0
+        for owner, name, path in self.linears():
+            key = "/".join(path)
+            if name in ("q", "k", "v", "out") and attn:
+                out.add(key)
+            elif name in ("gate", "up", "down") and mlp:
+                out.add(key)
+        if self.hidden % tp == 0:
+            out.add("emb/embedding")
+        if self.vocab_size % tp == 0 and not self.fused_loss:
+            out.add("lm_head/kernel")
+        return out
+
+    def split_axes(self) -> set:
+        """The mesh axes this model splits a step's work over (the
+        gradients' sums): ``sp`` under sequence parallelism."""
+        return {"sp"} if self.seq_parallel and axis_size(current_mesh(), "sp") > 1 else set()
 
     def init_cache(self, batch_size: int, max_len: int) -> DecodeCache:
         """A zeroed decode cache for ``(batch_size, max_len)`` slots."""
@@ -569,7 +689,20 @@ class TransformerLM(nn.Module):
         if kv_start is None and kv_mask is not None:
             # left padding makes the invalid slots a prefix: a window start is exact
             kv_start = torch.argmax(kv_mask.int(), dim=1).int()
+        sp = col.group_of(current_mesh(), "sp") if self.seq_parallel and cache is None \
+            else None
+        ids_full = ids
+        if sp is not None:
+            # this rank's contiguous shard of the sequence, at its positions
+            n, r = col.size(sp), col.rank(sp)
+            if s % n:
+                raise ValueError(f"sequence {s} not divisible by sp={n}")
+            s //= n
+            ids, positions = ids[:, r * s:(r + 1) * s], positions[:, r * s:(r + 1) * s]
         h = self.emb(ids.long())
+        tp = _tp_group(self.emb) if cache is None else None
+        if tp is not None:
+            h = col.all_gather(h, tp, -1, grad="split")
         index, cursor = 0, None
         if isinstance(cache, PagedKV):
             if cache_cursor is None:
@@ -595,10 +728,23 @@ class TransformerLM(nn.Module):
             # the next-token CE against the shifted ids; the last position's
             # label is a dummy that the loss drops.  The chunk is the largest
             # divisor of S that fits the configured one
-            labels = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1).long()
+            labels = torch.cat([ids_full[:, 1:], torch.zeros_like(ids_full[:, :1])], dim=1).long()
+            if sp is not None:
+                labels = labels[:, col.rank(sp) * s:(col.rank(sp) + 1) * s]
             chunk = min(self.fused_loss_chunk, s)
             while s % chunk:
                 chunk -= 1
-            return fused_linear_cross_entropy(self.norm(h), self.lm_head.kernel, labels, chunk)
-        (logits,) = _project(h, self.norm, [self.lm_head], self.fold_norms)
+            out = fused_linear_cross_entropy(self.norm(h), self.lm_head.kernel, labels, chunk)
+            return col.all_gather(out, sp, 1, grad="split") if sp is not None else out
+        tp = _tp_group(self.lm_head) if cache is None else None
+        if tp is not None:
+            # column-parallel head: this rank's slice of the vocabulary
+            logits = col.all_gather(self.lm_head(col.copy_to(self.norm(h), tp)), tp, -1,
+                                    grad="split")
+        else:
+            (logits,) = _project(h, self.norm, [self.lm_head], self.fold_norms)
+        if sp is not None:
+            # every sp rank scores the whole sequence; each keeps the
+            # cotangent of its own positions
+            logits = col.all_gather(logits, sp, 1, grad="split")
         return logits.float()

@@ -41,6 +41,9 @@ launches = 0
 bwd_delta_launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+# backward calls on the causal (triangular, the TPU's B10) grid, counted
+# again on their own: the ring's diagonal blocks against its full ones (B9)
+bwd_causal_launches = 0
 # the instances beside bf16 at dh 128, counted again on their own: the
 # forward and the backward (one a backward) at bf16 dh 256, and on f32
 fwd_dh256_launches = bwd_dh256_launches = 0
@@ -288,7 +291,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool, scale: float,
 
 
 def _launch_bwd(q, k, v, out, lse, do, causal: bool, scale: float, lo, hi, g_lse):
-    global bwd_delta_launches, bwd_dq_launches, bwd_dkv_launches
+    global bwd_delta_launches, bwd_dq_launches, bwd_dkv_launches, bwd_causal_launches
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     kd, (q, k, v, out, do) = _kernel_inputs(d, q, k, v, out, do)
@@ -317,6 +320,8 @@ def _launch_bwd(q, k, v, out, lse, do, causal: bool, scale: float, lo, hi, g_lse
                  b, h, h_kv, s_q, s_k, kd, int(bool(causal)), scale, stream)
     build.check(err, f"{stem} dk/dv")
     bwd_dkv_launches += 1
+    if causal:
+        bwd_causal_launches += 1
     _count_instance("bwd", q.dtype, kd)
     return dq[..., :d], dk[..., :d], dv[..., :d]
 

@@ -13,8 +13,12 @@ back.  What the boundary buys:
   exec, so concurrent tasks on one host each see only their cards;
 - the executor runs on the spec's ``device`` (the CLI's ``--device``).
 
-Multi-host gang tasks fail here with a clear error: the port has no
-distributed runtime yet.
+A gang task (``resources.hosts > 1``) runs one child per gang slot: the
+worker sets ``MLCOMP_TPU_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID`` and the
+child joins the slots' ``torch.distributed`` group
+(``parallel.distributed.init_distributed``) before any executor code.
+Slot 0 is the primary: it alone writes the store's metrics and the
+checkpoints; a failing slot > 0 logs its error into the shared task log.
 
 Exit code 0 = executor returned; anything else (including death by
 signal) = failure.  The result file is written atomically so the parent
@@ -46,11 +50,10 @@ def run_spec(spec_path: str) -> int:
 
         install_signal_handler()
 
-        if os.environ.get("MLCOMP_TPU_COORDINATOR"):
-            raise NotImplementedError(
-                "multi-host gang tasks (resources.hosts > 1) need the port's "
-                "distributed runtime, which is not ported yet"
-            )
+        # the process group must exist before any executor code runs
+        from mlcomp_tpu_torch.parallel.distributed import init_distributed
+
+        init_distributed(device=spec.get("device"))  # no-op unless the gang env is set
 
         from mlcomp_tpu_torch import executors as _executors
         from mlcomp_tpu_torch.db.store import Store
@@ -59,6 +62,14 @@ def run_spec(spec_path: str) -> int:
 
         _executors.load_all()
         store = Store(spec["db"])
+        if os.environ.get("MLCOMP_TPU_COORDINATOR"):
+            import torch.distributed as dist
+
+            store.log(
+                claim["id"], "info",
+                f"[slot {process_id}] torch distributed: backend={dist.get_backend()} "
+                f"process_count={dist.get_world_size()} process_index={dist.get_rank()}",
+            )
         args = json.loads(claim["args"])
         sync_code(args, claim["id"], spec["workdir"], store)
         ctx = ExecutionContext(

@@ -17,8 +17,18 @@ mixup's lambda from a host ``torch.Generator`` with the same seed: other
 streams than the JAX package's ``PRNGKey(seed + 1)`` folds, so augmented
 or mixed steps do not repeat the JAX package's draws.
 
-Not ported yet, and refused with ``NotImplementedError``: a ``mesh`` with
-an axis larger than 1 and ``seq_parallel`` (A12).
+Under a mesh (``mesh: {dp, fsdp, pp, sp, ep, tp}``; every rank of a
+``torch.distributed`` group, see ``parallel/distributed.py``) the Trainer
+does what the JAX one does with its ``Mesh``: it builds the DeviceMesh
+(``MeshSpec.from_config``, the unnamed axis taking the rest), installs it
+(``set_current_mesh``) for the models' sequence-, tensor- and
+pipeline-parallel paths, places the state by ``spec_for`` (each rank
+holds its shards; ``parallel/sharding.py``), feeds each rank its rows of
+the global batch, averages gradients over dp x fsdp (and sums them over
+the axes the model splits its work over), and reports the global means
+of the loss and metrics.  Without a process group the mesh is the one
+device, and a mesh axis above 1 is refused as the JAX ``resolve`` refuses
+it.
 ``Trainer(cfg)`` runs on ``cuda``; pass ``device="cpu"`` for the CPU.
 """
 
@@ -134,7 +144,11 @@ def make_train_step(loss_fn, metric_fns: Dict[str, Callable], grad_accum: int = 
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.model.train()
-        params = state.params
+        binding = state.binding
+        # under a mesh the model computes on this step's views of the
+        # sharded parameters, and their gradients become the state's
+        params = (state.params if binding is None
+                  else binding.bind(state.params, requires_grad=True))
         for p in params.values():
             p.grad = None
         if augment_fn is not None:
@@ -164,6 +178,9 @@ def make_train_step(loss_fn, metric_fns: Dict[str, Callable], grad_accum: int = 
                         p.grad.div_(grad_accum)
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        if binding is not None:
+            grads = binding.reduce_grads(grads, state.params)
+            stats = binding.reduce_stats(stats)
         state.apply_gradients(grads)
         for p in params.values():
             p.grad = None
@@ -190,21 +207,30 @@ def make_eval_step(loss_fn, metric_fns: Dict[str, Callable], with_outputs: bool 
     def eval_step(state: TrainState, batch):
         state.model.eval()
         with state.eval_params() as model:
+            if state.binding is not None:
+                state.binding.bind(state.params, requires_grad=False)
             outputs = model(batch["x"])
         stats = {"loss": loss_fn(outputs, batch)}
         for name, fn in metric_fns.items():
             stats[name] = fn(outputs, batch)
+        if state.binding is not None:
+            stats = state.binding.reduce_stats(stats)
         return (stats, outputs) if with_outputs else stats
 
     return eval_step
 
 
-def _refuse(cfg: Dict[str, Any]) -> None:
-    mesh = cfg.get("mesh") or {}
-    wide = {k: v for k, v in mesh.items() if isinstance(v, int) and v > 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh {wide}: sharded training is not ported to mlcomp_tpu_torch yet (ROADMAP A12)")
+def build_mesh(cfg: Dict[str, Any], device: torch.device):
+    """The Trainer's mesh: a DeviceMesh over the process group's ranks
+    (``MeshSpec.from_config(cfg["mesh"])``), or None for a process alone,
+    where every axis must resolve to 1."""
+    from mlcomp_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    spec = MeshSpec.from_config(cfg.get("mesh"))
+    if not torch.distributed.is_initialized():
+        spec.resolve(1)
+        return None
+    return make_mesh(spec, device_type=device.type)
 
 
 class Trainer:
@@ -225,9 +251,14 @@ class Trainer:
         from mlcomp_tpu_torch.io.weights import from_flax_params, init_params
         from mlcomp_tpu_torch.models import create_model
 
-        _refuse(cfg)
+        from mlcomp_tpu_torch.parallel.mesh import batch_sharding, set_current_mesh
+        from mlcomp_tpu_torch.parallel.sharding import make_sharded_state
+
         self.cfg = dict(cfg)
         self.device = resolve_device(device)
+        self.mesh = build_mesh(cfg, self.device)
+        # models reach the mesh for their sequence/tensor/pipeline paths
+        set_current_mesh(self.mesh)
         self.seed = int(cfg.get("seed", 0))
         self.loss_fn = create_loss(cfg.get("loss", "cross_entropy"))
         self.metric_fns = create_metrics(cfg.get("metrics", ["accuracy"]))
@@ -255,25 +286,35 @@ class Trainer:
                 create_dataset(dcfg), batch_size=bs,
                 shuffle=bool(dcfg.get("shuffle", split == "train")), seed=self.seed,
                 drop_last=bool(dcfg.get("drop_last", split == "train")), device=self.device,
+                shard=batch_sharding(self.mesh),
             )
         if not self.loaders:
             raise ValueError("Trainer needs at least one data split configured")
 
-        self.model = create_model(dict(cfg["model"]), device=self.device)
+        # under a mesh the weights are drawn on the host, and each rank
+        # keeps only its shards on the device (make_sharded_state)
+        init_dev = self.device if self.mesh is None else torch.device("cpu")
+        self.model = create_model(dict(cfg["model"]), device=init_dev)
         m = self.model
         if hasattr(m, "load_variables"):
             # the zoo: shapes from one example of the first split, as the
             # JAX Trainer's init_model reads them
             split0 = "train" if "train" in self.loaders else next(iter(self.loaders))
             sample_shape = (1,) + tuple(self.loaders[split0].data["x"].shape[1:])
-            params, model_state = m.init_variables(self.seed, self.device, sample_shape)
+            params, model_state = m.init_variables(self.seed, init_dev, sample_shape)
             m.load_variables(params, model_state, train=True)
         else:
-            params = init_params(m.arch(), self.seed, device=self.device)
+            params = init_params(m.arch(), self.seed, device=init_dev)
             m.load_state(from_flax_params(params, fold=False), train=True)
 
-        self.state = TrainState.create(self.model, self.tx,
-                                       ema_decay=float(cfg.get("ema", 0.0) or 0.0))
+        ema_decay = float(cfg.get("ema", 0.0) or 0.0)
+        if self.mesh is None:
+            self.state = TrainState.create(self.model, self.tx, ema_decay=ema_decay)
+        else:
+            self.state, self.state_specs = make_sharded_state(
+                self.model, self.tx, self.mesh, ema_decay=ema_decay)
+            if hasattr(m, "device"):
+                m.device = self.device
         self._train_step = make_train_step(
             self.loss_fn, self.metric_fns, grad_accum=int(cfg.get("grad_accum", 1)),
             augment_fn=augment_fn, mixup_alpha=float(cfg.get("mixup", 0.0) or 0.0),
@@ -406,8 +447,13 @@ class Trainer:
         ``return_labels=True`` also returns the labels of the same batches."""
         outs, labels = [], []
         self.model.eval()
+        binding = self.state.binding
         for batch in self._loader(split):
             with self.state.eval_params() as model:
+                if binding is not None:
+                    # every rank predicts the whole global batch
+                    binding.bind(self.state.params, requires_grad=False)
+                    batch = {k: binding.gather_rows(v) for k, v in batch.items()}
                 out = model(batch["x"]).float().cpu().numpy()
             y = batch["y"].cpu().numpy() if "y" in batch else None
             if "valid" in batch:

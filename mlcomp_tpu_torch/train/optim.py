@@ -293,10 +293,10 @@ def scale_by_factored_rms(factored: bool = True, decay_rate: float = 0.8,
             dims = _factored_dims(tuple(p.shape), factored, min_dim_size_to_factor)
             if dims is not None:
                 d1, d0 = dims
-                v_row[k] = torch.zeros(np.delete(p.shape, d0).tolist(), dtype=p.dtype,
-                                       device=p.device)
-                v_col[k] = torch.zeros(np.delete(p.shape, d1).tolist(), dtype=p.dtype,
-                                       device=p.device)
+                # zeros reduced over one axis: shaped (and, for a sharded
+                # parameter, placed) as the update's moments come out
+                v_row[k] = torch.zeros_like(p).mean(d0)
+                v_col[k] = torch.zeros_like(p).mean(d1)
             else:
                 v[k] = torch.zeros_like(p)
         return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
@@ -435,4 +435,10 @@ def apply_updates(params: Tree, updates: Tree) -> None:
     """``optax.apply_updates`` in place: ``p += u`` for every leaf."""
     with torch.no_grad():
         for k, p in params.items():
-            p.add_(updates[k].to(p.dtype))
+            u = updates[k].to(p.dtype)
+            if getattr(u, "placements", None) is not None and u.placements != p.placements:
+                # a sharded parameter (DTensor): the update in its placement
+                from mlcomp_tpu_torch.parallel.sharding import match_placements
+
+                u = match_placements(u, p)
+            p.add_(u)

@@ -12,6 +12,12 @@ so optimizer state, checkpoints and tests use the JAX package's names.
 BatchNorm statistics (the JAX state's ``{"batch_stats": ...}``; empty for
 a model without them): train-mode steps update them in place, eval and
 predict read them, and the EMA never touches them, as in the JAX package.
+
+Under a mesh (``parallel/sharding.make_sharded_state``) the parameters,
+the optimizer state and the EMA are DTensors placed by ``spec_for``, the
+model computes on the views ``binding`` sets into it each step, and
+``state_dict`` gathers every leaf to its full value (a collective on
+every rank), so a sharded run's checkpoint is the unsharded one.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ class TrainState:
         self.ema_decay = float(ema_decay)
         self.ema_params: Optional[Dict[str, torch.Tensor]] = (
             {k: p.detach().clone() for k, p in params.items()} if ema_decay else None)
+        # the per-step views of sharded parameters (parallel/sharding.py);
+        # None when the model holds its parameters itself
+        self.binding = None
 
     @classmethod
     def create(cls, model: nn.Module, tx: Transform, ema_decay: float = 0.0) -> "TrainState":
@@ -76,8 +85,13 @@ class TrainState:
                     p.copy_(saved[k])
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"step": self.step, "params": {k: p.detach() for k, p in self.params.items()},
-                "opt_state": self.opt_state, "ema_params": self.ema_params,
+        """The state with every sharded leaf gathered to its full value (a
+        collective: every rank of a mesh calls it)."""
+        from mlcomp_tpu_torch.parallel.sharding import full_tree
+
+        return {"step": self.step,
+                "params": full_tree({k: p.detach() for k, p in self.params.items()}),
+                "opt_state": full_tree(self.opt_state), "ema_params": full_tree(self.ema_params),
                 "model_state": dict(self.model_state)}
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
@@ -86,21 +100,29 @@ class TrainState:
         this state tracks one, the EMA starts from the restored parameters;
         saved with EMA while this state does not, the EMA weights become
         the parameters."""
+        from mlcomp_tpu_torch.parallel.sharding import load_into, restore_like
+
         with torch.no_grad():
             src = sd["params"]
             if self.ema_params is None and sd.get("ema_params") is not None:
                 src = sd["ema_params"]
             for k, p in self.params.items():
-                p.copy_(src[k])
+                load_into(p, src[k].to(p.device if self.binding is None else "cpu"))
             saved_stats = sd.get("model_state") or {}
             for k, t in self.model_state.items():
                 if k in saved_stats:
                     t.copy_(saved_stats[k])
         dev = next(iter(self.params.values())).device
-        self.opt_state = _to_device(sd["opt_state"], dev)
+        if self.binding is not None:
+            self.opt_state = restore_like(self.opt_state, sd["opt_state"])
+        else:
+            self.opt_state = _to_device(sd["opt_state"], dev)
         if self.ema_params is not None:
             ema = sd.get("ema_params") or sd["params"]
-            self.ema_params = {k: ema[k].to(dev).clone() for k in self.params}
+            if self.binding is not None:
+                self.ema_params = restore_like(self.ema_params, {k: ema[k] for k in self.params})
+            else:
+                self.ema_params = {k: ema[k].to(dev).clone() for k in self.params}
         self.step = int(sd["step"])
 
 

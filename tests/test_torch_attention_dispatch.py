@@ -19,6 +19,7 @@ head dim 256 (and 192, padded to 256 on the card) and on f32, against
 the largest entry.
 """
 
+import gc
 import warnings
 
 import jax
@@ -69,6 +70,9 @@ def _jax_call(monkeypatch, q, k, v, mask, causal):
                         _route(jflash, "flash_attention", routes, "flash"))
     monkeypatch.setattr(jattn, "reference_attention",
                         _route(jattn, "reference_attention", routes, "reference"))
+    # earlier tests' cyclic garbage (an unclosed socket's ResourceWarning)
+    # is collected before the window, not inside it
+    gc.collect()
     with warnings.catch_warnings(record=True) as got:
         warnings.simplefilter("always")
         out = jattn.dot_product_attention(
@@ -86,6 +90,7 @@ def _port_call(monkeypatch, q, k, v, mask, causal):
         routes.append("flash"), fa.flash_attention_plain(q_, k_, v_, c, s, lo, hi))[1])
     monkeypatch.setattr(tattn, "reference_attention",
                         _route(tattn, "reference_attention", routes, "reference"))
+    gc.collect()
     with warnings.catch_warnings(record=True) as got:
         warnings.simplefilter("always")
         out = tattn.dot_product_attention(

@@ -151,6 +151,11 @@ def test_gang_tasks_fail_in_the_child_until_the_port_is_distributed(tmp_path, mo
         '{"db": "%s", "claim": {"id": 1, "dag_id": 1, "name": "t", "args": "{}",'
         ' "chips": 0, "stage": "train", "executor": "noop"}, "workdir": "%s",'
         ' "result": "%s", "process_id": 0}' % (tmp_path / "db.sqlite", tmp_path, result))
+    # the child now joins the gang's process group first: a gang
+    # environment without the process count and id fails there, before any
+    # executor runs (tests/test_torch_parallel_gang.py runs whole gangs)
     monkeypatch.setenv("MLCOMP_TPU_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.delenv("MLCOMP_TPU_NUM_PROCESSES", raising=False)
+    monkeypatch.delenv("MLCOMP_TPU_PROCESS_ID", raising=False)
     assert child.run_spec(str(spec)) == 1
-    assert "gang tasks" in result.read_text()
+    assert "MLCOMP_TPU_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID" in result.read_text()

@@ -338,6 +338,22 @@ def test_a_repeated_prompt_hits_the_registry_and_gives_the_cold_tokens(kv_quant,
     assert st["kv_pool"]["outstanding_page_leases"] == 0
 
 
+class _HeldAtFirstToken(queue.Queue):
+    """A request's token stream whose first ``put`` (on the engine's loop
+    thread) sets ``first`` and waits for ``release``: the loop stands still
+    at that boundary meanwhile."""
+
+    def __init__(self):
+        super().__init__()
+        self.first, self.release = threading.Event(), threading.Event()
+
+    def put(self, item, *a, **k):
+        super().put(item, *a, **k)
+        if not self.first.is_set():
+            self.first.set()
+            self.release.wait(timeout=120)
+
+
 def test_import_into_near_full_pool_rejects_typed():
     """A service whose pool cannot hold the import's pages fast-fails the
     handoff with the typed no_free_pages verdict, before anything was
@@ -347,16 +363,21 @@ def test_import_into_near_full_pool_rejects_typed():
                             kv_page_tokens=4, max_slots=2, kv_pages=9, phase="decode")
     try:
         blob = _export(False, IDS_A, 8)
-        # a live stream on ANOTHER prompt holds most of the tight pool
+        # a live stream on ANOTHER prompt holds most of the tight pool; its
+        # first token holds the engine's loop (which puts it), so that no
+        # lazy page allocation moves the free pages between the two reads
         other = [5, 8, 21, 33, 41, 17, 29, 60, 11, 13]
-        q: "queue.Queue" = queue.Queue()
+        q = _HeldAtFirstToken()
         fut = svc.submit(other, 8, stream=q)
-        q.get(timeout=120)   # decoding: its pages are held
-        free_before = svc.engine._pool.stats()["pages_free"]
-        with pytest.raises(BackpressureError) as ei:
-            svc.import_pages(blob)
-        assert ei.value.reason == "no_free_pages"
-        assert svc.engine._pool.stats()["pages_free"] == free_before
+        assert q.first.wait(timeout=120)   # decoding: its pages are held
+        try:
+            free_before = svc.engine._pool.stats()["pages_free"]
+            with pytest.raises(BackpressureError) as ei:
+                svc.import_pages(blob)
+            assert ei.value.reason == "no_free_pages"
+            assert svc.engine._pool.stats()["pages_free"] == free_before
+        finally:
+            q.release.set()
         fut.result(timeout=120)
     finally:
         svc.close()

@@ -416,6 +416,22 @@ def test_ready_is_false_during_warmup_and_true_after():
 # --------------------------------------------------------- fault points
 
 
+class _HeldAtFirstToken(queue.Queue):
+    """A request's token stream whose first ``put`` (on the engine's loop
+    thread) sets ``first`` and waits for ``release``: the loop stands still
+    at that boundary meanwhile."""
+
+    def __init__(self):
+        super().__init__()
+        self.first, self.release = threading.Event(), threading.Event()
+
+    def put(self, item, *a, **k):
+        super().put(item, *a, **k)
+        if not self.first.is_set():
+            self.first.set()
+            self.release.wait(timeout=600)
+
+
 def _scenario(point, engine_of, fmod, kind):
     """One fault point against one engine (``engine_of(**kw)``, ``fmod``
     its package's faults module): which requests fail, and with what."""
@@ -447,11 +463,17 @@ def _scenario(point, engine_of, fmod, kind):
             out.append(outcome(eng.submit(a_ids, 6)))
             flush()
         elif kind == "decode":
-            qa = queue.Queue()
+            # A's first token holds the engine's loop (which puts it) until B
+            # is queued and the fault armed: the fault then fires with A and
+            # B waiting in either engine, however the threads are scheduled
+            qa = _HeldAtFirstToken()
             fa = eng.submit(a_ids, 12, stream=qa)
-            qa.get(timeout=600)                     # A is decoding
-            fmod.arm(point, flavor="raise", times=1)
-            fb = eng.submit(b_ids, 6)
+            assert qa.first.wait(timeout=600)       # A is decoding
+            try:
+                fb = eng.submit(b_ids, 6)
+                fmod.arm(point, flavor="raise", times=1)
+            finally:
+                qa.release.set()
             out += [outcome(fa), outcome(fb)]
         else:
             out.append(outcome(eng.submit(a_ids, 6)))

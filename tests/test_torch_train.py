@@ -288,7 +288,10 @@ def test_ema_tracks_and_eval_uses_it():
 @pytest.mark.parametrize("key,value", [("mesh", {"dp": 8}), ("profile", {"dir": "x"}),
                                        ("mixup", 0.2), ("augment", {"flip": True})])
 def test_unported_trainer_options_are_refused(key, value):
-    """``mesh`` is not ported: NotImplementedError.  ``profile`` is: the
+    """``mesh`` is ported: a process alone (no process group) is one
+    device, so a mesh of 8 is refused as the JAX ``MeshSpec.resolve``
+    refuses a mesh larger than its devices (ValueError; the gloo gangs of
+    tests/test_torch_parallel_*.py run the meshes).  ``profile`` is: the
     Trainer builds the JAX Trainer's profiler window from it (the capture
     itself is held in tests/test_torch_devprof.py).  ``augment`` and
     ``mixup`` are, and on this LM config each is refused as the JAX
@@ -296,7 +299,7 @@ def test_unported_trainer_options_are_refused(key, value):
     mixup of token ids at the first step (ValueError)."""
     cfg = {**_lm_cfg(ADAMW), key: value}
     if key == "mesh":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="needs 8 devices but 1 available"):
             Trainer(cfg, device="cpu")
     elif key == "profile":
         from mlcomp_tpu.utils.profile import create_profiler as j_create_profiler
