@@ -290,11 +290,6 @@ def _cmd_serve(args: argparse.Namespace) -> int:
 
     from mlcomp_tpu_torch.serve import load_service, resolve_storage_ckpt, serve_http
 
-    if args.mesh or args.distributed or args.sync_port is not None:
-        raise NotImplementedError(
-            "serve --mesh/--distributed/--sync-port: the engine under a mesh is not "
-            "ported yet (ROADMAP A12b); serve on one card")
-
     with open(args.model) as f:
         doc = yaml.safe_load(f)
     # a bare model mapping, or any YAML with a top-level ``model:`` section
@@ -313,6 +308,36 @@ def _cmd_serve(args: argparse.Namespace) -> int:
                   file=sys.stderr)
             return 2
         ckpt = resolve_storage_ckpt(*parts)
+    mesh_cfg = None
+    if args.mesh:
+        try:
+            mesh_cfg = {k.strip(): int(v) for k, v in (kv.split("=") for kv in args.mesh.split(","))}
+        except ValueError:
+            print(f"error: --mesh expects AXIS=N[,AXIS=N...], got {args.mesh!r}", file=sys.stderr)
+            return 2
+    dist = None
+    if args.distributed:
+        # a serve gang: join the process group FIRST (the mesh spans every
+        # rank), then open the boundary channel.  Every rank runs the same
+        # command line; rank 0 fronts the gang, the others follow
+        if not mesh_cfg:
+            print("error: --distributed needs --mesh (the gang runs one program a rank over "
+                  "the global mesh)", file=sys.stderr)
+            return 2
+        import signal
+
+        from mlcomp_tpu_torch.parallel.distributed import BoundaryChannel, init_distributed
+        from mlcomp_tpu_torch.utils.device import resolve_device
+
+        init_distributed(device=resolve_device(args.device))
+        dist = BoundaryChannel(port=args.sync_port)
+
+        def stop(*_):
+            # SIGTERM closes the service: the coordinator's loop then sends
+            # the stop record that ends the followers' loops
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, stop)
     slo_config = None
     if args.slo_config:
         if not args.metrics_history_interval:
@@ -366,6 +391,8 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         max_concurrent_requests=args.max_concurrent_requests,
         metrics_history_interval=args.metrics_history_interval,
         slo_config=slo_config,
+        mesh_cfg=mesh_cfg,
+        **({"dist": dist} if dist is not None else {}),
     )
     serve_http(service, args.host, args.port, model_name=str(model_cfg.get("name", "model")),
                **({"warmup": True} if args.warmup else {}))
@@ -670,14 +697,31 @@ def main(argv=None) -> int:
                     " load) or the CUDA int8 matmul ('kernel')")
     sv.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache read by the CUDA flash-decode kernel")
-    # the JAX command's sharded serving flags: refused until the engine
-    # runs under a mesh (ROADMAP A12b)
     sv.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N...]",
-                    help="not ported yet (ROADMAP A12b): refused")
+                    help="serve SHARDED over a mesh of processes, one rank a card: Megatron"
+                    " tp weight layout (q/k/v, gate/up, lm_head column-parallel, out/down"
+                    " row-parallel, KV heads over tp), decode rows over dp.  Ranks not"
+                    " claimed by named axes fold into dp (e.g. 'tp=2' on 4 ranks gives dp=2"
+                    " tp=2), and every --batch-sizes entry must divide dp*fsdp.  --quantize"
+                    " kernel and --kv-quant compose with tp/dp meshes (each rank runs the"
+                    " kernels on its shards); fsdp does not, and decode_fused is refused."
+                    " The continuous engine's pipeline (depth 2) and the paged KV layout"
+                    " compose with the mesh; speculative dispatch and --prefix-cache remain"
+                    " single-card.  A mesh wider than one rank needs --distributed")
     sv.add_argument("--distributed", action="store_true",
-                    help="not ported yet (ROADMAP A12b): refused")
+                    help="serve as one rank of a gang: join the process group"
+                    " (MLCOMP_TPU_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID) and run the"
+                    " continuous engine over the global --mesh.  Rank 0 owns the HTTP front"
+                    " door and submit queue and broadcasts per-boundary admission/retire"
+                    " decisions over a TCP side channel (--sync-port) so every rank issues"
+                    " the same dispatch sequence; the other ranks answer /healthz as"
+                    " ready:false followers (route traffic at the coordinator) and exit when"
+                    " the coordinator stops.  Every rank runs the SAME command line (same"
+                    " --mesh, knobs and seed).  NCCL refuses two ranks on one card: put"
+                    " them on gloo with MLCOMP_TPU_DIST_BACKEND=gloo")
     sv.add_argument("--sync-port", type=int, default=None,
-                    help="not ported yet (ROADMAP A12b): refused")
+                    help="--distributed boundary-channel TCP port (default:"
+                    " MLCOMP_TPU_SYNC_PORT, else the coordinator port + 1)")
     sv.add_argument("--batcher", default="auto",
                     choices=("auto", "continuous", "window", "speculative"),
                     help="'continuous' (the default, 'auto'): fixed decode slots,"

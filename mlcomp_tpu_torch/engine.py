@@ -96,9 +96,25 @@ rung; none is captured yet.
   ``mlcomp_engine_device_time_ms`` / ``_roofline_utilization`` families
   carry the last capture (else the steady-state estimate).
 
-Not in this engine (the JAX engine has them; see ROADMAP.md): meshes and
-distributed gangs (A12b, the serving half of A12; ``serve --mesh`` and
-``--distributed`` are refused).
+- Under a mesh (``mesh=``, a ``DeviceMesh`` over the process group: one
+  rank a card) the engine is a gang (``dist=``, a
+  ``parallel/distributed.BoundaryChannel``): rank 0, the coordinator, owns
+  the submit queue and at every dispatch boundary broadcasts its
+  admissions, retirements, K and control items; every other rank, a
+  follower, replays them, so that every rank issues the same dispatch
+  sequence and so the same collectives.  Each rank holds its
+  tensor-parallel shard of every weight and the KV of its ``kv_heads /
+  tp`` heads (``models/transformer.set_serving_tp``); the tables and the
+  per-row bookkeeping are replicated, and the decode forward runs each dp
+  rank's rows, their logits gathered over dp, so every rank samples every
+  row from the same logits with the same keys.  dp splits the decode
+  work, not the memory: every rank runs every admission and holds every
+  slot's KV (the cache is replicated over dp), its copy of the other dp
+  ranks' rows stale once they decode, so the slot counts must split over
+  dp (``_dp_rows``).  Each rank launches the
+  one-card kernels on its local shapes.  A mesh of one rank is the
+  one-card engine, bit for bit.  Speculative dispatch, the prefix cache,
+  prefill-only engines, imports and device captures stay single-card.
 """
 
 from __future__ import annotations
@@ -145,7 +161,10 @@ from mlcomp_tpu_torch.obs import devprof
 from mlcomp_tpu_torch.obs.metrics import DEFAULT_MS_BUCKETS, Registry
 from mlcomp_tpu_torch.ops.cuda import launch_counts
 from mlcomp_tpu_torch.ops.cuda.quant_matmul import GEMV_ROWS
-from mlcomp_tpu_torch.ops.quant import Int8Linear
+from mlcomp_tpu_torch.ops.quant import Int8Linear, mesh_gate
+from mlcomp_tpu_torch.parallel import collectives as col
+from mlcomp_tpu_torch.parallel.distributed import ChannelClosed, process_count, process_index
+from mlcomp_tpu_torch.parallel.mesh import batch_sharding, mesh_shape
 from mlcomp_tpu_torch.serve import _bucket, _fail_future, left_pad_row
 from mlcomp_tpu_torch.utils.faults import inject as _inject_fault
 from mlcomp_tpu_torch.utils.profile import StepProfiler
@@ -173,6 +192,15 @@ class EngineStalled(RuntimeError):
     ``dispatch_stall_timeout``) or found the drive loop dead."""
 
     status = "engine_stalled"
+
+
+class NotCoordinator(RuntimeError):
+    """This process is a FOLLOWER in a distributed serve gang: it replays
+    the coordinator's broadcast dispatch sequence and owns no submit queue.
+    Send traffic to the coordinator (rank 0), whose ``/healthz`` answers
+    ``ready: true``; followers answer false.  HTTP maps this to 503."""
+
+    status = "not_coordinator"
 
 
 class ProfileBusy(RuntimeError):
@@ -270,7 +298,12 @@ class DecodeEngine:
     ``prefix_cache`` (a ``cache.PrefixKVCache``) turns on the host prefix
     cache; ``flight_recorder_events`` bounds the recorder's ring (0
     disables it); ``metrics`` is the registry the engine's collector and
-    histograms join (a private one by default)."""
+    histograms join (a private one by default).
+
+    ``mesh`` serves a model loaded with the rank's shards
+    (``models.generation.prep_decode_variables(..., mesh=)``) and ``dist``
+    (a ``BoundaryChannel``) makes this rank the gang's coordinator or a
+    follower (module docstring); a mesh wider than one rank needs it."""
 
     def __init__(
         self,
@@ -294,13 +327,32 @@ class DecodeEngine:
         prefix_cache=None,
         flight_recorder_events: Optional[int] = 32768,
         metrics: Optional[Registry] = None,
+        mesh=None,
+        dist=None,
     ):
         self.model = model
         self.device = torch.device(model.device)
         self.prefill_only = bool(prefill_only)
+        self.mesh = mesh
+        # the serve gang's boundary channel: rank 0 broadcasts each
+        # boundary's decisions, the others replay them (_sync_boundary)
+        self._dist = dist
+        if dist is not None and mesh is None:
+            raise ValueError("distributed serving (dist=...) needs a mesh: the gang runs one "
+                             "program a rank over the global mesh")
+        self._check_mesh(mesh, dist)
         if self.prefill_only:
             if spec_k is not None:
                 raise ValueError("prefill_only engines run no decode dispatch; drop spec_k")
+            if dist is not None:
+                raise ValueError("prefill_only does not compose with distributed serving (the "
+                                 "gang synchronizes DECODE boundaries); run prefill replicas "
+                                 "single-process")
+            if mesh is not None:
+                raise ValueError("prefill_only is single-chip for now (the export capture "
+                                 "fetches host rows, which does not compose with a sharded "
+                                 "admission cache; the sharded prefill tier is a named "
+                                 "follow-up); drop the mesh")
             if kv_layout != "dense":
                 raise ValueError("prefill_only engines keep the dense admission cache (there "
                                  "are no decode slots to page); pass kv_page_tokens to pick "
@@ -352,6 +404,10 @@ class DecodeEngine:
                           "verifies spec_k+1 positions in one forward; drop steps_per_dispatch "
                           "(or pass 1)", stacklevel=2)
         self.spec_k = None if spec_k is None else int(spec_k)
+        if self.spec_k is not None and mesh is not None:
+            raise ValueError("speculative dispatch is single-chip for now (the multi-query "
+                             "verify has no sharded drafter; a sharded drafter is the "
+                             "sharded-serving PR's named follow-up); drop spec_k or the mesh")
         # int8 weights through the kernel: the verify's products run
         # slots*(spec_k+1) rows, and past GEMV_ROWS they leave the decode
         # kernel for the tiled path
@@ -372,6 +428,12 @@ class DecodeEngine:
             raise ValueError("prefill_chunk must be >= 1")
         self.fused_admission = True if fused_admission is None else bool(fused_admission)
         self.prefix_cache = prefix_cache
+        if prefix_cache is not None and mesh is not None:
+            raise ValueError("the prefix KV cache is single-chip for now (host-side row inserts "
+                             "don't compose with a sharded cache; sharding the capture/assemble "
+                             "tier is the sharded-serving PR's named follow-up, and the device "
+                             "prefix-page registry already serves sharded paged engines); drop "
+                             "prefix_cache or the mesh")
         if prefix_cache is not None:
             # hits skip whole chunks only: a bucket that prefills as ONE
             # chunk can never hit (its captures feed other buckets)
@@ -383,6 +445,8 @@ class DecodeEngine:
                               f"{self.prefill_chunk}), and hits skip whole chunks only; shrink "
                               "prefill_chunk to a divisor of every bucket to cache-serve them",
                               stacklevel=2)
+        # depth 2 by default, mesh or not: every rank chains its dispatches
+        # on its own stream as one card does
         self.pipeline_depth = 2 if pipeline_depth is None else int(pipeline_depth)
         if self.pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
@@ -420,6 +484,10 @@ class DecodeEngine:
             self._adm_cache = model.init_cache(1, self.l_buf)
             if self.kv_layout == "paged":
                 self._init_pool(kv_page_tokens, kv_pages, max_slots)
+            if self.slots % self._dp_count or self.max_slots % self._dp_count:
+                raise ValueError(f"slots={self.slots} and max_slots={self.max_slots} must "
+                                 f"split over dp={self._dp_count}: each dp rank decodes its "
+                                 "share of the rows")
             # the EXPORT geometry (prefill_only): pages must tile every
             # chunk, so the prompt span exports as whole tiles of the
             # admission cache's leaves
@@ -535,6 +603,64 @@ class DecodeEngine:
                                               name="engine-watchdog")
             self._watchdog.start()
 
+    def _check_mesh(self, mesh, dist) -> None:
+        """The mesh's groups, or the refusals: a gang shards over dp, tp and
+        ep (the other axes serve nothing here), and a mesh wider than one
+        rank needs the boundary channel (every rank must issue the same
+        dispatch sequence)."""
+        self._dp_group = None
+        self._dp_index, self._dp_count = 0, 1
+        wide = mesh_gate(mesh) if isinstance(mesh, dict) or hasattr(mesh, "mesh_dim_names") \
+            else None
+        if wide is None:
+            return
+        shape = mesh_shape(wide)
+        other = {a: n for a, n in shape.items() if a not in ("dp", "tp", "ep") and n > 1}
+        if other:
+            raise ValueError(f"serving under a mesh shards over dp, tp and ep (moe_lm's "
+                             f"experts); axes {other} have no serving layout")
+        if dist is None:
+            raise ValueError(f"a mesh over {math.prod(shape.values())} ranks needs dist= (a "
+                             "parallel.distributed.BoundaryChannel): every rank is a process, "
+                             "and the followers replay the coordinator's boundaries")
+        self._dp_index, self._dp_count = batch_sharding(wide)
+        self._dp_group = col.group_of(wide, "dp")
+
+    def _dp_rows(self, ns: int) -> Optional[Tuple[int, int]]:
+        """This rank's rows ``[lo, hi)`` of an ``ns``-row decode forward
+        under dp, or None (no dp axis).  Every rank holds every slot's KV
+        (the cache is replicated over dp), but a decode step writes only the
+        rows it runs: the other dp ranks' rows of this rank's cache are
+        stale from their first decode step on, and are read only because
+        every step splits the rows the same way.  So a row count that dp
+        does not divide is refused here (the constructor refuses such slot
+        counts)."""
+        if self._dp_group is None:
+            return None
+        if ns % self._dp_count:
+            raise RuntimeError(f"{ns} decode rows do not split over dp={self._dp_count}: the "
+                               "other dp ranks' rows of this rank's cache are stale")
+        per = ns // self._dp_count
+        return self._dp_index * per, (self._dp_index + 1) * per
+
+    def _forward_rows(self, ids, positions, cache, cursors, kv_start) -> torch.Tensor:
+        """The decode forward of every slot (last-position logits): under dp
+        each rank runs its rows on their rows of the cache (a view) and the
+        logits are gathered over dp, so every rank holds every row's."""
+        rows = self._dp_rows(ids.shape[0])
+        if rows is None:
+            return self.model(ids, positions=positions, cache=cache, last_only=True,
+                              cache_cursor=cursors, kv_start=kv_start)
+        lo, hi = rows
+        if isinstance(cache, PagedKV):
+            part = PagedKV(cache.layout, cache.pages, cache.table[lo:hi])
+        else:
+            part = type(cache)([type(layer)(**{n: t[lo:hi] for n, t in vars(layer).items()})
+                                for layer in cache.layers], cache.index)
+        logits = self.model(ids[lo:hi], positions=positions[lo:hi], cache=part, last_only=True,
+                            cache_cursor=cursors[lo:hi], kv_start=kv_start[lo:hi])
+        return col.gather_dim(logits.contiguous(), self._dp_group, 0)
+
     def _init_pool(self, kv_page_tokens, kv_pages, max_slots) -> None:
         """The paged layout and its pool: page size from the admission
         geometry, the default budget the dense layout's KV bytes (``slots``
@@ -649,6 +775,9 @@ class DecodeEngine:
         if n_new > self.max_new_cap:
             raise ValueError(f"max_new_tokens {n_new} exceeds the engine cap {self.max_new_cap}")
         self._bucket(len(ids))  # validate now, in the caller thread
+        if not self.is_coordinator:
+            raise NotCoordinator("this process is a follower in a distributed serve gang; "
+                                 "submit to the coordinator (process 0)")
         if self.spec_k is not None and (float(temperature) != 0.0
                                         or float(repetition_penalty) != 1.0):
             raise ValueError("a speculative engine (spec_k set) is greedy-only: temperature "
@@ -782,6 +911,9 @@ class DecodeEngine:
         mismatched blob raises the typed ``HandoffError`` with no page,
         lease or slot touched.  ``parsed`` (what :meth:`validate_handoff`
         returned) skips a second parse."""
+        if self._dist is not None:
+            raise RuntimeError("import_pages does not compose with distributed serving yet "
+                               "(imports are not broadcast to the gang): the named follow-up")
         meta, logits, payloads = parsed if parsed is not None else self.validate_handoff(blob)
         if self._stop.is_set():
             raise RuntimeError("decode engine closed")
@@ -854,7 +986,7 @@ class DecodeEngine:
             if adm is not None and adm.req["rid"] == rid:
                 return True
             with self._queue.mutex:
-                return any(isinstance(r, dict) and r["rid"] == rid for r in self._queue.queue)
+                return any(isinstance(r, dict) and r.get("rid") == rid for r in self._queue.queue)
 
         if not is_live():
             return False
@@ -882,6 +1014,11 @@ class DecodeEngine:
         second arm raises :class:`ProfileBusy` (HTTP 409).  A capture's
         failure fails its future only."""
         n = int(dispatches)
+        if self._dist is not None:
+            raise RuntimeError("on-demand device capture does not compose with distributed "
+                               "serving yet (the window's drains run on one process only, "
+                               "which would desequence the gang); profile a single-card daemon: "
+                               "the gang-wide capture is the named follow-up")
         if not 1 <= n <= 1024:
             # the trace is read on the loop thread at the window's close:
             # the cap keeps that stall proportionate
@@ -923,6 +1060,13 @@ class DecodeEngine:
         if pr["owns_dir"]:
             shutil.rmtree(pr["dir"], ignore_errors=True)
         return True
+
+    @property
+    def is_coordinator(self) -> bool:
+        """True for a single-card engine and for rank 0 of a distributed
+        serve gang: the process that owns the submit queue and broadcasts
+        the boundary decisions."""
+        return self._dist is None or self._dist.is_coordinator
 
     @property
     def healthy(self) -> bool:
@@ -978,6 +1122,10 @@ class DecodeEngine:
                 "per_token_ms": self._percentiles(self._lat_tok),
             },
         }
+        if self.mesh is not None:
+            # the /healthz mesh block: which process fronts the gang and how
+            # the mesh is carved up
+            out["mesh"] = self._mesh_info()
         if self._pool is not None:
             out["live_slots"] = len(self._host)
             out["max_slots"] = self.max_slots
@@ -998,6 +1146,18 @@ class DecodeEngine:
         # estimate
         out["device"] = self._device_summary()
         return out
+
+    def _mesh_info(self) -> Dict[str, Any]:
+        """The mesh block behind stats() and the mesh gauges (a placeholder
+        mesh object degrades the axis and device fields to None)."""
+        try:
+            axes = {str(k): int(v) for k, v in mesh_shape(self.mesh).items()}
+            devices = math.prod(axes.values())
+        except Exception:
+            axes, devices = None, None
+        return {"axes": axes, "devices": devices, "processes": process_count(),
+                "process_index": process_index(), "coordinator": self.is_coordinator,
+                "distributed": self._dist is not None}
 
     @property
     def _forwards(self) -> int:
@@ -1050,8 +1210,7 @@ class DecodeEngine:
         """Scrape-time collector: the engine's monotonic stats into the
         registry (``set_total`` keeps counters monotonic across scrapes);
         the hot path pays nothing for /metrics.  The JAX engine's
-        families, less those whose subject the port has no module for yet:
-        meshes (A12b)."""
+        families."""
         m = self.metrics
         st = self._stats
 
@@ -1191,6 +1350,13 @@ class DecodeEngine:
             "Estimated KV bytes one dispatch moves through device memory (dense: K forwards x "
             "buffer; paged through the table: K forwards x live pages; paged gather: + the "
             "dense-view round trip)", self._kv_bytes_moved_per_dispatch())
+        if self.mesh is not None:
+            info = self._mesh_info()
+            gau("mlcomp_engine_mesh_devices", "Devices in the serving mesh (sharded engines only)",
+                info["devices"] or 0)
+            gau("mlcomp_engine_is_coordinator",
+                "1 on the process that owns the submit queue (always 1 single-host; process 0 "
+                "of a distributed gang)", 1 if info["coordinator"] else 0)
         if self.prefix_cache is not None:
             cs = self.prefix_cache.stats()
             for key in ("lookups", "hits", "misses", "matched_tokens", "used_hits",
@@ -1211,7 +1377,15 @@ class DecodeEngine:
         state the thread may still touch is left alone."""
         self._stop.set()
         self._queue.put(_POISON)  # wake a blocked queue.get NOW
+        if self._dist is not None and not self._dist.is_coordinator:
+            # a follower's loop blocks in the channel's recv, not the queue:
+            # closing the channel is its poison pill
+            self._dist.close()
         self._thread.join(timeout=timeout)
+        if self._dist is not None:
+            # the coordinator's loop sent the stop record on its way out;
+            # release the sockets (idempotent)
+            self._dist.close()
         if self._watchdog is not None:
             self._watchdog.join(timeout=5.0)
         if self.prefix_cache is not None:
@@ -1255,7 +1429,11 @@ class DecodeEngine:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
-            if req is not _POISON:
+            if req is _POISON:
+                continue
+            if "ctrl" in req:
+                _fail_future(req["future"], err)
+            else:
                 self._fail_queued(req, err)
 
     def _drain_pending(self, err: Exception) -> None:
@@ -1320,9 +1498,8 @@ class DecodeEngine:
                 d["presence"][rows, tok] = d["presence"][rows, tok] | live
             d["remaining"].copy_(torch.where(live, d["remaining"] - 1, d["remaining"]))
             done_now = live & ((tok == d["eos"]) | (d["remaining"] <= 0))
-            logits = self.model(tok[:, None], positions=d["positions"][:, None],
-                                cache=cache, last_only=True,
-                                cache_cursor=d["cursors"], kv_start=d["kv_start"])
+            logits = self._forward_rows(tok[:, None], d["positions"][:, None], cache,
+                                        d["cursors"], d["kv_start"])
             d["last_logits"].copy_(logits[:, -1])
             d["cursors"].copy_(torch.where(live, d["cursors"] + 1, d["cursors"]))
             d["positions"].copy_(torch.where(live, d["positions"] + 1, d["positions"]))
@@ -2307,6 +2484,15 @@ class DecodeEngine:
             self._broken = e
             self._unhealthy_reason = f"drive loop error: {type(e).__name__}: {e}"
         finally:
+            if self._dist is not None and self._dist.is_coordinator:
+                # whatever ended the coordinator's loop, the followers must not
+                # wedge in recv: broadcast the stop record (best effort; a dead
+                # channel shows them closed)
+                try:
+                    self._dist.send({"stop": True, "new": [], "ctrl": [], "retired": [],
+                                     "k": self.steps_per_dispatch})
+                except Exception:
+                    pass
             # whatever ended the loop (close, an error, a watchdog verdict),
             # nothing may be left waiting on a future this thread will never
             # resolve; unread in-flight outputs are dropped
@@ -2321,19 +2507,27 @@ class DecodeEngine:
             self._drain_pending(err)
             self._drain_queue(err)
 
-    def _pump_queue(self, block_s: float = 0.0) -> None:
+    def _pump_queue(self, block_s: float = 0.0):
         """Move everything parked in the submit queue into ``_pending``;
-        block up to ``block_s`` for the first item when idle."""
+        block up to ``block_s`` for the first item when idle.  Returns the
+        requests moved and the control items (``warm_on_loop``) met."""
+        new: List[Dict[str, Any]] = []
+        ctrls: List[Dict[str, Any]] = []
         try:
             item = self._queue.get(timeout=block_s) if block_s else self._queue.get_nowait()
             while True:
                 # skip poison pills and futures already failed by submit's
                 # close race or the watchdog
                 if item is not _POISON and not item["future"].done():
-                    self._pending.append(item)
+                    if "ctrl" in item:
+                        ctrls.append(item)
+                    else:
+                        self._pending.append(item)
+                        new.append(item)
                 item = self._queue.get_nowait()
         except queue.Empty:
             pass
+        return new, ctrls
 
     def _retire_check(self, req: Dict[str, Any], now: Optional[float] = None
                       ) -> Optional[Exception]:
@@ -2352,15 +2546,19 @@ class DecodeEngine:
                               rid=req["rid"])
         self._cancelled.discard(req["rid"])
 
-    def _boundary_maintenance(self, block_s: float = 0.0) -> None:
+    def _boundary_maintenance(self, block_s: float = 0.0, include_adm: bool = False):
         """Pump the submit queue, then retire queued and active requests
-        whose deadline passed or whose rid was cancelled.  An active row is
-        deactivated on the device first (stream-ordered behind in-flight
-        dispatches), then its slot freed."""
-        self._pump_queue(block_s)
-        if (not self._pending and not self._cancelled
+        whose deadline passed or whose rid was cancelled (and, with
+        ``include_adm``, the admission: a gang retires only here).  An
+        active row is deactivated on the device first (stream-ordered
+        behind in-flight dispatches), then its slot freed.  Returns the
+        requests pumped, the control items and the retirements made, as
+        ``(rid, status)`` in order: what a gang's boundary record carries."""
+        new, ctrls = self._pump_queue(block_s)
+        retired: List[Tuple[int, str]] = []
+        if (not self._pending and not self._cancelled and not (include_adm and self._adm)
                 and all(s is None or s.req["t_deadline"] is None for s in self._host)):
-            return
+            return new, ctrls, retired
         now = time.perf_counter()
         kept: Deque[Dict[str, Any]] = deque()
         for req in self._pending:
@@ -2368,6 +2566,7 @@ class DecodeEngine:
             if err is None:
                 kept.append(req)
             else:
+                retired.append((req["rid"], err.status))
                 self._count_retire(err, req)
                 self._fail_queued(req, err)
         self._pending = kept
@@ -2377,11 +2576,143 @@ class DecodeEngine:
             err = self._retire_check(sl.req, now)
             if err is None:
                 continue
-            self._count_retire(err, sl.req)
-            self._d["active"][i] = False
-            self._d["remaining"][i] = 0
-            self._finish(i, error=err)
-            self._release_slot_pages(i)
+            retired.append((sl.req["rid"], err.status))
+            self._retire_row(i, err)
+        if include_adm and self._adm is not None:
+            err = self._retire_check(self._adm.req, now)
+            if err is not None:
+                retired.append((self._adm.req["rid"], err.status))
+                self._count_retire(err, self._adm.req)
+                self._fail_admission(err)
+        return new, ctrls, retired
+
+    def _retire_row(self, i: int, err: Exception) -> None:
+        """Retire the active row at slot ``i``: deactivated on the device,
+        then its slot and pages freed."""
+        self._count_retire(err, self._host[i].req)
+        self._d["active"][i] = False
+        self._d["remaining"][i] = 0
+        self._finish(i, error=err)
+        self._release_slot_pages(i)
+
+    # ------------------------------------------------- distributed gang
+
+    _WIRE_KEYS = ("ids", "n_new", "temperature", "top_k", "top_p", "eos_id", "logprobs",
+                  "repetition_penalty", "rid", "trace_id", "warmup")
+
+    def _wire_out(self, req: Dict[str, Any]) -> Dict[str, Any]:
+        """The JSON subset of a request the coordinator broadcasts: all the
+        loop's device sequence depends on.  Futures, streams and wall-clock
+        fields stay local; deadlines arrive as explicit retirements."""
+        return {k: req[k] for k in self._WIRE_KEYS}
+
+    def _wire_in(self, w: Dict[str, Any]) -> Dict[str, Any]:
+        """A broadcast request on a follower: a fresh (unread) future, no
+        stream, no local deadline; its device work is the point."""
+        fut: Future = Future()
+        fut.rid = w.get("rid", 0)
+        fut.trace_id = w.get("trace_id")
+        return {**{k: w[k] for k in self._WIRE_KEYS}, "future": fut, "stream": None,
+                "t_submit": time.perf_counter(), "t_deadline": None}
+
+    def warm_on_loop(self) -> Future:
+        """A gang's warmup: the warm functions run ON the loop thread at a
+        boundary, broadcast as a control record, so that every rank runs
+        them at the same point of its dispatch sequence (a warm call on
+        another thread would interleave its collectives with the loop's).
+        Resolves to the number of warm runs."""
+        if self._dist is None:
+            raise RuntimeError("warm_on_loop is the distributed warmup path; single-card "
+                               "services call the warm_* functions directly")
+        if not self.is_coordinator:
+            raise RuntimeError("warm_on_loop runs on the coordinator; followers replay the "
+                               "broadcast control record")
+        fut: Future = Future()
+        self._queue.put({"ctrl": "warm", "future": fut})
+        if self._stop.is_set() or self._broken is not None:
+            # close() may have drained the queue between the checks and the put
+            _fail_future(fut, self._broken or RuntimeError("decode engine closed"))
+        return fut
+
+    def _run_ctrl(self, kind: str, fut: Optional[Future] = None) -> None:
+        if kind != "warm":
+            raise RuntimeError(f"unknown ctrl record {kind!r}")
+        self._busy_since = time.perf_counter()
+        try:
+            n = (self.warm_prefix_fns() + self.warm_dispatch_fns() + self.warm_fused_fns()
+                 + self.warm_registry_fns())
+        except BaseException as e:
+            # the waiter sees the real error; the loop's own handling still runs
+            if fut is not None:
+                _fail_future(fut, e)
+            raise
+        finally:
+            self._busy_since = None
+        if fut is not None:
+            _set_result(fut, n)
+
+    def _apply_retired(self, retired) -> None:
+        """A follower's half of the retirement broadcast: exactly the
+        coordinator's retirements in its order; queued requests fail in
+        place, active rows deactivate on the device in the same slot order,
+        a retired admission ends mid-prefill."""
+        for rid, status in retired:
+            rid = int(rid)
+            err: Exception = (RequestCancelled(f"request {rid} cancelled (broadcast)")
+                              if status == RequestCancelled.status
+                              else DeadlineExceeded(f"request {rid} exceeded its deadline "
+                                                    "(broadcast)"))
+            hit = next((req for req in self._pending if req["rid"] == rid), None)
+            if hit is not None:
+                self._pending.remove(hit)
+                self._count_retire(err, hit)
+                self._fail_queued(hit, err)
+                continue
+            adm = self._adm
+            if adm is not None and adm.req["rid"] == rid:
+                self._count_retire(err, adm.req)
+                self._fail_admission(err)
+                continue
+            for i, sl in enumerate(self._host):
+                if sl is not None and sl.req["rid"] == rid:
+                    self._retire_row(i, err)
+                    break
+
+    def _sync_boundary(self, idle: bool) -> bool:
+        """ONE gang boundary.  Coordinator: pump, sweep, pick K, broadcast
+        the record, run its control items.  Follower: receive the record and
+        replay it (enqueue the requests, perform the retirements, adopt K,
+        run the control items).  Both then run the same rest of the loop
+        body, whose admissions, chunks, inserts and dispatches are
+        deterministic functions of the shared state, so every rank issues
+        the same device sequence.  False: the gang is shutting down."""
+        dist = self._dist
+        if dist.is_coordinator:
+            new, ctrls, retired = self._boundary_maintenance(block_s=0.2 if idle else 0.0,
+                                                             include_adm=True)
+            self._adaptive_tick()
+            dist.send({"new": [self._wire_out(r) for r in new],
+                       "ctrl": [c["ctrl"] for c in ctrls], "retired": retired,
+                       "k": self.steps_per_dispatch})
+            for c in ctrls:
+                self._run_ctrl(c["ctrl"], c.get("future"))
+            return True
+        try:
+            rec = dist.recv()
+        except ChannelClosed:
+            return False
+        if rec.get("stop"):
+            return False
+        for w in rec.get("new", ()):
+            self._pending.append(self._wire_in(w))
+        self._apply_retired(rec.get("retired", ()))
+        k2 = int(rec.get("k", self.steps_per_dispatch))
+        if k2 != self.steps_per_dispatch:
+            self.steps_per_dispatch = k2
+            self._stats["dispatch_k_changes"] += 1
+        for kind in rec.get("ctrl", ()):
+            self._run_ctrl(kind)
+        return True
 
     def _adaptive_tick(self) -> None:
         """One controller decision per boundary; a switch retargets the next
@@ -2413,7 +2744,9 @@ class DecodeEngine:
                 self._start_admission(req)
             except Exception as e:
                 self._fail_queued(req, e)
-        if self._adm is not None:
+        if self._adm is not None and self._dist is None:
+            # a gang retires an admission only at the broadcast boundary: a
+            # local clock check here would desequence it
             err = self._retire_check(self._adm.req)
             if err is not None:
                 self._count_retire(err, self._adm.req)
@@ -2457,8 +2790,14 @@ class DecodeEngine:
             try:
                 idle = (self._adm is None and not self._inflight and not self._pending
                         and all(s is None for s in self._host))
-                self._boundary_maintenance(block_s=0.2 if idle else 0.0)
-                self._adaptive_tick()
+                if self._dist is not None:
+                    # a gang: the boundary's admissions, retirements and K
+                    # come through the coordinator's broadcast
+                    if not self._sync_boundary(idle):
+                        return
+                else:
+                    self._boundary_maintenance(block_s=0.2 if idle else 0.0)
+                    self._adaptive_tick()
                 # on-demand device capture: open or close its window here
                 self._profile_tick()
                 if self._pool is not None:
@@ -2746,7 +3085,7 @@ class DecodeEngine:
             except RuntimeError:  # the unsticking loop mutated it
                 continue
         with self._queue.mutex:
-            waiters += [r for r in self._queue.queue if isinstance(r, dict)]
+            waiters += [r for r in self._queue.queue if isinstance(r, dict) and "ctrl" not in r]
         for req in waiters:
             if req["stream"] is not None and not req["future"].done():
                 req["stream"].put(None)

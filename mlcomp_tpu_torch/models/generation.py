@@ -165,35 +165,49 @@ def sample_token_rowwise_keyed(seed: int, rseed: torch.Tensor, position: torch.T
     return torch.where(temperature <= 0.0, greedy, sampled)
 
 
-def prep_decode_variables(model, params, quant_kernel: bool = False):
+def prep_decode_variables(model, params, quant_kernel: bool = False, mesh=None):
     """Load a flax-layout params tree into ``model`` with the decode prep of
     the JAX package: an int8 tree is dequantized once to bf16
     (``quant_kernel`` False), or keeps its kernel-consumable leaves int8 for
     the CUDA kernel with every other leaf dequantized and the RMSNorms
     folded into the projections' prologues (``quant_kernel`` True); a float
-    tree loads as it is.  Returns the model."""
+    tree loads as it is.  Under a ``mesh`` wider than one rank the model
+    takes only this rank's tensor-parallel shards, cut from the whole
+    (already quantized) leaves (``parallel/sharding.serving_shards``), and
+    serves tensor-parallel (``set_serving_tp``); a mesh of one rank is the
+    one-card load.  Returns the model."""
     from mlcomp_tpu_torch.io.weights import from_flax_params
+    from mlcomp_tpu_torch.ops.quant import mesh_gate
+    from mlcomp_tpu_torch.parallel.sharding import serving_shards
 
     use_quant_kernel = False
     if has_quantized(params):
         use_quant_kernel = bool(quant_kernel)
         deq = dequantize_nonkernel_params if quant_kernel else dequantize_params
         params = deq(params, torch.bfloat16)
-        if use_quant_kernel:
-            params = fold_kernel_leaves(params)
+    mesh = mesh_gate(mesh)
+    if mesh is not None:
+        params = serving_shards(params, model, mesh)
+    if use_quant_kernel:
+        params = fold_kernel_leaves(params)
     model.load_state(from_flax_params(params))
+    if mesh is not None and hasattr(model, "set_serving_tp"):
+        model.set_serving_tp(mesh)
     # a model whose norms also feed other products (moe_lm's router and
     # experts) keeps them out of the kernels' prologues
     model.fold_norms = use_quant_kernel and getattr(model, "fold_norms_eligible", True)
     return model
 
 
-def load_decode_weights(model, params, quantize: "bool | str" = False) -> Optional[str]:
+def load_decode_weights(model, params, quantize: "bool | str" = False,
+                        mesh=None) -> Optional[str]:
     """Load a float flax-layout ``params`` tree into ``model`` for decoding
     under the ``quantize`` mode of the service and the generate executor:
     False (as it is), True or ``"int8"`` (int8 weights dequantized once at
     load) or ``"kernel"`` (int8 weights through the int8 matmul, B1/B2).
-    Returns the mode (None, "int8" or "kernel")."""
+    Every leaf is quantized whole, then ``mesh`` (if any) cuts the rank's
+    shards (:func:`prep_decode_variables`).  Returns the mode (None,
+    "int8" or "kernel")."""
     from mlcomp_tpu_torch.ops.quant import quantize_params
 
     mode = None
@@ -203,7 +217,7 @@ def load_decode_weights(model, params, quantize: "bool | str" = False) -> Option
             # a typo must not silently fall back to another mode
             raise ValueError(f"quantize: expected False/True/'int8'/'kernel', got {quantize!r}")
         params = quantize_params(params)
-    prep_decode_variables(model, params, quant_kernel=mode == "kernel")
+    prep_decode_variables(model, params, quant_kernel=mode == "kernel", mesh=mesh)
     return mode
 
 

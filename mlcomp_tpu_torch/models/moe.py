@@ -20,6 +20,13 @@ counted per class), so one tree feeds both packages
   out)}``) are decode-only and run each expert's 2-D slices through
   ``ops.quant.expert_matmul`` (B1, the int8 matmul kernel).
 
+Served under a mesh with an ``ep`` axis (``set_serving_tp``, after
+``parallel/sharding.serving_shards`` kept the rank's experts), each rank
+holds ``n_experts / ep`` experts and runs the drop-free routing over them
+alone: the router sees every expert, each rank adds its experts' gated
+outputs, and the ep group sums the partial outputs in f32 and rounds
+once.
+
 Attention is the transformer's, with its decode-cache contract
 (``cache_cursor``, ``kv_mask``, ``kv_quant``, the paged layout), so
 ``generate``, the window batcher and the continuous engine serve it.  The
@@ -45,6 +52,7 @@ from mlcomp_tpu_torch.models.transformer import (
     TransformerLM,
 )
 from mlcomp_tpu_torch.ops.quant import as_tensor, expert_matmul, is_quantized_leaf
+from mlcomp_tpu_torch.parallel import collectives as col
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -80,6 +88,10 @@ class MoEBlock(nn.Module):
         self.router = Dense((n_experts,), 1, torch.float32)
         self.w1 = self.w2 = None
         self.aux: Optional[torch.Tensor] = None
+        # serving expert-parallel (MoELM.set_serving_tp): the ep group, and
+        # the first of this rank's experts
+        self.ep_group = None
+        self.expert0 = 0
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         b, s, d = x.shape
@@ -131,11 +143,23 @@ class MoEBlock(nn.Module):
 
     def _dense(self, tokens, probs, w1, w2, quantized: bool) -> torch.Tensor:
         """Drop-free routing: every token to its top-k experts, gates
-        renormalised over them."""
+        renormalised over them.  Expert-parallel, over this rank's experts,
+        the partial outputs summed over the ep group."""
         t, e, dt = tokens.shape[0], self.n_experts, self.dtype
         topv, topi = torch.topk(probs, self.k, dim=-1)
         gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
         weight = (_one_hot(topi, e) * gates[..., None]).sum(1)              # (T, E)
+        if self.ep_group is not None:
+            n_local = (w1["q8"] if quantized else w1).shape[0]
+            weight = weight[:, self.expert0:self.expert0 + n_local]
+            return col.reduce_from(self._experts(tokens, weight, w1, w2, quantized),
+                                   self.ep_group)
+        return self._experts(tokens, weight, w1, w2, quantized)
+
+    def _experts(self, tokens, weight, w1, w2, quantized: bool) -> torch.Tensor:
+        """The gated sum of the held experts' outputs (``weight`` (T, E) the
+        gates of those experts)."""
+        t, e, dt = tokens.shape[0], weight.shape[1], self.dtype
         toks = tokens.to(dt)
         if not quantized and t <= 64:
             # decode-step token counts: the whole expert axis in one einsum
@@ -257,6 +281,26 @@ class MoELM(TransformerLM):
             out[f"{pre}/experts_w1"] = blk.w1
             out[f"{pre}/experts_w2"] = blk.w2
         return out
+
+    def ep_local_paths(self, ep: int) -> set:
+        """The stacked expert weights served expert-parallel on a mesh with
+        ``ep`` ranks (where the expert count divides)."""
+        if ep <= 1 or self.n_experts % ep:
+            return set()
+        return {f"{pre}/experts_{n}" for pre, _ in self.moe_blocks() for n in ("w1", "w2")}
+
+    def set_serving_tp(self, mesh) -> None:
+        """As ``TransformerLM.set_serving_tp``, plus the ep group and first
+        expert of every MoE block holding this rank's experts."""
+        from mlcomp_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+        super().set_serving_tp(mesh)
+        ep = axis_size(mesh, "ep")
+        if not self.ep_local_paths(ep):
+            return
+        for _, blk in self.moe_blocks():
+            blk.ep_group = mesh.get_group("ep")
+            blk.expert0 = axis_rank(mesh, "ep") * (self.n_experts // ep)
 
     def sown_losses(self) -> List[torch.Tensor]:
         """The load-balance losses of the last training forward, one a MoE

@@ -36,7 +36,12 @@ positions and every rank scoring the gathered logits; layers that
 hold tensor-parallel shards (``parallel/sharding.ShardedParams`` binds
 them and gives their modules the ``tp`` group) run column-parallel
 q/k/v, gate/up and ``lm_head`` and row-parallel out/down between the
-group's region edges.
+group's region edges.  Serving under a mesh (``set_serving_tp``, after
+``parallel/sharding.serving_shards`` loaded the rank's shards) runs the
+cached forward the same way: the rank's q/k/v heads write and attend
+their own ``kv_heads / tp`` heads of the cache, out/down sum their
+partial products over tp in f32, the embedding's hidden slice is
+gathered and the column-parallel head's logits are gathered over tp.
 
 Two write contracts, as in the JAX package:
 
@@ -66,6 +71,7 @@ from mlcomp_tpu_torch.kvpool.attn import PagedKV, PagedLayer
 from mlcomp_tpu_torch.models import MODELS
 from mlcomp_tpu_torch.ops.attention import dot_product_attention
 from mlcomp_tpu_torch.ops.cuda.decode_attention import (
+    check_tp_heads,
     decode_attention,
     decode_attention_chunk,
     paged_decode_attention,
@@ -150,15 +156,19 @@ class Dense(nn.Module):
         self.feats, self.n_contract, self.dtype = tuple(feats), n_contract, dtype
         self.register_buffer("kernel", None)
 
-    def product_f32(self, x):
+    def product_f32(self, x, rowwise: bool = False):
         """``x @ kernel`` in f32, the kernel rounded to ``dtype`` (x already
         holds ``dtype`` values): a row-parallel shard's partial sums, which
         the tensor-parallel group adds in f32 before they round once, as one
-        product's sums do."""
+        product's sums do.  ``rowwise`` (serving) keeps each row's sums
+        independent of the row count (``row_matmul``)."""
         lead = x.shape[: x.dim() - self.n_contract]
-        feats = tuple(self.kernel.shape[self.n_contract:])
+        feats = self.feats
+        if self.kernel.dim() == self.n_contract + len(feats):
+            feats = tuple(self.kernel.shape[self.n_contract:])
         kernel = self.kernel.reshape(-1, math.prod(feats)).to(self.dtype).float()
-        y = x.float().reshape(-1, kernel.shape[0]) @ kernel
+        x2 = x.float().reshape(-1, kernel.shape[0])
+        y = row_matmul(x2, kernel) if rowwise else x2 @ kernel
         return y.reshape(*lead, *feats)
 
     def forward(self, x, norm: Optional[nn.Module] = None):
@@ -263,6 +273,15 @@ def _causal_mask(q_slots: torch.Tensor, l_buf: int, kv_mask, kv_start) -> torch.
     return mask
 
 
+def _row_parallel(lin, x, tp):
+    """A row-parallel projection's output in the serving forward: the
+    rank's partial product summed over ``tp`` in f32 and rounded once (an
+    ``Int8Linear`` shard reduces inside its own forward)."""
+    if isinstance(lin, Int8Linear):
+        return lin(x)
+    return col.reduce_from(lin.product_f32(x, rowwise=True), tp).to(lin.dtype)
+
+
 def _project(x, norm, linears, fold: bool):
     """The norm-then-projections step of a block.  With ``fold`` (int8
     kernel mode) each int8 projection takes the norm into its kernel
@@ -291,11 +310,14 @@ class SelfAttention(nn.Module):
         self.out = Dense((hidden,), 2, dtype)
         # set by the LM: None, "ring", "ring_flash" or "ulysses"
         self.seq_parallel: Optional[str] = None
+        # the tensor-parallel degree this module serves its heads under
+        # (TransformerLM.set_serving_tp): its cache holds kv_heads / tp heads
+        self.tp = 1
 
     def forward(self, x, positions, cache=None, index: int = 0, kv_mask=None,
                 kv_start=None, fold: bool = False, cursor=None):
-        tp = None if cache is not None or self.decode_fused else _tp_group(self.q)
-        if tp is not None:
+        tp = None if self.decode_fused else _tp_group(self.q)
+        if tp is not None and cache is None:
             # column-parallel q/k/v on this rank's heads, row-parallel out
             h = col.copy_to(self.norm(x), tp)
             q, k, v = self.q(h), self.k(h), self.v(h)
@@ -308,7 +330,9 @@ class SelfAttention(nn.Module):
             k = qkv[..., self.heads: self.heads + self.kv_heads, :]
             v = qkv[..., self.heads + self.kv_heads:, :]
         else:
-            q, k, v = _project(x, self.norm, [self.q, self.k, self.v], fold)
+            # under tp: x enters the region, and the rank's q/k/v heads come out
+            q, k, v = _project(x if tp is None else col.copy_to(x, tp), self.norm,
+                               [self.q, self.k, self.v], fold)
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
         if cache is None:
@@ -317,7 +341,7 @@ class SelfAttention(nn.Module):
             attn = self._decode_attention_quant(q, k, v, cache, index, kv_start, cursor)
         else:
             attn = self._decode_attention(q, k, v, cache, index, kv_mask, kv_start, cursor)
-        return x + self.out(attn)
+        return x + (self.out(attn) if tp is None else _row_parallel(self.out, attn, tp))
 
     def _train_attention(self, q, k, v):
         """Causal attention without a cache: sharded over the mesh's sp
@@ -331,14 +355,17 @@ class SelfAttention(nn.Module):
 
     def init_cache(self, b: int, max_len: int, device):
         dh = self.d_head
+        h_kv = self.kv_heads // self.tp
         if not self.kv_quant:
-            shape = (b, max_len, self.kv_heads, dh)
+            shape = (b, max_len, h_kv, dh)
             return KVCache(torch.zeros(shape, dtype=self.dtype, device=device),
                            torch.zeros(shape, dtype=self.dtype, device=device))
         dhp = -(-dh // 128) * 128
+        # the buffer length from the whole head count, as the JAX package
+        # sizes the global cache: a rank's shard keeps its slots
         lpad = pick_buffer_len(max_len, self.kv_heads, dhp)
-        vals = (b, self.kv_heads, lpad, dhp)
-        scales = (b, self.kv_heads, 1, lpad)
+        vals = (b, h_kv, lpad, dhp)
+        scales = (b, h_kv, 1, lpad)
         return QuantKVCache(
             torch.zeros(vals, dtype=torch.int8, device=device),
             torch.zeros(scales, dtype=torch.bfloat16, device=device),
@@ -452,8 +479,8 @@ class DecoderLayer(nn.Module):
     def forward(self, x, positions, cache=None, index=0, kv_mask=None, kv_start=None,
                 fold=False, cursor=None):
         x = self.attn(x, positions, cache, index, kv_mask, kv_start, fold, cursor)
-        tp = None if cache is not None or self.decode_fused else _tp_group(self.gate)
-        if tp is not None:
+        tp = None if self.decode_fused else _tp_group(self.gate)
+        if tp is not None and cache is None:
             # column-parallel gate/up on this rank's MLP slice, row-parallel down
             h = col.copy_to(self.norm(x), tp)
             out = col.reduce_from(self.down.product_f32(F.silu(self.gate(h)) * self.up(h)), tp)
@@ -462,7 +489,10 @@ class DecoderLayer(nn.Module):
             (gu,) = _project(x, self.norm, [self.gate_up], fold)
             gate, up = gu[..., : self.mlp_dim], gu[..., self.mlp_dim:]
         else:
-            gate, up = _project(x, self.norm, [self.gate, self.up], fold)
+            gate, up = _project(x if tp is None else col.copy_to(x, tp), self.norm,
+                                [self.gate, self.up], fold)
+        if tp is not None:
+            return x + _row_parallel(self.down, F.silu(gate) * up, tp)
         return x + self.down(F.silu(gate) * up)
 
 
@@ -568,6 +598,44 @@ class TransformerLM(nn.Module):
         if self.vocab_size % tp == 0 and not self.fused_loss:
             out.add("lm_head/kernel")
         return out
+
+    def set_serving_tp(self, mesh) -> None:
+        """Serve tensor-parallel on ``mesh``'s tp group, the model holding
+        the rank's shards (``parallel/sharding.serving_shards``): the
+        modules of ``tp_local_paths`` get the group, and each its Megatron
+        role from the dim ``TP_RULES`` shards (``sharding.tp_dim``): a
+        column-parallel projection computes its local output features, an
+        ``Int8Linear`` whose contraction is cut sums its partial products
+        over the group.  Attention that runs on local heads gets its
+        degree (its cache holds ``kv_heads / tp`` heads); with the int8 KV
+        kernels tp must divide both head counts (``check_tp_heads``)."""
+        from mlcomp_tpu_torch.parallel.mesh import axis_size as size_of
+        from mlcomp_tpu_torch.parallel.sharding import tp_dim
+
+        tp = size_of(mesh, "tp")
+        if self.kv_quant:
+            check_tp_heads(self.heads, self.kv_heads, tp)
+        local = self.tp_local_paths(tp)
+        if not local:
+            return
+        group = mesh.get_group("tp")
+        for owner, name, path in self.linears():
+            key = "/".join(path)
+            if key not in local:
+                continue
+            mod = getattr(owner, name)
+            d = tp_dim(key, mod.n_contract + len(mod.feats))
+            mod.tp_group = group
+            if d < mod.n_contract:
+                if isinstance(mod, Int8Linear):
+                    mod.row_parallel = True
+            else:
+                f = d - mod.n_contract
+                mod.feats = mod.feats[:f] + (mod.feats[f] // tp,) + mod.feats[f + 1:]
+            if isinstance(owner, SelfAttention):
+                owner.tp = tp
+        if "emb/embedding" in local:
+            self.emb.tp_group = group
 
     def split_axes(self) -> set:
         """The mesh axes this model splits a step's work over (the
@@ -700,7 +768,7 @@ class TransformerLM(nn.Module):
             s //= n
             ids, positions = ids[:, r * s:(r + 1) * s], positions[:, r * s:(r + 1) * s]
         h = self.emb(ids.long())
-        tp = _tp_group(self.emb) if cache is None else None
+        tp = _tp_group(self.emb)
         if tp is not None:
             h = col.all_gather(h, tp, -1, grad="split")
         index, cursor = 0, None
@@ -736,11 +804,16 @@ class TransformerLM(nn.Module):
                 chunk -= 1
             out = fused_linear_cross_entropy(self.norm(h), self.lm_head.kernel, labels, chunk)
             return col.all_gather(out, sp, 1, grad="split") if sp is not None else out
-        tp = _tp_group(self.lm_head) if cache is None else None
-        if tp is not None:
+        tp = _tp_group(self.lm_head)
+        if tp is not None and cache is None:
             # column-parallel head: this rank's slice of the vocabulary
             logits = col.all_gather(self.lm_head(col.copy_to(self.norm(h), tp)), tp, -1,
                                     grad="split")
+        elif tp is not None:
+            # serving: the rank's vocabulary slice, gathered before sampling
+            (logits,) = _project(col.copy_to(h, tp), self.norm, [self.lm_head],
+                                 self.fold_norms)
+            logits = col.all_gather(logits, tp, -1, grad="split")
         else:
             (logits,) = _project(h, self.norm, [self.lm_head], self.fold_norms)
         if sp is not None:

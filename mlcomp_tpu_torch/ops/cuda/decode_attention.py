@@ -417,3 +417,17 @@ def paged_decode_attention_chunk(q: torch.Tensor, kq_pages: torch.Tensor,
     if q.device.type == "cuda":
         paged_chunk_launches += 1
     return out
+
+
+def check_tp_heads(h: int, h_kv: int, tp: int) -> None:
+    """tp must divide both head counts so that a GQA group (its query heads
+    beside their shared KV head) stays on one rank (the JAX package's
+    ``sharded_decode_attention`` check, word for word).  Under a mesh each
+    rank's model holds the cache of its own ``kv_heads / tp`` heads and
+    calls :func:`decode_attention` (and the chunk and paged kernels) on
+    them: attention is independent per (row, KV head), so no cross-rank
+    math happens."""
+    if tp > 1 and (h % tp or h_kv % tp):
+        raise ValueError(f"int8 KV decode under tp={tp}: tp must divide both heads ({h}) and "
+                         f"kv heads ({h_kv}) so GQA groups stay device-local")
+

@@ -12,6 +12,16 @@ port swaps modules: a kernel-consumable leaf loads into an
 :class:`Int8Linear`, which runs the CUDA int8 matmul
 (ops/cuda/quant_matmul.py) and, on decode shapes, takes its preceding
 RMSNorm into the kernel's prologue.
+
+Under a mesh (``serve --mesh``) every rank holds only its tensor-parallel
+shard of each int8 weight (``parallel/sharding.serving_shards``) and runs
+the kernel on it (:func:`rank_quant_matmul`), with the Megatron role that
+``parallel/sharding.TP_RULES`` gives the weight: a column-parallel weight
+(q/k/v, gate/up, lm_head) on its ``(m, n/tp)`` shard, a row-parallel one
+(out, down) on its ``(m/tp, n)`` shard, whose partial sums the tp group
+adds in f32 and rounds once.  That is the JAX package's
+``sharded_quant_matmul`` island, on the shards a rank holds; a mesh of one
+rank is no mesh (:func:`mesh_gate`), and runs the one-card code.
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ import torch
 from torch import nn
 
 from mlcomp_tpu_torch.ops.cuda.quant_matmul import GEMV_ROWS, quant_matmul
+from mlcomp_tpu_torch.parallel import collectives as col
+from mlcomp_tpu_torch.parallel.mesh import axis_size
 
 _QKEY = "q8"
 _SKEY = "q8_scale"
@@ -199,6 +211,37 @@ def fold_kernel_leaves(params):
     return tree_map_with_path(visit, params)
 
 
+def mesh_gate(mesh):
+    """``mesh`` when it spans more than one rank, else None (the JAX
+    package's ``pallas_mesh`` gate): a mesh of one rank runs the one-card
+    code path, bit for bit."""
+    if mesh is None or math.prod(
+            v for v in (axis_size(mesh, a) for a in ("dp", "fsdp", "pp", "sp", "ep", "tp"))) == 1:
+        return None
+    return mesh
+
+
+def check_tp_shard(full: int, tp: int) -> None:
+    """A tp-sharded dim of an int8 kernel operand must split into
+    lane-tileable shards (the JAX package's check, word for word)."""
+    if tp > 1 and full % (tp * 128):
+        raise ValueError(f"int8 kernel under tp={tp}: the sharded dim ({full}) must split "
+                         f"into lane-tileable {full // tp}-wide shards")
+
+
+def rank_quant_matmul(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor, tp_group,
+                      row_parallel: bool, norm_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """B1 (B2 with ``norm_scale``) on this rank's shard: x2 (rows, m_local)
+    bf16, q8 (m_local, n_local), scale (n_local,).  A row-parallel shard's
+    bf16 partial products are summed over ``tp_group`` in f32 and rounded
+    once (``collectives.reduce_from``), as the JAX island's psum does."""
+    out = quant_matmul(x2, q8, scale, norm_scale=norm_scale)
+    if row_parallel and tp_group is not None:
+        out = col.reduce_from(out, tp_group)
+    return out
+
+
 def folds_norm(x: torch.Tensor, m: int) -> bool:
     """The decode-shape rule under which a projection takes its preceding
     RMSNorm into the int8 kernel: at most 64 rows, the contraction is the
@@ -213,7 +256,12 @@ class Int8Linear(nn.Module):
     through the int8 kernel; the module a kernel-consumable leaf loads
     into.  q8 is the folded (m, n) operand, ``scale`` (n,) f32; the output
     rounds to bf16 in the kernel, then casts to ``out_dtype`` (an f32 head
-    keeps that bf16 rounding, as on the TPU)."""
+    keeps that bf16 rounding, as on the TPU).
+
+    Holding a tensor-parallel shard (``models/transformer.set_serving_tp``
+    sets ``tp_group`` and, from ``TP_RULES``, ``row_parallel``), the
+    kernel runs on the shard and a row-parallel one's partial sums add over
+    the group in f32 before they round (:func:`rank_quant_matmul`)."""
 
     def __init__(self, q8: torch.Tensor, scale: torch.Tensor, feats: Tuple[int, ...],
                  n_contract: int, out_dtype: torch.dtype):
@@ -223,15 +271,18 @@ class Int8Linear(nn.Module):
         self.feats = tuple(feats)
         self.n_contract = n_contract
         self.out_dtype = out_dtype
+        self.tp_group = None
+        self.row_parallel = False
 
     def forward(self, x: torch.Tensor, norm: Optional[nn.Module] = None) -> torch.Tensor:
         m = self.q8.shape[0]
         lead = x.shape[: x.dim() - self.n_contract]
         if norm is not None and self.n_contract == 1 and folds_norm(x, m):
-            out = quant_matmul(x.reshape(-1, m).contiguous(), self.q8, self.scale,
-                               norm_scale=norm.scale)
+            out = rank_quant_matmul(x.reshape(-1, m).contiguous(), self.q8, self.scale,
+                                    self.tp_group, self.row_parallel, norm_scale=norm.scale)
         else:
             if norm is not None:
                 x = norm(x)
-            out = quant_matmul(x.reshape(-1, m).bfloat16().contiguous(), self.q8, self.scale)
+            out = rank_quant_matmul(x.reshape(-1, m).bfloat16().contiguous(), self.q8,
+                                    self.scale, self.tp_group, self.row_parallel)
         return out.to(self.out_dtype).reshape(*lead, *self.feats)

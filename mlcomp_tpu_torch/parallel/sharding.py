@@ -89,6 +89,16 @@ def _path_str(path) -> str:
     return "/".join(parts)
 
 
+def tp_dim(path: str, ndim: int) -> Optional[int]:
+    """The dim of an ``ndim``-d leaf at ``path`` that ``TP_RULES`` shards
+    over ``tp`` (counted from 0), or None: the Megatron role of a
+    projection, row-parallel when the dim is in its contraction."""
+    for pat, dims in TP_RULES:
+        if re.search(pat, path):
+            return next((dim % ndim for dim, axis in dims if axis == "tp"), None)
+    return None
+
+
 def spec_for(
     path: str,
     shape: Sequence[int],
@@ -419,3 +429,65 @@ def match_placements(t, like):
         t = t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
                                            for p in t.placements])
     return t.redistribute(like.device_mesh, like.placements)
+
+
+def serving_shards(tree, model, mesh):
+    """This rank's serving shards of a flax-layout params tree (float
+    leaves, or int8 leaves ``{"q8", "q8_scale"}``): every leaf the model
+    computes tensor-parallel (``model.tp_local_paths``) cut to the rank's
+    slice of the dimension :func:`spec_for` gives ``tp``, every stacked
+    expert weight the model serves expert-parallel
+    (``model.ep_local_paths``) to the rank's experts over ``ep``, every
+    other leaf whole.  An int8 leaf must be quantized whole before it is cut
+    (its absmax is per output column over the whole contraction, as the
+    JAX package quantizes the global array): a row-parallel cut (out,
+    down) keeps the per-column scale whole, a column-parallel one (q/k/v,
+    gate/up, lm_head, the embedding's hidden width) cuts it with the
+    codes.  An int8 kernel operand whose shard would not be lane-tileable
+    raises the JAX package's error.  Without a tp axis the tree comes
+    back as it is."""
+    from mlcomp_tpu_torch.ops.quant import (
+        check_tp_shard,
+        folded_2d,
+        is_quantized_leaf,
+        kernel_consumable,
+        tree_map_with_path,
+    )
+    from mlcomp_tpu_torch.parallel.mesh import axis_rank
+
+    local = {}
+    for axis, paths in (("tp", "tp_local_paths"), ("ep", "ep_local_paths")):
+        n = axis_size(mesh, axis)
+        if n > 1 and hasattr(model, paths):
+            local.update({key: (axis, n, axis_rank(mesh, axis))
+                          for key in getattr(model, paths)(n)})
+    if not local:
+        return tree
+
+    def cut(t, d: int, n: int, r: int):
+        w = t.shape[d] // n
+        idx = [slice(None)] * t.ndim
+        idx[d] = slice(r * w, (r + 1) * w)
+        return t[tuple(idx)]
+
+    def visit(path, leaf):
+        key = "/".join(path)
+        if key not in local:
+            return leaf
+        axis, n, r = local[key]
+        quant = is_quantized_leaf(leaf)
+        q = leaf["q8"] if quant else leaf
+        spec = spec_for(key, tuple(q.shape), {axis: n})
+        if axis not in spec:
+            return leaf
+        d = spec.index(axis)
+        if not quant:
+            return cut(q, d, n, r)
+        s = leaf["q8_scale"]
+        out = {"q8": cut(q, d, n, r), "q8_scale": s if s.shape[d] == 1 else cut(s, d, n, r)}
+        if path[-1] == "kernel" and kernel_consumable(leaf) and not kernel_consumable(out):
+            n_contract, m, n_out = folded_2d(leaf)
+            check_tp_shard(m if d < n_contract else n_out, n)
+        return out
+
+    return tree_map_with_path(visit, tree)

@@ -82,6 +82,16 @@ HTTP handler threads enqueue requests and wait on futures.  HTTP surface
         when none came; 404 on the window batcher, 400 on a bad N, 409
         ``profile_busy`` while another capture is armed or open
 
+Serving under a mesh (``mesh=``, ``dist=``; ``load_service(mesh_cfg=)``,
+``serve --mesh ... --distributed``): one process a rank, each holding its
+tensor-parallel shards of the weights and of the KV cache, the continuous
+engine running as a gang (``engine.py``).  Rank 0, the coordinator, fronts
+HTTP; a follower replays its boundaries, answers ``/healthz`` with
+``ready: false`` and ``/generate`` with 503 ``not_coordinator``.
+``/healthz`` carries the ``mesh`` block and ``/metrics`` the
+``mlcomp_engine_mesh_devices`` and ``mlcomp_engine_is_coordinator``
+gauges.
+
 Admission control: the paged layout's free-page gate (always on) and the
 optional ``max_queue_depth`` / ``max_concurrent_requests`` caps answer
 429 with ``Retry-After`` (reasons ``no_free_pages``, ``queue_full``,
@@ -93,6 +103,7 @@ is done.
 from __future__ import annotations
 
 import json
+import math
 import queue
 import threading
 import time
@@ -186,7 +197,12 @@ class GenerationService:
     bounds the engine's recorder; ``max_queue_depth`` and
     ``max_concurrent_requests`` (0: unbounded) cap admission.  Any
     batcher: ``metrics_history_interval`` (0 disables) samples the metrics
-    registry for ``/metrics/history`` and the SLOs of ``slo_config``."""
+    registry for ``/metrics/history`` and the SLOs of ``slo_config``.
+
+    ``mesh`` (a ``DeviceMesh`` over the process group: dp, tp, ep) loads the
+    rank's shards and runs the engine under it; ``dist`` (a
+    ``parallel.distributed.BoundaryChannel``) makes the service a gang
+    member, rank 0 the coordinator (module docstring)."""
 
     def __init__(
         self,
@@ -225,6 +241,8 @@ class GenerationService:
         max_concurrent_requests: int = 0,
         metrics_history_interval: Optional[float] = 5.0,
         slo_config: Optional[Dict[str, Any]] = None,
+        mesh=None,
+        dist=None,
     ):
         from mlcomp_tpu_torch.models.generation import load_decode_weights
 
@@ -233,6 +251,9 @@ class GenerationService:
         if batcher not in ("continuous", "window", "speculative"):
             raise ValueError("batcher: expected 'auto'/'continuous'/'window'/'speculative', got "
                              f"{batcher!r}")
+        self.mesh = mesh
+        self.dist = dist
+        self._validate_mesh(model, mesh, dist, batcher, batch_sizes, quantize)
         if batcher != "continuous" and (
                 engine_fused_admission is not None
                 or (engine_pipeline_depth is not None and int(engine_pipeline_depth) > 1)):
@@ -248,6 +269,10 @@ class GenerationService:
         if self.phase != "both" and batcher != "continuous":
             raise ValueError("phase-split serving needs the continuous batcher (only the slot "
                              "engine owns an admission core)")
+        if self.phase != "both" and (mesh is not None or dist is not None):
+            raise ValueError("phase-split serving is single-process single-chip for now "
+                             "(sharded prefill tiers and gang imports are named follow-ups); "
+                             "drop --mesh/--distributed or phase")
         if self.phase == "prefill" and engine_spec_k is not None:
             raise ValueError("a prefill replica runs no decode dispatch; drop engine_spec_k")
         if self.phase == "decode" and kv_layout != "paged":
@@ -256,6 +281,9 @@ class GenerationService:
         if prefix_cache and batcher != "continuous":
             # only the slot engine has admissions to serve from the cache
             raise ValueError("prefix_cache needs the continuous batcher")
+        if prefix_cache and mesh is not None:
+            raise ValueError("the prefix KV cache is single-chip for now; drop prefix_cache or "
+                             "the mesh")
         history_interval = float(metrics_history_interval) if metrics_history_interval else 0.0
         if history_interval < 0:
             raise ValueError(f"metrics_history_interval must be >= 0 (0 disables), got "
@@ -283,6 +311,9 @@ class GenerationService:
         if batcher == "speculative":
             if self.spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if mesh is not None:
+                raise ValueError("the speculative batcher is single-chip (B=1 latency mode); use "
+                                 "the continuous batcher under a mesh")
             if self.defaults["temperature"] != 0.0:
                 raise ValueError("the speculative batcher is greedy-only; set the service "
                                  "default temperature to 0")
@@ -297,7 +328,7 @@ class GenerationService:
             if self.defaults["temperature"] != 0.0 or self.defaults["repetition_penalty"] != 1.0:
                 raise ValueError("engine_spec_k engines are greedy-only: service defaults must "
                                  "keep temperature 0 and repetition_penalty 1")
-        self.quant_mode = load_decode_weights(model, params, quantize)
+        self.quant_mode = load_decode_weights(model, params, quantize, mesh=mesh)
         self.request_timeout_s = float(request_timeout_s)
         if self.request_timeout_s <= 0:
             raise ValueError(f"request_timeout_s must be positive, got {request_timeout_s}")
@@ -343,7 +374,7 @@ class GenerationService:
                 kv_layout=kv_layout, kv_page_tokens=kv_page_tokens, kv_pages=kv_pages,
                 max_slots=max_slots, prefill_only=self.phase == "prefill",
                 prefix_cache=self.prefix_cache, flight_recorder_events=flight_recorder_events,
-                metrics=self.metrics,
+                metrics=self.metrics, mesh=mesh, dist=dist,
             )
         else:
             self._gen = torch.Generator(device=model.device).manual_seed(seed)
@@ -359,6 +390,45 @@ class GenerationService:
                                  else None)
             # burn rates re-evaluate at every sampler tick
             self.history.add_callback(self.slo.evaluate)
+
+    @staticmethod
+    def _validate_mesh(model, mesh, dist, batcher, batch_sizes, quantize) -> None:
+        """The JAX service's checks of a mesh, and the port's own: a mesh
+        wider than one rank is a gang, which only the continuous engine's
+        boundary loop can keep in step."""
+        from mlcomp_tpu_torch.ops.quant import mesh_gate
+        from mlcomp_tpu_torch.parallel.mesh import mesh_shape
+
+        if dist is not None:
+            if batcher != "continuous":
+                raise ValueError("distributed serving needs the continuous batcher (only the "
+                                 "slot engine has a boundary loop to synchronize)")
+            if mesh is None:
+                raise ValueError("distributed serving needs a mesh (--mesh): the gang runs one "
+                                 "program a rank over the global mesh")
+        if mesh is None:
+            return
+        shape = mesh_shape(mesh)
+        dbatch = shape.get("dp", 1) * shape.get("fsdp", 1)
+        bad = [b for b in batch_sizes if b % dbatch]
+        if bad:
+            raise ValueError(f"batch sizes {bad} don't divide the mesh's data axes "
+                             f"(dp*fsdp = {dbatch}); fix --batch-sizes")
+        kernels = getattr(model, "kv_quant", False) or str(quantize).strip().lower() == "kernel"
+        if kernels and shape.get("fsdp", 1) > 1:
+            raise ValueError("quantize='kernel' / kv_quant need a tp/dp mesh; fsdp-sharded "
+                             "serving runs bf16 or entry-dequant int8")
+        tp = shape.get("tp", 1)
+        heads = getattr(model, "heads", None)
+        if kernels and tp > 1 and heads:
+            kv_heads = getattr(model, "kv_heads", None) or heads
+            if heads % tp or kv_heads % tp:
+                raise ValueError(f"tp={tp} must divide heads ({heads}) and kv_heads "
+                                 f"({kv_heads}) for the CUDA serving kernels")
+        if mesh_gate(mesh) is not None and batcher != "continuous":
+            raise ValueError(f"a mesh over {math.prod(shape.values())} ranks serves through the "
+                             "continuous batcher: every rank is a process, and only the slot "
+                             "engine's boundary loop keeps the gang in step")
 
     # ------------------------------------------------------------- public
 
@@ -614,10 +684,18 @@ class GenerationService:
             build.build_all()
         eng = self.engine
         if eng is not None:
+            if self.dist is not None and not eng.is_coordinator:
+                # a follower warms by replay: the coordinator's warmup requests
+                # and its warm control record reach its loop in order
+                return 0
             n_new = min(2, eng.max_new_cap)
             futs = [eng.submit([1] * s, n_new, _count=False) for s in self.prompt_buckets]
             for f in futs:
                 f.result(timeout=self.request_timeout_s)
+            if self.dist is not None:
+                # a gang's warm functions run on the loop at a broadcast
+                # boundary, where every rank runs them
+                return len(futs) + eng.warm_on_loop().result(timeout=self.request_timeout_s)
             return (len(futs) + eng.warm_prefix_fns() + eng.warm_dispatch_fns()
                     + eng.warm_fused_fns() + eng.warm_registry_fns())
         if self.batcher == "speculative":
@@ -672,6 +750,9 @@ class GenerationService:
             if "kv_pool" in eng:
                 out["kv_pool"] = eng["kv_pool"]
                 out["live_slots"] = eng.get("live_slots")
+            if "mesh" in eng:
+                # the gang's layout at the top level: which daemon fronts it
+                out["mesh"] = eng["mesh"]
             out["engine"] = eng
         else:
             out["healthy"] = self._thread.is_alive()
@@ -681,8 +762,11 @@ class GenerationService:
         if self.history is not None:
             out["metrics_history"] = self.history.stats()
         out["draining"] = self._draining
+        # a gang's follower owns no submit queue: never ready, so that no
+        # router sends it traffic
         out["ready"] = bool(out["healthy"] and not self._draining and not self._warming
-                            and not self._stop.is_set())
+                            and not self._stop.is_set()
+                            and (self.dist is None or self.dist.is_coordinator))
         return out
 
     def cache_stats(self) -> Optional[Dict[str, Any]]:
@@ -767,6 +851,12 @@ class GenerationService:
         if self.history is not None:
             # stop the sampler (and its SLO callbacks) before the engine
             self.history.close()
+        if getattr(self, "_owns_process_mesh", False):
+            # load_service installed the mesh process-wide: take it out
+            from mlcomp_tpu_torch.parallel.mesh import set_current_mesh
+
+            set_current_mesh(None)
+            self._owns_process_mesh = False
         if self.engine is not None:
             self.engine.close()
             return
@@ -926,14 +1016,24 @@ class GenerationService:
 
 
 def load_service(model_cfg: Dict[str, Any], ckpt_path: Optional[str] = None,
-                 params=None, device=None, **service_kw) -> GenerationService:
+                 params=None, device=None, mesh_cfg: Optional[Dict[str, int]] = None,
+                 **service_kw) -> GenerationService:
     """Build the model on ``device`` (default ``cuda``; raises when there is
     no card and ``device="cpu"`` was not asked for), take its weights from
     ``params`` (a flax-layout tree), ``ckpt_path`` (a training checkpoint
     directory, read through ``io.checkpoint.read_weights`` with its EMA
     weights preferred, or an ``.npz``), or ``io.weights.init_params(model_cfg,
     0)``, and wrap it in a :class:`GenerationService`.  ``decode_fused:
-    true`` fuses the training-layout projections once here."""
+    true`` fuses the training-layout projections once here.
+
+    ``mesh_cfg`` (``{"tp": 2}``, ``{"dp": 2}``; axes not named fold into
+    dp) serves sharded over a mesh of the process group's ranks (joined
+    here from ``MLCOMP_TPU_COORDINATOR`` / ``_NUM_PROCESSES`` /
+    ``_PROCESS_ID`` when it is not up yet; a process alone becomes a world
+    of one), installed process-wide until the service closes.  Every rank
+    quantizes whole leaves on its card, then keeps its shards.  A mesh
+    wider than one rank needs ``dist=`` (a ``BoundaryChannel``) in
+    ``service_kw``."""
     import os
 
     from mlcomp_tpu_torch.io.checkpoint import read_weights
@@ -946,6 +1046,18 @@ def load_service(model_cfg: Dict[str, Any], ckpt_path: Optional[str] = None,
     dev = resolve_device(device)
     model_cfg = dict(model_cfg)
     decode_fused = bool(model_cfg.pop("decode_fused", False))
+    if decode_fused and mesh_cfg:
+        raise ValueError("decode_fused serving is single-chip (the Megatron tp rules shard the "
+                         "unfused projections); drop one of them")
+    mesh = None
+    if mesh_cfg:
+        from mlcomp_tpu_torch.parallel.mesh import MeshSpec, make_mesh, set_current_mesh
+
+        spec = MeshSpec.from_config(mesh_cfg)
+        join_process_group(dev)
+        mesh = make_mesh(spec, device_type=dev.type)
+        # installed process-wide, as the Trainer does; close() takes it out
+        set_current_mesh(mesh)
     if params is None:
         if ckpt_path and os.path.isdir(ckpt_path):
             params = read_weights(ckpt_path)["params"]
@@ -961,7 +1073,35 @@ def load_service(model_cfg: Dict[str, Any], ckpt_path: Optional[str] = None,
     if decode_fused:
         params = fuse_decode_params(params)
     model = create_model({**model_cfg, "decode_fused": decode_fused}, device=dev)
-    return GenerationService(model, params, **service_kw)
+    try:
+        service = GenerationService(model, params, mesh=mesh, **service_kw)
+    except BaseException:
+        if mesh is not None:
+            from mlcomp_tpu_torch.parallel.mesh import set_current_mesh
+
+            set_current_mesh(None)
+        raise
+    service._owns_process_mesh = mesh is not None
+    return service
+
+
+def join_process_group(device) -> None:
+    """Make sure this process is in a ``torch.distributed`` group: the
+    gang's (``parallel.distributed.init_distributed`` from the
+    ``MLCOMP_TPU_*`` environment), else a world of one on a free local
+    port (a mesh of one rank)."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from mlcomp_tpu_torch.parallel.distributed import init_distributed
+
+    if tdist.is_initialized() or init_distributed(device=device):
+        return
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device=device)
 
 
 def resolve_storage_ckpt(project: str, dag_name: str, task: str) -> str:
@@ -985,6 +1125,8 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
                      port: int = 8900, model_name: str = "model"):
     """Build (without starting) the HTTP server; port 0 picks a free one."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from mlcomp_tpu_torch.engine import NotCoordinator
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -1160,6 +1302,9 @@ def make_http_server(service: GenerationService, host: str = "127.0.0.1",
             """The error answer /generate, /prefill and /import share."""
             if isinstance(e, BackpressureError):
                 return self._reject_429(e, tid)
+            if isinstance(e, NotCoordinator):
+                # a gang's follower: traffic belongs at the coordinator
+                return self._json({"error": str(e), "status": e.status, "trace_id": tid}, 503)
             if isinstance(e, FutTimeout):
                 return self._json({"error": f"{type(e).__name__}: {e}",
                                    "status": "deadline_exceeded", "trace_id": tid}, 504)
@@ -1293,6 +1438,13 @@ def serve_http(service: GenerationService, host: str = "127.0.0.1", port: int = 
     it never serves on the plain versions."""
     httpd = make_http_server(service, host, port, model_name)
     failed: List[BaseException] = []
+    if service.dist is not None and not service.dist.is_coordinator:
+        # a follower serves until the coordinator's stop record ends its loop
+        def follow():
+            service.engine._thread.join()
+            httpd.shutdown()
+
+        threading.Thread(target=follow, daemon=True, name="follower-watch").start()
 
     def fail(e):
         failed.append(e)

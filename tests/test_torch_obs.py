@@ -232,14 +232,16 @@ def _families(text):
             if line.startswith("# TYPE ")}
 
 
-# the JAX daemon's families whose subject the port has no module for yet,
-# each with its ROADMAP item; and the roofline share, which the JAX engine
-# computes against a TPU's bandwidth everywhere and the port only against
-# a card's (null on the CPU unless MLCOMP_TPU_HBM_GBPS is set)
+# the JAX daemon's families the port does not carry here: the roofline
+# share, which the JAX engine computes against a TPU's bandwidth everywhere
+# and the port only against a card's (null on the CPU unless
+# MLCOMP_TPU_HBM_GBPS is set).  The mesh gauges, which neither daemon
+# carries unsharded, are checked on a sharded daemon
 LATER = {
-    "mlcomp_engine_mesh_devices": "A12", "mlcomp_engine_is_coordinator": "A12",
     "mlcomp_engine_roofline_utilization": "no memory bandwidth on the CPU",
 }
+# the JAX engine's families under a mesh (mlcomp_tpu/engine.py), by type
+MESH_FAMILIES = {"mlcomp_engine_mesh_devices": "gauge", "mlcomp_engine_is_coordinator": "gauge"}
 
 
 def _traffic(svc):
@@ -283,6 +285,33 @@ def test_metric_families_equal_the_jax_daemons(kw):
     assert "mlcomp_prefix_cache_used_hits_total" in got and "mlcomp_engine_ttft_ms" in got
     spec = {"mlcomp_engine_spec_net_gain", "mlcomp_engine_spec_ineffective"}
     assert spec <= set(got) if "engine_spec_k" in kw else not spec & set(got)
+
+
+def test_a_sharded_daemon_carries_the_mesh_gauges():
+    """A daemon serving under a mesh (here a mesh of one rank, which runs
+    the one-card engine: the same ids) carries the JAX engine's two mesh
+    gauges beside the unsharded daemon's families, with its device count and
+    its coordinator flag."""
+    import torch.distributed as tdist
+
+    joined = not tdist.is_initialized()
+    svc = _port_service(mesh_cfg={"tp": 1})
+    try:
+        ids, text = _traffic(svc)
+    finally:
+        svc.close()
+        if joined and tdist.is_initialized():
+            tdist.destroy_process_group()
+    plain = _port_service()
+    try:
+        plain_ids, plain_text = _traffic(plain)
+    finally:
+        plain.close()
+    fam, plain_fam = _families(text), _families(plain_text)
+    assert ids == plain_ids
+    assert {k: fam[k] for k in set(fam) - set(plain_fam)} == MESH_FAMILIES
+    assert "mlcomp_engine_mesh_devices 1" in text.splitlines()
+    assert "mlcomp_engine_is_coordinator 1" in text.splitlines()
 
 
 # ------------------------------------------------ trace, slo, history

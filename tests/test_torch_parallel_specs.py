@@ -212,15 +212,31 @@ def test_a_follower_without_an_address_is_refused(monkeypatch):
         tdist.BoundaryChannel(num_processes=2, process_id=1)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "tp=2"], ["--distributed"], ["--sync-port", "9100"]],
+@pytest.mark.parametrize("flag", [["--mesh", "tp=2"], ["--distributed"],
+                                  ["--mesh", "tp", "--sync-port", "9100"]],
                          ids=["mesh", "distributed", "sync-port"])
-def test_serve_under_a_mesh_stays_refused_naming_the_next_slice(tmp_path, flag):
-    """The engine under a mesh is the serving half of A12 (ROADMAP A12b):
-    the JAX command's flags are taken and refused."""
+def test_serve_under_a_mesh_stays_refused_naming_the_next_slice(tmp_path, monkeypatch, flag):
+    """The JAX command's sharded serving flags, as its CLI takes them:
+    ``--mesh tp=2`` reaches ``load_service`` as ``mesh_cfg={"tp": 2}``;
+    ``--distributed`` without ``--mesh``, and a ``--mesh`` value that is
+    not AXIS=N (beside a ``--sync-port``), exit 2 before anything loads."""
     from mlcomp_tpu_torch import cli
+    from mlcomp_tpu_torch import serve as port_serve
 
+    seen = {}
+
+    def fake_load(model_cfg, **kw):
+        seen.update(kw)
+        return object()
+
+    monkeypatch.setattr(port_serve, "load_service", fake_load)
+    monkeypatch.setattr(port_serve, "serve_http", lambda *a, **k: None)
     m = tmp_path / "m.yml"
     m.write_text("model: {name: transformer_lm, vocab_size: 64, hidden: 32, layers: 1, "
                  "heads: 4}\n")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        cli.main(["serve", "--model", str(m), "--device", "cpu", *flag])
+    rc = cli.main(["serve", "--model", str(m), "--ckpt", str(tmp_path / "w.npz"), "--device",
+                   "cpu", *flag])
+    if flag == ["--mesh", "tp=2"]:
+        assert rc == 0 and seen["mesh_cfg"] == {"tp": 2} and "dist" not in seen
+    else:
+        assert rc == 2 and not seen

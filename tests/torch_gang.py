@@ -330,3 +330,284 @@ def case_restore(cfg, directory):
     return {"step": t.state.step, "params": {k: v.numpy() for k, v in sd["params"].items()}}
 
 
+
+
+# ------------------------------------------------------ sharded serving
+
+def case_serving_linears(cfg, params, x):
+    """The int8 projections of a model served on this rank's tp 2 shards
+    (``load_decode_weights(quantize="kernel", mesh=)``: ``serving_shards``,
+    then ``set_serving_tp``): layer 0's q, v, out, gate and down and the
+    head, each on x (rows, width) as the serving forward feeds it (a
+    column-parallel projection the whole x's first ``m`` columns, a
+    row-parallel one the rank's slice of them), and q and gate again with
+    their RMSNorm folded into the kernel (B2)."""
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.models.generation import load_decode_weights
+    from mlcomp_tpu_torch.ops.quant import Int8Linear
+    from mlcomp_tpu_torch.parallel.mesh import axis_rank
+
+    mesh = _mesh(dp=1, tp=2)
+    model = create_model(cfg, device="cpu")
+    load_decode_weights(model, params, quantize="kernel", mesh=mesh)
+    r = axis_rank(mesh, "tp")
+    layer, xb = model.layers[0], _t(x).bfloat16()
+    rows, dh = x.shape[0], cfg["hidden"] // cfg["heads"]
+    mods = {"q": layer.attn.q, "v": layer.attn.v, "out": layer.attn.out, "gate": layer.gate,
+            "down": layer.down, "lm_head": model.lm_head}
+    out = {"tp": r}
+    for name, mod in mods.items():
+        assert isinstance(mod, Int8Linear) and mod.tp_group is not None, name
+        m = mod.q8.shape[0]
+        xl = xb[:, r * m:(r + 1) * m] if mod.row_parallel else xb[:, :m]
+        if mod.n_contract == 2:
+            xl = xl.reshape(rows, -1, dh)
+        out[name] = {"y": mod(xl).float().reshape(rows, -1).numpy(),
+                     "row_parallel": mod.row_parallel, "m": m}
+    for name, mod, norm in (("q", layer.attn.q, layer.attn.norm),
+                            ("gate", layer.gate, layer.norm)):
+        y = mod(xb[:, :cfg["hidden"]], norm=norm)
+        out[f"{name}+norm"] = {"y": y.float().reshape(rows, -1).numpy(),
+                               "norm_scale": norm.scale.float().numpy()}
+    return out
+
+
+def case_local_decode(cfg, q, k8, ks, v8, vs, start, stop):
+    """Decode attention on this rank's heads, as a tp 2 serving model holds
+    them: the model's own cache (``init_cache`` after ``set_serving_tp``:
+    ``kv_heads / tp`` heads) takes the rank's heads of the whole int8
+    cache, and ``decode_attention`` runs the rank's query heads on it."""
+    import torch
+
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.models import transformer as tm
+    from mlcomp_tpu_torch.parallel.mesh import axis_rank
+
+    mesh = _mesh(dp=1, tp=2)
+    model = create_model(cfg, device="cpu")
+    model.set_serving_tp(mesh)
+    r = axis_rank(mesh, "tp")
+    b, h, _ = q.shape
+    h_kv, l_buf = k8.shape[1], k8.shape[2]
+    cache = model.init_cache(b, l_buf).layers[0]
+    hk = slice(r * h_kv // 2, (r + 1) * h_kv // 2)
+    for field, whole, cast in (("kq", k8, None), ("ks", ks, torch.bfloat16), ("vq", v8, None),
+                               ("vs", vs, torch.bfloat16)):
+        local = _t(whole[:, hk])
+        getattr(cache, field).copy_(local if cast is None else local.to(cast))
+    hq = slice(r * h // 2, (r + 1) * h // 2)
+    got = tm.decode_attention(_t(q[:, hq]).bfloat16().contiguous(), cache.kq, cache.ks,
+                              cache.vq, cache.vs, kv_start=_t(start), kv_stop=_t(stop),
+                              scale=0.1)
+    return {"out": got.float().numpy(), "tp": r, "cache_heads": cache.kq.shape[1]}
+
+
+def case_serving_errors(tile_cfg, tile_params, heads_cfg, heads_params):
+    """The JAX package's kernel-level refusals on the serving path under
+    tp 2: an int8 shard that is not lane-tileable (``serving_shards``) and
+    head counts that tp does not divide with the int8 KV kernels
+    (``set_serving_tp``)."""
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.models.generation import load_decode_weights
+
+    mesh = _mesh(dp=1, tp=2)
+    out = {}
+    for key, cfg, params, quantize in (("qmm", tile_cfg, tile_params, "kernel"),
+                                       ("decode", heads_cfg, heads_params, False)):
+        try:
+            load_decode_weights(create_model(cfg, device="cpu"), params, quantize=quantize,
+                                mesh=mesh)
+        except ValueError as e:
+            out[key] = str(e)
+    return out
+
+
+def case_serving_shards(cfg, params, axes, quantize):
+    """This rank's serving shards of ``params`` (quantized whole first when
+    ``quantize``), flattened by path."""
+    from mlcomp_tpu_torch.io.weights import flatten
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.ops.quant import as_tensor, quantize_params
+    from mlcomp_tpu_torch.parallel.mesh import axis_rank
+    from mlcomp_tpu_torch.parallel.sharding import serving_shards
+
+    mesh = _mesh(**axes)
+    model = create_model(cfg, device="cpu")
+    tree = quantize_params(params) if quantize else params
+    flat = flatten(serving_shards(tree, model, mesh))
+    return {"tp": axis_rank(mesh, "tp"),
+            "leaves": {k: as_tensor(v).numpy() for k, v in flat.items()}}
+
+
+def _serve_model(cfg, params, mesh):
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.models.generation import load_decode_weights
+
+    model = create_model(cfg, device="cpu")
+    load_decode_weights(model, params, mesh=mesh)
+    return model
+
+
+def _channel(port):
+    from mlcomp_tpu_torch.parallel.distributed import BoundaryChannel
+
+    return BoundaryChannel(address="127.0.0.1:0", port=port, timeout_s=120)
+
+
+def _kv_heads(eng):
+    """The KV heads of every cache (or page) tensor this rank holds: the
+    dense bf16 layout keeps heads at dim 2 of (B, L, Hkv, dh), pages at
+    dim 2 of (P, T, Hkv, dh); the int8 family at dim 1."""
+    if eng._layout is None:
+        return sorted({t.shape[2] if n in ("k", "v") else t.shape[1]
+                       for layer in eng._d["cache"].layers for n, t in vars(layer).items()})
+    return sorted({p.shape[2] if spec.field in ("k", "v") else p.shape[1]
+                   for spec, p in zip(eng._layout.kv_specs, eng._d["pages"])})
+
+
+def _finish_rank(eng, out):
+    """Coordinator: close (its loop sends the stop record).  Follower: wait
+    for the stop record to end the loop, then close."""
+    if eng.is_coordinator:
+        eng.close()
+        return out
+    eng._thread.join(timeout=120)
+    out["loop_ended"] = not eng._thread.is_alive()
+    eng.close()
+    return out
+
+
+def _engine_state(eng):
+    st = eng.stats()
+    out = {"emitted_tokens": st["emitted_tokens"], "prefills": st["prefills"],
+           "cancelled": st["cancelled"], "dispatches": st["dispatches"],
+           "mesh": st.get("mesh"), "kv_heads": _kv_heads(eng),
+           "depth": st["pipeline"]["depth"], "peak_inflight": st["pipeline"]["peak_inflight"]}
+    if eng._layout is not None:
+        out["table"] = eng._d["table"].numpy().copy()
+        out["live_slots"] = len(eng._host)
+    return out
+
+
+def case_engine_workload(cfg, params, axes, depth, kv_layout, eos_c, ids, sync_port):
+    """The mixed workload of tests/test_engine_sharded.py on a gang engine:
+    A streams while B joins, C queues behind full slots and joins
+    mid-stream, stopping at an EOS inside a K = 2 dispatch.  Rank 0 returns
+    the results and its state, a follower its state once the coordinator's
+    stop record ended its loop."""
+    import queue
+
+    from mlcomp_tpu_torch.engine import DecodeEngine
+
+    mesh = _mesh(**axes)
+    model = _serve_model(cfg, params, mesh)
+    eng = DecodeEngine(model, slots=2, prompt_buckets=(16,), max_new_cap=10,
+                       steps_per_dispatch=2, pipeline_depth=depth, kv_layout=kv_layout,
+                       mesh=mesh, dist=_channel(sync_port))
+    out = {"kv_heads_born": _kv_heads(eng)}
+    if eng.is_coordinator:
+        try:
+            qa = queue.Queue()
+            fa = eng.submit(ids["a"], 9, logprobs=True, stream=qa)
+            qa.get(timeout=120)
+            fb = eng.submit(ids["b"], 7)
+            fc = eng.submit(ids["c"], 6, eos_id=eos_c)
+            ra, rb, rc = (f.result(timeout=120) for f in (fa, fb, fc))
+            out.update(a=(ra["ids"], ra["logprobs"]), b=rb["ids"], c=rc["ids"])
+        finally:
+            _finish_rank(eng, out)
+        out.update(_engine_state(eng))
+        return out
+    _finish_rank(eng, out)
+    out.update(_engine_state(eng))
+    return out
+
+
+def case_dp_slots(cfg, params, axes):
+    """Slot counts that dp does not split are refused at construction (a
+    rank's copy of the other dp ranks' rows goes stale once they decode)."""
+    from mlcomp_tpu_torch.engine import DecodeEngine
+
+    mesh = _mesh(**axes)
+    out = {}
+    for name, kw in (("slots", dict(slots=3)),
+                     ("max_slots", dict(slots=2, max_slots=5, kv_layout="paged"))):
+        try:
+            DecodeEngine(_serve_model(cfg, params, mesh), prompt_buckets=(16,), max_new_cap=8,
+                         mesh=mesh, dist=object(), **kw)
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def case_follower_replay(cfg, params, axes, prompt1, prompt2, sync_port):
+    """A coordinator/follower pair: the follower refuses submits
+    (NotCoordinator) and replays the coordinator's boundaries, a cancel
+    retirement included; the coordinator's stop record ends its loop."""
+    import queue
+
+    from mlcomp_tpu_torch.engine import DecodeEngine, NotCoordinator
+
+    mesh = _mesh(**axes)
+    model = _serve_model(cfg, params, mesh)
+    eng = DecodeEngine(model, slots=2, prompt_buckets=(16,), max_new_cap=10,
+                       steps_per_dispatch=2, pipeline_depth=2, mesh=mesh,
+                       dist=_channel(sync_port))
+    out = {"is_coordinator": eng.is_coordinator}
+    if not eng.is_coordinator:
+        try:
+            eng.submit([1, 2, 3], 4)
+        except NotCoordinator as e:
+            out["not_coordinator"] = e.status
+        _finish_rank(eng, out)
+        out.update(_engine_state(eng))
+        return out
+    try:
+        out["r1"] = eng.submit(prompt1, 6).result(timeout=120)["ids"]
+        qs = queue.Queue()
+        f2 = eng.submit(prompt2, 10, stream=qs)
+        qs.get(timeout=120)
+        out["cancel_matched"] = eng.cancel(f2.rid)
+        try:
+            f2.result(timeout=120)
+            out["f2"] = "finished"
+        except Exception as e:
+            out["f2"] = type(e).__name__
+    finally:
+        _finish_rank(eng, out)
+    out.update(_engine_state(eng))
+    return out
+
+
+def case_service(cfg, params, mesh_cfg, kw, prompt, sync_port):
+    """``load_service(mesh_cfg=, dist=)`` on this rank: the coordinator
+    answers ``generate``, renders /metrics and reports its readiness; a
+    follower its readiness and its state once its loop ended."""
+    from mlcomp_tpu_torch.serve import load_service
+
+    svc = load_service(cfg, params=params, device="cpu", mesh_cfg=mesh_cfg,
+                       dist=_channel(sync_port), metrics_history_interval=0, **kw)
+    out = {"mesh_block": svc.stats().get("mesh")}
+    if hasattr(svc.model, "moe_blocks"):
+        # the experts this rank holds, and the first of them
+        out["experts"] = [(blk.w1.shape[0], blk.expert0) for _, blk in svc.model.moe_blocks()]
+    eng = svc.engine
+    if eng.is_coordinator:
+        try:
+            out["warm"] = svc.warmup()
+            out["ids"] = svc.generate(prompt, kw["max_new_buckets"][-1])["ids"]
+            out["ready"] = svc.stats()["ready"]
+            out["metrics"] = [line for line in svc.metrics.render().splitlines()
+                              if line.startswith(("mlcomp_engine_mesh_devices",
+                                                  "mlcomp_engine_is_coordinator"))]
+        finally:
+            svc.close()
+        return out
+    out["ready"] = svc.stats()["ready"]
+    out["metrics"] = [line for line in svc.metrics.render().splitlines()
+                      if line.startswith(("mlcomp_engine_mesh_devices",
+                                          "mlcomp_engine_is_coordinator"))]
+    eng._thread.join(timeout=120)
+    out["loop_ended"] = not eng._thread.is_alive()
+    svc.close()
+    return out
