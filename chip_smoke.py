@@ -151,24 +151,26 @@ without printing a result:
    vit_b16 (224 x 224, batch 64, 6 steps).  Every task must end in
    ``success`` with finite losses and the reports must be stored;
    BERT-window and ViT must launch B5 12 times a train step and an eval
-   batch and the backward kernels 12 times a train step, the other models
-   no flash kernel.  On one batch of BERT-window (padded rows) and ViT,
+   batch and the backward kernels 12 times a train step, every call on the
+   bf16 dh-64 instance's counters, the other models no flash kernel.  On one batch of BERT-window (padded rows) and ViT,
    every kernel call of a train step is held against its plain version on
    its own inputs with the kernel phase's rule, and the logits against the
    plain model's within 2^-7 (|ref| + the head's absolute terms).  One
    ResNet-50 step is profiled (device time by kernel group, idle share;
    the pass fails without device time); B5 and B9 at the BERT and ViT
    shapes get their device times (queued CUDA events, failing unless the
-   flash kernels launch every call) beside SDPA's.
+   dh-64 instance launches every call) beside the padded route's (the
+   dh-128 instance on operands zero-padded to 128) and SDPA's.
    Then (ROADMAP §C6) the same step with SDPA in the attention's place:
    the SDPA and plain steps against each other give the noise floor of
    bf16 attention in loss and gradient norm, printed beside the kernels'
    gap, which is held within C6_FLOOR_MULTIPLE x the floor.
 11f. attention dims and dtypes (ROADMAP §C5): the flash forward and
-   backward at head dim 256 (bf16) and on f32 at head dims 128 and 256,
-   each against its plain version at the three TPU grids' shapes (an empty
-   row where windows are), bit-equal on a rerun, with times, SDPA's and
-   the bound (f32 at the card's CUDA-core rate); one train step of the
+   backward at head dims 256 and 64 (bf16; 64 also at BERT's window and
+   ViT's ragged 64 x 196, beside the padded route) and on f32 at head dims
+   128 and 256, each against its plain version at the three TPU grids'
+   shapes (an empty row where windows are), bit-equal on a rerun, with
+   times, SDPA's and the bound (f32 at the card's CUDA-core rate); one train step of the
    1.2B LM with 8 heads of 256 (the dh-256 kernels 16 times each; loss and
    gradient norm against the plain step); an f32 BERT-window step and an
    f32 LM step with heads of 256 (cut on a ``reduced`` line) against their
@@ -237,7 +239,9 @@ without printing a result:
    among them.  The unsharded kernel step is held within the same
    multiple of the floor from the f32-attention step, and its first and
    last layer's attention leaf by leaf (``long_flash_leaves``, ROADMAP
-   §C8).  ``transformer_lm_pp`` at pp 2 with two virtual stages a rank
+   §C8); the first layer's B5 and B10 (the dh-64 instance) are timed
+   beside the padded route and SDPA (``long_flash_times``).
+   ``transformer_lm_pp`` at pp 2 with two virtual stages a rank
    against its sequential step (2e-3); step ms and peak memory per rank.
    Then configs/multihost_lm.yml through the local runner as two gang
    slots on the card (cuts on ``reduced`` lines): both slots must succeed
@@ -436,6 +440,43 @@ def held_to_plain(name, out, ref, ref_abs):
         raise AssertionError(f"{name}: |kernel - plain| over 2^-7 (|ref| + ref_abs): "
                              f"max error {err}, max error / limit {ratio}")
     return err, ratio
+
+
+# the route before the flash kernels' dh-64 instance, timed beside it: the
+# dh-128 instance on operands zero-padded to 128, the outputs sliced back
+def pad_to_128(t):
+    return torch.nn.functional.pad(t, (0, 128 - t.shape[-1]))
+
+
+def padded_route_fwd(q, k, v, causal, sc, lo=None, hi=None):
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+
+    out = fa.flash_attention_fwd(pad_to_128(q), pad_to_128(k), pad_to_128(v), causal, sc, lo,
+                                 hi)[0]
+    return out[..., :q.shape[-1]]
+
+
+def padded_route_bwd(q, k, v, out, lse, do, causal, sc, lo=None, hi=None):
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+
+    grads = fa.flash_attention_bwd(*(pad_to_128(t) for t in (q, k, v, out)), lse,
+                                   pad_to_128(do), causal, sc, lo, hi)
+    return [g[..., :q.shape[-1]] for g in grads]
+
+
+def dh64_calls() -> int:
+    """Forward and backward calls on the dh-64 instance so far."""
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+
+    return fa.fwd_dh64_launches + fa.bwd_dh64_launches
+
+
+def dh128_calls() -> int:
+    """Forward and backward calls on the bf16 dh-128 instance so far (where
+    no dh-256 or f32 call runs)."""
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+
+    return fa.launches + fa.bwd_dq_launches - dh64_calls()
 
 
 class Kernel:
@@ -1029,6 +1070,9 @@ def zoo_phase(device, smi, bw, flops):
     traced = {"unet_segmentation", "resnet50_imagenet", "bert_finetune", "bert_finetune_window",
               "vit_b16"}
     bwd_counters = ("bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches")
+    # the dh-64 instance's own counters: every flash call of the two models
+    # (bf16, 12 heads of 64) must go through it
+    dh64_counters = ("fwd_dh64_launches", "bwd_dh64_launches")
     # the two models that attend through the flash kernels, by their depth
     layers = {n: create_model(configs[n]["executors"]["train"]["args"]["model"], "cpu").layers
               for n in ("bert_finetune_window", "vit_b16")}
@@ -1046,7 +1090,7 @@ def zoo_phase(device, smi, bw, flops):
             with open(f"{d}/dag.yml", "w") as f:
                 yaml.safe_dump(cfg, f)
             fa.launches = 0
-            for c in bwd_counters:
+            for c in bwd_counters + dh64_counters:
                 setattr(fa, c, 0)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -1054,7 +1098,8 @@ def zoo_phase(device, smi, bw, flops):
             rc = port_cli.main(["dag", f"{d}/dag.yml", "--db", f"{d}/db.sqlite", "--workdir", d,
                                 "--device", device])
             wall = time.perf_counter() - t0
-            counts = {"B5": fa.launches, **{c: getattr(fa, c) for c in bwd_counters}}
+            counts = {"B5": fa.launches,
+                      **{c: getattr(fa, c) for c in bwd_counters + dh64_counters}}
             store = Store(f"{d}/db.sqlite")
             try:
                 rows = store.task_rows(1)
@@ -1090,6 +1135,7 @@ def zoo_phase(device, smi, bw, flops):
                         evals += nb * (a.get("epochs", 1) if task.get("type") == "train" else 1)
                 want = {"B5": layers[name] * (steps + evals),
                         **{c: layers[name] * steps for c in bwd_counters}}
+                want.update(fwd_dh64_launches=want["B5"], bwd_dh64_launches=want["bwd_dq_launches"])
                 if counts != want or steps == 0:
                     raise AssertionError(f"zoo {name}: flash launches {counts}, want {want} "
                                          f"({steps} train steps, {evals} eval batches)")
@@ -1354,13 +1400,15 @@ def zoo_phase(device, smi, bw, flops):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # B5 and B9 device times at the two models' attention shapes
-        def timed(fn, iters=10, kernel=True):
+        # B5 and B9 device times at the two models' attention shapes: the
+        # dh-64 instance, and the route before it (the dh-128 instance on
+        # operands zero-padded to 128, pads and slices included) in the
+        # same process
+        def timed(fn, counter=None, iters=10):
             """Device time of one call (``queued_device_ms``; a flash pass
-            fails unless the flash kernels launch every call), and the
+            fails unless ``counter``'s kernels launch every call), and the
             call's time by CUDA events (median of five windows)."""
-            out_ = {"device": device_ms_of(fn, (lambda: fa.launches + fa.bwd_dq_launches)
-                                            if kernel else None, iters)}
+            out_ = {"device": device_ms_of(fn, counter, iters)}
             ev = time_ms([fn], iters=iters, warmup=2)
             out_["events_ms"], out_["events_ms_spread"] = float(ev), list(ev.spread)
             return out_
@@ -1381,15 +1429,21 @@ def zoo_phase(device, smi, bw, flops):
             hi = torch.full((b,), s, dtype=torch.int32, device=dev) if win else None
             sc = 64 ** -0.5
             out, lse = fa.flash_attention_fwd(q, k, v, False, sc, lo, hi)
-            fwd = timed(lambda: fa.flash_attention_fwd(q, k, v, False, sc, lo, hi))
-            bwd = timed(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, False, sc, lo, hi))
+            padded = {
+                "fwd": lambda: padded_route_fwd(q, k, v, False, sc, lo, hi),
+                "bwd": lambda: padded_route_bwd(q, k, v, out, lse, do, False, sc, lo, hi)}
+            pad_f = timed(padded["fwd"], dh128_calls)
+            fwd = timed(lambda: fa.flash_attention_fwd(q, k, v, False, sc, lo, hi), dh64_calls)
+            bwd = timed(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, False, sc, lo, hi),
+                        dh64_calls)
+            pad_b = timed(padded["bwd"], dh128_calls)
             lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
             with torch.no_grad():
-                lib_f = timed(lambda: sdpa(lq, lk, lv, scale=sc), kernel=False)
+                lib_f = timed(lambda: sdpa(lq, lk, lv, scale=sc))
             lq, lk, lv = (t.requires_grad_() for t in (lq, lk, lv))
             graph = sdpa(lq, lk, lv, scale=sc)
             lib_b = timed(lambda: torch.autograd.grad(graph, (lq, lk, lv), ldo,
-                                                         retain_graph=True), kernel=False)
+                                                         retain_graph=True))
             lo_t, hi_t = fa._window(lo, b, 0, dev), fa._window(hi, b, s, dev)
             plain_f = time_ms([lambda: fa.flash_attention_plain(q, k, v, False, sc, lo_t, hi_t)],
                               iters=3, warmup=1)
@@ -1399,16 +1453,20 @@ def zoo_phase(device, smi, bw, flops):
             w64 = fa.flash_work(b, s, s, 12, 12, 64, False, lo, hi)
             w128 = fa.flash_work(b, s, s, 12, 12, 128, False, lo, hi)
             flash_times[label] = {
-                key_: {"device_ms": m["device"], "events_ms": m["events_ms"],
-                       "events_ms_spread": m["events_ms_spread"],
-                       "sdpa_device_ms": lib["device"],
-                       "sdpa_events_ms": lib["events_ms"], **bound(w64[f"{f_}_bytes"], w64[f"{f_}_ops"]),
+                key_: {"instance": "bf16 dh 64", "device_ms": m["device"],
+                       "events_ms": m["events_ms"], "events_ms_spread": m["events_ms_spread"],
+                       "padded_route_device_ms": pm["device"],
+                       "padded_route_events_ms": pm["events_ms"],
+                       "sdpa_device_ms": lib["device"], "sdpa_events_ms": lib["events_ms"],
+                       "no_slower_than_sdpa": m["device"] <= lib["device"],
+                       **bound(w64[f"{f_}_bytes"], w64[f"{f_}_ops"]),
                        "bound_ms_at_dh128": bound(w128[f"{f_}_bytes"], w128[f"{f_}_ops"])["bound_ms"]}
-                for key_, f_, m, lib in (("B5", "fwd", fwd, lib_f), ("B9", "bwd", bwd, lib_b))}
+                for key_, f_, m, pm, lib in (("B5", "fwd", fwd, pad_f, lib_f),
+                                             ("B9", "bwd", bwd, pad_b, lib_b))}
             flash_times[label]["B5"]["plain_ms"] = float(plain_f)
             flash_times[label]["B9"]["plain_ms"] = float(plain_b)
             log(f"zoo flash {label}: {json.dumps(flash_times[label])}")
-            del q, k, v, do, out, lse, lq, lk, lv, ldo, graph
+            del q, k, v, do, out, lse, lq, lk, lv, ldo, graph, padded
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1461,7 +1519,10 @@ ATTN_F32_LM = {"layers": 2, "batch": 1, "seq": 2048}
 # the kernel checks (label, dtype, B, S, H, Hkv, dh, causal, windows, timing
 # iterations): bf16 at head dim 256 at the LM's shape (B10's grid), GQA,
 # windows over 2048 keys (B11's), a BERT-sized batch with key padding (B9's
-# rectangle) and a ragged S; f32 at head dims 128 and 256 and BERT's 64
+# rectangle) and a ragged S; bf16 at head dim 64 (the unpadded instance,
+# timed beside the route before it: the dh-128 instance on operands padded
+# to 128) at BERT's window, ViT-B/16's ragged 64 x 196, causal GQA (B10's
+# grid) and windows (B11's); f32 at head dims 128 and 256 and BERT's 64
 # (padded to 128).  Every windowed case holds an empty row
 ATTN_CASES = [
     ("LM training 2x4096, 8 heads of 256, causal", "bf16", 2, 4096, 8, 8, 256, True, None, 10),
@@ -1473,6 +1534,13 @@ ATTN_CASES = [
      "padding", 10),
     ("ragged 3x1000, 8 q heads on 4 kv heads of 192, causal", "bf16", 3, 1000, 8, 4, 192, True,
      None, 10),
+    ("BERT 32x128, 12 heads of 64, key padding, one empty row", "bf16", 32, 128, 12, 12, 64,
+     False, "padding", 10),
+    ("ViT-B/16 64x196, 12 heads of 64 (ragged S)", "bf16", 64, 196, 12, 12, 64, False, None, 10),
+    ("GQA 2x4096, 16 q heads on 4 kv heads of 64, causal", "bf16", 2, 4096, 16, 4, 64, True,
+     None, 10),
+    ("4x2048 key-padding windows, 16 heads of 64, one empty row", "bf16", 4, 2048, 16, 16, 64,
+     False, "windows", 10),
     ("f32 LM 1x2048, 16 heads of 128, causal", "f32", 1, 2048, 16, 16, 128, True, None, 3),
     ("f32 2x1024 key-padding windows, 8 heads of 128, one empty row", "f32", 2, 1024, 8, 8,
      128, False, "windows", 3),
@@ -1529,13 +1597,16 @@ def device_ms_of(fn, counter=None, iters=10):
 
 def attention_dims_phase(device, smi, bw, flops, f32_flops):
     """Phase "attention dims and dtypes" (ROADMAP §C5): the flash kernels'
-    new instances, bf16 at head dim 256 and f32 at 128 and 256, each held
+    instances beside bf16 at 128, bf16 at head dims 256 and 64 and f32 at
+    128 and 256, each held
     against its plain version at shapes that reach every TPU grid (B10's
     causal, B11's windows, B9's rectangle, with an empty row where windows
     are) with the kernel phase's rule (2^-7 (|ref| + ref_abs) for bf16;
     2^-16 for f32, whose sums differ only in order, ~2^-20 of ref_abs, and
     by the SFU-free expf's ulps), bit-equal on a rerun, with times beside
-    the plain version's, SDPA's (events and device) and the card's bound.
+    the plain version's, SDPA's (events and device) and the card's bound
+    (at head dim 64 also the padded route's: the dh-128 instance on
+    operands zero-padded to 128, the path before the dh-64 instance).
     Then the paths: one train step of the 1.2B LM with 8 heads of 256 (the
     dh-256 kernels launch 16 times each; loss and gradient norm against the
     plain step with the train parity's rule), an f32 BERT-window step and
@@ -1555,7 +1626,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(SEED + 16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = {"fwd_dh256": [], "bwd_dh256": [], "fwd_f32": [], "bwd_f32": []}
+    rows = {"fwd_dh256": [], "bwd_dh256": [], "fwd_dh64": [], "bwd_dh64": [], "fwd_f32": [],
+            "bwd_f32": []}
 
     def bound(nbytes, ops, peak):
         t_b, t_o = nbytes / bw, ops / peak
@@ -1572,6 +1644,7 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
 
     def case(label, dtype, b, s, h, h_kv, d, causal, lo=None, hi=None, iters=10):
         f32 = dtype == torch.float32
+        key = "f32" if f32 else f"dh{fa.kernel_dh(d, dtype)}"
         tol, peak = (2.0 ** -16, f32_flops) if f32 else (2.0 ** -7, flops)
         sc = d ** -0.5
         q, k, v, do = (torch.randn(b, s, hh, d, generator=g, device=dev).to(dtype)
@@ -1615,11 +1688,22 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
         pb = time_ms([lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, sc,
                                                            lo_t, hi_t)],
                      iters=1, warmup=1, windows=3)
+        fwd_count = "f32_fwd_launches" if f32 else f"fwd_{key}_launches"
+        bwd_count = "f32_bwd_launches" if f32 else f"bwd_{key}_launches"
+        padded = {}
+        if key == "dh64":
+            # the route before the dh-64 instance, in the same process
+            padded["padded_route_fwd_device_ms"] = device_ms_of(
+                lambda: padded_route_fwd(q, k, v, causal, sc, lo, hi), dh128_calls)
         dkf = device_ms_of(lambda: fa.flash_attention_fwd(q, k, v, causal, sc, lo, hi),
-                           lambda: fa.f32_fwd_launches if f32 else fa.fwd_dh256_launches)
+                           lambda: getattr(fa, fwd_count))
         dkb = device_ms_of(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal, sc,
                                                           lo, hi),
-                           lambda: fa.f32_bwd_launches if f32 else fa.bwd_dh256_launches)
+                           lambda: getattr(fa, bwd_count))
+        if key == "dh64":
+            padded["padded_route_bwd_device_ms"] = device_ms_of(
+                lambda: padded_route_bwd(q, k, v, out, lse, do, causal, sc, lo, hi),
+                dh128_calls)
         # the yardstick: SDPA on copies in its (B, H, S, D) layout, the kv
         # heads repeated for GQA, windows as a boolean mask
         rep = h // h_kv
@@ -1652,15 +1736,16 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
         work = fa.flash_work(b, s, s, h, h_kv, d, causal, lo, hi, itemsize=4 if f32 else 2)
         grid = bwd_grid(causal, win, s)
         common = dict(case=label, dtype="f32" if f32 else "bf16", b=b, s=s, h=h, h_kv=h_kv,
-                      dh=d, kernel_dh=fa.kernel_dh(d), causal=causal, windowed=win,
+                      dh=d, kernel_dh=fa.kernel_dh(d, dtype), causal=causal, windowed=win,
                       live_pairs=work["live_pairs"], bit_equal_reruns=True)
-        key = "f32" if f32 else "dh256"
         fwd_row = dict(common, max_abs_err=f_err, err_over_limit=f_ratio, lse_err=lse_err,
                        ms=kf, device_ms=dkf, plain_ms=pf, library_ms=lf, library_device_ms=dlf,
+                       **{k_: v_ for k_, v_ in padded.items() if "fwd" in k_},
                        **bound(work["fwd_bytes"], work["fwd_ops"], peak))
         bwd_row = dict(common, grid=grid, replaces_row=GRID_KEYS[grid], max_abs_err=b_err,
                        err_over_limit=b_ratio, ms=kb, device_ms=dkb, plain_ms=pb,
                        library_ms=lb, library_device_ms=dlb,
+                       **{k_: v_ for k_, v_ in padded.items() if "bwd" in k_},
                        **bound(work["bwd_bytes"], work["bwd_ops"], peak))
         for part, row in (("fwd", fwd_row), ("bwd", bwd_row)):
             for f_, v_ in list(row.items()):
@@ -1690,8 +1775,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
     # ---- the paths.  Every count is set to 0 just before a path and read
     # just after it
     counters = ("launches", "bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches",
-                "fwd_dh256_launches", "bwd_dh256_launches", "f32_fwd_launches",
-                "f32_bwd_launches")
+                "fwd_dh64_launches", "bwd_dh64_launches", "fwd_dh256_launches",
+                "bwd_dh256_launches", "f32_fwd_launches", "f32_bwd_launches")
 
     def reset():
         for c_ in counters:
@@ -2583,12 +2668,70 @@ def _par_references(dev, lc_cfg, mh_cfg, pp_cfg):
         if captured:
             row["leaves"] = long_flash_leaves(
                 dev, {f"layer{i}": [*qkv, do] for i, qkv, do in captured})
+            if dev.type == "cuda":
+                row["flash_times"] = long_flash_times(*captured[0][1], captured[0][2])
             captured.clear()
         out[name] = row
         log(f"parallel reference {name}: " + json.dumps(
             {k: {kk: vv for kk, vv in v.items() if kk != "launches"} for k, v in row.items()
              if k not in ("pair_gaps", "leaves")}))
     return out, failures
+
+
+# the aim of the dh-64 instance at 1 x 32768: B5 and B10 each at most this
+# share of the route before it (the dh-128 instance on padded operands)
+LONG_DH64_AIM = 0.6
+
+
+def long_flash_times(q, k, v, do) -> dict:
+    """B5 and B10 at one longcontext layer's causal attention (1 x 32768,
+    16 heads of 64, bf16), queued device ms: the dh-64 instance, the route
+    before it (the dh-128 instance on operands zero-padded to 128, pads and
+    slices included) and SDPA, in turns in this process, with the bound
+    (``flash_work``) and each instance's share of the padded route's time
+    against LONG_DH64_AIM (reported, not a check)."""
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, s, h, d = q.shape
+    sc = d ** -0.5
+    bw, flops = peaks_for(torch.cuda.get_device_name(0))[1]
+    out, lse = fa.flash_attention_fwd(q, k, v, True, sc)
+    lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    gq, gk, gv = (t.clone().requires_grad_() for t in (lq, lk, lv))
+    graph = torch.nn.functional.scaled_dot_product_attention(gq, gk, gv, is_causal=True,
+                                                             scale=sc)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            torch.nn.functional.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                                             scale=sc)
+
+    runs = {
+        "fwd": (lambda: fa.flash_attention_fwd(q, k, v, True, sc), dh64_calls),
+        "padded_fwd": (lambda: padded_route_fwd(q, k, v, True, sc), dh128_calls),
+        "sdpa_fwd": (sdpa_fwd, None),
+        "bwd": (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True, sc), dh64_calls),
+        "padded_bwd": (lambda: padded_route_bwd(q, k, v, out, lse, do, True, sc), dh128_calls),
+        "sdpa_bwd": (lambda: torch.autograd.grad(graph, (gq, gk, gv), ldo, retain_graph=True),
+                     None),
+    }
+    res = {}
+    # padded, dh 64, dh 64, padded (and SDPA beside each pass)
+    for order in (("padded_fwd", "fwd", "sdpa_fwd", "padded_bwd", "bwd", "sdpa_bwd"),
+                  ("fwd", "padded_fwd", "bwd", "padded_bwd")):
+        for name in order:
+            fn, counter = runs[name]
+            res.setdefault(f"{name}_device_ms", []).append(device_ms_of(fn, counter, iters=5))
+    w = fa.flash_work(b, s, s, h, k.shape[2], d, True)
+    for part in ("fwd", "bwd"):
+        t_b, t_o = w[f"{part}_bytes"] / bw, w[f"{part}_ops"] / flops
+        res[f"{part}_bound_ms"] = max(t_b, t_o) * 1e3
+        res[f"{part}_share_of_padded"] = (min(res[f"{part}_device_ms"])
+                                          / min(res[f"padded_{part}_device_ms"]))
+        res[f"{part}_meets_aim"] = res[f"{part}_share_of_padded"] <= LONG_DH64_AIM
+    log(f"long flash times 1x{s}x{h}x{d} causal: {json.dumps(res)}")
+    del graph, gq, gk, gv, lq, lk, lv, ldo, out, lse
+    return res
 
 
 def _capturing(attention, n_layers, captured):
@@ -6533,7 +6676,17 @@ def main() -> int:
     lm256 = ap["lm_heads_256"]["launches_one_step"]
     path_256 = "attention dims: the 1.2B LM with 8 heads of 256, one train step"
     path_f32 = "attention dims: the f32 BERT-window step and the f32 LM step with heads of 256"
+    # the dh-64 instance: every flash call of the zoo's BERT-window and ViT
+    # DAGs (counts set to 0 before each DAG, checked there)
+    zoo_64 = ("bert_finetune_window", "vit_b16")
+    path_64 = "model zoo: the bert_finetune_window and vit_b16 DAGs"
     for key, name, source, launches, path in (
+            ("fwd_dh64", "flash_attention_fwd (bf16, head dim 64)",
+             "mlcomp_tpu_torch/csrc/flash_attention.cu",
+             sum(zoo_result["launches"][n]["fwd_dh64_launches"] for n in zoo_64), path_64),
+            ("bwd_dh64", "flash_attention_bwd (bf16, head dim 64)",
+             "mlcomp_tpu_torch/csrc/flash_attention_bwd.cu",
+             sum(zoo_result["launches"][n]["bwd_dh64_launches"] for n in zoo_64), path_64),
             ("fwd_dh256", "flash_attention_fwd (bf16, head dim 256)",
              "mlcomp_tpu_torch/csrc/flash_attention.cu", lm256["fwd_dh256_launches"], path_256),
             ("bwd_dh256", "flash_attention_bwd (bf16, head dim 256)",
@@ -6621,6 +6774,11 @@ def main() -> int:
                 "err_over_limit": max(r["err_over_limit"] for r in rows)}
     log(f"parallel: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
     par_result = parallel_process(smi)
+    # the dh-64 instance at configs/longcontext_lm.yml's 1 x 32768 beside the
+    # padded route (the parallel phase's unsharded reference step)
+    for entry in entries:
+        if entry["name"].endswith("(bf16, head dim 64)"):
+            entry["longcontext"] = par_result["references"]["longcontext"].get("flash_times")
 
     log(json.dumps({"disagg": disagg}))
     log(json.dumps({"spec": spec_result}))

@@ -41,8 +41,20 @@
 // than TMA keeps the kernel free of tensor maps (cuTensorMapEncodeTiled).
 
 // Head dims.  The kernel is a template on the head dim DH, instantiated at
-// 128 (the tiles above) and 256; the wrapper zero-pads d <= 128 to 128 and
-// 128 < d <= 256 to 256, as the TPU wrapper pads to a lane multiple.  At
+// 64, 128 (the tiles above) and 256; the wrapper passes bf16 heads of 64
+// or less to the dh-64 instance (d < 64 zero-pads to 64), 64 < d <= 128
+// to 128 and 128 < d <= 256 to 256.  The TPU wrapper pads every head to
+// its 128 lanes; Hopper has no such constraint, and at dh 64 padding
+// doubled every product and byte and added a copy an operand.  At DH = 64
+// a row is 128 bytes, one swizzle line: Q, K and V tiles are a single
+// column block, S = Q K^T takes four k-steps and O is one m64n64
+// accumulator (32 floats a thread, the register-A m64n64k16 product).
+// Small shapes (BERT's 128 keys: 384 Q tiles on 132 SMs) are latency-
+// bound, and exp takes as long as the products at dh 64, so the instance
+// runs two CTAs an SM (four warpgroups to overlap one's softmax with
+// another's products): 64-key tiles keep S (32), P (16) and O (32) within
+// the 128 registers that allows, and Q with two stages of K and V take
+// 49 KB of shared memory a CTA.  At
 // DH = 256 the 128-key tiles do not fit (Q and two stages of K and V would
 // take 320 KB of shared memory against 227 KB, and a 64 x 256 O beside a
 // 64 x 128 S would spill): K/V tiles shrink to 64 keys (a 64 KB Q tile and
@@ -69,24 +81,29 @@ namespace {
 using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 128, THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// the tiles of one head dim: keys a K/V tile, S accumulators a thread,
-// 128-column O halves, shared memory
+// the tiles of one head dim: query rows (64 a warpgroup) and keys a tile,
+// S accumulators a thread, O accumulators (ON columns each), CTAs an SM,
+// shared memory
 template <int DH>
 struct Fwd {
+  static constexpr int BQ = 128, THREADS = 2 * BQ;
   static constexpr int BKV = DH == 128 ? 128 : 64;
   static constexpr int NS = BKV / 2;          // S (64 x BKV) floats a thread
-  static constexpr int NO = DH / 128;         // O accumulators of 64 x 128
+  static constexpr int ON = DH == 64 ? 64 : 128;
+  static constexpr int NO = DH / ON;          // O accumulators of 64 x ON
+  static constexpr int CTAS = DH == 64 ? 2 : 1;
   static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_BYTES = BKV * DH * 2;
   // Q, then two stages of K and of V; 1024 bytes of slack to align the base
   static constexpr int SMEM_BYTES = Q_BYTES + 4 * KV_BYTES + 1024;
 };
-static_assert(Fwd<128>::SMEM_BYTES <= 232448 && Fwd<256>::SMEM_BYTES <= 232448,
-              "shared memory of one CTA");
+// an SM's 233472 bytes hold the CTAs' shared memory and 1 KB each besides
+static_assert((Fwd<64>::SMEM_BYTES + 1024) * Fwd<64>::CTAS <= 233472 &&
+                  Fwd<128>::SMEM_BYTES <= 232448 && Fwd<256>::SMEM_BYTES <= 232448,
+              "shared memory of one CTA (of the CTAs an SM)");
 
 // S = Q K^T for one warpgroup's 64 rows and one tile of BKV keys, raw
 // (unscaled) logits, issued and committed as one wgmma group
@@ -99,19 +116,21 @@ __device__ __forceinline__ void qk_tile(float (&s)[Fwd<DH>::NS], uint32_t q_tile
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk)
-    wgmma_ss(s, desc_kmajor(q_tile, BQ, kk), desc_kmajor(k_tile, Fwd<DH>::BKV, kk), kk > 0);
+    wgmma_ss(s, desc_kmajor(q_tile, Fwd<DH>::BQ, kk), desc_kmajor(k_tile, Fwd<DH>::BKV, kk),
+             kk > 0);
   wgmma_commit();
   fence_operands(s);
 }
 
 // O += P V for one warpgroup: P (64 x BKV) as bf16 register A fragments,
-// V (BKV keys x DH) MN-major, one 64 x 128 accumulator a 128-column half;
-// issued and committed as one wgmma group
+// V (BKV keys x DH) MN-major, one 64 x ON accumulator an ON-column slice
+// (ON / 64 column blocks of the tile); issued and committed as one wgmma
+// group
 template <int DH>
-__device__ __forceinline__ void pv_tile(float (&o)[Fwd<DH>::NO][64],
+__device__ __forceinline__ void pv_tile(float (&o)[Fwd<DH>::NO][Fwd<DH>::ON / 2],
                                         const uint32_t (&pa)[Fwd<DH>::NS / 2],
                                         uint32_t v_tile) {
-  constexpr int BKV = Fwd<DH>::BKV;
+  constexpr int BKV = Fwd<DH>::BKV, ON = Fwd<DH>::ON;
 #pragma unroll
   for (int hh = 0; hh < Fwd<DH>::NO; ++hh) fence_operands(o[hh]);
   wgmma_fence();
@@ -119,8 +138,8 @@ __device__ __forceinline__ void pv_tile(float (&o)[Fwd<DH>::NO][64],
   for (int hh = 0; hh < Fwd<DH>::NO; ++hh)
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      wgmma_rs_n128(o[hh], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                    desc_mnmajor(v_tile + hh * 2 * BKV * 128, BKV, kk));
+      wgmma_rs(o[hh], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+               desc_mnmajor(v_tile + hh * (ON / 64) * BKV * 128, BKV, kk));
   wgmma_commit();
 #pragma unroll
   for (int hh = 0; hh < Fwd<DH>::NO; ++hh) fence_operands(o[hh]);
@@ -167,14 +186,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], floa
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Fwd<DH>::THREADS, Fwd<DH>::CTAS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ kv_lo,
                  const int* __restrict__ kv_hi, bf16* __restrict__ out,
                  float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int causal,
                  float scale) {
   using C = Fwd<DH>;
-  constexpr int BKV = C::BKV, NS = C::NS, NO = C::NO;
+  constexpr int BQ = C::BQ, THREADS = C::THREADS, BKV = C::BKV, NS = C::NS, NO = C::NO;
+  constexpr int OR = C::ON / 2;
   constexpr int Q_BYTES = C::Q_BYTES, KV_BYTES = C::KV_BYTES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -217,11 +237,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return kv0 < lo || kv0 + BKV > hi || (causal && kv0 + BKV - 1 > wg_row0);
   };
 
-  float o[NO][64], s[NS];
+  float o[NO][OR], s[NS];
 #pragma unroll
   for (int hh = 0; hh < NO; ++hh)
 #pragma unroll
-    for (int x = 0; x < 64; ++x) o[hh][x] = 0.f;
+    for (int x = 0; x < OR; ++x) o[hh][x] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
   uint32_t pa[NS / 2];   // P of the current tile as bf16 register A fragments
 
@@ -270,7 +290,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int hh = 0; hh < NO; ++hh) {
 #pragma unroll
-      for (int x = 0; x < 64; ++x) o[hh][x] *= alpha[(x >> 1) & 1];
+      for (int x = 0; x < OR; ++x) o[hh][x] *= alpha[(x >> 1) & 1];
       fence_operands(o[hh]);
     }
 #pragma unroll
@@ -301,10 +321,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int hh = 0; hh < NO; ++hh)
 #pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
+      for (int jj = 0; jj < OR / 4; ++jj) {
         const uint32_t pr =
             pack_bf16(o[hh][4 * jj + 2 * i] * inv, o[hh][4 * jj + 2 * i + 1] * inv);
-        *reinterpret_cast<uint32_t*>(orow + 128 * hh + 8 * jj) = pr;
+        *reinterpret_cast<uint32_t*>(orow + 2 * OR * hh + 8 * jj) = pr;
       }
     // m is in raw logit units: lse = m * scale + log(l), and -1e30 + log(1)
     // for a row that saw no live key
@@ -317,10 +337,11 @@ template <int DH>
 int fwd_launch(const void* q, const void* k, const void* v, const void* kv_lo,
                const void* kv_hi, void* out, void* lse, int B, int H, int Hkv, int Sq, int Sk,
                int causal, float scale, void* stream) {
-  constexpr int SMEM = Fwd<DH>::SMEM_BYTES;
+  using C = Fwd<DH>;
+  constexpr int SMEM = C::SMEM_BYTES;
   cudaFuncSetAttribute(flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<DH><<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid(H, B, (Sq + C::BQ - 1) / C::BQ);
+  flash_fwd_kernel<DH><<<grid, C::THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(kv_lo), static_cast<const int*>(kv_hi),
       static_cast<bf16*>(out), static_cast<float*>(lse), H, Hkv, Sq, Sk, causal, scale);
@@ -335,13 +356,13 @@ int fwd_resources(int* res) {
   cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_kernel<DH>);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, flash_fwd_kernel<DH>, THREADS,
-                                                      SMEM);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, flash_fwd_kernel<DH>,
+                                                      Fwd<DH>::THREADS, SMEM);
   res[0] = a.numRegs;
   res[1] = (int)a.sharedSizeBytes;
   res[2] = SMEM;
   res[3] = (int)a.localSizeBytes;
-  res[4] = THREADS;
+  res[4] = Fwd<DH>::THREADS;
   res[5] = ctas;
   return (int)err;
 }
@@ -350,7 +371,7 @@ int fwd_resources(int* res) {
 
 extern "C" {
 
-// q (B, Sq, H, DH) bf16; k/v (B, Sk, Hkv, DH) bf16 with DH 128 or 256;
+// q (B, Sq, H, DH) bf16; k/v (B, Sk, Hkv, DH) bf16 with DH 64, 128 or 256;
 // kv_lo/kv_hi (B,) int32 or null; out (B, Sq, H, DH) bf16; lse (B, H, Sq)
 // f32.  causal needs Sq == Sk.  Returns cudaGetLastError() (or
 // cudaErrorInvalidValue for another DH).
@@ -358,6 +379,9 @@ int flash_fwd_launch(const void* q, const void* k, const void* v,
                      const void* kv_lo, const void* kv_hi, void* out, void* lse,
                      int B, int H, int Hkv, int Sq, int Sk, int DH, int causal,
                      float scale, void* stream) {
+  if (DH == 64)
+    return fwd_launch<64>(q, k, v, kv_lo, kv_hi, out, lse, B, H, Hkv, Sq, Sk, causal, scale,
+                          stream);
   if (DH == 128)
     return fwd_launch<128>(q, k, v, kv_lo, kv_hi, out, lse, B, H, Hkv, Sq, Sk, causal, scale,
                            stream);
@@ -367,13 +391,14 @@ int flash_fwd_launch(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The forward kernel's resources at DH 128, then at DH 256, six ints each:
+// The forward kernel's resources at DH 128, 256, then 64, six ints each:
 // registers per thread, static shared bytes, dynamic shared bytes, local
 // (spill) bytes per thread, threads per CTA, CTAs per SM.  Returns the
 // first CUDA error.
 int flash_fwd_resources(int* res) {
-  const int err = fwd_resources<128>(res);
-  return err ? err : fwd_resources<256>(res + 6);
+  int err = fwd_resources<128>(res);
+  if (!err) err = fwd_resources<256>(res + 6);
+  return err ? err : fwd_resources<64>(res + 12);
 }
 
 }  // extern "C"

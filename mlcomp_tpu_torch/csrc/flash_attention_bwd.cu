@@ -53,11 +53,12 @@
 //   add through shared memory once, in a fixed order.  64-key tiles put
 //   4 x Sk / 64 x B CTAs on the card for a GQA group of 4 (512 at
 //   2 x 4096 on 4 kv heads: ~3.9 per SM).
-// - delta: one warp per (batch, position, head) row: sum_d dO * O in f32,
+// - delta: one warp per (batch, position, head) row (eight threads at
+//   DH = 64, a 16-byte chunk of dO and O each): sum_d dO * O in f32,
 //   minus the lse cotangent when one is given (ring attention's path).
 //
 // Head dims.  Each kernel is a template on the head dim DH, instantiated
-// at 128 (the tiles above) and 256 (the wrapper pads as the forward's
+// at 64, 128 (the tiles above) and 256 (the wrapper pads as the forward's
 // does).  At DH = 256 a 128-row dQ (64 x 256 a warpgroup) beside s and dp
 // would spill, and Q and dO of 128 rows with the K/V rings would take
 // 288 KB: the dq kernel runs one warpgroup of 64 rows a CTA (Q, dO and
@@ -65,8 +66,21 @@
 // accumulator registers a thread: the dk/dv kernel's CTA computes one
 // 128-column half of dK and dV (two CTAs a key tile, each recomputing s
 // and dp whole), with one warpgroup and its two-stage ring (195 KB), so
-// there is no cross-warpgroup sum.  `flash_attention.resources()` prints
-// both instances.
+// there is no cross-warpgroup sum.  At DH = 64 (bf16 heads of 64 or less,
+// unpadded: the TPU's 128-lane padding doubled every product and byte) a
+// row is one 128-byte swizzle line and every tile one column block: the
+// dq kernel runs one warpgroup of 64 rows a CTA with dQ as one m64n64
+// accumulator (32 floats a thread, the register-A m64n64k16 product),
+// three CTAs an SM (57 KB of shared memory each, no spills at 166
+// registers); the dk/dv kernel (Dkv64) gives each of its warpgroups 64
+// keys, with dK and dV of 64 x 64 each in registers, and feeds all from
+// one ring of 64-query blocks, warpgroup w w items behind the first, so
+// a Q/dO block is read once for the CTA's keys and nothing is summed
+// across warpgroups: three warpgroups from DKV64_LONG_KEYS (1024) keys on,
+// two below.  Two were timed the faster at 128 and 196 keys, three at 4096
+// and 32768; the split between 196 and 4096 keys is not measured.  The
+// delta kernel reads one 16-byte chunk a thread at DH = 64.
+// `flash_attention.resources()` prints all three instances.
 //
 // Semantics follow `_dq_update` / `_dkv_update` (:613 / :626): p =
 // exp(s - lse), SELECTED to 0 where the logit is masked (a row whose
@@ -90,11 +104,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int SMEM_MAX = 232448;
 
 // dq: Q and dO (BQ rows), then three stages of K and two of V (64 keys):
-// a K tile is read by two products one tile apart
+// a K tile is read by two products one tile apart.  dQ is NO accumulators
+// of 64 x ON a warpgroup
 template <int DH>
 struct Dq {
   static constexpr int BQ = DH == 128 ? 128 : 64, THREADS = 2 * BQ;
-  static constexpr int BKV = 64, K_STAGES = 3, NO = DH / 128;
+  static constexpr int BKV = 64, K_STAGES = 3, ON = DH == 64 ? 64 : 128, NO = DH / ON;
+  static constexpr int CTAS = DH == 64 ? 3 : 1;
   static constexpr int Q_BYTES = BQ * DH * 2, KV_BYTES = BKV * DH * 2;
   static constexpr int SMEM = 2 * Q_BYTES + (K_STAGES + 2) * KV_BYTES + 1024;
 };
@@ -112,10 +128,34 @@ struct Dkv {
   static constexpr int STAGE = (2 * Q_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
   static constexpr int SMEM = 2 * KV_BYTES + 2 * NWG * STAGE + 1024;
 };
-static_assert(Dq<128>::SMEM <= SMEM_MAX && Dq<256>::SMEM <= SMEM_MAX, "dq shared memory");
-static_assert(Dkv<128>::SMEM <= SMEM_MAX && Dkv<256>::SMEM <= SMEM_MAX, "dk/dv shared memory");
+// dk/dv at dh 64: one CTA of NWG warpgroups a tile of 64 NWG keys, each
+// owning 64 keys (dK and dV of 64 x 64 each: no cross-warpgroup sum), over
+// one ring of 64-query blocks shared by all; warpgroup w runs w items
+// behind warpgroup 0, so the ring holds NWG items in use and one landing
+template <int NWG_>
+struct Dkv64 {
+  static constexpr int NWG = NWG_, THREADS = 128 * NWG, BKV = 64, BQ = 64;
+  static constexpr int KEYS = NWG * BKV, RING = NWG + 1;
+  static constexpr int KV_BYTES = BKV * 64 * 2, Q_BYTES = BQ * 64 * 2;
+  static constexpr int STAGE = (2 * Q_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int SMEM = 2 * NWG * KV_BYTES + RING * STAGE + 1024;
+};
+// an SM's 233472 bytes hold the CTAs' shared memory and 1 KB each besides
+static_assert((Dq<64>::SMEM + 1024) * Dq<64>::CTAS <= 233472 && Dq<128>::SMEM <= SMEM_MAX &&
+                  Dq<256>::SMEM <= SMEM_MAX,
+              "dq shared memory");
+static_assert(Dkv64<3>::SMEM <= SMEM_MAX && Dkv<128>::SMEM <= SMEM_MAX &&
+                  Dkv<256>::SMEM <= SMEM_MAX,
+              "dk/dv shared memory");
 static_assert(Dkv<128>::STAGE == 33 * 1024, "the DH = 128 stage is unchanged");
 static_assert(4 * Dkv<128>::STAGE >= 2 * 64 * 128 * 4, "the dK/dV sum fits in the rings");
+
+// delta: CH neighbouring threads per (b, i, h) row of the (B, Sq, H, DH)
+// tensors, the row's partial sums added by shuffles inside its group.  At
+// DH = 64 eight threads a row, each reading one 16-byte chunk of dO and of
+// O; at 128 and 256 a warp a row, DH / 32 elements a lane
+template <int DH>
+constexpr int DELTA_CH = DH == 64 ? 8 : 32;
 
 template <int DH>
 __global__ void __launch_bounds__(256)
@@ -123,19 +163,32 @@ flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ dout,
                        const __nv_bfloat16* __restrict__ out,
                        const float* __restrict__ g_lse,
                        float* __restrict__ delta, int H, int Sq, long rows) {
-  // one warp per (b, i, h) row of the (B, Sq, H, DH) tensors
-  constexpr int E = DH / 32;
-  const long row = (long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const __nv_bfloat16* a = dout + row * DH + lane * E;
-  const __nv_bfloat16* o = out + row * DH + lane * E;
+  constexpr int CH = DELTA_CH<DH>, E = DH / CH;
+  const long row = ((long)blockIdx.x * 256 + threadIdx.x) / CH;
+  const int c = threadIdx.x % CH;
   float s = 0.f;
+  if (row < rows) {
+    const __nv_bfloat16* a = dout + row * DH + c * E;
+    const __nv_bfloat16* o = out + row * DH + c * E;
+    if constexpr (DH == 64) {
+      const uint4 a8 = *reinterpret_cast<const uint4*>(a);
+      const uint4 o8 = *reinterpret_cast<const uint4*>(o);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a8);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o8);
 #pragma unroll
-  for (int e = 0; e < E; ++e) s += __bfloat162float(a[e]) * __bfloat162float(o[e]);
+      for (int e = 0; e < 4; ++e) {
+        const float2 fa = __bfloat1622float2(a2[e]), fo = __bfloat1622float2(o2[e]);
+        s += fa.x * fo.x;
+        s += fa.y * fo.y;
+      }
+    } else {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {
+      for (int e = 0; e < E; ++e) s += __bfloat162float(a[e]) * __bfloat162float(o[e]);
+    }
+  }
+#pragma unroll
+  for (int off = CH / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < rows && c == 0) {
     const int h = (int)(row % H);
     const long bi = row / H;
     const int i = (int)(bi % Sq);
@@ -168,12 +221,13 @@ __device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32], uint3
 }
 
 // dQ += dS K for one warpgroup: dS (64 x 64) as bf16 register A
-// fragments, K (64 keys x DH) MN-major, one 64 x 128 accumulator a
-// 128-column half; issued and committed as one group
+// fragments, K (64 keys x DH) MN-major, one 64 x ON accumulator an
+// ON-column slice (ON / 64 column blocks); issued and committed as one
+// group
 template <int DH>
-__device__ __forceinline__ void ds_k_tile(float (&acc)[Dq<DH>::NO][64], const uint32_t (&da)[16],
-                                          uint32_t k_tile) {
-  constexpr int BKV = Dq<DH>::BKV;
+__device__ __forceinline__ void ds_k_tile(float (&acc)[Dq<DH>::NO][Dq<DH>::ON / 2],
+                                          const uint32_t (&da)[16], uint32_t k_tile) {
+  constexpr int BKV = Dq<DH>::BKV, ON = Dq<DH>::ON;
 #pragma unroll
   for (int hh = 0; hh < Dq<DH>::NO; ++hh) fence_operands(acc[hh]);
   wgmma_fence();
@@ -181,8 +235,8 @@ __device__ __forceinline__ void ds_k_tile(float (&acc)[Dq<DH>::NO][64], const ui
   for (int hh = 0; hh < Dq<DH>::NO; ++hh)
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      wgmma_rs_n128(acc[hh], da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                    desc_mnmajor(k_tile + hh * 2 * BKV * 128, BKV, kk));
+      wgmma_rs(acc[hh], da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+               desc_mnmajor(k_tile + hh * (ON / 64) * BKV * 128, BKV, kk));
   wgmma_commit();
 #pragma unroll
   for (int hh = 0; hh < Dq<DH>::NO; ++hh) fence_operands(acc[hh]);
@@ -209,7 +263,7 @@ __device__ __forceinline__ void dq_ds(float (&s)[32], const float (&dp)[32], boo
 }
 
 template <int DH>
-__global__ void __launch_bounds__(Dq<DH>::THREADS, 1)
+__global__ void __launch_bounds__(Dq<DH>::THREADS, Dq<DH>::CTAS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -218,6 +272,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     float scale) {
   using C = Dq<DH>;
   constexpr int DQ_BQ = C::BQ, DQ_BKV = C::BKV, DQ_K_STAGES = C::K_STAGES, NO = C::NO;
+  constexpr int OR = C::ON / 2;
   constexpr int THREADS = C::THREADS, DQ_Q_BYTES = C::Q_BYTES, DQ_KV_BYTES = C::KV_BYTES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -271,11 +326,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return kv0 < lo || kv0 + DQ_BKV > hi || (causal && kv0 + DQ_BKV - 1 > wg_row0);
   };
 
-  float acc[NO][64], s[32], dp[32];
+  float acc[NO][OR], s[32], dp[32];
 #pragma unroll
   for (int hh = 0; hh < NO; ++hh)
 #pragma unroll
-    for (int x = 0; x < 64; ++x) acc[hh][x] = 0.f;
+    for (int x = 0; x < OR; ++x) acc[hh][x] = 0.f;
   uint32_t da[16];   // dS of the current tile as bf16 register A fragments
 
   if (n_tiles > 0) {
@@ -335,10 +390,98 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int hh = 0; hh < NO; ++hh)
 #pragma unroll
-      for (int jj = 0; jj < 16; ++jj)
-        *reinterpret_cast<uint32_t*>(drow + 128 * hh + 8 * jj) =
+      for (int jj = 0; jj < OR / 4; ++jj)
+        *reinterpret_cast<uint32_t*>(drow + 2 * OR * hh + 8 * jj) =
             pack_bf16(acc[hh][4 * jj + 2 * i], acc[hh][4 * jj + 2 * i + 1]);
   }
+}
+
+// One item of the dk/dv walk for one warpgroup's 64 keys (K and V tiles
+// sK, sV) against 64 queries (Q and dO tiles sQw, sdOw; their lse and
+// delta lse_s, dl_s): s^T = K Q^T and dp^T = V dO^T as two groups, p^T
+// forming while dp^T runs and ds^T while dV += P^T dO runs; p^T and ds^T
+// round to bf16 and are the register A operands of dV += P^T dO and dK +=
+// dS^T Q, dO and Q read MN-major from `col_off` on.  dK and dV are 64 x
+// 2 NA accumulators (NA = 64: a 128-column slice; 32: the whole dh-64
+// tile).  The mask only where `masked`; key0 and col0 are this thread's
+// accumulator row and column.
+template <int DH, int NA>
+__device__ __forceinline__ void dkv_item(float (&dka)[NA], float (&dva)[NA], uint32_t sK,
+                                         uint32_t sV, uint32_t sQw, uint32_t sdOw,
+                                         uint32_t col_off, const float* lse_s, const float* dl_s,
+                                         bool masked, int key0, int col0, int qw, int lo, int hi,
+                                         int Sq, int causal, float scale) {
+  const float sl2 = scale * LOG2E;
+  // s^T and dp^T as two groups: p^T forms while dp^T runs, ds^T while
+  // dV += P^T dO runs (no instruction but wgmma defines s or dp before
+  // their first steps, so ptxas keeps the products asynchronous)
+  float s[32], dp[32];
+  fence_operands(s);
+  fence_operands(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss_n64(s, desc_kmajor(sK, 64, kk), desc_kmajor(sQw, 64, kk), kk > 0);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss_n64(dp, desc_kmajor(sV, 64, kk), desc_kmajor(sdOw, 64, kk), kk > 0);
+  wgmma_commit();
+  fence_operands(s);
+  fence_operands(dp);
+
+  wgmma_wait<1>();   // s^T is done; dp^T may still run
+  fence_operands(s);
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const float2 L = *reinterpret_cast<const float2*>(lse_s + 8 * jj + col0);
+#pragma unroll
+    for (int ie = 0; ie < 4; ++ie) {
+      const int x = 4 * jj + ie, e = ie & 1;
+      float p = ex2(fmaf(s[x], sl2, -(e ? L.y : L.x) * LOG2E));
+      if (masked) {
+        const int key = key0 + 8 * (ie >> 1);
+        const int qq = qw + 8 * jj + col0 + e;
+        const bool live = key >= lo && key < hi && qq < Sq && (!causal || qq >= key);
+        p = live ? p : 0.f;   // selected, never exp of a masked logit
+      }
+      s[x] = p;
+    }
+  }
+  uint32_t pa[16], da[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) pa[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
+  fence_operands(dva);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 64 / 16; ++kk)
+    wgmma_rs(dva, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+             desc_mnmajor(sdOw + col_off, 64, kk));
+  wgmma_commit();
+  fence_operands(dva);
+  wgmma_wait<1>();   // dp^T is done; dV += P^T dO may still run
+  fence_operands(dp);
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const float2 D = *reinterpret_cast<const float2*>(dl_s + 8 * jj + col0);
+#pragma unroll
+    for (int ie = 0; ie < 4; ++ie) {
+      const int x = 4 * jj + ie;
+      dp[x] = s[x] * (dp[x] - ((ie & 1) ? D.y : D.x)) * scale;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) da[r] = pack_bf16(dp[2 * r], dp[2 * r + 1]);
+  fence_operands(dka);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 64 / 16; ++kk)
+    wgmma_rs(dka, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+             desc_mnmajor(sQw + col_off, 64, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(dva);
+  fence_operands(dka);
 }
 
 template <int DH>
@@ -414,7 +557,6 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int key0 = kv0 + warp * 16 + (lane >> 2);   // keys key0 and key0 + 8 (rows of s^T)
   const int col0 = 2 * (lane & 3);
-  const float sl2 = scale * LOG2E;
   // this CTA's 128 columns of dO and Q (MN-major operands)
   const uint32_t col_off = half * 2 * DKV_BQ * 128;
   float dka[64], dva[64];
@@ -437,78 +579,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* dl_s = lse_s + DKV_BQ;
 
     if (!(causal && qw + 63 < kv0)) {
-      // s^T and dp^T as two groups: p^T forms while dp^T runs, ds^T while
-      // dV += P^T dO runs (no instruction but wgmma defines s or dp before
-      // their first steps, so ptxas keeps the products asynchronous)
-      float s[32], dp[32];
-      fence_operands(s);
-      fence_operands(dp);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        wgmma_ss_n64(s, desc_kmajor(sK, DKV_BKV, kk), desc_kmajor(sQw, DKV_BQ, kk), kk > 0);
-      wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        wgmma_ss_n64(dp, desc_kmajor(sV, DKV_BKV, kk), desc_kmajor(sdOw, DKV_BQ, kk), kk > 0);
-      wgmma_commit();
-      fence_operands(s);
-      fence_operands(dp);
-
       const bool masked = kv0 < lo || kv0 + DKV_BKV > hi || qw + 64 > Sq ||
                           (causal && kv0 + DKV_BKV - 1 > qw);
-      wgmma_wait<1>();   // s^T is done; dp^T may still run
-      fence_operands(s);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 L = *reinterpret_cast<const float2*>(lse_s + 8 * jj + col0);
-#pragma unroll
-        for (int ie = 0; ie < 4; ++ie) {
-          const int x = 4 * jj + ie, e = ie & 1;
-          float p = ex2(fmaf(s[x], sl2, -(e ? L.y : L.x) * LOG2E));
-          if (masked) {
-            const int key = key0 + 8 * (ie >> 1);
-            const int qq = qw + 8 * jj + col0 + e;
-            const bool live = key >= lo && key < hi && qq < Sq && (!causal || qq >= key);
-            p = live ? p : 0.f;   // selected, never exp of a masked logit
-          }
-          s[x] = p;
-        }
-      }
-      uint32_t pa[16], da[16];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) pa[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
-      fence_operands(dva);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-        wgmma_rs_n128(dva, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                      desc_mnmajor(sdOw + col_off, DKV_BQ, kk));
-      wgmma_commit();
-      fence_operands(dva);
-      wgmma_wait<1>();   // dp^T is done; dV += P^T dO may still run
-      fence_operands(dp);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 D = *reinterpret_cast<const float2*>(dl_s + 8 * jj + col0);
-#pragma unroll
-        for (int ie = 0; ie < 4; ++ie) {
-          const int x = 4 * jj + ie;
-          dp[x] = s[x] * (dp[x] - ((ie & 1) ? D.y : D.x)) * scale;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 16; ++r) da[r] = pack_bf16(dp[2 * r], dp[2 * r + 1]);
-      fence_operands(dka);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-        wgmma_rs_n128(dka, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                      desc_mnmajor(sQw + col_off, DKV_BQ, kk));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(dva);
-      fence_operands(dka);
+      dkv_item<DH>(dka, dva, sK, sV, sQw, sdOw, col_off, lse_s, dl_s, masked, key0, col0, qw,
+                   lo, hi, Sq, causal, scale);
     }
   }
   cp_async_wait<0>();
@@ -548,11 +622,130 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// dk/dv at dh 64 (Dkv64): one CTA of NWG warpgroups per (64 NWG-key tile,
+// kv head, batch); warpgroup w owns keys kv0 + 64 w .. kv0 + 64 w + 63, its
+// dK and dV in registers (64 x 64 each) for the whole walk.  All take every
+// item (group head, live 64-query block) from one ring of NWG + 1 stages
+// that all threads fill, warpgroup w w items behind warpgroup 0, so one's
+// exp and ds overlap the others' products, and a Q/dO block is read once
+// for 64 NWG keys.  There is nothing to sum across warpgroups.
+template <int NWG>
+__global__ void __launch_bounds__(Dkv64<NWG>::THREADS, 1)
+flash_bwd_dkv64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int Sq,
+                       int Sk, int causal, float scale) {
+  using C = Dkv64<NWG>;
+  constexpr int DH = 64, BKV = C::BKV, BQ = C::BQ, KEYS = C::KEYS, THREADS = C::THREADS;
+  constexpr int KV_BYTES = C::KV_BYTES, Q_BYTES = C::Q_BYTES, STAGE = C::STAGE, RING = C::RING;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));   // generic view of base
+  // K and V of the CTA's keys (one KEYS-row tile each), then the ring
+  const uint32_t sK = base, sV = base + C::NWG * KV_BYTES, ring = sV + C::NWG * KV_BYTES;
+  const float* ring_f = reinterpret_cast<const float*>(gbase + 2 * C::NWG * KV_BYTES);
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int kv0 = blockIdx.z * KEYS;   // causal: the longest walks come first
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int rep = H / Hkv;
+  const int kw0 = kv0 + wg * BKV;      // this warpgroup's 64 keys
+
+  const int lo = kv_lo ? max(kv_lo[b], 0) : 0;
+  const int hi = kv_hi ? min(kv_hi[b], Sk) : Sk;
+  // a key range with no key inside [lo, hi) gets no live pair: dk, dv are 0
+  const bool tile_live = kv0 < hi && kv0 + KEYS > lo;
+  const bool wg_live = kw0 < hi && kw0 + BKV > lo;
+  // causal: query blocks wholly above the CTA's diagonal are dead (kv0 is
+  // a multiple of BQ)
+  const int q_begin = causal ? kv0 : 0;
+  const int n_qb = tile_live && q_begin < Sq ? (Sq - q_begin + BQ - 1) / BQ : 0;
+  const int n_it = rep * n_qb;
+
+  const size_t q_stride = (size_t)H * DH, kv_stride = (size_t)Hkv * DH;
+  // threads 0-255 copy an item's Q and dO, and the last 128 its lse and
+  // delta (threads 0-127 too when there are only 256)
+  const int t_ld = tid - (THREADS - 2 * BQ);
+  auto load_item = [&](int i) {   // item i: group head i / n_qb, block i % n_qb
+    const int hq = hk * rep + i / n_qb;
+    const int qb0 = q_begin + (i % n_qb) * BQ;
+    const size_t q_off = ((size_t)b * Sq * H + hq) * DH;
+    const uint32_t st = ring + (i % RING) * STAGE;
+    if (tid < 256) {
+      load_tile<BQ, 256, DH>(st, q + q_off, qb0, Sq, q_stride, tid);
+      load_tile<BQ, 256, DH>(st + Q_BYTES, dout + q_off, qb0, Sq, q_stride, tid);
+    }
+    if (t_ld >= 0) {   // lse (t_ld 0-63) and delta (64-127) of the block's queries
+      const int c = t_ld & (BQ - 1);
+      const bool valid = qb0 + c < Sq;
+      const size_t idx = ((size_t)b * H + hq) * Sq + (valid ? qb0 + c : 0);
+      const float* src = t_ld < BQ ? lse + idx : delta + idx;
+      cp_async_4(st + 2 * Q_BYTES + (t_ld >> 6) * BQ * 4 + c * 4, src, valid);
+    }
+  };
+  if (tile_live) {
+    load_tile<KEYS, THREADS, DH>(sK, k + ((size_t)b * Sk * Hkv + hk) * DH, kv0, Sk, kv_stride,
+                                 tid);
+    load_tile<KEYS, THREADS, DH>(sV, v + ((size_t)b * Sk * Hkv + hk) * DH, kv0, Sk, kv_stride,
+                                 tid);
+  }
+  if (n_it > 0) load_item(0);
+  cp_async_commit();
+
+  const int key0 = kw0 + warp * 16 + (lane >> 2);   // keys key0 and key0 + 8 (rows of s^T)
+  const int col0 = 2 * (lane & 3);
+  const uint32_t sKw = sK + wg * KV_BYTES, sVw = sV + wg * KV_BYTES;
+  float dka[32], dva[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
+
+  // step t: warpgroup w takes item t - w
+  const int n_steps = n_it > 0 ? n_it + C::NWG - 1 : 0;
+  for (int t = 0; t < n_steps; ++t) {
+    // item t has landed (K and V with item 0), and every thread is past
+    // step t - 1: stage (t + 1) % RING, which held item t - NWG (the last
+    // warpgroup's item of step t - 1), is free for item t + 1, whose copy
+    // runs beside this step's products
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (t + 1 < n_it) load_item(t + 1);
+    cp_async_commit();
+    const int i = t - wg;
+    if (i < 0 || i >= n_it || !wg_live) continue;
+    const int qw = q_begin + (i % n_qb) * BQ;   // this item's 64 queries
+    if (causal && qw + BQ - 1 < kw0) continue;
+    const uint32_t sQw = ring + (i % RING) * STAGE;
+    const float* lse_s = ring_f + (i % RING) * (STAGE / 4) + 2 * Q_BYTES / 4;
+    const bool masked = kw0 < lo || kw0 + BKV > hi || qw + BQ > Sq ||
+                        (causal && kw0 + BKV - 1 > qw);
+    dkv_item<DH>(dka, dva, sKw, sVw, sQw, sQw + Q_BYTES, 0, lse_s, lse_s + BQ, masked, key0,
+                 col0, qw, lo, hi, Sq, causal, scale);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= Sk) continue;
+    const size_t off = (((size_t)b * Sk + key) * Hkv + hk) * DH + col0;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * jj) =
+          pack_bf16(dka[4 * jj + 2 * i], dka[4 * jj + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * jj) =
+          pack_bf16(dva[4 * jj + 2 * i], dva[4 * jj + 2 * i + 1]);
+    }
+  }
+}
+
 template <int DH>
 int delta_launch(const void* dout, const void* out, const void* g_lse, void* delta, int B,
                  int H, int Sq, void* stream) {
   const long rows = (long)B * Sq * H;
-  const unsigned blocks = (unsigned)((rows + 7) / 8);
+  const unsigned blocks = (unsigned)((rows * DELTA_CH<DH> + 255) / 256);
   flash_bwd_delta_kernel<DH><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(out),
       static_cast<const float*>(g_lse), static_cast<float*>(delta), H, Sq, rows);
@@ -592,42 +785,85 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+// the dk/dv kernel at dh 64: three warpgroups a CTA over long key ranges
+// (a Q/dO block feeds 192 keys, and three staggered walks keep the tensor
+// cores busier), two over short ones (BERT's 128 and ViT's 196 keys, where
+// a 192-key tile leaves warpgroups idle).  A key's dK and dV sum the same
+// items in the same order either way: the choice changes no bit
+template <int NWG>
+int dkv64_launch_wg(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, const void* kv_lo, const void* kv_hi,
+                    void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int causal,
+                    float scale, void* stream) {
+  using C = Dkv64<NWG>;
+  cudaFuncSetAttribute(flash_bwd_dkv64_kernel<NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       C::SMEM);
+  dim3 grid(Hkv, B, (Sk + C::KEYS - 1) / C::KEYS);
+  flash_bwd_dkv64_kernel<NWG><<<grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(kv_lo),
+      static_cast<const int*>(kv_hi), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv,
+      Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// the dh-64 dk/dv kernel takes three warpgroups a CTA from this many keys
+// on, two below (see "Head dims" above)
+constexpr int DKV64_LONG_KEYS = 1024;
+
+int dkv64_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                 const void* delta, const void* kv_lo, const void* kv_hi, void* dk, void* dv,
+                 int B, int H, int Hkv, int Sq, int Sk, int causal, float scale, void* stream) {
+  if (Sk >= DKV64_LONG_KEYS)
+    return dkv64_launch_wg<3>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dk, dv, B, H, Hkv, Sq,
+                              Sk, causal, scale, stream);
+  return dkv64_launch_wg<2>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dk, dv, B, H, Hkv, Sq, Sk,
+                            causal, scale, stream);
+}
+
+// one kernel's six resource ints (see flash_bwd_resources)
+int kernel_resources(const void* fn, int smem, int threads, int* r) {
+  if (smem) cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads, smem);
+  r[0] = a.numRegs;
+  r[1] = (int)a.sharedSizeBytes;
+  r[2] = smem;
+  r[3] = (int)a.localSizeBytes;
+  r[4] = threads;
+  r[5] = ctas;
+  return (int)err;
+}
+
 template <int DH>
 int bwd_resources(int* res) {
-  const void* fns[3] = {(const void*)flash_bwd_delta_kernel<DH>,
-                        (const void*)flash_bwd_dq_kernel<DH>,
-                        (const void*)flash_bwd_dkv_kernel<DH>};
-  const int smem[3] = {0, Dq<DH>::SMEM, Dkv<DH>::SMEM};
-  const int threads[3] = {256, Dq<DH>::THREADS, Dkv<DH>::THREADS};
-  for (int f = 0; f < 3; ++f) {
-    if (smem[f])
-      cudaFuncSetAttribute(fns[f], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[f]);
-    cudaFuncAttributes a;
-    cudaError_t err = cudaFuncGetAttributes(&a, fns[f]);
-    if (err != cudaSuccess) return (int)err;
-    int ctas = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fns[f], threads[f], smem[f]);
-    if (err != cudaSuccess) return (int)err;
-    int* r = res + 6 * f;
-    r[0] = a.numRegs;
-    r[1] = (int)a.sharedSizeBytes;
-    r[2] = smem[f];
-    r[3] = (int)a.localSizeBytes;
-    r[4] = threads[f];
-    r[5] = ctas;
-  }
-  return 0;
+  int err = kernel_resources((const void*)flash_bwd_delta_kernel<DH>, 0, 256, res);
+  if (!err)
+    err = kernel_resources((const void*)flash_bwd_dq_kernel<DH>, Dq<DH>::SMEM, Dq<DH>::THREADS,
+                           res + 6);
+  if (err) return err;
+  if constexpr (DH == 64)
+    return kernel_resources((const void*)flash_bwd_dkv64_kernel<3>, Dkv64<3>::SMEM,
+                            Dkv64<3>::THREADS, res + 12);
+  else
+    return kernel_resources((const void*)flash_bwd_dkv_kernel<DH>, Dkv<DH>::SMEM,
+                            Dkv<DH>::THREADS, res + 12);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dout/out (B, Sq, H, DH) bf16 with DH 128 or 256; g_lse (B, H, Sq) f32 or
-// null; delta (B, H, Sq) f32.  Returns cudaGetLastError() (or
+// dout/out (B, Sq, H, DH) bf16 with DH 64, 128 or 256; g_lse (B, H, Sq) f32
+// or null; delta (B, H, Sq) f32.  Returns cudaGetLastError() (or
 // cudaErrorInvalidValue for another DH).
 int flash_bwd_delta_launch(const void* dout, const void* out, const void* g_lse,
                            void* delta, int B, int H, int Sq, int DH, void* stream) {
+  if (DH == 64) return delta_launch<64>(dout, out, g_lse, delta, B, H, Sq, stream);
   if (DH == 128) return delta_launch<128>(dout, out, g_lse, delta, B, H, Sq, stream);
   if (DH == 256) return delta_launch<256>(dout, out, g_lse, delta, B, H, Sq, stream);
   return (int)cudaErrorInvalidValue;
@@ -639,6 +875,9 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void*
                         const void* lse, const void* delta, const void* kv_lo,
                         const void* kv_hi, void* dq, int B, int H, int Hkv, int Sq, int Sk,
                         int DH, int causal, float scale, void* stream) {
+  if (DH == 64)
+    return dq_launch<64>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dq, B, H, Hkv, Sq, Sk, causal,
+                         scale, stream);
   if (DH == 128)
     return dq_launch<128>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dq, B, H, Hkv, Sq, Sk,
                           causal, scale, stream);
@@ -654,6 +893,9 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const void
                          const void* lse, const void* delta, const void* kv_lo,
                          const void* kv_hi, void* dk, void* dv, int B, int H, int Hkv, int Sq,
                          int Sk, int DH, int causal, float scale, void* stream) {
+  if (DH == 64)
+    return dkv64_launch(q, k, v, dout, lse, delta, kv_lo, kv_hi, dk, dv, B, H, Hkv, Sq, Sk,
+                        causal, scale, stream);
   if (DH == 128)
     return dkv_launch<128>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dk, dv, B, H, Hkv, Sq, Sk,
                            causal, scale, stream);
@@ -663,13 +905,18 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// The three kernels' resources (delta, dq, dk/dv) at DH 128, then at DH
-// 256, six ints each: registers per thread, static shared bytes, dynamic
-// shared bytes, local (spill) bytes per thread, threads per CTA, CTAs per
-// SM.  Returns the first CUDA error.
+// The three kernels' resources (delta, dq, dk/dv) at DH 128, 256, then 64
+// (its dk/dv kernel of three warpgroups, then of two), six ints each:
+// registers per thread, static shared bytes, dynamic shared bytes, local
+// (spill) bytes per thread, threads per CTA, CTAs per SM.  Returns the
+// first CUDA error.
 int flash_bwd_resources(int* res) {
-  const int err = bwd_resources<128>(res);
-  return err ? err : bwd_resources<256>(res + 18);
+  int err = bwd_resources<128>(res);
+  if (!err) err = bwd_resources<256>(res + 18);
+  if (!err) err = bwd_resources<64>(res + 36);
+  return err ? err
+             : kernel_resources((const void*)flash_bwd_dkv64_kernel<2>, Dkv64<2>::SMEM,
+                                Dkv64<2>::THREADS, res + 54);
 }
 
 }  // extern "C"

@@ -12,7 +12,13 @@ counted per class), so one tree feeds both packages
   under a fixed capacity, dropped tokens passing through the residual,
   GShard's renormalisation of the kept gates, and the Switch load-balance
   loss, which the block leaves for the Trainer to add to the objective
-  (``sown_losses``, the JAX module's sown ``losses`` collection).
+  (``sown_losses``, the JAX module's sown ``losses`` collection).  Under a
+  Trainer's mesh whose dp, fsdp or (with ``seq_parallel``) sp axis splits
+  the tokens, the decisions are the JAX step's over the global ``(B, S)``
+  tokens, which no ``shard_map`` cuts there: the capacity from the global
+  count, each token's slot counted over every token before it in the
+  global order (:class:`_TokenShards`), the slots filled summed over the
+  ranks, and the aux loss from the global means.
 - Inference (``eval()``, the default, and every decode step): drop-free
   dense routing, so a token routes the same at any token count: at 64
   tokens or fewer one einsum over every expert, above that one expert at a
@@ -53,6 +59,7 @@ from mlcomp_tpu_torch.models.transformer import (
 )
 from mlcomp_tpu_torch.ops.quant import as_tensor, expert_matmul, is_quantized_leaf
 from mlcomp_tpu_torch.parallel import collectives as col
+from mlcomp_tpu_torch.parallel.mesh import axis_rank, axis_size, batch_sharding, current_mesh
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -73,11 +80,63 @@ def _expert(w, e: int):
     return w[e]
 
 
+class _TokenShards:
+    """How a training mesh splits the global ``(B, S)`` tokens of a
+    routing decision: rows over the data axes (dp x fsdp, dp major, as the
+    Trainer feeds them), positions over ``sp`` when the sequence is
+    sharded.  The global order is row-major, so a rank's tokens are its
+    rows' shards of positions, and the tokens before a row's shard are the
+    earlier rows' and that row's earlier sp shards'."""
+
+    def __init__(self, mesh, sp: bool):
+        self.data = col.data_groups(mesh)
+        self.sp = mesh.get_group("sp") if sp else None
+        self.groups = self.data + ([self.sp] if self.sp is not None else [])
+        self.data_index, self.n_data = batch_sharding(mesh)
+        self.n_sp = col.size(self.sp) if self.sp is not None else 1
+        self.sp_index = col.rank(self.sp) if self.sp is not None else 0
+
+    @staticmethod
+    def of_mesh(seq_parallel) -> "Optional[_TokenShards]":
+        """The installed mesh's token split, or None where no axis splits
+        the tokens (the arithmetic is then the unsharded block's)."""
+        mesh = current_mesh()
+        if mesh is None:
+            return None
+        sp = bool(seq_parallel) and axis_size(mesh, "sp") > 1
+        if not sp and batch_sharding(mesh)[1] == 1:
+            return None
+        return _TokenShards(mesh, sp)
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over every rank holding other tokens (in place)."""
+        for g in self.groups:
+            col.all_reduce_(t, g)
+        return t
+
+    def offsets(self, counts: torch.Tensor) -> torch.Tensor:
+        """``counts`` (rows, E): this round's tokens a row of this rank
+        routes to each expert.  Returns (rows, E): the tokens before each
+        of this rank's row shards in the global order routed there."""
+        rows = counts.shape[0]
+        g = counts[None]
+        if self.sp is not None:
+            g = col.gather_dim(g.contiguous(), self.sp, 0)         # (n_sp, rows, E)
+        for grp in self.data:
+            g = col.gather_dim(g.contiguous(), grp, 1)             # (n_sp, B, E)
+        per_row = g.sum(0)
+        before_row = torch.cumsum(per_row, 0) - per_row
+        mine = slice(self.data_index * rows, (self.data_index + 1) * rows)
+        return before_row[mine] + g[:self.sp_index, mine].sum(0)
+
+
 class MoEBlock(nn.Module):
     """Top-k routed expert FFN over (B, S, d) activations.  ``w1`` / ``w2``
     are the stacked expert weights, set by ``MoELM.load_state``: f32
     tensors (parameters when training) or int8 leaves.  After a training
-    forward ``aux`` holds the load-balance loss; otherwise None."""
+    forward ``aux`` holds the load-balance loss and ``dropped`` the
+    (token, expert) assignments the capacity refused, over the global
+    tokens; otherwise both are None."""
 
     def __init__(self, n_experts: int, k: int = 2, capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.bfloat16, aux_weight: float = 0.01):
@@ -88,6 +147,10 @@ class MoEBlock(nn.Module):
         self.router = Dense((n_experts,), 1, torch.float32)
         self.w1 = self.w2 = None
         self.aux: Optional[torch.Tensor] = None
+        self.dropped: Optional[torch.Tensor] = None
+        # training under sequence parallelism (MoELM.set_seq_parallel): the
+        # block sees its rank's shard of the positions
+        self.seq_parallel = False
         # serving expert-parallel (MoELM.set_serving_tp): the ep group, and
         # the first of this rank's experts
         self.ep_group = None
@@ -96,7 +159,9 @@ class MoEBlock(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         b, s, d = x.shape
         t, e, dt = b * s, self.n_experts, self.dtype
-        cap = max(1, int(self.capacity_factor * t * self.k / e))
+        shards = _TokenShards.of_mesh(self.seq_parallel) if train else None
+        t_all = t if shards is None else t * shards.n_data * shards.n_sp
+        cap = max(1, int(self.capacity_factor * t_all * self.k / e))
         tokens = x.reshape(t, d)
         probs = torch.softmax(self.router(tokens.float()), dim=-1)          # (T, E)
         w1, w2 = self.w1, self.w2
@@ -105,7 +170,7 @@ class MoEBlock(nn.Module):
             raise ValueError("int8 expert weights are decode-only")
         if not quantized:
             w1, w2 = w1.to(dt), w2.to(dt)
-        self.aux = None
+        self.aux = self.dropped = None
         if not train:
             return self._dense(tokens, probs, w1, w2, quantized).reshape(b, s, d)
 
@@ -117,14 +182,24 @@ class MoEBlock(nn.Module):
         for _ in range(self.k):
             onehot = _one_hot(torch.argmax(remaining, dim=-1), e)           # (T, E)
             gate = (remaining * onehot).sum(-1)
-            pos = torch.cumsum(onehot, dim=0) - onehot + filled[None]
+            if shards is None:
+                pos = torch.cumsum(onehot, dim=0) - onehot + filled[None]
+            else:
+                # within each row shard, then past every earlier token of
+                # the global order (exact: counts below 2^24 in f32)
+                rows = onehot.reshape(b, s, e)
+                before = shards.offsets(rows.sum(1))
+                pos = (torch.cumsum(rows, dim=1) - rows + before[:, None]).reshape(t, e) \
+                    + filled[None]
             pos_tok = (pos * onehot).sum(-1).to(torch.int64)
             fits = (pos_tok < cap).float()
             combine = combine + (onehot[:, :, None] * _one_hot(pos_tok, cap)[:, None, :]
                                  * (fits * gate)[:, None, None])
             # only kept tokens take slots
-            filled = filled + (onehot * fits[:, None]).sum(0)
+            kept = (onehot * fits[:, None]).sum(0)
+            filled = filled + (kept if shards is None else shards.sum_(kept))
             remaining = remaining * (1.0 - onehot)
+        self.dropped = t_all * self.k - filled.sum()
         # GShard: renormalise over the experts that kept the token; a token
         # dropped everywhere contributes 0 (the residual carries it)
         denom = combine.sum(dim=(1, 2), keepdim=True)
@@ -132,14 +207,31 @@ class MoEBlock(nn.Module):
                               torch.zeros_like(combine))
         dispatch = (combine > 0.0).to(dt)                                   # (T, E, C)
         # Switch's load-balance loss: E * sum_e f_e * p_e
-        me = probs.mean(dim=0)
-        ce = dispatch.sum(dim=(0, 2)) / torch.clamp(dispatch.sum(), min=1.0)
+        if shards is None:
+            me = probs.mean(dim=0)
+            ce = dispatch.sum(dim=(0, 2)) / torch.clamp(dispatch.sum(), min=1.0)
+        else:
+            me = self._global_mean(probs, shards, t_all)
+            per_expert = shards.sum_(dispatch.sum(dim=(0, 2)).float())
+            ce = per_expert / torch.clamp(per_expert.sum(), min=1.0)
         self.aux = self.aux_weight * e * torch.sum(me * ce)
         expert_in = torch.einsum("tec,td->ecd", dispatch, tokens.to(dt))
         h = _gelu(torch.einsum("ecd,edf->ecf", expert_in, w1))
         expert_out = torch.einsum("ecf,efd->ecd", h, w2)
         out = torch.einsum("tec,ecd->td", combine.to(dt), expert_out)
         return out.reshape(b, s, d)
+
+    @staticmethod
+    def _global_mean(probs: torch.Tensor, shards: _TokenShards, t_all: int) -> torch.Tensor:
+        """The router probabilities' mean over the global tokens.  Its
+        gradient reaches this rank's tokens n_data times over: the Trainer
+        averages the data ranks' gradients (where the JAX step's global
+        aux differentiates once through every token) and sums the sp
+        ranks'."""
+        local = probs.sum(0)
+        total = shards.sum_(local.detach().clone())
+        scaled = local * shards.n_data
+        return (total + scaled - scaled.detach()) / t_all
 
     def _dense(self, tokens, probs, w1, w2, quantized: bool) -> torch.Tensor:
         """Drop-free routing: every token to its top-k experts, gates
@@ -289,11 +381,17 @@ class MoELM(TransformerLM):
             return set()
         return {f"{pre}/experts_{n}" for pre, _ in self.moe_blocks() for n in ("w1", "w2")}
 
+    def set_seq_parallel(self) -> None:
+        """As ``TransformerLM.set_seq_parallel``, and the MoE blocks learn
+        that a training forward sees a shard of the positions."""
+        super().set_seq_parallel()
+        for layer in self.layers:
+            if isinstance(layer, MoELayer):
+                layer.moe.seq_parallel = self.seq_parallel
+
     def set_serving_tp(self, mesh) -> None:
         """As ``TransformerLM.set_serving_tp``, plus the ep group and first
         expert of every MoE block holding this rank's experts."""
-        from mlcomp_tpu_torch.parallel.mesh import axis_rank, axis_size
-
         super().set_serving_tp(mesh)
         ep = axis_size(mesh, "ep")
         if not self.ep_local_paths(ep):

@@ -45,6 +45,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mlcomp_tpu_torch.parallel import collectives as col
+from mlcomp_tpu_torch.parallel.mesh import current_mesh
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 # the standard deviation of a standard normal truncated to (-2, 2)
@@ -335,16 +338,37 @@ class _BatchNormTrain(torch.autograd.Function):
     forward saves x and the per-channel mean and 1/std only (not f32 copies
     of the activation); the backward is the closed form of flax's
     expression's gradient (the fast variance's gradient equals the
-    two-pass one's: d var / d x_i = 2 (x_i - mean) / N)."""
+    two-pass one's: d var / d x_i = 2 (x_i - mean) / N).
+
+    Over ``groups`` (the data axes of a Trainer's mesh) the statistics are
+    the global batch's, as the JAX step's ``nn.BatchNorm`` takes them under
+    ``jit``: each channel's sum of x and of x^2 and the row count, summed
+    over the groups in one all-reduce each, give flax's fast variance (the
+    mean of squares less the square of the mean, clamped at 0).  The
+    backward sums dbias and dscale the same way before they enter dx, over
+    the global N, and returns the rank's own parameter gradients: the
+    Trainer averages those over dp x fsdp, and the rank's dx, a gradient of
+    every rank's loss, comes out at the data ranks' count times the global
+    loss's, which that average takes back."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float, dtype):
+    def forward(ctx, x, scale, bias, eps: float, dtype, groups):
         c = x.shape[-1]
         x32 = x.float().reshape(-1, c)
-        mean, var = _fast_stats(x32, 0, keepdim=False)
+        if not groups:
+            mean, var = _fast_stats(x32, 0, keepdim=False)
+            n = x32.shape[0]
+        else:
+            sums = torch.cat([x32.sum(0), (x32 * x32).sum(0), x32.new_full((1,), x32.shape[0])])
+            for g in groups:
+                col.all_reduce_(sums, g)
+            n = sums[2 * c]
+            mean = sums[:c] / n
+            var = torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
         y = ((x32 - mean) * (rstd * scale) + bias).to(dtype).reshape(x.shape)
         ctx.save_for_backward(x, mean, rstd, scale)
+        ctx.groups, ctx.n = groups, n
         return y, mean, var
 
     @staticmethod
@@ -355,16 +379,22 @@ class _BatchNormTrain(torch.autograd.Function):
         xhat = (x.float().reshape(-1, c) - mean) * rstd
         dbias = dy32.sum(0)
         dscale = (dy32 * xhat).sum(0)
-        n = dy32.shape[0]
-        dx = (dy32 - dbias / n - xhat * (dscale / n)) * (rstd * scale)
-        return dx.to(x.dtype).reshape(x.shape), dscale, dbias, None, None
+        dbias_n, dscale_n, n = dbias, dscale, ctx.n
+        if ctx.groups:
+            sums = torch.cat([dbias, dscale])
+            for g in ctx.groups:
+                col.all_reduce_(sums, g)
+            dbias_n, dscale_n = sums[:c], sums[c:]
+        dx = (dy32 - dbias_n / n - xhat * (dscale_n / n)) * (rstd * scale)
+        return dx.to(x.dtype).reshape(x.shape), dscale, dbias, None, None, None
 
 
 def batch_norm(scope: Scope, x: torch.Tensor, train: bool, dtype: torch.dtype,
                momentum: float = 0.9, eps: float = 1e-5, scale_init=ONES) -> torch.Tensor:
     """``nn.BatchNorm(momentum, epsilon, dtype, param_dtype=f32)`` over NHWC.
     In train mode the batch statistics normalise and the running ones are
-    updated in place (biased variance, flax's momentum)."""
+    updated in place (biased variance, flax's momentum); under a Trainer's
+    mesh both are the global batch's (:class:`_BatchNormTrain`)."""
     c = x.shape[-1]
     ra_mean = scope.stat("mean", (c,), ZEROS)
     ra_var = scope.stat("var", (c,), ONES)
@@ -372,7 +402,8 @@ def batch_norm(scope: Scope, x: torch.Tensor, train: bool, dtype: torch.dtype,
     bias = scope.param("bias", (c,), ZEROS)
     if not train:
         return _normalize(x, ra_mean, ra_var, scale, bias, eps, dtype)
-    y, mean, var = _BatchNormTrain.apply(x, scale, bias, eps, dtype)
+    y, mean, var = _BatchNormTrain.apply(x, scale, bias, eps, dtype,
+                                         col.data_groups(current_mesh()))
     with torch.no_grad():
         ra_mean.copy_(momentum * ra_mean + (1 - momentum) * mean)
         ra_var.copy_(momentum * ra_var + (1 - momentum) * var)

@@ -11,8 +11,10 @@ dk/dv kernels.  A CUDA tensor launches the kernels; a CPU tensor takes
 :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`.
 
 The kernels take bf16 (csrc/flash_attention.cu, flash_attention_bwd.cu:
-wgmma) and f32 (csrc/flash_attention_f32.cu: the CUDA cores) at head dims
-128 and 256; smaller heads zero-pad up to the next of the two.  The
+wgmma) at head dims 64, 128 and 256 and f32 (csrc/flash_attention_f32.cu:
+the CUDA cores) at 128 and 256; other heads zero-pad up to the next
+instance of their dtype (:func:`kernel_dh`).  A bf16 head of 64 runs
+unpadded: the JAX wrapper's padding to 128 lanes is a TPU constraint.  The
 wrapper raises ``NotImplementedError`` only where no kernel exists: causal
 with Sq != Sk (as the JAX wrapper does) and, on a CUDA tensor, head dims
 above 256.  ``ops.attention.dot_product_attention`` then falls back loudly
@@ -31,7 +33,9 @@ import torch
 from mlcomp_tpu_torch.ops.cuda import build
 
 NEG_INF = -1e30
-KERNEL_DHS = (128, 256)   # the kernels' head dims; smaller heads zero-pad up
+# the kernels' head dims of each dtype; smaller heads zero-pad up
+KERNEL_DHS = {torch.bfloat16: (64, 128, 256), torch.float32: (128, 256)}
+MAX_DH = max(max(dhs) for dhs in KERNEL_DHS.values())   # the largest of every dtype
 # the source (library) of the forward and backward kernels of each dtype
 _LIBS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd", "flash"),
          torch.float32: ("flash_attention_f32", "flash_attention_f32", "flash_f32")}
@@ -45,7 +49,9 @@ bwd_dkv_launches = 0
 # again on their own: the ring's diagonal blocks against its full ones (B9)
 bwd_causal_launches = 0
 # the instances beside bf16 at dh 128, counted again on their own: the
-# forward and the backward (one a backward) at bf16 dh 256, and on f32
+# forward and the backward (one a backward) at bf16 dh 64 and 256, and on
+# f32
+fwd_dh64_launches = bwd_dh64_launches = 0
 fwd_dh256_launches = bwd_dh256_launches = 0
 f32_fwd_launches = f32_bwd_launches = 0
 
@@ -84,13 +90,13 @@ def _window(x, b: int, default: int, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32).contiguous()
 
 
-def kernel_dh(d: int) -> int:
-    """The kernel instance a head dim runs on: the smallest of KERNEL_DHS
-    that holds it (the rest zero-pads)."""
-    for kd in KERNEL_DHS:
+def kernel_dh(d: int, dtype: torch.dtype) -> int:
+    """The kernel instance a head dim of ``dtype`` runs on: the smallest of
+    its KERNEL_DHS that holds it (the rest zero-pads)."""
+    for kd in KERNEL_DHS[dtype]:
         if d <= kd:
             return kd
-    raise NotImplementedError(f"head dim {d} > {KERNEL_DHS[-1]}")
+    raise NotImplementedError(f"head dim {d} > {MAX_DH}")
 
 
 def kernel_refusal(s_q: int, s_k: int, d: int, causal: bool) -> Optional[str]:
@@ -99,8 +105,8 @@ def kernel_refusal(s_q: int, s_k: int, d: int, causal: bool) -> Optional[str]:
     instance."""
     if causal and s_q != s_k:
         return f"causal flash needs Sq == Sk; got {s_q}/{s_k}"
-    if d > KERNEL_DHS[-1]:
-        return f"head dim {d} > {KERNEL_DHS[-1]}"
+    if d > MAX_DH:
+        return f"head dim {d} > {MAX_DH}"
     return None
 
 
@@ -115,11 +121,12 @@ def runs_kernels(t: torch.Tensor) -> bool:
 def _kernel_inputs(d: int, *ts: torch.Tensor):
     """The kernels' operands: one dtype they take, the head dim zero-padded
     to its instance (zero columns add nothing to q.k, dO.v or dO.O, and the
-    columns they produce are sliced off), contiguous."""
+    columns they produce are sliced off), contiguous: a head of its
+    instance's width passes as it is."""
     if ts[0].dtype not in _LIBS or any(t.dtype != ts[0].dtype for t in ts):
         raise TypeError("the kernels take bf16 or f32 tensors of one dtype; got "
                         + ", ".join(str(t.dtype) for t in ts))
-    kd = kernel_dh(d)
+    kd = kernel_dh(d, ts[0].dtype)
     if d < kd:
         ts = tuple(torch.nn.functional.pad(t, (0, kd - d)) for t in ts)
     return kd, tuple(t.contiguous() for t in ts)
@@ -174,14 +181,23 @@ def _launch_fwd(q, k, v, lo, hi, causal: bool, scale: float):
 
 
 def _count_instance(kind: str, dtype, kd: int) -> None:
-    global fwd_dh256_launches, bwd_dh256_launches, f32_fwd_launches, f32_bwd_launches
+    """Count a ``kind`` ("fwd" or "bwd") call again on its instance's own
+    counter (bf16 dh 128 has only the shared counters)."""
+    global fwd_dh64_launches, bwd_dh64_launches, fwd_dh256_launches, bwd_dh256_launches
+    global f32_fwd_launches, f32_bwd_launches
+    fwd = kind == "fwd"
     if dtype == torch.float32:
-        if kind == "fwd":
+        if fwd:
             f32_fwd_launches += 1
         else:
             f32_bwd_launches += 1
+    elif kd == 64:
+        if fwd:
+            fwd_dh64_launches += 1
+        else:
+            bwd_dh64_launches += 1
     elif kd == 256:
-        if kind == "fwd":
+        if fwd:
             fwd_dh256_launches += 1
         else:
             bwd_dh256_launches += 1
@@ -224,12 +240,15 @@ def flash_work(b: int, s_q: int, s_k: int, h: int, h_kv: int, d: int, causal: bo
 def resources() -> dict:
     """Each flash kernel's resources on the card (``build.resources``):
     {"fwd" | "bwd_delta" | "bwd_dq" | "bwd_dkv" (bf16, dh 128), the same
-    names ending "_256" (bf16, dh 256) and "f32_<name>" / "f32_<name>_256"
-    (f32): {field: int}}."""
+    names ending "_256" and "_64" (bf16, dh 256 and 64; "bwd_dkv_64" the
+    dk/dv kernel of three warpgroups, "bwd_dkv_64_short" of two, for short
+    key ranges) and "f32_<name>" / "f32_<name>_256" (f32): {field: int}}."""
     names = ("fwd", "bwd_delta", "bwd_dq", "bwd_dkv")
-    return {**build.resources("flash_attention", "flash_fwd_resources", ("fwd", "fwd_256")),
+    return {**build.resources("flash_attention", "flash_fwd_resources",
+                              ("fwd", "fwd_256", "fwd_64")),
             **build.resources("flash_attention_bwd", "flash_bwd_resources",
-                              names[1:] + tuple(n + "_256" for n in names[1:])),
+                              names[1:] + tuple(n + "_256" for n in names[1:])
+                              + tuple(n + "_64" for n in names[1:]) + ("bwd_dkv_64_short",)),
             **build.resources("flash_attention_f32", "flash_f32_resources",
                               tuple(f"f32_{n}" for n in names)
                               + tuple(f"f32_{n}_256" for n in names))}

@@ -289,3 +289,10 @@ def group_of(mesh, axis: str) -> Optional[object]:
     if mesh is None or axis_size(mesh, axis) == 1:
         return None
     return mesh.get_group(axis)
+
+
+def data_groups(mesh) -> list:
+    """The groups of the mesh's data axes wider than one (fsdp, then dp):
+    the ranks that hold other rows of the global batch ([] without a
+    mesh)."""
+    return [g for g in (group_of(mesh, "fsdp"), group_of(mesh, "dp")) if g is not None]

@@ -145,9 +145,9 @@ def test_head_dims_above_256_fall_back_loudly_on_the_card(monkeypatch):
     refuses on a CUDA tensor and the dispatcher warns and takes the
     reference path (the JAX kernel pads to 384 there: ROADMAP §B)."""
     monkeypatch.setattr(fa, "runs_kernels", lambda t: True)
-    assert [fa.kernel_dh(d) for d in (32, 128, 129, 256)] == [128, 128, 256, 256]
+    assert [fa.kernel_dh(d, torch.float32) for d in (32, 128, 129, 256)] == [128, 128, 256, 256]
     with pytest.raises(NotImplementedError, match="head dim 320 > 256"):
-        fa.kernel_dh(320)
+        fa.kernel_dh(320, torch.bfloat16)
     q, k, v = (torch.from_numpy(x) for x in _inputs(4, 1, 128, 128, 1, 1, 320))
     with pytest.warns(UserWarning, match="head dim 320 > 256"):
         out = tattn.dot_product_attention(q, k, v, causal=True)

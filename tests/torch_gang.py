@@ -38,6 +38,7 @@ def _rank_main(rank, world, port, cases, q):
         from mlcomp_tpu_torch.parallel.distributed import init_distributed
 
         init_distributed(device="cpu", timeout_s=120)
+        _register_test_models()
         for name, kind, kwargs in cases:
             try:
                 out[name] = globals()[f"case_{kind}"](**kwargs)
@@ -98,6 +99,20 @@ def result(results, rank: int, name: str):
                              f"{sorted(results)}; an earlier case failed: {errors})")
     assert not (isinstance(got, dict) and "error" in got), f"rank {rank} {name}: {got['error']}"
     return got
+
+
+def _register_test_models() -> None:
+    """``resnet``: the zoo's ResNet at any ``stage_sizes`` (the tests'
+    two-stage net), under the name the JAX side registers it by."""
+    from mlcomp_tpu_torch.models import MODELS, load_all
+    from mlcomp_tpu_torch.models.resnet import ResNet
+    from mlcomp_tpu_torch.utils.registry import RegistryError
+
+    load_all()
+    try:
+        MODELS.get("resnet")
+    except RegistryError:
+        MODELS.register("resnet", obj=ResNet)
 
 
 # ---------------------------------------------------------------- cases
@@ -223,11 +238,14 @@ def _trainer(cfg, init):
 def case_trainer(cfg, init, batches, forward_ids=None):
     """Steps of the port's Trainer under ``cfg["mesh"]`` on the global
     ``batches`` (each rank feeds its rows): the losses, the final weights
-    (gathered), the step, and with ``forward_ids`` the logits of one
-    forward before training."""
+    (gathered) and model state (BatchNorm statistics), the step, each
+    step's summed sown losses (``aux``) and, for ``moe_lm``, the
+    assignments its capacity dropped (``dropped``), and with
+    ``forward_ids`` the logits of one forward before training."""
     import torch
 
     from mlcomp_tpu_torch.parallel.distributed import global_batch_from_host
+    from mlcomp_tpu_torch.train.loop import sown_losses
 
     t = _trainer(cfg, init)
     res = {}
@@ -235,12 +253,17 @@ def case_trainer(cfg, init, batches, forward_ids=None):
         with torch.no_grad():
             t.state.binding.bind(t.state.params, requires_grad=False)
             res["logits"] = t.model(_t(forward_ids)).numpy()
-    losses = []
+    losses, aux, dropped = [], [], []
+    blocks = t.model.moe_blocks() if hasattr(t.model, "moe_blocks") else []
     for b in batches:
         stats = t._train_step(t.state, global_batch_from_host(b, t.mesh))
         losses.append(float(stats["loss"]))
+        aux.append(float(sum(a.detach() for a in sown_losses(t.model))))
+        if blocks:
+            dropped.append(float(sum(blk.dropped for _, blk in blocks)))
     sd = t.state.state_dict()
-    res.update(losses=losses, step=t.state.step,
+    res.update(losses=losses, step=t.state.step, aux=aux, dropped=dropped,
+               model_state={k: v.numpy() for k, v in sd["model_state"].items()},
                params={k: v.numpy() for k, v in sd["params"].items()},
                local={k: tuple(p.to_local().shape) for k, p in t.state.params.items()})
     return res
