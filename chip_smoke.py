@@ -2,9 +2,14 @@
 """Drive the PyTorch/CUDA port (mlcomp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases attention_dims[,zoo,...]
 
 Phases, in order; any failed check raises and the script exits non-zero
-without printing a result:
+without printing a result.  Before the device line a ``wall`` line gives
+the script's own seconds from its start and each phase's (a failed run
+prints them to stderr).  ``--phases`` runs only the named phases of
+SELECTABLE (each a function of its own), after the build and the
+resource lines, for a focused run; with no argument every phase runs:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
@@ -170,7 +175,9 @@ without printing a result:
    ViT's ragged 64 x 196, beside the padded route) and on f32 at head dims
    128 and 256, each against its plain version at the three TPU grids'
    shapes (an empty row where windows are), bit-equal on a rerun, with
-   times, SDPA's and the bound (f32 at the card's CUDA-core rate); one train step of the
+   times, SDPA's and the bound (f32 at the card's CUDA-core rate; at dh
+   256 also the backward's queued device ms split into its delta, dq and
+   dk/dv kernels, ``bwd_parts_device_ms``); one train step of the
    1.2B LM with 8 heads of 256 (the dh-256 kernels 16 times each; loss and
    gradient norm against the plain step); an f32 BERT-window step and an
    f32 LM step with heads of 256 (cut on a ``reduced`` line) against their
@@ -187,7 +194,7 @@ without printing a result:
    at 2 x 2048 with adafactor (the cross-entropy must fall, the aux loss
    stay within MOE_AUX_BOUND x its balanced floor), peak memory.
 11h. sharded serving (A12b), in processes of its own
-   (``sharded_serving_phase``): the serving model at its 16 layers
+   (``sharded_serving_phase``): the serving model cut to CFG's 8 layers
    (SHARD_CFG: unfused, all-int8) served by (a) a world of one rank over
    NCCL, which must equal the one-card engine bit for bit (8 greedy
    requests' ids, logprobs and first-step logits), and (b) ``serve --mesh
@@ -225,8 +232,8 @@ without printing a result:
    B10), loss and gradient norm against the unsharded step that runs the
    same attention at the same length (plain for ``ring``, the kernels for
    the others); configs/multihost_lm.yml's 1.2B
-   LM (depth cut to PAR_MH_LAYERS) at {fsdp: 2} and {tp: 2}, two steps each, the first held the same
-   way against the unsharded kernel step.  Each is held within
+   LM (depth cut to PAR_MH_LAYERS) at {fsdp: 2} and {tp: 2}, PAR_MH_STEPS steps each, the first
+   held the same way against the unsharded kernel step.  Each is held within
    C6_FLOOR_MULTIPLE x the noise floor of bf16 attention; tp within that
    multiple of the larger of the floor and tp's own noise on plain
    attention (a tp step on plain attention, its optimizer not run,
@@ -285,9 +292,19 @@ from pathlib import Path
 
 import torch
 
+# the script's own clock: its start, and the seconds of each phase of main
+# (the wall line before the device line)
+T_START = time.perf_counter()
+PHASE_S: dict = {}
+_OPEN_PHASE: list = []
+
+# the phases a focused run (``--phases a,b``) may select: each a function of
+# its own; with no argument every phase runs, these among them
+SELECTABLE = ("device_profile", "zoo", "attention_dims", "moe", "sharded_serving", "parallel")
+
 # the serving model (bench.py's 1.2B at its widths), its 16 layers cut to 8
-# for the phases before "sharded serving" (which serves all 16), so that
-# the whole run leaves room under its limit
+# (for "sharded serving" too), so that the whole run leaves room under
+# its limit
 CFG = {
     "name": "transformer_lm", "vocab_size": 32768, "hidden": 2048, "layers": 8,
     "heads": 16, "mlp_dim": 8192, "dtype": "bfloat16",
@@ -305,6 +322,10 @@ TRAIN_BATCH, TRAIN_STEPS = 2, 5
 # dp 8 on the TPU) on the one card, and ViT-B/16's Trainer config
 ZOO_RESNET_BATCH = 256
 ZOO_VIT = {"batch": 64, "steps": 6}
+# BERT's two DAGs (as published and with pad_mode window) train this many
+# epochs (2 as published; cut for the script's time, on the zoo's
+# `reduced` line)
+ZOO_BERT_EPOCHS = 1
 # the spin (GPU clock cycles, ~50 ms on an H100) that queued_device_ms
 # puts in front of the calls it times
 SPIN_CYCLES = 100_000_000
@@ -325,6 +346,26 @@ PEAKS = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(name):
+    """Close the phase that runs (its seconds go into PHASE_S) and, unless
+    ``name`` is None, open ``name``."""
+    now = time.perf_counter()
+    if _OPEN_PHASE:
+        prev, t0 = _OPEN_PHASE.pop()
+        PHASE_S[prev] = PHASE_S.get(prev, 0.0) + now - t0
+    if name:
+        _OPEN_PHASE.append((name, now))
+        log(f"phase {name}")
+
+
+def wall_line(smi) -> None:
+    """The script's own wall time from its start and each phase's seconds,
+    on one line (before the device line)."""
+    phase(None)
+    log(json.dumps({"wall": {"script_s": time.perf_counter() - T_START, "phase_s": PHASE_S,
+                             "card": smi}}))
 
 
 def peaks_for(name: str):
@@ -598,6 +639,11 @@ def wait_router(url, want_live, proc, what, timeout=300.0):
     raise AssertionError(f"{what}: not live in {timeout:.0f} s: {st}")
 
 
+# the phase "daemons and report" runs generate_quant.yml's sample stage on
+# one batch of short requests (the train stage as published)
+DAEMONS_SAMPLE = {"n": 8, "max_new_tokens": 32}
+
+
 def daemons_phase(gq_cfg, cli_statuses, tr_steps, device, smi):
     """Phase "daemons and report": the port's ``supervisor``, one isolated
     ``worker --chips 1`` and ``report`` as processes over one store;
@@ -630,6 +676,19 @@ def daemons_phase(gq_cfg, cli_statuses, tr_steps, device, smi):
     cfg = copy.deepcopy(gq_cfg)
     for ex in cfg["executors"].values():
         ex["args"]["storage_root"] = storage
+    # the sample stage cut (the train stage runs as published: the fleet
+    # serves its checkpoint), each cut with its value before and after
+    sample = next(ex for ex in cfg["executors"].values() if ex["type"] == "generate")["args"]
+    reduced = {}
+    for key, path, cut in (("sample prompts", ("data", "infer", "n"), DAEMONS_SAMPLE["n"]),
+                           ("sample new tokens", ("max_new_tokens",),
+                            DAEMONS_SAMPLE["max_new_tokens"])):
+        node = sample
+        for k_ in path[:-1]:
+            node = node[k_]
+        reduced[key] = f"{node[path[-1]]} -> {cut}"
+        node[path[-1]] = cut
+    log("reduced (daemons and report): " + json.dumps(reduced))
     dag_yaml = f"{tmp}/generate_quant.yml"
     with open(dag_yaml, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -781,6 +840,7 @@ def daemons_phase(gq_cfg, cli_statuses, tr_steps, device, smi):
         shutil.rmtree(tmp, ignore_errors=True)
     result = {
         "config": "configs/generate_quant.yml", "moved": "model storage -> a temporary dir",
+        "reduced": reduced,
         "dag_wall_s": dag_wall, "statuses": statuses, "equal_cli_dag": True,
         "report": {"counts": counts, "train_loss": loss, "train_steps": steps},
         "scheduler_fleet": {"replicas": 2, "ready_s": fleet_ready_s, "repeat_replica": served[0],
@@ -1046,6 +1106,12 @@ def zoo_phase(device, smi, bw, flops):
         reduced["resnet50_imagenet.train.batch_size"] = (
             f"{rtrain['data']['train']['batch_size']} -> {ZOO_RESNET_BATCH} (one chip's share)")
         rtrain["data"]["train"]["batch_size"] = ZOO_RESNET_BATCH
+    for tname, task in configs["bert_finetune"]["executors"].items():
+        if task["args"].get("epochs", 1) > ZOO_BERT_EPOCHS:
+            reduced[f"bert_finetune.{tname}.epochs"] = (
+                f"{task['args']['epochs']} -> {ZOO_BERT_EPOCHS} (bert_finetune_window too; for "
+                "the script's time)")
+            task["args"]["epochs"] = ZOO_BERT_EPOCHS
     window = json.loads(json.dumps(configs["bert_finetune"]))
     window["info"]["name"] = "bert_finetune_window"
     for task in window["executors"].values():
@@ -1595,6 +1661,51 @@ def device_ms_of(fn, counter=None, iters=10):
     return ms
 
 
+def bwd_parts_device_ms(q, k, v, out, lse, do, causal, sc, lo=None, hi=None, iters=10) -> dict:
+    """Queued device ms of the bf16 backward's three kernels apart (delta,
+    dq, dk/dv), each launched alone through its C launcher on the operands
+    the wrapper gives it (``_kernel_inputs``), so that a time reads one
+    kernel; these launches count on no wrapper counter.  The launchers'
+    C interface has stayed the same through the kernels' redesigns, so a
+    parent tree's kernels time the same way."""
+    import ctypes
+
+    from mlcomp_tpu_torch.ops.cuda import build
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, s_q, h, d = q.shape
+    s_k, h_kv = k.shape[1], k.shape[2]
+    lo_t, hi_t = fa._window(lo, b, 0, q.device), fa._window(hi, b, s_k, q.device)
+    kd, (q, k, v, out, do) = fa._kernel_inputs(d, q, k, v, out, do)
+    lse = lse.float().contiguous()
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    stream = build.stream_ptr(q.device)
+    stem = "flash_attention_bwd"
+    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    l_delta = build.function(stem, "flash_bwd_delta_launch", [p] * 4 + [i] * 4 + [p])
+    l_dq = build.function(stem, "flash_bwd_dq_launch", [p] * 9 + [i] * 7 + [f, p])
+    l_dkv = build.function(stem, "flash_bwd_dkv_launch", [p] * 10 + [i] * 7 + [f, p])
+    ints = (b, h, h_kv, s_q, s_k, kd, int(bool(causal)), sc, stream)
+
+    def run_delta():
+        build.check(l_delta(do.data_ptr(), out.data_ptr(), None, delta.data_ptr(), b, h, s_q, kd,
+                            stream), "delta")
+
+    def run_dq():
+        build.check(l_dq(*(t.data_ptr() for t in (q, k, v, do, lse, delta, lo_t, hi_t, dq)),
+                         *ints), "dq")
+
+    def run_dkv():
+        build.check(l_dkv(*(t.data_ptr() for t in (q, k, v, do, lse, delta, lo_t, hi_t, dk, dv)),
+                          *ints), "dk/dv")
+
+    run_delta()
+    torch.cuda.synchronize()
+    return {"delta": queued_device_ms(run_delta, iters), "dq": queued_device_ms(run_dq, iters),
+            "dkv": queued_device_ms(run_dkv, iters)}
+
+
 def attention_dims_phase(device, smi, bw, flops, f32_flops):
     """Phase "attention dims and dtypes" (ROADMAP §C5): the flash kernels'
     instances beside bf16 at 128, bf16 at head dims 256 and 64 and f32 at
@@ -1704,6 +1815,10 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
             padded["padded_route_bwd_device_ms"] = device_ms_of(
                 lambda: padded_route_bwd(q, k, v, out, lse, do, causal, sc, lo, hi),
                 dh128_calls)
+        if key == "dh256":
+            # the backward's time split between its kernels (delta, dq, dk/dv)
+            padded["bwd_parts_device_ms"] = bwd_parts_device_ms(q, k, v, out, lse, do, causal,
+                                                                sc, lo, hi)
         # the yardstick: SDPA on copies in its (B, H, S, D) layout, the kv
         # heads repeated for GQA, windows as a boolean mask
         rep = h // h_kv
@@ -1753,6 +1868,10 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
                     row[f"{f_}_spread"] = list(v_.spread)
             rows[f"{part}_{key}"].append(row)
             log(f"  {part} {json.dumps(row)}")
+        if key == "dh256":
+            log(f"  dh-256 backward ({smi}), queued device ms: " + json.dumps(
+                {"case": label, **bwd_row["bwd_parts_device_ms"], "whole": dkb,
+                 "sdpa_backward": dlb, "bound_ms": bwd_row["bound_ms"]}))
         del q, k, v, do, out, lse, grads
         torch.cuda.empty_cache()
 
@@ -2422,13 +2541,14 @@ PAR_LONG_SEQ = 32768          # configs/longcontext_lm.yml's seq_len
 PAR_LONG_BATCH = 1            # one sequence: mesh {sp: 2} over the two ranks
 PAR_MH_SEQ = 4096             # configs/multihost_lm.yml's seq_len
 PAR_MH_BATCH = 2              # the global batch of its {fsdp: 2} / {tp: 2} steps
-PAR_MH_STEPS = 2
+PAR_MH_STEPS = 1               # 2 before the script's time was cut
 # the depth of the two models' steps (references, world of one, gang; the
 # DAG's gang slots too), cut from 8 and 16 layers to leave the whole run
 # room for the phase "sharded serving"
 PAR_LONG_LAYERS = 2
-PAR_MH_LAYERS = 4
-PAR_DAG = {"chips": 1, "hosts": 2, "mesh": {"dp": 2}, "batch_per_rank": 2, "steps": 2}
+PAR_MH_LAYERS = 2             # 4 before the script's time was cut
+# the DAG's gang slots: 1 step (2 before the script's time was cut)
+PAR_DAG = {"chips": 1, "hosts": 2, "mesh": {"dp": 2}, "batch_per_rank": 2, "steps": 1}
 PAR_PP = {"name": "transformer_lm_pp", "vocab_size": 32000, "hidden": 1024, "layers": 4,
           "heads": 16, "dtype": "bfloat16", "n_microbatches": 2}
 PAR_PP_SEQ, PAR_PP_BATCH = 2048, 4
@@ -2919,12 +3039,16 @@ def parallel_phase(dev, smi, world=2):
         f"configs/longcontext_lm.yml, seq_parallel ring (the einsum tiles): seq_len "
         f"{PAR_LONG_SEQ} -> {PAR_RING_SEQ}",
         f"configs/multihost_lm.yml: mesh {{dp: 8}} -> {{fsdp: {world}}} and {{tp: {world}}}; "
-        f"batch 16 -> {PAR_MH_BATCH}; {PAR_MH_STEPS} steps; layers 16 -> {PAR_MH_LAYERS}",
+        f"batch 16 -> {PAR_MH_BATCH}; {PAR_MH_STEPS} steps (2 -> {PAR_MH_STEPS} for the script's "
+        f"time); layers 16 -> {PAR_MH_LAYERS} "
+        f"(4 -> {PAR_MH_LAYERS} for the script's time)",
         f"configs/multihost_lm.yml as a DAG: resources {{chips: 4, hosts: 2}} -> "
         f"{{chips: {PAR_DAG['chips']}, hosts: {PAR_DAG['hosts']}}}, mesh {{dp: 8}} -> "
         f"{PAR_DAG['mesh']}, batch 16 -> {PAR_DAG['batch_per_rank'] * world} "
-        f"({PAR_DAG['batch_per_rank']} a rank), {PAR_DAG['steps']} steps, remat on (two "
-        f"replicas on one card), layers 16 -> {PAR_MH_LAYERS}",
+        f"({PAR_DAG['batch_per_rank']} a rank), {PAR_DAG['steps']} steps (2 -> "
+        f"{PAR_DAG['steps']} for the script's time), remat on (two "
+        f"replicas on one card), layers 16 -> {PAR_MH_LAYERS} (4 -> {PAR_MH_LAYERS} for the "
+        f"script's time)",
         f"transformer_lm_pp: hidden {PAR_PP['hidden']}, {PAR_PP['layers']} layers on pp "
         f"{world} ({PAR_PP['layers'] // world} virtual stages a rank), seq {PAR_PP_SEQ}",
     ]
@@ -3168,15 +3292,19 @@ def parallel_process(smi) -> dict:
         os.unlink(out)
 
 
-# ---- the phase "sharded serving" (A12b): the serving model at its 16
+# ---- the phase "sharded serving" (A12b): the serving model at CFG's 8
 # layers, unfused (decode_fused is refused under a mesh, as in the JAX
 # package), all-int8
-SHARD_CFG = {**CFG, "layers": 16, "decode_fused": False}
+SHARD_CFG = {**CFG, "decode_fused": False}
 SHARD = {"slots": BATCH, "prompt": PROMPT, "chunk": CHUNK, "new": NEW, "requests": 8,
          "lengths": (300, 500)}
+# the phase's cuts, on its `reduced` line, each with its value before and
+# after: the serving model's depth, as CFG's (its widths are the 1.2B's,
+# so every local kernel shape is the same)
+SHARD_REDUCED = {"layers": f"16 -> {SHARD_CFG['layers']} (for the script's time)"}
 # the gang's first-step logits against the one-card engine's: the largest
 # difference over the largest logit (the row-parallel products round their
-# bf16 partials before the f32 sum, once a layer each, 2 x 16 layers)
+# bf16 partials before the f32 sum, once a layer each, 2 x 8 layers)
 SHARD_LOGIT_RTOL = 2.0 ** -4
 # the gang's arms: (name, kv layout, pipeline depth, new tokens a request).
 # dense_d2 is timed; paged_d2 records every step's logits (a sync a step);
@@ -3607,6 +3735,7 @@ def sharded_serving_phase(smi) -> dict:
     from mlcomp_tpu_torch.io.weights import init_params, save_npz
 
     t_phase = time.perf_counter()
+    log("reduced (sharded serving): " + json.dumps(SHARD_REDUCED))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH")) if p),
@@ -3864,6 +3993,7 @@ def sharded_serving_phase(smi) -> dict:
             f"logit gap {gap} ({max(rels)} relative); phase "
             f"{time.perf_counter() - t_phase:.1f} s")
         summary["phase_s"] = time.perf_counter() - t_phase
+        summary["reduced"] = SHARD_REDUCED
         return summary
     finally:
         end_procs(procs, timeout=30)
@@ -3871,7 +4001,64 @@ def sharded_serving_phase(smi) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def main() -> int:
+def parse_phases(argv):
+    """``--phases a,b`` (names of SELECTABLE) -> that tuple; no argument ->
+    None, every phase."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU (see the module's "
+                                             "docstring); with no argument every phase runs.")
+    ap.add_argument("--phases", default=None,
+                    help="a focused run of these phases only, comma-separated, of: "
+                         + ", ".join(SELECTABLE))
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return None
+    names = tuple(n.strip() for n in args.phases.split(",") if n.strip())
+    bad = [n for n in names if n not in SELECTABLE]
+    if bad or not names:
+        ap.error(f"--phases takes some of {', '.join(SELECTABLE)}; got {args.phases!r}")
+    return names
+
+
+def focused_run(phases, dev, smi, card, bw, flops) -> None:
+    """The phases of ``phases`` alone (after the build and the resource
+    lines), in the full run's order, each failing as it does there; their
+    JSON lines, then the wall line.  The kernel, serving and train phases
+    and the summary's kernels line belong to the full run only."""
+    from mlcomp_tpu_torch.ops.cuda import decode_attention as da
+    from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
+    from mlcomp_tpu_torch.ops.cuda import quant_matmul as qm
+
+    results = {}
+    if "device_profile" in phases:
+        phase("device profile")
+        results["device_profile"] = device_profile_process(smi, bw)
+    phase("resources")
+    log("flash kernel resources: " + json.dumps(fa.resources()))
+    log("quant_matmul resources: " + json.dumps(qm.resources()))
+    log("decode_attention resources: " + json.dumps(da.resources()))
+    for name, label, run in (
+            ("zoo", "model zoo", lambda: zoo_phase("cuda", smi, bw, flops)),
+            ("attention_dims", "attention dims and dtypes",
+             lambda: attention_dims_phase("cuda", smi, bw, flops, F32_PEAKS[card])),
+            ("moe", "moe", lambda: moe_phase("cuda", smi, bw, flops)),
+            ("sharded_serving", "sharded serving", lambda: sharded_serving_phase(smi)),
+            ("parallel", "parallel", lambda: parallel_process(smi))):
+        if name in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase(label)
+            results[name] = run()
+    for name, r in results.items():
+        if name == "attention_dims":
+            r = {k: v for k, v in r.items() if k != "rows"}
+        log(json.dumps({name: r}))
+    wall_line(smi)
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
         return 1
@@ -3880,6 +4067,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 1. device
+    phase("device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -3891,18 +4079,26 @@ def main() -> int:
         f"{flops / 1e12} TFLOP/s bf16")
 
     # ---- 2. build
+    phase("build")
     from mlcomp_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
     build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    if phases is not None:
+        focused_run(phases, dev, smi, card, bw, flops)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ---- 2b. device profile: early, before the long phases (late in a long
     # run the profiler has lost records on this card's machine), and in a
     # process of its own: a profiler session with the card's activity can
     # leave its process slower at every later launch, and the serving
     # phases below time the host
+    phase("device profile")
     devprof_result = device_profile_process(smi, bw)
+    phase("resources")
 
     from mlcomp_tpu_torch.ops.cuda import decode_attention as da
     from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
@@ -3970,7 +4166,7 @@ def main() -> int:
     log("decode_attention resources: " + json.dumps(da_resources))
 
     # ---- 3. kernels against their plain versions
-    log("phase kernels")
+    phase("kernels")
     # tolerance, element by element: |kernel - plain| <= 2^-7 (|ref| + ref_abs).
     # ref_abs is the plain version on the absolute values of the summed
     # operand (|x| and |q8|, |v|): the sum of the absolute terms behind each
@@ -4734,7 +4930,7 @@ def main() -> int:
                    quant_cache(b_, gen=gsp), st_, so_, case=spec_case, gen=gsp)
 
     # ---- 4. window serve
-    log("phase window serve")
+    phase("window serve")
     from mlcomp_tpu_torch.io.weights import init_params
     from mlcomp_tpu_torch.models.generation import generate
     from mlcomp_tpu_torch.serve import load_service, make_http_server
@@ -4859,7 +5055,7 @@ def main() -> int:
                              f"decomposition {expected}")
 
     # ---- 5. window parity: kernels vs their plain versions on the 1.2B model
-    log("phase window parity")
+    phase("window parity")
     import mlcomp_tpu_torch.models.transformer as tr
     import mlcomp_tpu_torch.ops.attention as at
     import mlcomp_tpu_torch.ops.quant as oq
@@ -4940,7 +5136,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. engine serve: the default continuous batcher, the main path
-    log("phase engine serve")
+    phase("engine serve")
     t0 = time.perf_counter()
     service = load_service(
         CFG, params=params, device="cuda", quantize="kernel", batch_sizes=(1, BATCH),
@@ -5152,7 +5348,7 @@ def main() -> int:
     st0, st1 = dense_run["st0"], dense_run["st1"]
 
     # ---- 7. engine parity: an admission chunk at index 256, 8 per-row-cursor steps
-    log("phase engine parity")
+    phase("engine parity")
     chunk_ids = torch.randint(1, vocab, (1, PROMPT), generator=g, device=dev)
     chunk_pos = torch.clamp(torch.arange(PROMPT, device=dev) - adm_pad, min=0)[None]
     chunk_start = torch.tensor([adm_pad], dtype=torch.int32, device=dev)
@@ -5235,7 +5431,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. paged engine serve: --kv-layout paged, the same model and traffic
-    log("phase paged engine serve")
+    phase("paged engine serve")
     from mlcomp_tpu_torch.engine import DecodeEngine
 
     t0 = time.perf_counter()
@@ -5322,7 +5518,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8b. disaggregated handoff: the same model, int8 KV, 128-slot pages
-    log("phase disaggregated handoff")
+    phase("disaggregated handoff")
     from mlcomp_tpu_torch.kvpool.transfer import HandoffError
 
     hand_prompts = [bodies[i]["prompt"] for i in greedy] + [alone]
@@ -5425,7 +5621,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8c. prefix cache and daemon surface: the same weights, int8 KV
-    log("phase prefix cache and daemon surface")
+    phase("prefix cache and daemon surface")
     from mlcomp_tpu_torch.serve import start_warmup
 
     # prompts of 340-500 tokens; "a", "b" and "c" share a 320-token prefix,
@@ -5666,7 +5862,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 9. bf16-KV paged engine: each layer's K and V gathered through B8
-    log("phase bf16-KV paged engine")
+    phase("bf16-KV paged engine")
     cfg16 = {**CFG, "kv_quant": False}
     svc16 = load_service(cfg16, kv_layout="paged", kv_page_tokens=page_t, max_slots=BATCH,
                          **serve_kw)
@@ -5705,7 +5901,7 @@ def main() -> int:
     # dispatch (spec_k 7 at 8 slots: a verify puts 64 rows through B1/B2, the
     # decode kernel's upper edge; B4 on the dense cache, B7 through 128-slot
     # pages) and the B = 1 speculative batcher (spec_k 8: B4 at 1 x 9)
-    log("phase speculation")
+    phase("speculation")
     SPEC_K, SPEC_K_B1 = 7, 8
     spec_kw = dict(prompt_buckets=(PROMPT,), max_new_cap=NEW, prefill_chunk=CHUNK)
     spec_svc = load_service(CFG, batcher="speculative", spec_k=SPEC_K_B1,
@@ -5995,7 +6191,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 10. train: configs/multihost_lm.yml's model through `cli dag`
-    log("phase train")
+    phase("train")
     import tempfile
 
     import yaml
@@ -6136,7 +6332,7 @@ def main() -> int:
     # bf16 step of some p, ds and outputs), carried through 16 layers:
     # loss within 1e-3 relative, gradient norm within 2%.  A wrong kernel
     # moves the loss by far more than that.
-    log("phase train parity")
+    phase("train parity")
     from mlcomp_tpu_torch.train.loop import Trainer
 
     pcfg = {k: v for k, v in targs.items() if k not in ("trace", "storage_root", "project",
@@ -6387,7 +6583,7 @@ def main() -> int:
     # through the int8 matmul and an int8 KV cache), only its model storage
     # moved under a temporary directory; then `serve` on the train task's
     # checkpoint directory against the same weights served from .npz
-    log("phase train to serve")
+    phase("train to serve")
     from mlcomp_tpu_torch.io.checkpoint import read_weights
     from mlcomp_tpu_torch.io.weights import save_npz
     from mlcomp_tpu_torch.serve import resolve_storage_ckpt
@@ -6474,13 +6670,13 @@ def main() -> int:
 
     # ---- 11c. daemons and report: the same DAG through the supervisor and
     # worker daemons, the report server, then two scheduler-launched replicas
-    log("phase daemons and report")
+    phase("daemons and report")
     daemons_result = daemons_phase(gq_cfg, {n: r["status"] for n, r in gq_rows.items()},
                                    tr_steps, "cuda", smi)
 
     # ---- 11d. fleet: `cli fleet --phase-split 1:1` on the serving
     # configuration, the router brokering prefill -> KV pages -> import
-    log("phase fleet")
+    phase("fleet")
     fleet_result = fleet_phase(
         CFG, SEED, hand_prompts, hand_want, lone_prompt, 16, ttft_lone,
         f"--quantize kernel --batch-sizes 1,{BATCH} --prompt-buckets {PROMPT} --max-new-buckets"
@@ -6488,7 +6684,7 @@ def main() -> int:
         "cuda", smi)
 
     # ---- 11e. model zoo: the five baseline DAGs and ViT-B/16 through `cli dag`
-    log("phase model zoo")
+    phase("model zoo")
     gc.collect()
     torch.cuda.empty_cache()
     zoo_result = zoo_phase("cuda", smi, bw, flops)
@@ -6497,18 +6693,19 @@ def main() -> int:
 
     # ---- 11f. attention dims and dtypes: the flash kernels at head dim 256
     # and on f32 (ROADMAP §C5), their paths, remat and the fused CE head
-    log("phase attention dims and dtypes")
+    phase("attention dims and dtypes")
     gc.collect()
     torch.cuda.empty_cache()
     attn_result = attention_dims_phase("cuda", smi, bw, flops, F32_PEAKS[card])
 
     # ---- 11g. moe: moe_lm served through int8 expert slices (B1), trained
-    log("phase moe")
+    phase("moe")
     gc.collect()
     torch.cuda.empty_cache()
     moe_result = moe_phase("cuda", smi, bw, flops)
 
     # ---- 12. summary
+    phase("summary")
     # each kernel's work in one decode step at B=8 (B1, B2, B3), in one
     # 8x512 prefill (B5) or in one admission chunk at index 256 (B4); B1's
     # prefill share rides along under "prefill"
@@ -6758,7 +6955,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # ---- the phase "sharded serving" (A12b): child processes of its own
-    log("phase sharded serving")
+    phase("sharded serving")
     log(f"sharded serving: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB of "
         "the card")
     shard_result = sharded_serving_phase(smi)
@@ -6772,8 +6969,10 @@ def main() -> int:
                 "calls_held": len(rows),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "err_over_limit": max(r["err_over_limit"] for r in rows)}
+    phase("parallel")
     log(f"parallel: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
     par_result = parallel_process(smi)
+    phase("summary")
     # the dh-64 instance at configs/longcontext_lm.yml's 1 x 32768 beside the
     # padded route (the parallel phase's unsharded reference step)
     for entry in entries:
@@ -6802,10 +7001,19 @@ def main() -> int:
                                              "attention": step_attn},
                     "quant_matmul_resources": qmm_resources,
                     "decode_attention_resources": da_resources}))
+    wall_line(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception:
+        # a failed run prints no result: the phases' seconds go to stderr
+        phase(None)
+        print(json.dumps({"wall_before_failure": {"script_s": time.perf_counter() - T_START,
+                                                  "phase_s": PHASE_S}}),
+              file=sys.stderr, flush=True)
+        raise

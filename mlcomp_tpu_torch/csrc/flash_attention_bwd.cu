@@ -57,29 +57,52 @@
 //   DH = 64, a 16-byte chunk of dO and O each): sum_d dO * O in f32,
 //   minus the lse cotangent when one is given (ring attention's path).
 //
-// Head dims.  Each kernel is a template on the head dim DH, instantiated
-// at 64, 128 (the tiles above) and 256 (the wrapper pads as the forward's
-// does).  At DH = 256 a 128-row dQ (64 x 256 a warpgroup) beside s and dp
-// would spill, and Q and dO of 128 rows with the K/V rings would take
-// 288 KB: the dq kernel runs one warpgroup of 64 rows a CTA (Q, dO and
-// the same rings, 225 KB).  dK and dV of 64 x 256 each would take 256
-// accumulator registers a thread: the dk/dv kernel's CTA computes one
-// 128-column half of dK and dV (two CTAs a key tile, each recomputing s
-// and dp whole), with one warpgroup and its two-stage ring (195 KB), so
-// there is no cross-warpgroup sum.  At DH = 64 (bf16 heads of 64 or less,
-// unpadded: the TPU's 128-lane padding doubled every product and byte) a
-// row is one 128-byte swizzle line and every tile one column block: the
-// dq kernel runs one warpgroup of 64 rows a CTA with dQ as one m64n64
-// accumulator (32 floats a thread, the register-A m64n64k16 product),
-// three CTAs an SM (57 KB of shared memory each, no spills at 166
-// registers); the dk/dv kernel (Dkv64) gives each of its warpgroups 64
-// keys, with dK and dV of 64 x 64 each in registers, and feeds all from
-// one ring of 64-query blocks, warpgroup w w items behind the first, so
-// a Q/dO block is read once for the CTA's keys and nothing is summed
-// across warpgroups: three warpgroups from DKV64_LONG_KEYS (1024) keys on,
-// two below.  Two were timed the faster at 128 and 196 keys, three at 4096
-// and 32768; the split between 196 and 4096 keys is not measured.  The
-// delta kernel reads one 16-byte chunk a thread at DH = 64.
+// Head dims.  The dq and dk/dv kernels above are templates on the head dim
+// DH, instantiated at 64 and 128; DH = 256 has kernels of its own (the
+// wrapper pads heads of 129-255 to 256, as the forward's does).  At DH = 64
+// (bf16 heads of 64 or less, unpadded: the TPU's 128-lane padding doubled
+// every product and byte) a row is one 128-byte swizzle line and every tile
+// one column block: the dq kernel runs one warpgroup of 64 rows a CTA with
+// dQ as one m64n64 accumulator (32 floats a thread, the register-A m64n64k16
+// product), three CTAs an SM (57 KB of shared memory each, no spills at 166
+// registers); the dk/dv kernel (Dkv64) gives each of its warpgroups 64 keys,
+// with dK and dV of 64 x 64 each in registers, and feeds all from one ring
+// of 64-query blocks, warpgroup w w items behind the first, so a Q/dO block
+// is read once for the CTA's keys and nothing is summed across warpgroups:
+// three warpgroups from DKV64_LONG_KEYS (1024) keys on, two below.  Two were
+// timed the faster at 128 and 196 keys, three at 4096 and 32768; the split
+// between 196 and 4096 keys is not measured.  The delta kernel reads one
+// 16-byte chunk a thread at DH = 64.
+//
+// DH = 256.  A 64 x 256 f32 accumulator is 128 registers a thread of a
+// warpgroup, so each kernel runs two warpgroups a CTA that share a tile's
+// logits by ROLE: warpgroup 0 computes s (and p = exp(s - lse), masked),
+// warpgroup 1 the dO.V products dp (and ds = p (dp - delta) scale); p
+// crosses to warpgroup 1 as f32 through shared memory (thread t of either
+// warpgroup holds the same elements, stored at [x][t]: conflict-free).
+// Each (query, key) pair's s and dp are computed once in each kernel, as
+// at DH = 128: seven dh-long products a pair in all, where the DH = 256
+// kernels before (dq one warpgroup, spilling; dk/dv one CTA a 128-column
+// half, each recomputing s and dp over the whole head) ran nine.
+// - dq (Dq256, flash_bwd_dq256_kernel): one CTA per (head, batch, 64-row
+//   Q tile); warpgroup w owns columns 128 w .. 128 w + 127 of dQ (64
+//   registers), and ds comes back to warpgroup 0 as bf16 register-A
+//   fragments.  Each warpgroup keeps its operand of the logits as
+//   register-A fragments for the whole walk (Q in warpgroup 0, dO in
+//   warpgroup 1: 64 registers), so shared memory holds only the K ring
+//   (three stages of 64 keys: a K tile feeds s of tile j + 1 and dQ of
+//   tile j), the V ring (two stages), p (16 KB) and dS (8 KB): 189440
+//   bytes.  s (or dp) of tile j + 1 runs on the tensor cores beside dQ +=
+//   dS_j K_j, and p and ds of tile j + 1 form while dQ_j is in flight.
+// - dk/dv (Dkv256, flash_bwd_dkv256_kernel): one CTA per (64-key tile, kv
+//   head, batch); the roles split the products too: warpgroup 0
+//   accumulates all of dV += P^T dO, warpgroup 1 all of dK += dS^T Q (two
+//   128-column accumulators a thread each), so only p crosses.  K and V
+//   stay in shared memory (64 KB) beside a two-stage ring of 64-query
+//   blocks (Q, dO, lse and delta: 65 KB a stage) and p (16 KB): 216064
+//   bytes of the 232448.  dK and dV of a key sum the items in the walk's
+//   order, each 128 columns in 16-query steps in order, as before: the
+//   bits are those of the kernels this one replaces.
 // `flash_attention.resources()` prints all three instances.
 //
 // Semantics follow `_dq_update` / `_dkv_update` (:613 / :626): p =
@@ -103,25 +126,26 @@ using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int SMEM_MAX = 232448;
 
-// dq: Q and dO (BQ rows), then three stages of K and two of V (64 keys):
-// a K tile is read by two products one tile apart.  dQ is NO accumulators
-// of 64 x ON a warpgroup
+// dq at DH 64 and 128: Q and dO (BQ rows), then three stages of K and two
+// of V (64 keys): a K tile is read by two products one tile apart.  dQ is
+// one 64 x DH accumulator a warpgroup
 template <int DH>
 struct Dq {
+  static_assert(DH == 64 || DH == 128, "dq at DH 256: Dq256");
   static constexpr int BQ = DH == 128 ? 128 : 64, THREADS = 2 * BQ;
-  static constexpr int BKV = 64, K_STAGES = 3, ON = DH == 64 ? 64 : 128, NO = DH / ON;
+  static constexpr int BKV = 64, K_STAGES = 3;
   static constexpr int CTAS = DH == 64 ? 3 : 1;
   static constexpr int Q_BYTES = BQ * DH * 2, KV_BYTES = BKV * DH * 2;
   static constexpr int SMEM = 2 * Q_BYTES + (K_STAGES + 2) * KV_BYTES + 1024;
 };
 
-// dk/dv: K and V (64 keys), then for each of NWG warpgroups a two-stage
-// ring of 64-query blocks (Q, dO, lse and delta); the final cross-warpgroup
-// sum (NWG = 2) reuses the rings.  At DH = 256 a CTA computes one
-// 128-column half of dK and dV (NHALF CTAs a key tile)
+// dk/dv at DH 128: K and V (64 keys), then for each of the NWG warpgroups
+// a two-stage ring of 64-query blocks (Q, dO, lse and delta); the final
+// cross-warpgroup sum reuses the rings
 template <int DH>
 struct Dkv {
-  static constexpr int NWG = DH == 128 ? 2 : 1, THREADS = 128 * NWG, NHALF = DH / 128;
+  static_assert(DH == 128, "dk/dv at DH 64: Dkv64; at DH 256: Dkv256");
+  static constexpr int NWG = 2, THREADS = 128 * NWG;
   static constexpr int BKV = 64, BQ = 64;
   static constexpr int KV_BYTES = BKV * DH * 2, Q_BYTES = BQ * DH * 2;
   // Q and dO, lse and delta, rounded up to keep every tile 1024-aligned
@@ -140,12 +164,32 @@ struct Dkv64 {
   static constexpr int STAGE = (2 * Q_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
   static constexpr int SMEM = 2 * NWG * KV_BYTES + RING * STAGE + 1024;
 };
+// dq at DH 256: two warpgroups on one 64-row Q tile, each with its logit
+// operand (Q or dO) in registers; three stages of K and two of V (64 keys,
+// 32 KB each), then p (64 x 64 f32, warpgroup 0 -> 1) and dS (64 x 64
+// bf16 fragments, 1 -> 0)
+struct Dq256 {
+  static constexpr int DH = 256, BQ = 64, BKV = 64, THREADS = 256;
+  static constexpr int K_STAGES = 3, V_STAGES = 2, KV_BYTES = BKV * DH * 2;
+  static constexpr int P_BYTES = BQ * BKV * 4, DS_BYTES = BQ * BKV * 2;
+  static constexpr int SMEM = (K_STAGES + V_STAGES) * KV_BYTES + P_BYTES + DS_BYTES + 1024;
+};
+// dk/dv at DH 256: K and V (64 keys, 32 KB each), a two-stage ring of
+// 64-query blocks (Q and dO, 32 KB each, lse and delta), then p^T (f32,
+// warpgroup 0 -> 1)
+struct Dkv256 {
+  static constexpr int DH = 256, BKV = 64, BQ = 64, THREADS = 256;
+  static constexpr int KV_BYTES = BKV * DH * 2, Q_BYTES = BQ * DH * 2;
+  static constexpr int STAGE = (2 * Q_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int P_BYTES = BKV * BQ * 4;
+  static constexpr int SMEM = 2 * KV_BYTES + 2 * STAGE + P_BYTES + 1024;
+};
 // an SM's 233472 bytes hold the CTAs' shared memory and 1 KB each besides
 static_assert((Dq<64>::SMEM + 1024) * Dq<64>::CTAS <= 233472 && Dq<128>::SMEM <= SMEM_MAX &&
-                  Dq<256>::SMEM <= SMEM_MAX,
+                  Dq256::SMEM == 189440,
               "dq shared memory");
 static_assert(Dkv64<3>::SMEM <= SMEM_MAX && Dkv<128>::SMEM <= SMEM_MAX &&
-                  Dkv<256>::SMEM <= SMEM_MAX,
+                  Dkv256::SMEM == 216064,
               "dk/dv shared memory");
 static_assert(Dkv<128>::STAGE == 33 * 1024, "the DH = 128 stage is unchanged");
 static_assert(4 * Dkv<128>::STAGE >= 2 * 64 * 128 * 4, "the dK/dV sum fits in the rings");
@@ -221,25 +265,20 @@ __device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32], uint3
 }
 
 // dQ += dS K for one warpgroup: dS (64 x 64) as bf16 register A
-// fragments, K (64 keys x DH) MN-major, one 64 x ON accumulator an
-// ON-column slice (ON / 64 column blocks); issued and committed as one
-// group
+// fragments, K (64 keys x DH) MN-major, one 64 x DH accumulator; issued and
+// committed as one group
 template <int DH>
-__device__ __forceinline__ void ds_k_tile(float (&acc)[Dq<DH>::NO][Dq<DH>::ON / 2],
-                                          const uint32_t (&da)[16], uint32_t k_tile) {
-  constexpr int BKV = Dq<DH>::BKV, ON = Dq<DH>::ON;
-#pragma unroll
-  for (int hh = 0; hh < Dq<DH>::NO; ++hh) fence_operands(acc[hh]);
+__device__ __forceinline__ void ds_k_tile(float (&acc)[DH / 2], const uint32_t (&da)[16],
+                                          uint32_t k_tile) {
+  constexpr int BKV = Dq<DH>::BKV;
+  fence_operands(acc);
   wgmma_fence();
 #pragma unroll
-  for (int hh = 0; hh < Dq<DH>::NO; ++hh)
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk)
-      wgmma_rs(acc[hh], da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-               desc_mnmajor(k_tile + hh * (ON / 64) * BKV * 128, BKV, kk));
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    wgmma_rs(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+             desc_mnmajor(k_tile, BKV, kk));
   wgmma_commit();
-#pragma unroll
-  for (int hh = 0; hh < Dq<DH>::NO; ++hh) fence_operands(acc[hh]);
+  fence_operands(acc);
 }
 
 // ds = p (dp - delta) * scale in place of s, p = exp(s * scale - lse)
@@ -271,8 +310,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dq, int H, int Hkv, int Sq, int Sk, int causal,
                     float scale) {
   using C = Dq<DH>;
-  constexpr int DQ_BQ = C::BQ, DQ_BKV = C::BKV, DQ_K_STAGES = C::K_STAGES, NO = C::NO;
-  constexpr int OR = C::ON / 2;
+  constexpr int DQ_BQ = C::BQ, DQ_BKV = C::BKV, DQ_K_STAGES = C::K_STAGES, OR = DH / 2;
   constexpr int THREADS = C::THREADS, DQ_Q_BYTES = C::Q_BYTES, DQ_KV_BYTES = C::KV_BYTES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -326,11 +364,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return kv0 < lo || kv0 + DQ_BKV > hi || (causal && kv0 + DQ_BKV - 1 > wg_row0);
   };
 
-  float acc[NO][OR], s[32], dp[32];
+  float acc[OR], s[32], dp[32];
 #pragma unroll
-  for (int hh = 0; hh < NO; ++hh)
-#pragma unroll
-    for (int x = 0; x < OR; ++x) acc[hh][x] = 0.f;
+  for (int x = 0; x < OR; ++x) acc[x] = 0.f;
   uint32_t da[16];   // dS of the current tile as bf16 register A fragments
 
   if (n_tiles > 0) {
@@ -369,16 +405,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_operands(dp);
     dq_ds(s, dp, masked_at(kv_next), kv_next, row0, col0, lo, hi, causal, c, nl2, dl, scale);
     wgmma_wait<0>();
-#pragma unroll
-    for (int hh = 0; hh < NO; ++hh) fence_operands(acc[hh]);
+    fence_operands(acc);
 #pragma unroll
     for (int r = 0; r < 16; ++r) da[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
   }
   if (n_tiles > 0) {
     ds_k_tile<DH>(acc, da, sK + ((n_tiles - 1) % DQ_K_STAGES) * DQ_KV_BYTES);
     wgmma_wait<0>();
-#pragma unroll
-    for (int hh = 0; hh < NO; ++hh) fence_operands(acc[hh]);
+    fence_operands(acc);
   }
   cp_async_wait<0>();
 
@@ -388,11 +422,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (row >= Sq) continue;
     bf16* drow = dq + (((size_t)b * Sq + row) * H + h) * DH + col0;
 #pragma unroll
-    for (int hh = 0; hh < NO; ++hh)
-#pragma unroll
-      for (int jj = 0; jj < OR / 4; ++jj)
-        *reinterpret_cast<uint32_t*>(drow + 2 * OR * hh + 8 * jj) =
-            pack_bf16(acc[hh][4 * jj + 2 * i], acc[hh][4 * jj + 2 * i + 1]);
+    for (int jj = 0; jj < OR / 4; ++jj)
+      *reinterpret_cast<uint32_t*>(drow + 8 * jj) =
+          pack_bf16(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
   }
 }
 
@@ -493,7 +525,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int Sq,
                      int Sk, int causal, float scale) {
   using C = Dkv<DH>;
-  constexpr int NWG = C::NWG, THREADS = C::THREADS, NHALF = C::NHALF;
+  constexpr int NWG = C::NWG, THREADS = C::THREADS;
   constexpr int DKV_BKV = C::BKV, DKV_BQ = C::BQ, DKV_KV_BYTES = C::KV_BYTES;
   constexpr int DKV_Q_BYTES = C::Q_BYTES, DKV_STAGE = C::STAGE;
   extern __shared__ unsigned char smem_raw[];
@@ -502,10 +534,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sK = base, sV = base + DKV_KV_BYTES;
 
   const int hk = blockIdx.x, b = blockIdx.y;
-  // causal: the longest walks come first; at DH = 256 the NHALF CTAs of a
-  // key tile take one 128-column half of dK and dV each
-  const int kv0 = (blockIdx.z / NHALF) * DKV_BKV;
-  const int half = blockIdx.z % NHALF;
+  const int kv0 = blockIdx.z * DKV_BKV;   // causal: the longest walks come first
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int rep = H / Hkv;
 
@@ -557,8 +586,6 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int key0 = kv0 + warp * 16 + (lane >> 2);   // keys key0 and key0 + 8 (rows of s^T)
   const int col0 = 2 * (lane & 3);
-  // this CTA's 128 columns of dO and Q (MN-major operands)
-  const uint32_t col_off = half * 2 * DKV_BQ * 128;
   float dka[64], dva[64];
 #pragma unroll
   for (int x = 0; x < 64; ++x) dka[x] = dva[x] = 0.f;
@@ -581,37 +608,35 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (!(causal && qw + 63 < kv0)) {
       const bool masked = kv0 < lo || kv0 + DKV_BKV > hi || qw + 64 > Sq ||
                           (causal && kv0 + DKV_BKV - 1 > qw);
-      dkv_item<DH>(dka, dva, sK, sV, sQw, sdOw, col_off, lse_s, dl_s, masked, key0, col0, qw,
-                   lo, hi, Sq, causal, scale);
+      dkv_item<DH>(dka, dva, sK, sV, sQw, sdOw, 0, lse_s, dl_s, masked, key0, col0, qw, lo, hi,
+                   Sq, causal, scale);
     }
   }
   cp_async_wait<0>();
   __syncthreads();
 
-  if (NWG == 2) {
-    // dK, dV = warpgroup 0's sums + warpgroup 1's, in that order, through
-    // the (now free) rings; element x of thread t at [x][t], conflict-free
-    float* red = reinterpret_cast<float*>(gbase + 2 * DKV_KV_BYTES);
-    if (wg == 1) {
-#pragma unroll
-      for (int x = 0; x < 64; ++x) {
-        red[x * 128 + t] = dka[x];
-        red[(64 + x) * 128 + t] = dva[x];
-      }
-    }
-    __syncthreads();
-    if (wg == 1) return;
+  // dK, dV = warpgroup 0's sums + warpgroup 1's, in that order, through
+  // the (now free) rings; element x of thread t at [x][t], conflict-free
+  float* red = reinterpret_cast<float*>(gbase + 2 * DKV_KV_BYTES);
+  if (wg == 1) {
 #pragma unroll
     for (int x = 0; x < 64; ++x) {
-      dka[x] += red[x * 128 + t];
-      dva[x] += red[(64 + x) * 128 + t];
+      red[x * 128 + t] = dka[x];
+      red[(64 + x) * 128 + t] = dva[x];
     }
+  }
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int x = 0; x < 64; ++x) {
+    dka[x] += red[x * 128 + t];
+    dva[x] += red[(64 + x) * 128 + t];
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = key0 + 8 * i;
     if (key >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + key) * Hkv + hk) * DH + half * 128 + col0;
+    const size_t off = (((size_t)b * Sk + key) * Hkv + hk) * DH + col0;
 #pragma unroll
     for (int jj = 0; jj < 16; ++jj) {
       *reinterpret_cast<uint32_t*>(dk + off + 8 * jj) =
@@ -619,6 +644,407 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint32_t*>(dv + off + 8 * jj) =
           pack_bf16(dva[4 * jj + 2 * i], dva[4 * jj + 2 * i + 1]);
     }
+  }
+}
+
+// dq at DH = 256: s (warpgroup 0, xa = Q) or dp (1, xa = dO) against one
+// K-major K or V tile of 64 keys, raw (unscaled), one wgmma group (the
+// first step overwrites)
+__device__ __forceinline__ void dq256_scores(float (&sd)[32], const uint32_t (&xa)[64],
+                                             uint32_t tile) {
+  fence_operands(sd);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk)
+    wgmma_rs_n64_kmajor(sd, xa[4 * kk], xa[4 * kk + 1], xa[4 * kk + 2], xa[4 * kk + 3],
+                        desc_kmajor(tile, 64, kk), kk > 0);
+  wgmma_commit();
+  fence_operands(sd);
+}
+
+// dq at DH = 256: dQ += dS K on one warpgroup's 128 columns (k_cols: the K
+// tile at those columns, read MN-major), the 16-key steps in order
+__device__ __forceinline__ void dq256_ds_k(float (&acc)[64], const uint32_t (&da)[16],
+                                           uint32_t k_cols) {
+  fence_operands(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+             desc_mnmajor(k_cols, 64, kk));
+  wgmma_commit();
+  fence_operands(acc);
+}
+
+// dq at DH = 256, with s and dp of one tile done: warpgroup 0 forms p =
+// exp(s scale - lse) (selected to 0 on masked logits, the mask only when
+// `masked`) into xp; warpgroup 1 forms ds = p (dp - delta) scale and stores
+// its bf16 register-A fragments into xds; element x of thread t at [x][t].
+// Every thread of the CTA calls it (two barriers)
+__device__ __forceinline__ void dq256_exchange(const float (&sd)[32], int wg, int t, float* xp,
+                                               uint32_t* xds, bool masked, int kv0, int row0,
+                                               int col0, int lo, int hi, int causal, float c,
+                                               const float (&nl2)[2], const float (&dl)[2],
+                                               float scale) {
+  if (wg == 0) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x >> 1) & 1;
+      float p = ex2(fmaf(sd[x], c, nl2[i]));
+      if (masked) {
+        const int col = kv0 + 8 * (x >> 2) + col0 + (x & 1);
+        const int row = row0 + 8 * i;
+        const bool live = col >= lo && col < hi && (!causal || row >= col);
+        p = live ? p : 0.f;   // selected, never exp of a masked logit
+      }
+      xp[x * 128 + t] = p;
+    }
+  }
+  __syncthreads();   // p is in shared memory
+  if (wg == 1) {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int i = r & 1;   // x = 2 r, 2 r + 1: row row0 + 8 ((x / 2) % 2)
+      const float d0 = xp[(2 * r) * 128 + t] * (sd[2 * r] - dl[i]) * scale;
+      const float d1 = xp[(2 * r + 1) * 128 + t] * (sd[2 * r + 1] - dl[i]) * scale;
+      xds[r * 128 + t] = pack_bf16(d0, d1);
+    }
+  }
+  __syncthreads();   // dS is in shared memory
+}
+
+// dq at DH = 256 (Dq256): one CTA of two warpgroups per (head, batch,
+// 64-row Q tile), longest causal tiles first.  Warpgroup w owns columns
+// 128 w .. 128 w + 127 of dQ (64 accumulators a thread).  The logits are
+// shared by role: warpgroup 0 holds Q and computes s = Q K^T, warpgroup 1
+// holds dO and computes dp = dO V^T, each with its operand as register-A
+// fragments of its 16 k-steps (loaded once) against the K-major K or V
+// tile.  Warpgroup 0 forms p = exp(s scale - lse), selected to 0 on masked
+// logits, and hands it to warpgroup 1 as f32; warpgroup 1 forms ds = p (dp
+// - delta) scale, rounds it to bf16 and hands its register-A fragments
+// back.  Tile j: s / dp of tile j + 1 run beside dQ += dS_j K_j (K read
+// MN-major at this warpgroup's columns, the 16-key steps in order, as the
+// kernel this one replaces did), and p and ds of tile j + 1 form while that
+// product is in flight.
+__global__ void __launch_bounds__(Dq256::THREADS, 1)
+flash_bwd_dq256_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
+                       bf16* __restrict__ dq, int H, int Hkv, int Sq, int Sk, int causal,
+                       float scale) {
+  using C = Dq256;
+  constexpr int DH = C::DH, BQ = C::BQ, BKV = C::BKV, KV_BYTES = C::KV_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));   // generic view of base
+  // tile t of K lives in stage t % 3 of the K ring, of V in stage t % 2
+  const uint32_t sK = base, sV = sK + C::K_STAGES * KV_BYTES;
+  float* xp = reinterpret_cast<float*>(gbase + (C::K_STAGES + C::V_STAGES) * KV_BYTES);
+  uint32_t* xds = reinterpret_cast<uint32_t*>(xp + BQ * BKV);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // longest causal tiles first
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int hk = h / (H / Hkv);
+
+  const int lo = kv_lo ? max(kv_lo[b], 0) : 0;
+  const int hi = kv_hi ? min(kv_hi[b], Sk) : Sk;
+  const int kv_begin = (lo / BKV) * BKV;
+  const int kv_end = causal ? min(hi, q0 + BQ) : hi;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
+
+  const size_t q_stride = (size_t)H * DH, kv_stride = (size_t)Hkv * DH;
+  const size_t q_off = ((size_t)b * Sq * H + h) * DH;
+  const bf16* kb = k + ((size_t)b * Sk * Hkv + hk) * DH;
+  const bf16* vb = v + ((size_t)b * Sk * Hkv + hk) * DH;
+  auto load_kv = [&](int tt) {
+    const int kv0 = kv_begin + tt * BKV;
+    load_tile<BKV, C::THREADS, DH>(sK + (tt % C::K_STAGES) * KV_BYTES, kb, kv0, Sk, kv_stride,
+                                   tid);
+    load_tile<BKV, C::THREADS, DH>(sV + (tt & 1) * KV_BYTES, vb, kv0, Sk, kv_stride, tid);
+  };
+  if (n_tiles > 0) load_kv(0);
+  if (n_tiles > 1) load_kv(1);
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + (lane >> 2);   // rows row0 and row0 + 8
+  const int col0 = 2 * (lane & 3);
+  // this warpgroup's operand of the logits, Q or dO, as the register-A
+  // fragments of its 16 k-steps (rows past Sq zero)
+  uint32_t xa[64];
+  {
+    const bf16* src = (wg == 0 ? q : dout) + q_off;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + 8 * (i & 1);
+        const int col = 16 * kk + 8 * (i >> 1) + col0;
+        xa[4 * kk + i] =
+            row < Sq ? *reinterpret_cast<const uint32_t*>(src + (size_t)row * q_stride + col)
+                     : 0u;
+      }
+  }
+  const float c = scale * LOG2E;
+  float nl2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const size_t idx = ((size_t)b * H + h) * Sq + row;
+    nl2[i] = row < Sq ? -lse[idx] * LOG2E : 0.f;
+    dl[i] = row < Sq ? delta[idx] : 0.f;
+  }
+  // a tile needs the mask where it crosses a window edge, the end of the
+  // keys or the tile's causal diagonal
+  auto masked_at = [&](int kv0) {
+    return kv0 < lo || kv0 + BKV > hi || (causal && kv0 + BKV - 1 > q0);
+  };
+
+  float acc[64], sd[32];   // dQ (this warpgroup's 128 columns); s or dp of a tile
+#pragma unroll
+  for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+  uint32_t da[16];         // dS of the current tile as bf16 register-A fragments
+  const uint32_t col_off = wg * 2 * BKV * 128;   // this warpgroup's columns of K (MN-major)
+
+  // s (warpgroup 0) or dp (1) of tile tt, and the K stage dQ reads tile tt
+  // from (this warpgroup's columns, MN-major)
+  auto score_tile = [&](int tt) {
+    return wg == 0 ? sK + (tt % C::K_STAGES) * KV_BYTES : sV + (tt & 1) * KV_BYTES;
+  };
+  auto k_cols = [&](int tt) { return sK + (tt % C::K_STAGES) * KV_BYTES + col_off; };
+
+  if (n_tiles > 0) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    dq256_scores(sd, xa, score_tile(0));
+    wgmma_wait<0>();
+    fence_operands(sd);
+    dq256_exchange(sd, wg, t, xp, xds, masked_at(kv_begin), kv_begin, row0, col0, lo, hi,
+                   causal, c, nl2, dl, scale);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) da[r] = xds[r * 128 + t];
+  }
+  // Tile j: s / dp of tile j + 1 beside dQ += dS_j K_j; p and ds of tile
+  // j + 1 while that product runs.  The last tile (dQ only) is peeled off.
+  for (int j = 0; j + 1 < n_tiles; ++j) {
+    // K/V of tile j + 1 have landed, and every thread is past tile j - 1:
+    // K stage (j + 2) % 3 (K_{j-1}) and V stage j % 2 (V_j, read by dp_j)
+    // are free for tile j + 2
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (j + 2 < n_tiles) load_kv(j + 2);
+    cp_async_commit();
+    dq256_scores(sd, xa, score_tile(j + 1));
+    dq256_ds_k(acc, da, k_cols(j));
+    wgmma_wait<1>();   // s / dp of tile j + 1 are done; dQ_j may still run
+    fence_operands(sd);
+    const int kv_next = kv_begin + (j + 1) * BKV;
+    dq256_exchange(sd, wg, t, xp, xds, masked_at(kv_next), kv_next, row0, col0, lo, hi, causal,
+                   c, nl2, dl, scale);
+    wgmma_wait<0>();
+    fence_operands(acc);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) da[r] = xds[r * 128 + t];
+  }
+  if (n_tiles > 0) {
+    dq256_ds_k(acc, da, k_cols(n_tiles - 1));
+    wgmma_wait<0>();
+    fence_operands(acc);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= Sq) continue;
+    bf16* drow = dq + (((size_t)b * Sq + row) * H + h) * DH + wg * 128 + col0;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+      *reinterpret_cast<uint32_t*>(drow + 8 * jj) =
+          pack_bf16(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+  }
+}
+
+// dk/dv at DH = 256 (Dkv256): one CTA of two warpgroups per (64-key tile,
+// kv head, batch) over the walk of the G query heads of the group and the
+// live 64-query blocks (from the diagonal when causal), one two-stage ring
+// of Q, dO, lse and delta shared by both.  The roles split the products:
+// warpgroup 0 computes s^T = K Q^T, forms p^T (selected to 0 on masked
+// logits), hands it to warpgroup 1 as f32 and accumulates all of dV += P^T
+// dO; warpgroup 1 computes dp^T = V dO^T, forms ds^T = p^T (dp^T - delta)
+// scale and accumulates all of dK += dS^T Q.  Each keeps its 64 x 256 sum
+// as two 128-column accumulators (128 registers a thread) for the whole
+// walk.  dO and Q are read MN-major; P^T and dS^T are register-A operands,
+// the 16-query steps in order; every product is issued from one place by
+// both warpgroups, on the operands of its role.
+__global__ void __launch_bounds__(Dkv256::THREADS, 1)
+flash_bwd_dkv256_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int Sq,
+                        int Sk, int causal, float scale) {
+  using C = Dkv256;
+  constexpr int DH = C::DH, BKV = C::BKV, BQ = C::BQ, KV_BYTES = C::KV_BYTES;
+  constexpr int Q_BYTES = C::Q_BYTES, STAGE = C::STAGE;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));   // generic view of base
+  const uint32_t sK = base, sV = base + KV_BYTES, ring = base + 2 * KV_BYTES;
+  const float* ring_f = reinterpret_cast<const float*>(gbase + 2 * KV_BYTES);
+  float* xp = reinterpret_cast<float*>(gbase + 2 * KV_BYTES + 2 * STAGE);
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int kv0 = blockIdx.z * BKV;   // causal: the longest walks come first
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int rep = H / Hkv;
+
+  const int lo = kv_lo ? max(kv_lo[b], 0) : 0;
+  const int hi = kv_hi ? min(kv_hi[b], Sk) : Sk;
+  // a key tile with no key inside [lo, hi) gets no live pair: dk, dv are 0
+  const bool tile_live = kv0 < hi && kv0 + BKV > lo;
+  // causal: query blocks wholly above this key tile's diagonal are dead
+  const int q_begin = causal ? (kv0 / BQ) * BQ : 0;
+  const int n_qb = tile_live && q_begin < Sq ? (Sq - q_begin + BQ - 1) / BQ : 0;
+  const int n_it = rep * n_qb;   // the walk: (group head, query block)
+
+  const size_t q_stride = (size_t)H * DH, kv_stride = (size_t)Hkv * DH;
+  auto block_q0 = [&](int i) { return q_begin + (i % n_qb) * BQ; };
+  auto load_item = [&](int i) {   // item i into stage i & 1, by all threads
+    const int hq = hk * rep + i / n_qb;
+    const int qb0 = block_q0(i);
+    const size_t q_off = ((size_t)b * Sq * H + hq) * DH;
+    const uint32_t st = ring + (i & 1) * STAGE;
+    load_tile<BQ, C::THREADS, DH>(st, q + q_off, qb0, Sq, q_stride, tid);
+    load_tile<BQ, C::THREADS, DH>(st + Q_BYTES, dout + q_off, qb0, Sq, q_stride, tid);
+    if (tid < 2 * BQ) {   // lse (threads 0-63) and delta (64-127) of the block's queries
+      const int cq = tid & (BQ - 1);
+      const bool valid = qb0 + cq < Sq;
+      const size_t idx = ((size_t)b * H + hq) * Sq + (valid ? qb0 + cq : 0);
+      const float* src = tid < BQ ? lse + idx : delta + idx;
+      cp_async_4(st + 2 * Q_BYTES + (tid >> 6) * BQ * 4 + cq * 4, src, valid);
+    }
+  };
+  if (tile_live) {
+    load_tile<BKV, C::THREADS, DH>(sK, k + ((size_t)b * Sk * Hkv + hk) * DH, kv0, Sk, kv_stride,
+                                   tid);
+    load_tile<BKV, C::THREADS, DH>(sV, v + ((size_t)b * Sk * Hkv + hk) * DH, kv0, Sk, kv_stride,
+                                   tid);
+  }
+  if (n_it > 0) load_item(0);
+  cp_async_commit();
+
+  const int key0 = kv0 + warp * 16 + (lane >> 2);   // keys key0 and key0 + 8 (rows of s^T)
+  const int col0 = 2 * (lane & 3);
+  const float sl2 = scale * LOG2E;
+  // dV (warpgroup 0) or dK (1) of the CTA's 64 keys: columns 128 hh ..
+  float acc[2][64];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[hh][x] = 0.f;
+
+  for (int i = 0; i < n_it; ++i) {
+    // item i has landed, and every thread is past item i - 1 (its products
+    // done, its p read): stage (i + 1) & 1 is free for item i + 1, whose
+    // copy runs beside this item's products
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (i + 1 < n_it) load_item(i + 1);
+    cp_async_commit();
+    const int qw = block_q0(i);   // this item's 64 queries
+    if (causal && qw + BQ - 1 < kv0) continue;
+    const uint32_t sQ = ring + (i & 1) * STAGE, sdO = sQ + Q_BYTES;
+    const float* lse_s = ring_f + (i & 1) * (STAGE / 4) + 2 * Q_BYTES / 4;
+    const float* dl_s = lse_s + BQ;
+    const bool masked = kv0 < lo || kv0 + BKV > hi || qw + BQ > Sq ||
+                        (causal && kv0 + BKV - 1 > qw);
+
+    // s^T = K Q^T (warpgroup 0) or dp^T = V dO^T (1), one group
+    float sd[32];
+    uint32_t fa[16];   // P^T (warpgroup 0) or dS^T (1) as bf16 register-A fragments
+    {
+      const uint32_t a_tile = wg == 0 ? sK : sV, b_tile = wg == 0 ? sQ : sdO;
+      fence_operands(sd);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss_n64(sd, desc_kmajor(a_tile, BKV, kk), desc_kmajor(b_tile, BQ, kk), kk > 0);
+      wgmma_commit();
+      fence_operands(sd);
+      wgmma_wait<0>();
+      fence_operands(sd);
+    }
+    if (wg == 0) {
+      // p^T = exp(s^T scale - lse), selected to 0 on masked logits, to
+      // warpgroup 1 as f32 (element x of thread t at [x][t])
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 L = *reinterpret_cast<const float2*>(lse_s + 8 * jj + col0);
+#pragma unroll
+        for (int ie = 0; ie < 4; ++ie) {
+          const int x = 4 * jj + ie, e = ie & 1;
+          float p = ex2(fmaf(sd[x], sl2, -(e ? L.y : L.x) * LOG2E));
+          if (masked) {
+            const int key = key0 + 8 * (ie >> 1);
+            const int qq = qw + 8 * jj + col0 + e;
+            const bool live = key >= lo && key < hi && qq < Sq && (!causal || qq >= key);
+            p = live ? p : 0.f;   // selected, never exp of a masked logit
+          }
+          sd[x] = p;
+          xp[x * 128 + t] = p;
+        }
+      }
+      named_barrier_arrive(1, C::THREADS);   // p^T is in shared memory
+#pragma unroll
+      for (int r = 0; r < 16; ++r) fa[r] = pack_bf16(sd[2 * r], sd[2 * r + 1]);
+    } else {
+      // ds^T = p^T (dp^T - delta) scale
+      named_barrier_sync(1, C::THREADS);
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int x = 2 * r;   // queries 8 (x / 4) + col0 and + 1
+        const float2 D = *reinterpret_cast<const float2*>(dl_s + 8 * (x >> 2) + col0);
+        fa[r] = pack_bf16(xp[x * 128 + t] * (sd[x] - D.x) * scale,
+                          xp[(x + 1) * 128 + t] * (sd[x + 1] - D.y) * scale);
+      }
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1), all 256 columns
+    const uint32_t b_cols = wg == 0 ? sdO : sQ;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) fence_operands(acc[hh]);
+    wgmma_fence();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(acc[hh], fa[4 * kk], fa[4 * kk + 1], fa[4 * kk + 2], fa[4 * kk + 3],
+                 desc_mnmajor(b_cols + hh * 2 * BQ * 128, BQ, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) fence_operands(acc[hh]);
+  }
+  cp_async_wait<0>();
+
+  bf16* out = wg == 0 ? dv : dk;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= Sk) continue;
+    bf16* orow = out + (((size_t)b * Sk + key) * Hkv + hk) * DH + col0;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+        *reinterpret_cast<uint32_t*>(orow + 128 * hh + 8 * jj) =
+            pack_bf16(acc[hh][4 * jj + 2 * i], acc[hh][4 * jj + 2 * i + 1]);
   }
 }
 
@@ -775,8 +1201,41 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout, co
   using C = Dkv<DH>;
   cudaFuncSetAttribute(flash_bwd_dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        C::SMEM);
-  dim3 grid(Hkv, B, (Sk + C::BKV - 1) / C::BKV * C::NHALF);
+  dim3 grid(Hkv, B, (Sk + C::BKV - 1) / C::BKV);
   flash_bwd_dkv_kernel<DH><<<grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(kv_lo),
+      static_cast<const int*>(kv_hi), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv,
+      Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// the two dh-256 kernels, one CTA per 64-row Q tile or 64-key tile
+int dq256_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                 const void* delta, const void* kv_lo, const void* kv_hi, void* dq, int B, int H,
+                 int Hkv, int Sq, int Sk, int causal, float scale, void* stream) {
+  using C = Dq256;
+  cudaFuncSetAttribute(flash_bwd_dq256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       C::SMEM);
+  dim3 grid(H, B, (Sq + C::BQ - 1) / C::BQ);
+  flash_bwd_dq256_kernel<<<grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(kv_lo),
+      static_cast<const int*>(kv_hi), static_cast<bf16*>(dq), H, Hkv, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int dkv256_launch(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, const void* kv_lo, const void* kv_hi,
+                  void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int causal,
+                  float scale, void* stream) {
+  using C = Dkv256;
+  cudaFuncSetAttribute(flash_bwd_dkv256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       C::SMEM);
+  dim3 grid(Hkv, B, (Sk + C::BKV - 1) / C::BKV);
+  flash_bwd_dkv256_kernel<<<grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(kv_lo),
@@ -842,16 +1301,24 @@ int kernel_resources(const void* fn, int smem, int threads, int* r) {
 template <int DH>
 int bwd_resources(int* res) {
   int err = kernel_resources((const void*)flash_bwd_delta_kernel<DH>, 0, 256, res);
-  if (!err)
+  if (err) return err;
+  if constexpr (DH == 256) {
+    err = kernel_resources((const void*)flash_bwd_dq256_kernel, Dq256::SMEM, Dq256::THREADS,
+                           res + 6);
+    return err ? err
+               : kernel_resources((const void*)flash_bwd_dkv256_kernel, Dkv256::SMEM,
+                                  Dkv256::THREADS, res + 12);
+  } else {
     err = kernel_resources((const void*)flash_bwd_dq_kernel<DH>, Dq<DH>::SMEM, Dq<DH>::THREADS,
                            res + 6);
-  if (err) return err;
-  if constexpr (DH == 64)
-    return kernel_resources((const void*)flash_bwd_dkv64_kernel<3>, Dkv64<3>::SMEM,
-                            Dkv64<3>::THREADS, res + 12);
-  else
-    return kernel_resources((const void*)flash_bwd_dkv_kernel<DH>, Dkv<DH>::SMEM,
-                            Dkv<DH>::THREADS, res + 12);
+    if (err) return err;
+    if constexpr (DH == 64)
+      return kernel_resources((const void*)flash_bwd_dkv64_kernel<3>, Dkv64<3>::SMEM,
+                              Dkv64<3>::THREADS, res + 12);
+    else
+      return kernel_resources((const void*)flash_bwd_dkv_kernel<DH>, Dkv<DH>::SMEM,
+                              Dkv<DH>::THREADS, res + 12);
+  }
 }
 
 }  // namespace
@@ -882,8 +1349,8 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void*
     return dq_launch<128>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dq, B, H, Hkv, Sq, Sk,
                           causal, scale, stream);
   if (DH == 256)
-    return dq_launch<256>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dq, B, H, Hkv, Sq, Sk,
-                          causal, scale, stream);
+    return dq256_launch(q, k, v, dout, lse, delta, kv_lo, kv_hi, dq, B, H, Hkv, Sq, Sk, causal,
+                        scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -900,8 +1367,8 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const void
     return dkv_launch<128>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dk, dv, B, H, Hkv, Sq, Sk,
                            causal, scale, stream);
   if (DH == 256)
-    return dkv_launch<256>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dk, dv, B, H, Hkv, Sq, Sk,
-                           causal, scale, stream);
+    return dkv256_launch(q, k, v, dout, lse, delta, kv_lo, kv_hi, dk, dv, B, H, Hkv, Sq, Sk,
+                         causal, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,9 +8,10 @@ versions, differentiable on both through the kernels' backward.  Off, and
 with a dense mask (a warning when the switch is forced on), attention
 takes :func:`reference_attention`; so do shapes no kernel takes, which
 the wrapper refuses with ``NotImplementedError`` (causal with Sq != Sk, as
-the JAX wrapper does, and head dims above 256), after the JAX package's
-warning.  S < 128, which the JAX kernel refuses, stays on the kernels.
-Anything else the kernels raise propagates.
+the JAX wrapper does; on the card fp16, which has no instance, and head
+dims above 256), after the JAX package's warning.  S < 128, which the
+JAX kernel refuses, stays on the kernels.  Anything else the kernels raise
+propagates.
 """
 
 from __future__ import annotations

@@ -16,9 +16,11 @@ the CUDA cores) at 128 and 256; other heads zero-pad up to the next
 instance of their dtype (:func:`kernel_dh`).  A bf16 head of 64 runs
 unpadded: the JAX wrapper's padding to 128 lanes is a TPU constraint.  The
 wrapper raises ``NotImplementedError`` only where no kernel exists: causal
-with Sq != Sk (as the JAX wrapper does) and, on a CUDA tensor, head dims
-above 256.  ``ops.attention.dot_product_attention`` then falls back loudly
-to its reference path, as the JAX dispatcher does.  The tiles take a
+with Sq != Sk (as the JAX wrapper does) and, on a CUDA tensor, a dtype
+other than bf16 and f32 (fp16: the JAX kernel computes in it, the port has
+no fp16 instance yet) and head dims above 256.
+``ops.attention.dot_product_attention`` then falls back loudly to its
+reference path, as the JAX dispatcher does.  The tiles take a
 ragged S, so S < 128, which the JAX kernel refuses for its lane width,
 stays on the kernels here.
 """
@@ -99,12 +101,15 @@ def kernel_dh(d: int, dtype: torch.dtype) -> int:
     raise NotImplementedError(f"head dim {d} > {MAX_DH}")
 
 
-def kernel_refusal(s_q: int, s_k: int, d: int, causal: bool) -> Optional[str]:
-    """Why no kernel takes these shapes, or None: causal with Sq != Sk (the
-    JAX wrapper's refusal, in its words) and head dims above the largest
-    instance."""
+def kernel_refusal(s_q: int, s_k: int, d: int, causal: bool,
+                   dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
+    """Why no kernel takes these shapes and this dtype, or None: causal with
+    Sq != Sk (the JAX wrapper's refusal, in its words), a dtype with no
+    instance (fp16) and head dims above the largest instance."""
     if causal and s_q != s_k:
         return f"causal flash needs Sq == Sk; got {s_q}/{s_k}"
+    if dtype not in KERNEL_DHS:
+        return f"the kernels take bf16 or f32, not {dtype}"
     if d > MAX_DH:
         return f"head dim {d} > {MAX_DH}"
     return None
@@ -154,7 +159,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if causal and s_q != s_k:
             raise NotImplementedError(f"causal flash needs Sq == Sk; got {s_q}/{s_k}")
         return flash_attention_plain(q, k, v, causal, scale, lo, hi)
-    why = kernel_refusal(s_q, s_k, d, causal)
+    why = kernel_refusal(s_q, s_k, d, causal, q.dtype)
     if why:
         raise NotImplementedError(why)
     return _launch_fwd(q, k, v, lo, hi, causal, scale)
@@ -303,7 +308,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool, scale: float,
     hi = _window(kv_stop, b, s_k, q.device)
     if not runs_kernels(q):
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale, lo, hi, g_lse)
-    why = kernel_refusal(s_q, s_k, d, causal)
+    why = kernel_refusal(s_q, s_k, d, causal, q.dtype)
     if why:
         raise NotImplementedError(why)
     return _launch_bwd(q, k, v, out, lse, do.to(q.dtype), causal, scale, lo, hi, g_lse)

@@ -13,6 +13,10 @@ one difference is S < 128: the JAX kernel refuses it for its lane width,
 the port's kernels take a ragged S, so the card keeps the flash route
 there without a warning.
 
+fp16: the kernels have no fp16 instance, so on the stubbed card the port
+warns and takes the reference path (off: without a warning), held against
+the JAX dispatch's fp16 output.
+
 Plain versions: the forward's (out, lse) and the backward's gradients at
 head dim 256 (and 192, padded to 256 on the card) and on f32, against
 ``jax.grad`` of the Pallas kernel in interpret mode, f32 within 1e-5 of
@@ -155,6 +159,36 @@ def test_head_dims_above_256_fall_back_loudly_on_the_card(monkeypatch):
     assert fa.kernel_refusal(128, 128, 320, True) == "head dim 320 > 256"
     assert fa.kernel_refusal(256, 256, 256, True) is None
     assert fa.kernel_refusal(64, 64, 32, True) is None
+
+
+@pytest.mark.parametrize("switch", list(SWITCH))
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_fp16_on_the_card_falls_back_loudly_to_the_reference(monkeypatch, switch, causal):
+    """The kernels have no fp16 instance: on a CUDA tensor the wrapper
+    refuses, naming the dtype, and the dispatcher warns and takes the
+    reference path (off: the reference without a warning), launching no
+    kernel.  The output is held against the JAX dispatch's fp16 output on
+    the same inputs (the JAX package's reference path off the TPU: both
+    sides round the logits and the weights to fp16 at the same places, so
+    they may differ by a rounding of each, within 2^-9 of the largest
+    output)."""
+    monkeypatch.setenv("MLCOMP_TPU_FLASH", SWITCH[switch])
+    assert "torch.float16" in fa.kernel_refusal(128, 128, 64, causal, torch.float16)
+    assert fa.kernel_refusal(128, 128, 64, causal, torch.bfloat16) is None
+    q, k, v = _inputs(7, 2, 128, 128, 4, 2, 64, np.float16)
+    ref = np.asarray(jattn.dot_product_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                                 causal=causal))
+    assert ref.dtype == np.float16
+    out, routes, warns = _port_call(monkeypatch, q, k, v, None, causal)
+    assert routes == ["reference"]
+    if switch == "off":
+        assert warns == []
+    else:
+        assert len(warns) == 1 and warns[0].startswith("flash attention unavailable (")
+        assert "the kernels take bf16 or f32, not torch.float16" in warns[0]
+    assert out.dtype == np.float16
+    np.testing.assert_allclose(out.astype(np.float32), ref.astype(np.float32), rtol=0,
+                               atol=2.0 ** -9 * np.abs(ref).max())
 
 
 def _jax_grads(q, k, v, w, causal, lo, hi):

@@ -11,6 +11,7 @@ the rank stops (its peers then fail on the group's timeout).
 
 from __future__ import annotations
 
+import atexit
 import os
 import socket
 import traceback
@@ -20,10 +21,28 @@ import numpy as np
 GANG_TIMEOUT_S = 240
 
 
+# every port free_port handed out, still bound in this process
+_HELD = []
+
+
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port held for this process's lifetime: bound here to port 0 with
+    SO_REUSEADDR and never listened on.  The process that serves it (a
+    rank's gloo store, the boundary channel, a daemon's HTTP server: each
+    sets SO_REUSEADDR) binds it over the held socket, while the kernel
+    gives a held port to no other port-0 bind or outgoing connection, so
+    another xdist worker's gang cannot take it in between."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", 0))
+    _HELD.append(s)
+    return s.getsockname()[1]
+
+
+@atexit.register
+def _release_ports() -> None:
+    for s in _HELD:
+        s.close()
 
 
 def _rank_main(rank, world, port, cases, q):
