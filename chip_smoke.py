@@ -173,15 +173,18 @@ resource lines, for a focused run; with no argument every phase runs:
 11f. attention dims and dtypes (ROADMAP §C5): the flash forward and
    backward at head dims 256 and 64 (bf16; 64 also at BERT's window and
    ViT's ragged 64 x 196, beside the padded route) and on f32 at head dims
-   128 and 256, each against its plain version at the three TPU grids'
+   64, 128 and 256, each against its plain version at the three TPU grids'
    shapes (an empty row where windows are), bit-equal on a rerun, with
-   times, SDPA's and the bound (f32 at the card's CUDA-core rate; at dh
-   256 also the backward's queued device ms split into its delta, dq and
-   dk/dv kernels, ``bwd_parts_device_ms``); one train step of the
+   times, SDPA's and the bound (f32: the smaller of the bounds at 3xTF32's
+   rate, the bf16 peak / 6, and at the CUDA cores' FFMA rate, the latter
+   kept as ``bound_ffma_ms``; at dh 256 and on f32 also the backward's
+   queued device ms split into its delta, dq and dk/dv kernels,
+   ``bwd_parts_device_ms``), and the f32 kernels' resources (no spill);
+   one train step of the
    1.2B LM with 8 heads of 256 (the dh-256 kernels 16 times each; loss and
    gradient norm against the plain step); an f32 BERT-window step and an
    f32 LM step with heads of 256 (cut on a ``reduced`` line) against their
-   plain steps; the 1.2B LM's ``remat`` and ``fused_loss`` steps against
+   plain steps, each step's ms beside the plain step's; the 1.2B LM's ``remat`` and ``fused_loss`` steps against
    its plain step (loss within 1e-5 relative, gradient norm within 1e-4),
    each with its peak memory.
 11g. moe: ``moe_lm`` at the serving widths (hidden 2048, 8 layers (16 cut
@@ -259,7 +262,7 @@ resource lines, for a focused run; with no argument every phase runs:
    ``train_to_serve``, ``daemons``, ``fleet``, ``zoo``, ``prefix_cache``,
    ``daemon``, ``train``, ``attention_dims``, ``moe``, ``parallel``,
    ``sharded_serving`` and ``kernels`` JSON
-   lines (the kernels line lists the flash kernels' dh-256 and f32
+   lines (the kernels line lists the flash kernels' dh-256, dh-64 and f32
    instances beside B1-B11), then, last, the device line.
 
 The kernel phase (3) also holds the flash-attention backward (B9-B11), and
@@ -1589,7 +1592,7 @@ ATTN_F32_LM = {"layers": 2, "batch": 1, "seq": 2048}
 # timed beside the route before it: the dh-128 instance on operands padded
 # to 128) at BERT's window, ViT-B/16's ragged 64 x 196, causal GQA (B10's
 # grid) and windows (B11's); f32 at head dims 128 and 256 and BERT's 64
-# (padded to 128).  Every windowed case holds an empty row
+# (the f32 dh-64 instance).  Every windowed case holds an empty row
 ATTN_CASES = [
     ("LM training 2x4096, 8 heads of 256, causal", "bf16", 2, 4096, 8, 8, 256, True, None, 10),
     ("GQA 2x4096, 8 q heads on 2 kv heads of 256, causal", "bf16", 2, 4096, 8, 2, 256, True,
@@ -1616,8 +1619,11 @@ ATTN_CASES = [
     ("f32 BERT 32x128, 12 heads of 64, key padding, one empty row", "f32", 32, 128, 12, 12, 64,
      False, "padding", 3),
 ]
-# f32 peaks outside the tensor cores (FFMA), dense, per card (data sheets)
+# f32 peaks outside the tensor cores (FFMA), dense, per card (data sheets);
+# the f32 kernels' products also run as 3xTF32 on the tensor cores, three
+# TF32 passes a product at half the bf16 rate each: the bf16 peak / 6
 F32_PEAKS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H100 NVL": 60e12, "H200": 67e12}
+TF32X3_OF_BF16 = 6
 
 
 def queued_device_ms(fn, iters=10) -> float:
@@ -1662,12 +1668,13 @@ def device_ms_of(fn, counter=None, iters=10):
 
 
 def bwd_parts_device_ms(q, k, v, out, lse, do, causal, sc, lo=None, hi=None, iters=10) -> dict:
-    """Queued device ms of the bf16 backward's three kernels apart (delta,
-    dq, dk/dv), each launched alone through its C launcher on the operands
-    the wrapper gives it (``_kernel_inputs``), so that a time reads one
-    kernel; these launches count on no wrapper counter.  The launchers'
-    C interface has stayed the same through the kernels' redesigns, so a
-    parent tree's kernels time the same way."""
+    """Queued device ms of the backward's three kernels apart (delta, dq,
+    dk/dv), bf16 or f32 by the operands' dtype, each launched alone through
+    its C launcher on the operands the wrapper gives it
+    (``_kernel_inputs``), so that a time reads one kernel; these launches
+    count on no wrapper counter.  The launchers' C interface has stayed the
+    same through the kernels' redesigns, so a parent tree's kernels time
+    the same way."""
     import ctypes
 
     from mlcomp_tpu_torch.ops.cuda import build
@@ -1680,12 +1687,12 @@ def bwd_parts_device_ms(q, k, v, out, lse, do, causal, sc, lo=None, hi=None, ite
     lse = lse.float().contiguous()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     stream = build.stream_ptr(q.device)
-    stem = "flash_attention_bwd"
+    _, stem, prefix = fa._LIBS[q.dtype]
     delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    l_delta = build.function(stem, "flash_bwd_delta_launch", [p] * 4 + [i] * 4 + [p])
-    l_dq = build.function(stem, "flash_bwd_dq_launch", [p] * 9 + [i] * 7 + [f, p])
-    l_dkv = build.function(stem, "flash_bwd_dkv_launch", [p] * 10 + [i] * 7 + [f, p])
+    l_delta = build.function(stem, f"{prefix}_bwd_delta_launch", [p] * 4 + [i] * 4 + [p])
+    l_dq = build.function(stem, f"{prefix}_bwd_dq_launch", [p] * 9 + [i] * 7 + [f, p])
+    l_dkv = build.function(stem, f"{prefix}_bwd_dkv_launch", [p] * 10 + [i] * 7 + [f, p])
     ints = (b, h, h_kv, s_q, s_k, kd, int(bool(causal)), sc, stream)
 
     def run_delta():
@@ -1713,16 +1720,19 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
     against its plain version at shapes that reach every TPU grid (B10's
     causal, B11's windows, B9's rectangle, with an empty row where windows
     are) with the kernel phase's rule (2^-7 (|ref| + ref_abs) for bf16;
-    2^-16 for f32, whose sums differ only in order, ~2^-20 of ref_abs, and
-    by the SFU-free expf's ulps), bit-equal on a rerun, with times beside
-    the plain version's, SDPA's (events and device) and the card's bound
-    (at head dim 64 also the padded route's: the dh-128 instance on
-    operands zero-padded to 128, the path before the dh-64 instance).
+    2^-16 for f32, whose 3xTF32 products keep ~2^-22 of each operand and
+    whose dp runs on the CUDA cores, and by the SFU-free expf's ulps),
+    bit-equal on a rerun, with times beside the plain version's, SDPA's
+    (events and device) and the card's bound (f32: the smaller of the
+    3xTF32 and FFMA bounds, the FFMA one also as ``bound_ffma_ms``; at head
+    dim 64 also the padded route's: the dh-128 instance on operands
+    zero-padded to 128, the path before the dh-64 instance).  The f32
+    kernels' resources are printed first, and a spill fails the phase.
     Then the paths: one train step of the 1.2B LM with 8 heads of 256 (the
     dh-256 kernels launch 16 times each; loss and gradient norm against the
     plain step with the train parity's rule), an f32 BERT-window step and
     an f32 LM step with heads of 256 (the f32 kernels; against their plain
-    steps), and the 1.2B LM's `remat: true` and `fused_loss: true` steps
+    steps, each step's ms beside the plain step's), and the 1.2B LM's `remat: true` and `fused_loss: true` steps
     against its plain step (loss within 1e-5 relative, gradient norm within
     1e-4), each with its peak memory."""
     import yaml
@@ -1745,6 +1755,18 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
         return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_b, t_o) * 1e3,
                 "bound_by": "bytes" if t_b >= t_o else "operations"}
 
+    def f32_bound(nbytes, ops):
+        # 3xTF32 on the tensor cores or FFMA, whichever is faster; the
+        # FFMA bound stays beside it
+        tc, ffma = bound(nbytes, ops, flops / TF32X3_OF_BF16), bound(nbytes, ops, f32_flops)
+        return {**min(tc, ffma, key=lambda x: x["bound_ms"]), "bound_ffma_ms": ffma["bound_ms"]}
+
+    f32_res = {k_: v_ for k_, v_ in fa.resources().items() if k_.startswith("f32_")}
+    log(f"attention dims: f32 flash kernel resources ({smi}): " + json.dumps(f32_res))
+    spills = [k_ for k_, v_ in f32_res.items() if v_["local_bytes"]]
+    if spills:
+        raise AssertionError(f"f32 flash kernels spill registers: {spills}")
+
     def held(label, out, ref, ref_abs, tol):
         diff = (out.float() - ref.float()).abs()
         limit = tol * (ref.float().abs() + ref_abs.float())
@@ -1756,7 +1778,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
     def case(label, dtype, b, s, h, h_kv, d, causal, lo=None, hi=None, iters=10):
         f32 = dtype == torch.float32
         key = "f32" if f32 else f"dh{fa.kernel_dh(d, dtype)}"
-        tol, peak = (2.0 ** -16, f32_flops) if f32 else (2.0 ** -7, flops)
+        tol = 2.0 ** -16 if f32 else 2.0 ** -7
+        bound_of = f32_bound if f32 else (lambda n_, o_: bound(n_, o_, flops))
         sc = d ** -0.5
         q, k, v, do = (torch.randn(b, s, hh, d, generator=g, device=dev).to(dtype)
                        for hh in (h, h_kv, h_kv, h))
@@ -1815,7 +1838,7 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
             padded["padded_route_bwd_device_ms"] = device_ms_of(
                 lambda: padded_route_bwd(q, k, v, out, lse, do, causal, sc, lo, hi),
                 dh128_calls)
-        if key == "dh256":
+        if key in ("dh256", "f32"):
             # the backward's time split between its kernels (delta, dq, dk/dv)
             padded["bwd_parts_device_ms"] = bwd_parts_device_ms(q, k, v, out, lse, do, causal,
                                                                 sc, lo, hi)
@@ -1856,22 +1879,27 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
         fwd_row = dict(common, max_abs_err=f_err, err_over_limit=f_ratio, lse_err=lse_err,
                        ms=kf, device_ms=dkf, plain_ms=pf, library_ms=lf, library_device_ms=dlf,
                        **{k_: v_ for k_, v_ in padded.items() if "fwd" in k_},
-                       **bound(work["fwd_bytes"], work["fwd_ops"], peak))
+                       **bound_of(work["fwd_bytes"], work["fwd_ops"]))
         bwd_row = dict(common, grid=grid, replaces_row=GRID_KEYS[grid], max_abs_err=b_err,
                        err_over_limit=b_ratio, ms=kb, device_ms=dkb, plain_ms=pb,
                        library_ms=lb, library_device_ms=dlb,
                        **{k_: v_ for k_, v_ in padded.items() if "bwd" in k_},
-                       **bound(work["bwd_bytes"], work["bwd_ops"], peak))
+                       **bound_of(work["bwd_bytes"], work["bwd_ops"]))
         for part, row in (("fwd", fwd_row), ("bwd", bwd_row)):
             for f_, v_ in list(row.items()):
                 if isinstance(v_, Ms):
                     row[f"{f_}_spread"] = list(v_.spread)
             rows[f"{part}_{key}"].append(row)
             log(f"  {part} {json.dumps(row)}")
-        if key == "dh256":
-            log(f"  dh-256 backward ({smi}), queued device ms: " + json.dumps(
-                {"case": label, **bwd_row["bwd_parts_device_ms"], "whole": dkb,
-                 "sdpa_backward": dlb, "bound_ms": bwd_row["bound_ms"]}))
+        if key in ("dh256", "f32"):
+            log(f"  {'dh-256' if key == 'dh256' else 'f32'} backward ({smi}), queued device ms: "
+                + json.dumps({"case": label, **bwd_row["bwd_parts_device_ms"], "whole": dkb,
+                              "sdpa_backward": dlb, "bound_ms": bwd_row["bound_ms"],
+                              **({"bound_ffma_ms": bwd_row["bound_ffma_ms"],
+                                  "forward": dkf, "sdpa_forward": dlf,
+                                  "forward_bound_ms": fwd_row["bound_ms"],
+                                  "forward_bound_ffma_ms": fwd_row["bound_ffma_ms"]}
+                                 if f32 else {})}))
         del q, k, v, do, out, lse, grads
         torch.cuda.empty_cache()
 
@@ -1924,6 +1952,16 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
             yield
         finally:
             fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+
+    def step_ms(model, params, loss_fn, x, y=None):
+        """ms of one forward and backward of ``model`` (CUDA events, the
+        median of three windows of three steps); gradients cleared after"""
+        batch = {"x": x} if y is None else {"x": x, "y": y}
+        ms = time_ms([lambda: loss_fn(model(x), batch).backward()], iters=3, warmup=1,
+                     windows=3)
+        for p_ in params.values():
+            p_.grad = None
+        return ms
 
     def loss_and_gnorm(model, params, loss_fn, x, y=None):
         for p_ in params.values():
@@ -2041,6 +2079,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
     bert_counts = counts()
     with plain_attention():
         l_p, g_p, _ = loss_and_gnorm(bert, bert.params, ce, ids, y)
+        ms_p = step_ms(bert, bert.params, ce, ids, y)
+    ms_k = step_ms(bert, bert.params, ce, ids, y)
     n_bert = bert.layers
     if bert_counts["f32_fwd_launches"] != n_bert or bert_counts["f32_bwd_launches"] != n_bert \
             or abs(l_k - l_p) > 1e-5 * abs(l_p) or abs(g_k - g_p) > 1e-4 * g_p:
@@ -2048,7 +2088,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
                              f"vs {g_p}, launches {bert_counts}")
     paths["f32_bert_window"] = {"batch": [32, 128], "loss_kernels": l_k, "loss_plain": l_p,
                                 "grad_norm_kernels": g_k, "grad_norm_plain": g_p,
-                                "peak_gb": peak_k, "launches_one_step": bert_counts}
+                                "peak_gb": peak_k, "launches_one_step": bert_counts,
+                                "step_ms_kernels": ms_k, "step_ms_plain": ms_p}
     log(f"attention dims: f32 BERT-window: {json.dumps(paths['f32_bert_window'])}")
     del bert
     gc.collect()
@@ -2059,7 +2100,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
     reduced = {"f32 LM with heads of 256": (
         f"configs/multihost_lm.yml's LM in f32 with {ATTN_LM_HEADS} heads, layers "
         f"{lm_model['layers']} -> {ATTN_F32_LM['layers']}, batch {TRAIN_BATCH}x{seq} -> "
-        f"{ATTN_F32_LM['batch']}x{ATTN_F32_LM['seq']} (the f32 kernels run on the CUDA cores)")}
+        f"{ATTN_F32_LM['batch']}x{ATTN_F32_LM['seq']} (the f32 kernels: 3xTF32 products on the "
+        f"tensor cores, dp on the CUDA cores)")}
     log("reduced (attention dims and dtypes): " + json.dumps(reduced))
     m = create_model(f_cfg, device=device)
     m.load_state(from_flax_params(init_params(f_cfg, SEED, device=dev), fold=False), train=True)
@@ -2072,6 +2114,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
     f_counts = counts()
     with plain_attention():
         l_p, g_p, _ = loss_and_gnorm(m, m.flax_params(), lm_ce, x_f)
+        ms_p = step_ms(m, m.flax_params(), lm_ce, x_f)
+    ms_k = step_ms(m, m.flax_params(), lm_ce, x_f)
     if f_counts["f32_fwd_launches"] != f_cfg["layers"] or \
             f_counts["f32_bwd_launches"] != f_cfg["layers"] or \
             abs(l_k - l_p) > 1e-5 * abs(l_p) or abs(g_k - g_p) > 1e-4 * g_p:
@@ -2079,7 +2123,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
                              f"{g_k} vs {g_p}, launches {f_counts}")
     paths["f32_lm_heads_256"] = {"loss_kernels": l_k, "loss_plain": l_p, "grad_norm_kernels": g_k,
                                  "grad_norm_plain": g_p, "peak_gb": peak_k,
-                                 "launches_one_step": f_counts}
+                                 "launches_one_step": f_counts, "step_ms_kernels": ms_k,
+                                 "step_ms_plain": ms_p}
     log(f"attention dims: f32 LM with heads of 256: {json.dumps(paths['f32_lm_heads_256'])}")
     del m
     gc.collect()
@@ -6889,10 +6934,10 @@ def main(argv=None) -> int:
             ("bwd_dh256", "flash_attention_bwd (bf16, head dim 256)",
              "mlcomp_tpu_torch/csrc/flash_attention_bwd.cu", lm256["bwd_dh256_launches"],
              path_256),
-            ("fwd_f32", "flash_attention_fwd (f32, head dims 128 and 256)",
+            ("fwd_f32", "flash_attention_fwd (f32, head dims 64, 128 and 256)",
              "mlcomp_tpu_torch/csrc/flash_attention_f32.cu",
              sum(c["f32_fwd_launches"] for c in f32_paths), path_f32),
-            ("bwd_f32", "flash_attention_bwd (f32, head dims 128 and 256)",
+            ("bwd_f32", "flash_attention_bwd (f32, head dims 64, 128 and 256)",
              "mlcomp_tpu_torch/csrc/flash_attention_f32.cu",
              sum(c["f32_bwd_launches"] for c in f32_paths), path_f32)):
         rows_ = attn_result["rows"][key]

@@ -11,10 +11,10 @@ dk/dv kernels.  A CUDA tensor launches the kernels; a CPU tensor takes
 :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`.
 
 The kernels take bf16 (csrc/flash_attention.cu, flash_attention_bwd.cu:
-wgmma) at head dims 64, 128 and 256 and f32 (csrc/flash_attention_f32.cu:
-the CUDA cores) at 128 and 256; other heads zero-pad up to the next
-instance of their dtype (:func:`kernel_dh`).  A bf16 head of 64 runs
-unpadded: the JAX wrapper's padding to 128 lanes is a TPU constraint.  The
+wgmma) and f32 (csrc/flash_attention_f32.cu: 3xTF32 products on mma.sync)
+at head dims 64, 128 and 256; other heads zero-pad up to the next
+instance of their dtype (:func:`kernel_dh`).  A head of 64 runs unpadded:
+the JAX wrapper's padding to 128 lanes is a TPU constraint.  The
 wrapper raises ``NotImplementedError`` only where no kernel exists: causal
 with Sq != Sk (as the JAX wrapper does) and, on a CUDA tensor, a dtype
 other than bf16 and f32 (fp16: the JAX kernel computes in it, the port has
@@ -36,7 +36,7 @@ from mlcomp_tpu_torch.ops.cuda import build
 
 NEG_INF = -1e30
 # the kernels' head dims of each dtype; smaller heads zero-pad up
-KERNEL_DHS = {torch.bfloat16: (64, 128, 256), torch.float32: (128, 256)}
+KERNEL_DHS = {torch.bfloat16: (64, 128, 256), torch.float32: (64, 128, 256)}
 MAX_DH = max(max(dhs) for dhs in KERNEL_DHS.values())   # the largest of every dtype
 # the source (library) of the forward and backward kernels of each dtype
 _LIBS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd", "flash"),
@@ -247,7 +247,8 @@ def resources() -> dict:
     {"fwd" | "bwd_delta" | "bwd_dq" | "bwd_dkv" (bf16, dh 128), the same
     names ending "_256" and "_64" (bf16, dh 256 and 64; "bwd_dkv_64" the
     dk/dv kernel of three warpgroups, "bwd_dkv_64_short" of two, for short
-    key ranges) and "f32_<name>" / "f32_<name>_256" (f32): {field: int}}."""
+    key ranges) and "f32_<name>" / "f32_<name>_256" / "f32_<name>_64" (f32,
+    dh 128, 256 and 64): {field: int}}."""
     names = ("fwd", "bwd_delta", "bwd_dq", "bwd_dkv")
     return {**build.resources("flash_attention", "flash_fwd_resources",
                               ("fwd", "fwd_256", "fwd_64")),
@@ -256,7 +257,8 @@ def resources() -> dict:
                               + tuple(n + "_64" for n in names[1:]) + ("bwd_dkv_64_short",)),
             **build.resources("flash_attention_f32", "flash_f32_resources",
                               tuple(f"f32_{n}" for n in names)
-                              + tuple(f"f32_{n}_256" for n in names))}
+                              + tuple(f"f32_{n}_256" for n in names)
+                              + tuple(f"f32_{n}_64" for n in names))}
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale, kv_start, kv_stop,

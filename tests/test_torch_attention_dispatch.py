@@ -145,11 +145,11 @@ def test_a_cpu_tensor_keeps_the_plain_kernels_under_auto_and_on(monkeypatch):
 
 
 def test_head_dims_above_256_fall_back_loudly_on_the_card(monkeypatch):
-    """The kernels have instances at 128 and 256; above 256 the wrapper
+    """The kernels have instances at 64, 128 and 256; above 256 the wrapper
     refuses on a CUDA tensor and the dispatcher warns and takes the
     reference path (the JAX kernel pads to 384 there: ROADMAP §B)."""
     monkeypatch.setattr(fa, "runs_kernels", lambda t: True)
-    assert [fa.kernel_dh(d, torch.float32) for d in (32, 128, 129, 256)] == [128, 128, 256, 256]
+    assert [fa.kernel_dh(d, torch.float32) for d in (32, 128, 129, 256)] == [64, 128, 256, 256]
     with pytest.raises(NotImplementedError, match="head dim 320 > 256"):
         fa.kernel_dh(320, torch.bfloat16)
     q, k, v = (torch.from_numpy(x) for x in _inputs(4, 1, 128, 128, 1, 1, 320))

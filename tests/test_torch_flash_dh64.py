@@ -1,13 +1,15 @@
 """The flash kernels' dh-64 instance (bf16): the route the wrapper takes
 to it, and the plain versions at head dim 64 against the Pallas kernel.
 
-- ``kernel_dh`` is per dtype: bf16 has instances at 64, 128 and 256, f32
-  at 128 and 256 (ROADMAP §B 11: f32 keeps padding to 128).
+- ``kernel_dh`` is per dtype: bf16 and f32 each have instances at 64, 128
+  and 256.
 - With the card's launch points stubbed (``build.function`` records each
   C call), a bf16 call at head dim 64 passes q, k, v (and out, dO) as
   they are with ``DH = 64``, returns the very tensors the kernels wrote
   (nothing sliced) and counts on ``fwd_dh64_launches`` /
-  ``bwd_dh64_launches``; an f32 call at head dim 64 still pads to 128.
+  ``bwd_dh64_launches``; an f32 call at head dim 64 runs the f32 kernels'
+  dh-64 instance the same way and counts on ``f32_fwd_launches`` /
+  ``f32_bwd_launches``.
 - ``resources()`` lists the dh-64 kernels; the sources hold the m64n64
   register-A product and a DH == 64 branch in every dispatcher.
 - The plain versions at dh 64 against ``jax.grad`` of the Pallas kernel in
@@ -35,7 +37,7 @@ COUNTERS = ("launches", "bwd_dq_launches", "fwd_dh64_launches", "bwd_dh64_launch
 
 def test_kernel_dh_is_per_dtype():
     bf16 = {16: 64, 32: 64, 64: 64, 65: 128, 96: 128, 128: 128, 129: 256, 256: 256}
-    f32 = {16: 128, 32: 128, 64: 128, 128: 128, 129: 256, 256: 256}
+    f32 = {16: 64, 32: 64, 64: 64, 65: 128, 128: 128, 129: 256, 256: 256}
     assert {d: fa.kernel_dh(d, torch.bfloat16) for d in bf16} == bf16
     assert {d: fa.kernel_dh(d, torch.float32) for d in f32} == f32
     for dt in (torch.bfloat16, torch.float32):
@@ -68,7 +70,7 @@ def _operands(dtype, b=2, s=128, h=4, h_kv=2, d=64):
     return [torch.randn(b, s, hh, d, generator=g).to(dtype) for hh in (h, h_kv, h_kv, h)]
 
 
-@pytest.mark.parametrize("dtype,kd", [(torch.bfloat16, 64), (torch.float32, 128)])
+@pytest.mark.parametrize("dtype,kd", [(torch.bfloat16, 64), (torch.float32, 64)])
 def test_a_head_of_64_runs_its_dtypes_instance(monkeypatch, dtype, kd):
     calls = _stub_card(monkeypatch)
     q, k, v, do = _operands(dtype)
@@ -86,21 +88,18 @@ def test_a_head_of_64_runs_its_dtypes_instance(monkeypatch, dtype, kd):
     (dkv,) = calls[f"{prefix}_bwd_dkv_launch"]
     assert delta[7] == kd and dq[14] == kd and dkv[15] == kd
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    # the operands as they are, and the kernels' own outputs returned
+    assert fwd[:3] == tuple(t.data_ptr() for t in (q, k, v))
+    assert out.is_contiguous() and out.data_ptr() == fwd[5]
+    assert dq[:4] == tuple(t.data_ptr() for t in (q, k, v, do))
+    assert delta[:2] == (do.data_ptr(), out.data_ptr())
+    assert grads[0].data_ptr() == dq[8] and (grads[1].data_ptr(), grads[2].data_ptr()) \
+        == dkv[8:10]
+    assert all(g.is_contiguous() for g in grads)
     if dtype == torch.bfloat16:
-        # the operands as they are, and the kernels' own outputs returned
-        assert fwd[:3] == tuple(t.data_ptr() for t in (q, k, v))
-        assert out.is_contiguous() and out.data_ptr() == fwd[5]
-        assert dq[:4] == tuple(t.data_ptr() for t in (q, k, v, do))
-        assert delta[:2] == (do.data_ptr(), out.data_ptr())
-        assert grads[0].data_ptr() == dq[8] and (grads[1].data_ptr(), grads[2].data_ptr()) \
-            == dkv[8:10]
-        assert all(g.is_contiguous() for g in grads)
         assert (fa.fwd_dh64_launches, fa.bwd_dh64_launches) == (1, 1)
         assert (fa.f32_fwd_launches, fa.f32_bwd_launches) == (0, 0)
     else:
-        # zero-padded to 128 and sliced back
-        assert fwd[0] != q.data_ptr() and not out.is_contiguous()
-        assert not any(g.is_contiguous() for g in grads)
         assert (fa.f32_fwd_launches, fa.f32_bwd_launches) == (1, 1)
         assert (fa.fwd_dh64_launches, fa.bwd_dh64_launches) == (0, 0)
     assert (fa.launches, fa.bwd_dq_launches) == (1, 1)
