@@ -177,9 +177,11 @@ resource lines, for a focused run; with no argument every phase runs:
    shapes (an empty row where windows are), bit-equal on a rerun, with
    times, SDPA's and the bound (f32: the smaller of the bounds at 3xTF32's
    rate, the bf16 peak / 6, and at the CUDA cores' FFMA rate, the latter
-   kept as ``bound_ffma_ms``; at dh 256 and on f32 also the backward's
-   queued device ms split into its delta, dq and dk/dv kernels,
-   ``bwd_parts_device_ms``), and the f32 kernels' resources (no spill);
+   kept as ``bound_ffma_ms``; at dh 256 and 64 and on f32 also the
+   backward's queued device ms split into its delta, dq and dk/dv kernels,
+   ``bwd_parts_device_ms``), and the f32 and bf16 dh-64 kernels'
+   resources (the dh-64 ones with their producer's and consumers'
+   registers after setmaxnreg; no spill in either);
    one train step of the
    1.2B LM with 8 heads of 256 (the dh-256 kernels 16 times each; loss and
    gradient norm against the plain step); an f32 BERT-window step and an
@@ -197,7 +199,7 @@ resource lines, for a focused run; with no argument every phase runs:
    at 2 x 2048 with adafactor (the cross-entropy must fall, the aux loss
    stay within MOE_AUX_BOUND x its balanced floor), peak memory.
 11h. sharded serving (A12b), in processes of its own
-   (``sharded_serving_phase``): the serving model cut to CFG's 8 layers
+   (``sharded_serving_phase``): the serving model cut to 4 layers
    (SHARD_CFG: unfused, all-int8) served by (a) a world of one rank over
    NCCL, which must equal the one-card engine bit for bit (8 greedy
    requests' ids, logprobs and first-step logits), and (b) ``serve --mesh
@@ -250,7 +252,8 @@ resource lines, for a focused run; with no argument every phase runs:
    multiple of the floor from the f32-attention step, and its first and
    last layer's attention leaf by leaf (``long_flash_leaves``, ROADMAP
    §C8); the first layer's B5 and B10 (the dh-64 instance) are timed
-   beside the padded route and SDPA (``long_flash_times``).
+   beside the padded route and SDPA, B10 also kernel by kernel
+   (``long_flash_times``).
    ``transformer_lm_pp`` at pp 2 with two virtual stages a rank
    against its sequential step (2e-3); step ms and peak memory per rank.
    Then configs/multihost_lm.yml through the local runner as two gang
@@ -1667,6 +1670,10 @@ def device_ms_of(fn, counter=None, iters=10):
     return ms
 
 
+# the instances whose backward the attention phase times kernel by kernel
+BWD_PARTS_LABELS = {"dh256": "dh-256", "dh64": "dh-64", "f32": "f32"}
+
+
 def bwd_parts_device_ms(q, k, v, out, lse, do, causal, sc, lo=None, hi=None, iters=10) -> dict:
     """Queued device ms of the backward's three kernels apart (delta, dq,
     dk/dv), bf16 or f32 by the operands' dtype, each launched alone through
@@ -1727,7 +1734,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
     3xTF32 and FFMA bounds, the FFMA one also as ``bound_ffma_ms``; at head
     dim 64 also the padded route's: the dh-128 instance on operands
     zero-padded to 128, the path before the dh-64 instance).  The f32
-    kernels' resources are printed first, and a spill fails the phase.
+    and bf16 dh-64 kernels' resources are printed first (the dh-64 ones
+    with their registers after setmaxnreg), and a spill fails the phase.
     Then the paths: one train step of the 1.2B LM with 8 heads of 256 (the
     dh-256 kernels launch 16 times each; loss and gradient norm against the
     plain step with the train parity's rule), an f32 BERT-window step and
@@ -1761,11 +1769,20 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
         tc, ffma = bound(nbytes, ops, flops / TF32X3_OF_BF16), bound(nbytes, ops, f32_flops)
         return {**min(tc, ffma, key=lambda x: x["bound_ms"]), "bound_ffma_ms": ffma["bound_ms"]}
 
-    f32_res = {k_: v_ for k_, v_ in fa.resources().items() if k_.startswith("f32_")}
+    all_res = fa.resources()
+    f32_res = {k_: v_ for k_, v_ in all_res.items() if k_.startswith("f32_")}
     log(f"attention dims: f32 flash kernel resources ({smi}): " + json.dumps(f32_res))
-    spills = [k_ for k_, v_ in f32_res.items() if v_["local_bytes"]]
+    # the bf16 dh-64 kernels: registers at launch and after setmaxnreg
+    # (producer and consumers)
+    dh64_res = {k_: v_ for k_, v_ in all_res.items() if k_.endswith("_64")
+                and not k_.startswith("f32_")}
+    for k_, regs in fa.dh64_registers().items():
+        dh64_res[k_] = {**dh64_res[k_], "producer_regs": regs["producer"],
+                        "consumer_regs": regs["consumer"]}
+    log(f"attention dims: bf16 dh-64 flash kernel resources ({smi}): " + json.dumps(dh64_res))
+    spills = [k_ for k_, v_ in {**f32_res, **dh64_res}.items() if v_["local_bytes"]]
     if spills:
-        raise AssertionError(f"f32 flash kernels spill registers: {spills}")
+        raise AssertionError(f"f32 or dh-64 flash kernels spill registers: {spills}")
 
     def held(label, out, ref, ref_abs, tol):
         diff = (out.float() - ref.float()).abs()
@@ -1838,7 +1855,7 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
             padded["padded_route_bwd_device_ms"] = device_ms_of(
                 lambda: padded_route_bwd(q, k, v, out, lse, do, causal, sc, lo, hi),
                 dh128_calls)
-        if key in ("dh256", "f32"):
+        if key in ("dh256", "dh64", "f32"):
             # the backward's time split between its kernels (delta, dq, dk/dv)
             padded["bwd_parts_device_ms"] = bwd_parts_device_ms(q, k, v, out, lse, do, causal,
                                                                 sc, lo, hi)
@@ -1891,8 +1908,8 @@ def attention_dims_phase(device, smi, bw, flops, f32_flops):
                     row[f"{f_}_spread"] = list(v_.spread)
             rows[f"{part}_{key}"].append(row)
             log(f"  {part} {json.dumps(row)}")
-        if key in ("dh256", "f32"):
-            log(f"  {'dh-256' if key == 'dh256' else 'f32'} backward ({smi}), queued device ms: "
+        if key in ("dh256", "dh64", "f32"):
+            log(f"  {BWD_PARTS_LABELS[key]} backward ({smi}), queued device ms: "
                 + json.dumps({"case": label, **bwd_row["bwd_parts_device_ms"], "whole": dkb,
                               "sdpa_backward": dlb, "bound_ms": bwd_row["bound_ms"],
                               **({"bound_ffma_ms": bwd_row["bound_ffma_ms"],
@@ -2852,7 +2869,8 @@ def long_flash_times(q, k, v, do) -> dict:
     """B5 and B10 at one longcontext layer's causal attention (1 x 32768,
     16 heads of 64, bf16), queued device ms: the dh-64 instance, the route
     before it (the dh-128 instance on operands zero-padded to 128, pads and
-    slices included) and SDPA, in turns in this process, with the bound
+    slices included) and SDPA, in turns in this process, B10's split into
+    delta, dq and dk/dv (``bwd_parts_device_ms``), with the bound
     (``flash_work``) and each instance's share of the padded route's time
     against LONG_DH64_AIM (reported, not a check)."""
     from mlcomp_tpu_torch.ops.cuda import flash_attention as fa
@@ -2887,6 +2905,8 @@ def long_flash_times(q, k, v, do) -> dict:
         for name in order:
             fn, counter = runs[name]
             res.setdefault(f"{name}_device_ms", []).append(device_ms_of(fn, counter, iters=5))
+    # the backward's time split between its kernels (delta, dq, dk/dv)
+    res["bwd_parts_device_ms"] = bwd_parts_device_ms(q, k, v, out, lse, do, True, sc, iters=5)
     w = fa.flash_work(b, s, s, h, k.shape[2], d, True)
     for part in ("fwd", "bwd"):
         t_b, t_o = w[f"{part}_bytes"] / bw, w[f"{part}_ops"] / flops
@@ -3337,19 +3357,21 @@ def parallel_process(smi) -> dict:
         os.unlink(out)
 
 
-# ---- the phase "sharded serving" (A12b): the serving model at CFG's 8
-# layers, unfused (decode_fused is refused under a mesh, as in the JAX
-# package), all-int8
-SHARD_CFG = {**CFG, "decode_fused": False}
+# ---- the phase "sharded serving" (A12b): the serving model at 4 layers
+# (CFG's 8 before the script's time was cut: the gang's decode is held by
+# its per-layer gloo sums through the host), unfused (decode_fused is
+# refused under a mesh, as in the JAX package), all-int8
+SHARD_CFG = {**CFG, "decode_fused": False, "layers": 4}
 SHARD = {"slots": BATCH, "prompt": PROMPT, "chunk": CHUNK, "new": NEW, "requests": 8,
          "lengths": (300, 500)}
 # the phase's cuts, on its `reduced` line, each with its value before and
 # after: the serving model's depth, as CFG's (its widths are the 1.2B's,
 # so every local kernel shape is the same)
-SHARD_REDUCED = {"layers": f"16 -> {SHARD_CFG['layers']} (for the script's time)"}
+SHARD_REDUCED = {"layers": f"16 -> {SHARD_CFG['layers']} (8 -> {SHARD_CFG['layers']} "
+                           "for the script's time)"}
 # the gang's first-step logits against the one-card engine's: the largest
 # difference over the largest logit (the row-parallel products round their
-# bf16 partials before the f32 sum, once a layer each, 2 x 8 layers)
+# bf16 partials before the f32 sum, twice a layer)
 SHARD_LOGIT_RTOL = 2.0 ** -4
 # the gang's arms: (name, kv layout, pipeline depth, new tokens a request).
 # dense_d2 is timed; paged_d2 records every step's logits (a sync a step);

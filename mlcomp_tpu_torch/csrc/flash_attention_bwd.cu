@@ -20,15 +20,16 @@
 // (7 tile products where the bound counts 5) and buys determinism: no f32
 // atomics, the same inputs give the same bits.
 //
-// The design, for Hopper's tensor cores (wgmma.cuh): every product is a
-// wgmma with its accumulator in registers; operand tiles arrive by
-// cp.async into rings of 128-byte-swizzled shared memory, one barrier per
-// tile publishing the tile that landed and freeing the stages of the one
-// before, whose copies then run beside this tile's products; the mask is
-// evaluated only on tiles that cross the diagonal, a window edge or the
-// end of the sequence.  No producer warp: all 256 threads issue the
-// copies, so each consumer thread may hold up to 255 registers (one CTA
-// per SM) without register rebalancing (setmaxnreg).
+// The design at DH 128, for Hopper's tensor cores (wgmma.cuh): every
+// product is a wgmma with its accumulator in registers; operand tiles
+// arrive by cp.async into rings of 128-byte-swizzled shared memory, one
+// barrier per tile publishing the tile that landed and freeing the stages
+// of the one before, whose copies then run beside this tile's products;
+// the mask is evaluated only on tiles that cross the diagonal, a window
+// edge or the end of the sequence.  No producer warp: all 256 threads
+// issue the copies, so each consumer thread may hold up to 255 registers
+// (one CTA per SM) without register rebalancing (setmaxnreg).  DH 64 and
+// 256 differ, below.
 // - dq: one CTA of two warpgroups per (head, batch, 128-row Q tile), 64
 //   rows each, longest causal tiles first.  Q and dO stay in shared
 //   memory; K/V tiles of 64 keys stream through a three-stage K ring (a
@@ -58,21 +59,52 @@
 //   minus the lse cotangent when one is given (ring attention's path).
 //
 // Head dims.  The dq and dk/dv kernels above are templates on the head dim
-// DH, instantiated at 64 and 128; DH = 256 has kernels of its own (the
-// wrapper pads heads of 129-255 to 256, as the forward's does).  At DH = 64
-// (bf16 heads of 64 or less, unpadded: the TPU's 128-lane padding doubled
-// every product and byte) a row is one 128-byte swizzle line and every tile
-// one column block: the dq kernel runs one warpgroup of 64 rows a CTA with
-// dQ as one m64n64 accumulator (32 floats a thread, the register-A m64n64k16
-// product), three CTAs an SM (57 KB of shared memory each, no spills at 166
-// registers); the dk/dv kernel (Dkv64) gives each of its warpgroups 64 keys,
-// with dK and dV of 64 x 64 each in registers, and feeds all from one ring
-// of 64-query blocks, warpgroup w w items behind the first, so a Q/dO block
-// is read once for the CTA's keys and nothing is summed across warpgroups:
-// three warpgroups from DKV64_LONG_KEYS (1024) keys on, two below.  Two were
-// timed the faster at 128 and 196 keys, three at 4096 and 32768; the split
-// between 196 and 4096 keys is not measured.  The delta kernel reads one
-// 16-byte chunk a thread at DH = 64.
+// DH, instantiated at 128; DH = 64 and DH = 256 have kernels of their own
+// (the wrapper passes bf16 heads of 64 or less to the dh-64 kernels and
+// pads heads of 129-255 to 256, as the forward's does).
+//
+// DH = 64 (bf16 heads of 64 or less, unpadded: the TPU's 128-lane padding
+// doubled every product and byte).  A row is one 128-byte swizzle line and
+// every tile one column block.  What bounds it: a (query, key) pair costs
+// each kernel one exp2 on the SFU (16 a clock an SM) beside three (dq) or
+// four (dk/dv) 64-deep products, and the f32 work around the exp (the
+// mask above all) takes as long again, so the kernels are bound by the
+// instructions between products and by their latency, not by the tensor
+// cores.  The kernels before these ran in lockstep: every 64 keys
+// (dq) or every item (dk/dv) ended in cp.async waits and a barrier over
+// the whole CTA.  The design, the forward's machinery (tma.cuh):
+// - warp specialisation: one producer warpgroup, of which one thread
+//   issues every TMA load (setmaxnreg.dec to 40), and two consumer
+//   warpgroups that take its registers (setmaxnreg.inc to 232), one CTA an
+//   SM; rings of stages with full and empty mbarriers, an empty barrier
+//   counting every consumer warp; no barrier over the CTA after the
+//   barriers' initialisation;
+// - dq (Dq64, flash_bwd_dq64_kernel): persistent, two consumers of 64
+//   query rows (a 128-row Q tile, so a K/V tile feeds 128 rows), Q and dO
+//   double-buffered, K and V tiles of 64 keys in a ring of four stages, a
+//   stage released once dQ += dS K has read its K; s and dp of tile j + 1
+//   beside dQ += dS_j K_j, dS of tile j + 1 formed while that product
+//   runs, the mask arithmetic only in tiles that cross an edge (a template
+//   argument: a runtime test inside the unrolled loop left it on every
+//   element);
+// - dk/dv (Dkv64, flash_bwd_dkv64_kernel): one CTA a work item (the
+//   hardware's scheduler balances the key tiles that windows leave empty),
+//   two consumers of 64 keys each, dK and dV of 64 x 64 in registers, K
+//   and V of the CTA's keys once; the walk's items (group head, 64-query
+//   block: Q and dO by TMA, lse and delta by cp.async arriving on the same
+//   full barrier) come through one ring of five stages that each consumer
+//   reads at its own pace; a Q/dO block is read once for 128 keys; an
+//   item is `dkv_item`.  Two consumers at every length (three spill at
+//   the 160 registers a thread that four warpgroups leave); the parent's
+//   switch to three at 1024 keys (`DKV64_LONG_KEYS`) is gone.
+// Tried and dropped (PERF.md): a persistent dk/dv kernel (slower
+// at windows and long causal walks); issuing the next item's scores
+// before this item's dK/dV retire (ptxas serialises the products when a
+// barrier wait's loop runs while they are in flight: slower); dk/dv's
+// mask as a template argument, as dq's (1.2x faster at 1 x 32768, but it
+// spills at 232 registers, or at a producer of 24, and ptxas serialises
+// its products).
+// The delta kernel reads one 16-byte chunk a thread at DH = 64.
 //
 // DH = 256.  A 64 x 256 f32 accumulator is 128 registers a thread of a
 // warpgroup, so each kernel runs two warpgroups a CTA that share a tile's
@@ -116,6 +148,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -126,15 +159,14 @@ using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int SMEM_MAX = 232448;
 
-// dq at DH 64 and 128: Q and dO (BQ rows), then three stages of K and two
-// of V (64 keys): a K tile is read by two products one tile apart.  dQ is
-// one 64 x DH accumulator a warpgroup
+// dq at DH 128: Q and dO (BQ rows), then three stages of K and two of V
+// (64 keys): a K tile is read by two products one tile apart.  dQ is one
+// 64 x DH accumulator a warpgroup
 template <int DH>
 struct Dq {
-  static_assert(DH == 64 || DH == 128, "dq at DH 256: Dq256");
-  static constexpr int BQ = DH == 128 ? 128 : 64, THREADS = 2 * BQ;
+  static_assert(DH == 128, "dq at DH 64: Dq64; at DH 256: Dq256");
+  static constexpr int BQ = 128, THREADS = 2 * BQ;
   static constexpr int BKV = 64, K_STAGES = 3;
-  static constexpr int CTAS = DH == 64 ? 3 : 1;
   static constexpr int Q_BYTES = BQ * DH * 2, KV_BYTES = BKV * DH * 2;
   static constexpr int SMEM = 2 * Q_BYTES + (K_STAGES + 2) * KV_BYTES + 1024;
 };
@@ -152,17 +184,35 @@ struct Dkv {
   static constexpr int STAGE = (2 * Q_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
   static constexpr int SMEM = 2 * KV_BYTES + 2 * NWG * STAGE + 1024;
 };
-// dk/dv at dh 64: one CTA of NWG warpgroups a tile of 64 NWG keys, each
-// owning 64 keys (dK and dV of 64 x 64 each: no cross-warpgroup sum), over
-// one ring of 64-query blocks shared by all; warpgroup w runs w items
-// behind warpgroup 0, so the ring holds NWG items in use and one landing
-template <int NWG_>
+// dq at DH 64: NC consumer warpgroups of 64 query rows and one producer
+// warpgroup; Q and dO (64 NC rows) once, then a ring of STAGES stages of a
+// K and a V tile of 64 keys (a stage is released once dQ += dS K has read
+// its K, one tile after s and dp read it); the barriers (Q/dO full, then
+// full and empty of each stage) after the tiles
+struct Dq64 {
+  static constexpr int NC = 2, BQ = 64 * NC, BKV = 64, STAGES = 4;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int Q_BYTES = BQ * 128, KV_BYTES = BKV * 128;
+  // two buffers of Q and dO: an item's land while the last item's are read
+  static constexpr int BAR_OFF = 4 * Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (4 + 2 * STAGES) + 1024;
+};
+// dk/dv at DH 64: two consumer warpgroups, each owning 64 keys (dK and dV
+// of 64 x 64 each in registers: no cross-warpgroup sum), and one producer
+// warpgroup; K and V of the CTA's 128 keys once, then a ring of RING
+// stages of items (a 64-query block's Q, dO, lse and delta) that every
+// consumer reads at its own pace; the barriers (K/V full, then full and
+// empty of each stage) after the ring
 struct Dkv64 {
-  static constexpr int NWG = NWG_, THREADS = 128 * NWG, BKV = 64, BQ = 64;
-  static constexpr int KEYS = NWG * BKV, RING = NWG + 1;
-  static constexpr int KV_BYTES = BKV * 64 * 2, Q_BYTES = BQ * 64 * 2;
+  static constexpr int NWG = 2, THREADS = 128 * (NWG + 1), BKV = 64, BQ = 64;
+  static constexpr int KEYS = NWG * BKV, RING = 5;
+  // setmaxnreg: the producer's and consumers' registers within the CTA's
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int KV_BYTES = KEYS * 128, Q_BYTES = BQ * 128;
   static constexpr int STAGE = (2 * Q_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
-  static constexpr int SMEM = 2 * NWG * KV_BYTES + RING * STAGE + 1024;
+  static constexpr int BAR_OFF = 2 * KV_BYTES + RING * STAGE;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * RING) + 1024;
 };
 // dq at DH 256: two warpgroups on one 64-row Q tile, each with its logit
 // operand (Q or dO) in registers; three stages of K and two of V (64 keys,
@@ -184,13 +234,15 @@ struct Dkv256 {
   static constexpr int P_BYTES = BKV * BQ * 4;
   static constexpr int SMEM = 2 * KV_BYTES + 2 * STAGE + P_BYTES + 1024;
 };
-// an SM's 233472 bytes hold the CTAs' shared memory and 1 KB each besides
-static_assert((Dq<64>::SMEM + 1024) * Dq<64>::CTAS <= 233472 && Dq<128>::SMEM <= SMEM_MAX &&
-                  Dq256::SMEM == 189440,
+static_assert(Dq64::SMEM <= SMEM_MAX && Dq<128>::SMEM <= SMEM_MAX && Dq256::SMEM == 189440,
               "dq shared memory");
-static_assert(Dkv64<3>::SMEM <= SMEM_MAX && Dkv<128>::SMEM <= SMEM_MAX &&
-                  Dkv256::SMEM == 216064,
+static_assert(Dkv64::SMEM <= SMEM_MAX && Dkv<128>::SMEM <= SMEM_MAX && Dkv256::SMEM == 216064,
               "dk/dv shared memory");
+static_assert(128 * Dq64::PRODUCER_REGS + 128 * Dq64::NC * Dq64::CONSUMER_REGS <=
+                      launch_regs(Dq64::THREADS) * Dq64::THREADS &&
+                  128 * Dkv64::PRODUCER_REGS + 256 * Dkv64::CONSUMER_REGS <=
+                      launch_regs(Dkv64::THREADS) * Dkv64::THREADS,
+              "the rebalanced registers fit the CTA's");
 static_assert(Dkv<128>::STAGE == 33 * 1024, "the DH = 128 stage is unchanged");
 static_assert(4 * Dkv<128>::STAGE >= 2 * 64 * 128 * 4, "the dK/dV sum fits in the rings");
 
@@ -240,6 +292,37 @@ flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ dout,
     const long idx = (b * H + h) * Sq + i;     // (B, H, Sq)
     delta[idx] = g_lse ? s - g_lse[idx] : s;
   }
+}
+
+// dq_ds for the dh-64 dq kernel, the mask a template argument: a tile that
+// needs none carries no mask arithmetic
+template <bool MASKED>
+__device__ __forceinline__ void dq64_ds_body(float (&s)[32], const float (&dp)[32], int kv0,
+                                             int row0, int col0, int lo, int hi, int causal,
+                                             float c, const float (&nl2)[2],
+                                             const float (&dl)[2], float scale) {
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int i = (x >> 1) & 1;
+    float p = ex2(fmaf(s[x], c, nl2[i]));
+    if (MASKED) {
+      const int col = kv0 + 8 * (x >> 2) + col0 + (x & 1);
+      const int row = row0 + 8 * i;
+      const bool live = col >= lo && col < hi && (!causal || row >= col);
+      p = live ? p : 0.f;   // selected, never exp of a masked logit
+    }
+    s[x] = p * (dp[x] - dl[i]) * scale;
+  }
+}
+
+__device__ __forceinline__ void dq64_ds(float (&s)[32], const float (&dp)[32], bool masked,
+                                        int kv0, int row0, int col0, int lo, int hi, int causal,
+                                        float c, const float (&nl2)[2], const float (&dl)[2],
+                                        float scale) {
+  if (masked)
+    dq64_ds_body<true>(s, dp, kv0, row0, col0, lo, hi, causal, c, nl2, dl, scale);
+  else
+    dq64_ds_body<false>(s, dp, kv0, row0, col0, lo, hi, causal, c, nl2, dl, scale);
 }
 
 // s = Q K^T and dp = dO V^T of one warpgroup's 64 rows against one tile of
@@ -302,7 +385,7 @@ __device__ __forceinline__ void dq_ds(float (&s)[32], const float (&dp)[32], boo
 }
 
 template <int DH>
-__global__ void __launch_bounds__(Dq<DH>::THREADS, Dq<DH>::CTAS)
+__global__ void __launch_bounds__(Dq<DH>::THREADS, 1)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1048,121 +1131,376 @@ flash_bwd_dkv256_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dk/dv at dh 64 (Dkv64): one CTA of NWG warpgroups per (64 NWG-key tile,
-// kv head, batch); warpgroup w owns keys kv0 + 64 w .. kv0 + 64 w + 63, its
-// dK and dV in registers (64 x 64 each) for the whole walk.  All take every
-// item (group head, live 64-query block) from one ring of NWG + 1 stages
-// that all threads fill, warpgroup w w items behind warpgroup 0, so one's
-// exp and ds overlap the others' products, and a Q/dO block is read once
-// for 64 NWG keys.  There is nothing to sum across warpgroups.
-template <int NWG>
-__global__ void __launch_bounds__(Dkv64<NWG>::THREADS, 1)
-flash_bwd_dkv64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int Sq,
-                       int Sk, int causal, float scale) {
-  using C = Dkv64<NWG>;
-  constexpr int DH = 64, BKV = C::BKV, BQ = C::BQ, KEYS = C::KEYS, THREADS = C::THREADS;
-  constexpr int KV_BYTES = C::KV_BYTES, Q_BYTES = C::Q_BYTES, STAGE = C::STAGE, RING = C::RING;
+// dq at DH 64: s = Q K^T and dp = dO V^T of one warpgroup's 64 rows
+// against a 64-key tile, raw (unscaled), one wgmma group (the first steps
+// overwrite s and dp)
+__device__ __forceinline__ void dq64_scores(float (&s)[32], float (&dp)[32], uint32_t q_tile,
+                                            uint32_t do_tile, uint32_t k_tile, uint32_t v_tile) {
+  fence_operands(s);
+  fence_operands(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n64(s, desc_kmajor(q_tile, 64, kk), desc_kmajor(k_tile, 64, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n64(dp, desc_kmajor(do_tile, 64, kk), desc_kmajor(v_tile, 64, kk), kk > 0);
+  wgmma_commit();
+  fence_operands(s);
+  fence_operands(dp);
+}
+
+// dq at DH 64: dQ += dS K, dS (64 x 64) as bf16 register A fragments, K
+// (64 keys x 64) MN-major; one wgmma group
+__device__ __forceinline__ void dq64_ds_k(float (&acc)[32], const uint32_t (&da)[16],
+                                          uint32_t k_tile) {
+  fence_operands(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_n64(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                 desc_mnmajor(k_tile, 64, kk));
+  wgmma_commit();
+  fence_operands(acc);
+}
+
+// this warp is done reading a stage: its lane 0 arrives at the stage's
+// empty barrier (counting every consumer warp)
+__device__ __forceinline__ void warp_release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// work item t of the dh-64 dq kernel's walk: its head, batch and first
+// query row (causal: the longest Q tiles first; otherwise a (batch,
+// head)'s Q tiles one after another, a GQA group's heads side by side, so
+// that their K and V tiles come from L2)
+__device__ __forceinline__ void dq64_item(int t, int n_qt, int B, int H, int causal, int& h,
+                                          int& b, int& q0) {
+  if (causal) {
+    h = t % H;
+    const int r = t / H;
+    b = r % B;
+    q0 = (n_qt - 1 - r / B) * Dq64::BQ;
+  } else {
+    q0 = (t % n_qt) * Dq64::BQ;
+    const int r = t / n_qt;
+    h = r % H;
+    b = r / H;
+  }
+}
+
+// dq at DH 64 (Dq64): one CTA an SM, each walking work items (head, batch,
+// 128-row Q tile).  Warpgroup 0 is the producer (thread 0 issues every TMA
+// load: an item's Q and dO once its consumers are done with the last
+// one's, then its K and V tiles through the ring, which runs on across
+// items); warpgroups 1 and 2 are consumers of 64 rows each, with dQ (32
+// floats a thread) in registers.  Tile j: s and dp of tile j + 1 run on
+// the tensor cores beside dQ += dS_j K_j, and tile j + 1's ds forms while
+// that product is in flight; the stage of tile j is released once dQ_j
+// has read its K.
+__global__ void __launch_bounds__(Dq64::THREADS, 1)
+flash_bwd_dq64_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+                      const float* __restrict__ delta, const int* __restrict__ kv_lo,
+                      const int* __restrict__ kv_hi, bf16* __restrict__ dq, int B, int H,
+                      int Hkv, int Sq, int Sk, int causal, float scale) {
+  using C = Dq64;
+  constexpr int BQ = C::BQ, BKV = C::BKV, STAGES = C::STAGES, KV_BYTES = C::KV_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  // buffer qb of Q and dO at base + 2 qb Q_BYTES (Q, then dO)
+  const uint32_t sQ = base, sK = base + 4 * C::Q_BYTES, sV = sK + STAGES * KV_BYTES;
+  // barriers: the two Q/dO buffers' full and empty; then each stage's
+  // full, then its empty
+  const uint32_t q_full = base + C::BAR_OFF, q_empty = q_full + 16;
+  const uint32_t kv_full = q_empty + 16, kv_empty = kv_full + 8 * STAGES;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int n_qt = (Sq + BQ - 1) / BQ, n_items = n_qt * B * H, rep = H / Hkv;
+
+  if (tid == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full + 8 * qb, 1);
+      mbar_init(q_empty + 8 * qb, 4 * C::NC);   // every consumer warp
+    }
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(kv_full + 8 * st, 1);
+      mbar_init(kv_empty + 8 * st, 4 * C::NC);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- the producer
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (tid == 0) {
+      int it = 0, n_done = 0;   // K/V tiles loaded, items loaded
+      for (int k = 0;; ++k) {
+        const int t = persistent_item(k, blockIdx.x, gridDim.x);
+        if (t >= n_items) break;
+        int h, b, q0;
+        dq64_item(t, n_qt, B, H, causal, h, b, q0);
+        const int lo = kv_lo ? max(kv_lo[b], 0) : 0;
+        const int hi = kv_hi ? min(kv_hi[b], Sk) : Sk;
+        const int kv_begin = (lo / BKV) * BKV;
+        const int kv_end = causal ? min(hi, q0 + BQ) : hi;
+        const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
+        if (n_tiles == 0) continue;
+        const int qb = n_done & 1;   // buffer qb serves items qb, qb + 2, ...
+        const uint32_t sq = sQ + 2 * qb * C::Q_BYTES;
+        mbar_wait(q_empty + 8 * qb, ((n_done >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(q_full + 8 * qb, 2 * C::Q_BYTES);
+        tma_load_4d(sq, &tq, q_full + 8 * qb, 0, h, q0, b);
+        tma_load_4d(sq + C::Q_BYTES, &tdo, q_full + 8 * qb, 0, h, q0, b);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int st = it % STAGES;
+          const int kv0 = kv_begin + j * BKV;
+          mbar_wait(kv_empty + 8 * st, ((it / STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(kv_full + 8 * st, 2 * KV_BYTES);
+          tma_load_4d(sK + st * KV_BYTES, &tk, kv_full + 8 * st, 0, h / rep, kv0, b);
+          tma_load_4d(sV + st * KV_BYTES, &tv, kv_full + 8 * st, 0, h / rep, kv0, b);
+        }
+        ++n_done;
+      }
+    }
+  } else {
+    // ---- a consumer warpgroup: 64 query rows of each item
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int col0 = 2 * (lane & 3);
+    const float c = scale * LOG2E;
+    int it = 0, n_done = 0;   // K/V tiles consumed, items consumed
+    for (int k = 0;; ++k) {
+      const int t = persistent_item(k, blockIdx.x, gridDim.x);
+      if (t >= n_items) break;
+      int h, b, q0;
+      dq64_item(t, n_qt, B, H, causal, h, b, q0);
+      const int lo = kv_lo ? max(kv_lo[b], 0) : 0;
+      const int hi = kv_hi ? min(kv_hi[b], Sk) : Sk;
+      const int kv_begin = (lo / BKV) * BKV;
+      const int kv_end = causal ? min(hi, q0 + BQ) : hi;
+      const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
+      const int wg_row0 = q0 + cw * 64;
+      const int row0 = wg_row0 + warp * 16 + (lane >> 2);    // rows row0 and row0 + 8
+      float nl2[2], dl[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        const size_t idx = ((size_t)b * H + h) * Sq + row;
+        nl2[i] = row < Sq ? -lse[idx] * LOG2E : 0.f;
+        dl[i] = row < Sq ? delta[idx] : 0.f;
+      }
+      // a tile needs the mask where it crosses a window edge, the end of
+      // the keys or this warpgroup's causal diagonal
+      auto masked_at = [&](int kv0) {
+        return kv0 < lo || kv0 + BKV > hi || (causal && kv0 + BKV - 1 > wg_row0);
+      };
+
+      float acc[32], s[32], dp[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+      uint32_t da[16];   // dS of the current tile as bf16 register A fragments
+
+      if (n_tiles > 0) {
+        const int qb = n_done & 1;
+        const uint32_t sQw = sQ + 2 * qb * C::Q_BYTES + cw * 64 * 128;
+        const uint32_t sdOw = sQw + C::Q_BYTES, q_free = q_empty + 8 * qb;
+        mbar_wait(q_full + 8 * qb, (n_done >> 1) & 1);
+        mbar_wait(kv_full + 8 * (it % STAGES), (it / STAGES) & 1);
+        dq64_scores(s, dp, sQw, sdOw, sK + (it % STAGES) * KV_BYTES,
+                    sV + (it % STAGES) * KV_BYTES);
+        wgmma_wait<0>();
+        fence_operands(s);
+        fence_operands(dp);
+        if (n_tiles == 1) warp_release(q_free, lane);   // Q and dO's last products
+        dq64_ds(s, dp, masked_at(kv_begin), kv_begin, row0, col0, lo, hi, causal, c, nl2, dl,
+              scale);
+#pragma unroll
+        for (int r = 0; r < 16; ++r) da[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
+        // Tile j: s and dp of tile j + 1 beside dQ += dS_j K_j; the last
+        // tile (dQ += dS K only) is peeled off
+        for (int j = 0; j + 1 < n_tiles; ++j) {
+          const int i0 = it + j, i1 = i0 + 1;
+          const int sn = i1 % STAGES, sj = i0 % STAGES;
+          mbar_wait(kv_full + 8 * sn, (i1 / STAGES) & 1);
+          dq64_scores(s, dp, sQw, sdOw, sK + sn * KV_BYTES, sV + sn * KV_BYTES);
+          dq64_ds_k(acc, da, sK + sj * KV_BYTES);
+          wgmma_wait<1>();   // s and dp of tile j + 1 are done; dS_j K_j may still run
+          fence_operands(s);
+          fence_operands(dp);
+          if (j + 2 == n_tiles) warp_release(q_free, lane);   // Q and dO's last products
+          const int kv_next = kv_begin + (j + 1) * BKV;
+          dq64_ds(s, dp, masked_at(kv_next), kv_next, row0, col0, lo, hi, causal, c, nl2, dl,
+                scale);
+          wgmma_wait<0>();
+          fence_operands(acc);
+          warp_release(kv_empty + 8 * sj, lane);
+#pragma unroll
+          for (int r = 0; r < 16; ++r) da[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
+        }
+        const int il = it + n_tiles - 1;
+        dq64_ds_k(acc, da, sK + (il % STAGES) * KV_BYTES);
+        wgmma_wait<0>();
+        fence_operands(acc);
+        warp_release(kv_empty + 8 * (il % STAGES), lane);
+        it += n_tiles;
+        ++n_done;
+      }
+
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        if (row >= Sq) continue;
+        bf16* drow = dq + (((size_t)b * Sq + row) * H + h) * 64 + col0;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          *reinterpret_cast<uint32_t*>(drow + 8 * jj) =
+              pack_bf16(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// dk/dv at DH 64 (Dkv64): one CTA per work item (kv head, batch,
+// 128-key tile), the longest causal walks first.  (A persistent walk
+// cannot balance the key tiles that windows leave empty, and at long
+// causal walks it was slower too: PERF.md.)  Warpgroup 0 is the
+// producer: thread 0 loads K and V of the CTA's keys and each item's Q and
+// dO blocks by TMA, and the producer's first warp copies the item's lse
+// and delta (64 floats each, zero past Sq) by cp.async, each lane
+// arriving at the stage's full barrier once its copies land.  Consumer
+// warpgroup w owns keys kv0 + 64 w .. kv0 + 64 w + 63, its dK and dV in
+// registers for the whole walk over the items (group head, live 64-query
+// block, from the diagonal when causal), which it takes from the ring at
+// its own pace: no warpgroup waits for another.  A key's dK and dV sum
+// the items in the walk's order on every run, and nothing is summed
+// across warpgroups.
+__global__ void __launch_bounds__(Dkv64::THREADS, 1)
+flash_bwd_dkv64_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+                       const float* __restrict__ delta, const int* __restrict__ kv_lo,
+                       const int* __restrict__ kv_hi, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int H, int Hkv, int Sq, int Sk, int causal,
+                       float scale) {
+  using C = Dkv64;
+  constexpr int BKV = C::BKV, BQ = C::BQ, KEYS = C::KEYS, RING = C::RING;
+  constexpr int Q_BYTES = C::Q_BYTES, STAGE = C::STAGE;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));   // generic view of base
   // K and V of the CTA's keys (one KEYS-row tile each), then the ring
-  const uint32_t sK = base, sV = base + C::NWG * KV_BYTES, ring = sV + C::NWG * KV_BYTES;
-  const float* ring_f = reinterpret_cast<const float*>(gbase + 2 * C::NWG * KV_BYTES);
+  const uint32_t sK = base, sV = base + C::KV_BYTES, ring = sV + C::KV_BYTES;
+  const float* ring_f = reinterpret_cast<const float*>(gbase + 2 * C::KV_BYTES);
+  // barriers: K and V's full; then each stage's full, then its empty
+  const uint32_t kv_full = base + C::BAR_OFF;
+  const uint32_t it_full = kv_full + 8, it_empty = it_full + 8 * RING;
 
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int kv0 = blockIdx.z * KEYS;   // causal: the longest walks come first
+  // causal: the key tile counts up slowest (the longest walks first), then
+  // the batch, then the kv head
+  const int hk = blockIdx.x, b = blockIdx.y, kv0 = blockIdx.z * KEYS;
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int rep = H / Hkv;
-  const int kw0 = kv0 + wg * BKV;      // this warpgroup's 64 keys
 
   const int lo = kv_lo ? max(kv_lo[b], 0) : 0;
   const int hi = kv_hi ? min(kv_hi[b], Sk) : Sk;
-  // a key range with no key inside [lo, hi) gets no live pair: dk, dv are 0
+  // a key range with no key inside [lo, hi) gets no live pair: dk, dv are
+  // 0.  Causal: query blocks wholly above the CTA's diagonal are dead (kv0
+  // is a multiple of BQ)
   const bool tile_live = kv0 < hi && kv0 + KEYS > lo;
-  const bool wg_live = kw0 < hi && kw0 + BKV > lo;
-  // causal: query blocks wholly above the CTA's diagonal are dead (kv0 is
-  // a multiple of BQ)
   const int q_begin = causal ? kv0 : 0;
   const int n_qb = tile_live && q_begin < Sq ? (Sq - q_begin + BQ - 1) / BQ : 0;
   const int n_it = rep * n_qb;
 
-  const size_t q_stride = (size_t)H * DH, kv_stride = (size_t)Hkv * DH;
-  // threads 0-255 copy an item's Q and dO, and the last 128 its lse and
-  // delta (threads 0-127 too when there are only 256)
-  const int t_ld = tid - (THREADS - 2 * BQ);
-  auto load_item = [&](int i) {   // item i: group head i / n_qb, block i % n_qb
-    const int hq = hk * rep + i / n_qb;
-    const int qb0 = q_begin + (i % n_qb) * BQ;
-    const size_t q_off = ((size_t)b * Sq * H + hq) * DH;
-    const uint32_t st = ring + (i % RING) * STAGE;
-    if (tid < 256) {
-      load_tile<BQ, 256, DH>(st, q + q_off, qb0, Sq, q_stride, tid);
-      load_tile<BQ, 256, DH>(st + Q_BYTES, dout + q_off, qb0, Sq, q_stride, tid);
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < RING; ++st) {
+      mbar_init(it_full + 8 * st, 1 + 32);      // the TMA's arrival and 32 lanes' copies
+      mbar_init(it_empty + 8 * st, 4 * C::NWG);    // every consumer warp
     }
-    if (t_ld >= 0) {   // lse (t_ld 0-63) and delta (64-127) of the block's queries
-      const int c = t_ld & (BQ - 1);
-      const bool valid = qb0 + c < Sq;
-      const size_t idx = ((size_t)b * H + hq) * Sq + (valid ? qb0 + c : 0);
-      const float* src = t_ld < BQ ? lse + idx : delta + idx;
-      cp_async_4(st + 2 * Q_BYTES + (t_ld >> 6) * BQ * 4 + c * 4, src, valid);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- the producer: its first warp
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp == 0 && n_it > 0) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
+        tma_load_4d(sK, &tk, kv_full, 0, hk, kv0, b);
+        tma_load_4d(sV, &tv, kv_full, 0, hk, kv0, b);
+      }
+      for (int i = 0; i < n_it; ++i) {   // item i: group head i / n_qb, block i % n_qb
+        const int st = i % RING;
+        const int hq = hk * rep + i / n_qb;
+        const int qb0 = q_begin + (i % n_qb) * BQ;
+        const uint32_t sq = ring + st * STAGE;
+        mbar_wait(it_empty + 8 * st, ((i / RING) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(it_full + 8 * st, 2 * Q_BYTES);
+          tma_load_4d(sq, &tq, it_full + 8 * st, 0, hq, qb0, b);
+          tma_load_4d(sq + Q_BYTES, &tdo, it_full + 8 * st, 0, hq, qb0, b);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {   // lse (then delta) of queries lane, lane + 32
+          const int c = lane + 32 * e;
+          const bool valid = qb0 + c < Sq;
+          const size_t idx = ((size_t)b * H + hq) * Sq + (valid ? qb0 + c : 0);
+          cp_async_4(sq + 2 * Q_BYTES + c * 4, lse + idx, valid);
+          cp_async_4(sq + 2 * Q_BYTES + BQ * 4 + c * 4, delta + idx, valid);
+        }
+        mbar_arrive_cp_async(it_full + 8 * st);
+      }
     }
-  };
-  if (tile_live) {
-    load_tile<KEYS, THREADS, DH>(sK, k + ((size_t)b * Sk * Hkv + hk) * DH, kv0, Sk, kv_stride,
-                                 tid);
-    load_tile<KEYS, THREADS, DH>(sV, v + ((size_t)b * Sk * Hkv + hk) * DH, kv0, Sk, kv_stride,
-                                 tid);
-  }
-  if (n_it > 0) load_item(0);
-  cp_async_commit();
-
-  const int key0 = kw0 + warp * 16 + (lane >> 2);   // keys key0 and key0 + 8 (rows of s^T)
-  const int col0 = 2 * (lane & 3);
-  const uint32_t sKw = sK + wg * KV_BYTES, sVw = sV + wg * KV_BYTES;
-  float dka[32], dva[32];
+  } else {
+    // ---- a consumer warpgroup: 64 keys
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int kw0 = kv0 + cw * BKV;   // this warpgroup's 64 keys
+    const bool wg_live = kw0 < hi && kw0 + BKV > lo;
+    const int key0 = kw0 + warp * 16 + (lane >> 2);   // keys key0 and key0 + 8 (rows of s^T)
+    const int col0 = 2 * (lane & 3);
+    const uint32_t sKw = sK + cw * BKV * 128, sVw = sV + cw * BKV * 128;
+    float dka[32], dva[32];
 #pragma unroll
-  for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
+    for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
 
-  // step t: warpgroup w takes item t - w
-  const int n_steps = n_it > 0 ? n_it + C::NWG - 1 : 0;
-  for (int t = 0; t < n_steps; ++t) {
-    // item t has landed (K and V with item 0), and every thread is past
-    // step t - 1: stage (t + 1) % RING, which held item t - NWG (the last
-    // warpgroup's item of step t - 1), is free for item t + 1, whose copy
-    // runs beside this step's products
-    cp_async_wait<0>();
-    fence_proxy_async();
-    __syncthreads();
-    if (t + 1 < n_it) load_item(t + 1);
-    cp_async_commit();
-    const int i = t - wg;
-    if (i < 0 || i >= n_it || !wg_live) continue;
-    const int qw = q_begin + (i % n_qb) * BQ;   // this item's 64 queries
-    if (causal && qw + BQ - 1 < kw0) continue;
-    const uint32_t sQw = ring + (i % RING) * STAGE;
-    const float* lse_s = ring_f + (i % RING) * (STAGE / 4) + 2 * Q_BYTES / 4;
-    const bool masked = kw0 < lo || kw0 + BKV > hi || qw + BQ > Sq ||
-                        (causal && kw0 + BKV - 1 > qw);
-    dkv_item<DH>(dka, dva, sKw, sVw, sQw, sQw + Q_BYTES, 0, lse_s, lse_s + BQ, masked, key0,
-                 col0, qw, lo, hi, Sq, causal, scale);
-  }
-  cp_async_wait<0>();
+    if (n_it > 0) mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_it; ++i) {
+      const int st = i % RING;
+      // every consumer waits for every item, live for it or not, so that
+      // its arrival counts toward this item's release
+      mbar_wait(it_full + 8 * st, (i / RING) & 1);
+      const int qw = q_begin + (i % n_qb) * BQ;   // this item's 64 queries
+      if (wg_live && !(causal && qw + BQ - 1 < kw0)) {
+        const uint32_t sQw = ring + st * STAGE;
+        const float* lse_s = ring_f + st * (STAGE / 4) + 2 * Q_BYTES / 4;
+        const bool masked = kw0 < lo || kw0 + BKV > hi || qw + BQ > Sq ||
+                            (causal && kw0 + BKV - 1 > qw);
+        dkv_item<64>(dka, dva, sKw, sVw, sQw, sQw + Q_BYTES, 0, lse_s, lse_s + BQ, masked,
+                     key0, col0, qw, lo, hi, Sq, causal, scale);
+      }
+      warp_release(it_empty + 8 * st, lane);
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + 8 * i;
-    if (key >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + key) * Hkv + hk) * DH + col0;
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + 8 * i;
+      if (key >= Sk) continue;
+      const size_t off = (((size_t)b * Sk + key) * Hkv + hk) * 64 + col0;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * jj) =
-          pack_bf16(dka[4 * jj + 2 * i], dka[4 * jj + 2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * jj) =
-          pack_bf16(dva[4 * jj + 2 * i], dva[4 * jj + 2 * i + 1]);
+      for (int jj = 0; jj < 8; ++jj) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * jj) =
+            pack_bf16(dka[4 * jj + 2 * i], dka[4 * jj + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * jj) =
+            pack_bf16(dva[4 * jj + 2 * i], dva[4 * jj + 2 * i + 1]);
+      }
     }
   }
 }
@@ -1244,41 +1582,46 @@ int dkv256_launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// the dk/dv kernel at dh 64: three warpgroups a CTA over long key ranges
-// (a Q/dO block feeds 192 keys, and three staggered walks keep the tensor
-// cores busier), two over short ones (BERT's 128 and ViT's 196 keys, where
-// a 192-key tile leaves warpgroups idle).  A key's dK and dV sum the same
-// items in the same order either way: the choice changes no bit
-template <int NWG>
-int dkv64_launch_wg(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* delta, const void* kv_lo, const void* kv_hi,
-                    void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int causal,
-                    float scale, void* stream) {
-  using C = Dkv64<NWG>;
-  cudaFuncSetAttribute(flash_bwd_dkv64_kernel<NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+// the dq kernel at dh 64: one CTA an SM (or a work item); the tensor maps
+// are built here, on the host, each call
+int dq64_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                const void* delta, const void* kv_lo, const void* kv_hi, void* dq, int B, int H,
+                int Hkv, int Sq, int Sk, int causal, float scale, void* stream) {
+  using C = Dq64;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!bf16_head64_map(&tq, q, B, Sq, H, C::BQ) || !bf16_head64_map(&tdo, dout, B, Sq, H, C::BQ) ||
+      !bf16_head64_map(&tk, k, B, Sk, Hkv, C::BKV) || !bf16_head64_map(&tv, v, B, Sk, Hkv, C::BKV))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(flash_bwd_dq64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        C::SMEM);
-  dim3 grid(Hkv, B, (Sk + C::KEYS - 1) / C::KEYS);
-  flash_bwd_dkv64_kernel<NWG><<<grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(kv_lo),
-      static_cast<const int*>(kv_hi), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv,
-      Sq, Sk, causal, scale);
+  const int n_items = (Sq + C::BQ - 1) / C::BQ * B * H;
+  flash_bwd_dq64_kernel<<<max(min(n_items, sm_count()), 1), C::THREADS, C::SMEM,
+                          static_cast<cudaStream_t>(stream)>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_lo), static_cast<const int*>(kv_hi), static_cast<bf16*>(dq), B,
+      H, Hkv, Sq, Sk, causal, scale);
   return (int)cudaGetLastError();
 }
 
-// the dh-64 dk/dv kernel takes three warpgroups a CTA from this many keys
-// on, two below (see "Head dims" above)
-constexpr int DKV64_LONG_KEYS = 1024;
-
-int dkv64_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                 const void* delta, const void* kv_lo, const void* kv_hi, void* dk, void* dv,
-                 int B, int H, int Hkv, int Sq, int Sk, int causal, float scale, void* stream) {
-  if (Sk >= DKV64_LONG_KEYS)
-    return dkv64_launch_wg<3>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dk, dv, B, H, Hkv, Sq,
-                              Sk, causal, scale, stream);
-  return dkv64_launch_wg<2>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dk, dv, B, H, Hkv, Sq, Sk,
-                            causal, scale, stream);
+// the dk/dv kernel at dh 64: a CTA a 128-key tile
+int dkv64_launch(const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, const void* kv_lo, const void* kv_hi,
+                 void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int causal,
+                 float scale, void* stream) {
+  using C = Dkv64;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!bf16_head64_map(&tq, q, B, Sq, H, C::BQ) || !bf16_head64_map(&tdo, dout, B, Sq, H, C::BQ) ||
+      !bf16_head64_map(&tk, k, B, Sk, Hkv, C::KEYS) ||
+      !bf16_head64_map(&tv, v, B, Sk, Hkv, C::KEYS))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(flash_bwd_dkv64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       C::SMEM);
+  dim3 grid(Hkv, B, (Sk + C::KEYS - 1) / C::KEYS);
+  flash_bwd_dkv64_kernel<<<grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_lo), static_cast<const int*>(kv_hi), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Hkv, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
 }
 
 // one kernel's six resource ints (see flash_bwd_resources)
@@ -1308,16 +1651,18 @@ int bwd_resources(int* res) {
     return err ? err
                : kernel_resources((const void*)flash_bwd_dkv256_kernel, Dkv256::SMEM,
                                   Dkv256::THREADS, res + 12);
+  } else if constexpr (DH == 64) {
+    err = kernel_resources((const void*)flash_bwd_dq64_kernel, Dq64::SMEM, Dq64::THREADS,
+                           res + 6);
+    return err ? err
+               : kernel_resources((const void*)flash_bwd_dkv64_kernel, Dkv64::SMEM,
+                                  Dkv64::THREADS, res + 12);
   } else {
     err = kernel_resources((const void*)flash_bwd_dq_kernel<DH>, Dq<DH>::SMEM, Dq<DH>::THREADS,
                            res + 6);
-    if (err) return err;
-    if constexpr (DH == 64)
-      return kernel_resources((const void*)flash_bwd_dkv64_kernel<3>, Dkv64<3>::SMEM,
-                              Dkv64<3>::THREADS, res + 12);
-    else
-      return kernel_resources((const void*)flash_bwd_dkv_kernel<DH>, Dkv<DH>::SMEM,
-                              Dkv<DH>::THREADS, res + 12);
+    return err ? err
+               : kernel_resources((const void*)flash_bwd_dkv_kernel<DH>, Dkv<DH>::SMEM,
+                                  Dkv<DH>::THREADS, res + 12);
   }
 }
 
@@ -1338,13 +1683,16 @@ int flash_bwd_delta_launch(const void* dout, const void* out, const void* g_lse,
 
 // q/dout (B, Sq, H, DH) bf16; k/v (B, Sk, Hkv, DH) bf16; lse/delta
 // (B, H, Sq) f32; kv_lo/kv_hi (B,) int32 or null; dq (B, Sq, H, DH) bf16.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for another DH or
+// where the dh-64 kernels' tensor maps are refused (q, k, v or dout not
+// 16-byte aligned).
 int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, const void* kv_lo,
                         const void* kv_hi, void* dq, int B, int H, int Hkv, int Sq, int Sk,
                         int DH, int causal, float scale, void* stream) {
   if (DH == 64)
-    return dq_launch<64>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dq, B, H, Hkv, Sq, Sk, causal,
-                         scale, stream);
+    return dq64_launch(q, k, v, dout, lse, delta, kv_lo, kv_hi, dq, B, H, Hkv, Sq, Sk, causal,
+                       scale, stream);
   if (DH == 128)
     return dq_launch<128>(q, k, v, dout, lse, delta, kv_lo, kv_hi, dq, B, H, Hkv, Sq, Sk,
                           causal, scale, stream);
@@ -1372,18 +1720,25 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// The three kernels' resources (delta, dq, dk/dv) at DH 128, 256, then 64
-// (its dk/dv kernel of three warpgroups, then of two), six ints each:
-// registers per thread, static shared bytes, dynamic shared bytes, local
-// (spill) bytes per thread, threads per CTA, CTAs per SM.  Returns the
-// first CUDA error.
+// The three kernels' resources (delta, dq, dk/dv) at DH 128, 256, then 64,
+// six ints each: registers per thread (at launch; the dh-64 kernels
+// rebalance them, see flash_bwd64_regs), static shared bytes, dynamic
+// shared bytes, local (spill) bytes per thread, threads per CTA, CTAs per
+// SM.  Returns the first CUDA error.
 int flash_bwd_resources(int* res) {
   int err = bwd_resources<128>(res);
   if (!err) err = bwd_resources<256>(res + 18);
-  if (!err) err = bwd_resources<64>(res + 36);
-  return err ? err
-             : kernel_resources((const void*)flash_bwd_dkv64_kernel<2>, Dkv64<2>::SMEM,
-                                Dkv64<2>::THREADS, res + 54);
+  return err ? err : bwd_resources<64>(res + 36);
+}
+
+// The dh-64 dq and dk/dv kernels' registers a thread after setmaxnreg:
+// dq's producer and consumers, then the dk/dv kernel's.
+int flash_bwd64_regs(int* r) {
+  r[0] = Dq64::PRODUCER_REGS;
+  r[1] = Dq64::CONSUMER_REGS;
+  r[2] = Dkv64::PRODUCER_REGS;
+  r[3] = Dkv64::CONSUMER_REGS;
+  return 0;
 }
 
 }  // extern "C"

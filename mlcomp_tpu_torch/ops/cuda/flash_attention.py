@@ -42,6 +42,10 @@ MAX_DH = max(max(dhs) for dhs in KERNEL_DHS.values())   # the largest of every d
 _LIBS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd", "flash"),
          torch.float32: ("flash_attention_f32", "flash_attention_f32", "flash_f32")}
 
+# the bf16 dh-64 kernels read their operands by TMA, whose tensor maps take
+# 16-byte-aligned bases only (every stride is a multiple of a 128-byte row)
+TMA_ALIGN = 16
+
 launches = 0
 # the backward's three kernels
 bwd_delta_launches = 0
@@ -165,11 +169,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch_fwd(q, k, v, lo, hi, causal, scale)
 
 
+def check_tma_aligned(dtype, kd: int, **ts: torch.Tensor) -> None:
+    """Raise ``ValueError`` where a bf16 dh-64 kernel would get an operand
+    whose base is not TMA_ALIGN-byte aligned (a view into another tensor's
+    storage); other instances take any base."""
+    if dtype != torch.bfloat16 or kd != 64:
+        return
+    bad = [n for n, t in ts.items() if t.data_ptr() % TMA_ALIGN]
+    if bad:
+        raise ValueError(f"the dh-64 flash kernels load {', '.join(bad)} by TMA, which needs "
+                         f"{TMA_ALIGN}-byte-aligned bases; pass a copy (.clone())")
+
+
 def _launch_fwd(q, k, v, lo, hi, causal: bool, scale: float):
     global launches
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     kd, (q, k, v) = _kernel_inputs(d, q, k, v)
+    check_tma_aligned(q.dtype, kd, q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -245,20 +262,36 @@ def flash_work(b: int, s_q: int, s_k: int, h: int, h_kv: int, d: int, causal: bo
 def resources() -> dict:
     """Each flash kernel's resources on the card (``build.resources``):
     {"fwd" | "bwd_delta" | "bwd_dq" | "bwd_dkv" (bf16, dh 128), the same
-    names ending "_256" and "_64" (bf16, dh 256 and 64; "bwd_dkv_64" the
-    dk/dv kernel of three warpgroups, "bwd_dkv_64_short" of two, for short
-    key ranges) and "f32_<name>" / "f32_<name>_256" / "f32_<name>_64" (f32,
-    dh 128, 256 and 64): {field: int}}."""
+    names ending "_256" and "_64" (bf16, dh 256 and 64) and "f32_<name>" /
+    "f32_<name>_256" / "f32_<name>_64" (f32, dh 128, 256 and 64): {field:
+    int}}.  The bf16 dh-64 kernels rebalance their registers between
+    producer and consumers: ``dh64_registers``."""
     names = ("fwd", "bwd_delta", "bwd_dq", "bwd_dkv")
     return {**build.resources("flash_attention", "flash_fwd_resources",
                               ("fwd", "fwd_256", "fwd_64")),
             **build.resources("flash_attention_bwd", "flash_bwd_resources",
                               names[1:] + tuple(n + "_256" for n in names[1:])
-                              + tuple(n + "_64" for n in names[1:]) + ("bwd_dkv_64_short",)),
+                              + tuple(n + "_64" for n in names[1:])),
             **build.resources("flash_attention_f32", "flash_f32_resources",
                               tuple(f"f32_{n}" for n in names)
                               + tuple(f"f32_{n}_256" for n in names)
                               + tuple(f"f32_{n}_64" for n in names))}
+
+
+def dh64_registers() -> dict:
+    """The bf16 dh-64 kernels' registers a thread after ``setmaxnreg``
+    (``resources()`` gives those at launch): {"fwd_64" | "bwd_dq_64" |
+    "bwd_dkv_64": {"producer": n, "consumer": n}}."""
+    names = {"flash_attention": ("flash_fwd64_regs", ("fwd_64",)),
+             "flash_attention_bwd": ("flash_bwd64_regs", ("bwd_dq_64", "bwd_dkv_64"))}
+    out = {}
+    for stem, (fn, kernels) in names.items():
+        buf = (ctypes.c_int * (2 * len(kernels)))()
+        query = build.function(stem, fn, [ctypes.c_void_p])
+        build.check(query(ctypes.addressof(buf)), f"{stem} registers")
+        for i, k in enumerate(kernels):
+            out[k] = {"producer": buf[2 * i], "consumer": buf[2 * i + 1]}
+    return out
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale, kv_start, kv_stop,
@@ -321,6 +354,7 @@ def _launch_bwd(q, k, v, out, lse, do, causal: bool, scale: float, lo, hi, g_lse
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     kd, (q, k, v, out, do) = _kernel_inputs(d, q, k, v, out, do)
+    check_tma_aligned(q.dtype, kd, q=q, k=k, v=v, do=do)
     lse = lse.float().contiguous()
     g = None if g_lse is None else g_lse.float().contiguous()
     p, i = ctypes.c_void_p, ctypes.c_int

@@ -10,8 +10,13 @@ to it, and the plain versions at head dim 64 against the Pallas kernel.
   ``bwd_dh64_launches``; an f32 call at head dim 64 runs the f32 kernels'
   dh-64 instance the same way and counts on ``f32_fwd_launches`` /
   ``f32_bwd_launches``.
-- ``resources()`` lists the dh-64 kernels; the sources hold the m64n64
-  register-A product and a DH == 64 branch in every dispatcher.
+- ``resources()`` lists the dh-64 kernels and ``dh64_registers()`` their
+  producer's and consumers' registers; the sources hold the m64n64
+  register-A product, a DH == 64 branch in every dispatcher, and dh-64
+  kernels that split into a producer warp issuing TMA loads into mbarrier
+  rings and consumer warpgroups (setmaxnreg), with no atomics and no
+  CTA-wide barrier in a loop; the four C launchers keep their interface,
+  and the wrapper refuses a dh-64 operand whose base TMA cannot take.
 - The plain versions at dh 64 against ``jax.grad`` of the Pallas kernel in
   interpret mode (f32, 1e-5 of the largest entry): the BERT window with an
   empty row, causal GQA and a ragged S.
@@ -116,17 +121,44 @@ def test_a_bf16_head_below_64_pads_to_the_dh64_instance(monkeypatch):
 
 
 def test_resources_list_the_dh64_kernels(monkeypatch):
-    _stub_card(monkeypatch)
+    calls = _stub_card(monkeypatch)
     res = fa.resources()
     assert {"fwd_64", "bwd_delta_64", "bwd_dq_64", "bwd_dkv_64"} <= set(res)
     assert {"fwd", "fwd_256", "bwd_dq", "bwd_dq_256", "f32_fwd", "f32_bwd_dkv_256"} <= set(res)
     assert set(res["fwd_64"]) == set(build.RESOURCE_FIELDS)
+    # the warp-specialised dh-64 kernels: registers after setmaxnreg, by role
+    regs = fa.dh64_registers()
+    assert set(regs) == {"fwd_64", "bwd_dq_64", "bwd_dkv_64"}
+    assert all(set(r) == {"producer", "consumer"} for r in regs.values())
+    assert {"flash_fwd64_regs", "flash_bwd64_regs"} <= set(calls)
+    fwd = (CSRC / "flash_attention.cu").read_text()
+    bwd = (CSRC / "flash_attention_bwd.cu").read_text()
+    assert "int flash_fwd64_regs(int* r)" in fwd and "int flash_bwd64_regs(int* r)" in bwd
+
+
+def _kernel_body(src: str, name: str) -> str:
+    """The text of the kernel ``name`` from its definition to its end."""
+    body = src[src.index(f"\n{name}("):]
+    return body[:body.index("\n}\n")]
+
+
+# the dh-64 kernels: (source, kernel, its wgmma products); each splits
+# into a producer warpgroup and consumer warpgroups
+DH64_KERNELS = [("flash_attention.cu", "flash_fwd64_kernel", ("qk_tile64(", "pv_tile64(")),
+                ("flash_attention_bwd.cu", "flash_bwd_dq64_kernel",
+                 ("dq64_scores(", "dq64_ds_k(")),
+                ("flash_attention_bwd.cu", "flash_bwd_dkv64_kernel", ("dkv_item<64>(",))]
 
 
 def test_sources_hold_the_dh64_instance():
     wgmma = (CSRC / "wgmma.cuh").read_text()
     assert "void wgmma_rs_n64(float (&d)[32]" in wgmma
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in wgmma
+    tma = (CSRC / "tma.cuh").read_text()
+    for ptx in ("mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx", "cp.async.bulk.tensor",
+                "setmaxnreg.dec", "setmaxnreg.inc", "cuTensorMapEncodeTiled",
+                "CU_TENSOR_MAP_SWIZZLE_128B"):
+        assert ptx in tma, ptx
     fwd = (CSRC / "flash_attention.cu").read_text()
     bwd = (CSRC / "flash_attention_bwd.cu").read_text()
     launchers = {"flash_fwd_launch": fwd, "flash_bwd_delta_launch": bwd,
@@ -135,7 +167,72 @@ def test_sources_hold_the_dh64_instance():
         body = src[src.index(f"int {name}("):]
         body = body[:body.index("\n}\n")]
         assert "if (DH == 64)" in body, name
-    assert "fwd_resources<64>" in fwd and "bwd_resources<64>" in bwd
+    for src_name, kernel, products in DH64_KERNELS:
+        src = (CSRC / src_name).read_text()
+        assert '#include "tma.cuh"' in src
+        body = _kernel_body(src, kernel)
+        # a producer warp issuing TMA loads into mbarrier rings, consumers
+        # that take the producer's registers
+        for call in ("mbar_init(", "mbar_wait(", "mbar_arrive_expect_tx(", "tma_load_4d(",
+                     "setmaxnreg_dec<", "setmaxnreg_inc<", *products):
+            assert call in body, (kernel, call)
+        assert "atomic" not in body, kernel
+        # one CTA-wide barrier, after the barriers' initialisation and
+        # before the roles split: none in the loops that follow
+        assert body.count("__syncthreads()") == 1, kernel
+        init = body.index("fence_barrier_init();")
+        assert init < body.index("__syncthreads()") < body.index("if (wg == 0) {"), kernel
+        assert "cp_async_wait" not in body, kernel
+    assert "kernel_resources((const void*)flash_fwd64_kernel, Fwd64::SMEM_BYTES" in fwd
+    assert "bwd_resources<64>" in bwd and "flash_bwd_dq64_kernel, Dq64::SMEM" in bwd
+    assert "flash_bwd_dkv64_kernel, Dkv64::SMEM" in bwd
+
+
+# the C launchers' interface, which bwd_parts_device_ms and a parent tree's
+# timing in chip_smoke.py call directly, so they stay as they are
+LAUNCHER_SIGNATURES = {
+    "flash_attention.cu": [
+        "int flash_fwd_launch(const void* q, const void* k, const void* v, const void* kv_lo, "
+        "const void* kv_hi, void* out, void* lse, int B, int H, int Hkv, int Sq, int Sk, "
+        "int DH, int causal, float scale, void* stream)"],
+    "flash_attention_bwd.cu": [
+        "int flash_bwd_delta_launch(const void* dout, const void* out, const void* g_lse, "
+        "void* delta, int B, int H, int Sq, int DH, void* stream)",
+        "int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* dout, "
+        "const void* lse, const void* delta, const void* kv_lo, const void* kv_hi, void* dq, "
+        "int B, int H, int Hkv, int Sq, int Sk, int DH, int causal, float scale, void* stream)",
+        "int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, "
+        "const void* dout, const void* lse, const void* delta, const void* kv_lo, "
+        "const void* kv_hi, void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int DH, "
+        "int causal, float scale, void* stream)"],
+}
+
+
+@pytest.mark.parametrize("source", sorted(LAUNCHER_SIGNATURES))
+def test_the_launchers_signatures_are_unchanged(source):
+    src = (CSRC / source).read_text()
+    extern_c = " ".join(src[src.index('extern "C" {'):].split())
+    for sig in LAUNCHER_SIGNATURES[source]:
+        assert sig + " {" in extern_c, sig
+
+
+def test_dh64_operands_must_be_tma_aligned(monkeypatch):
+    calls = _stub_card(monkeypatch)
+    q, k, v, do = _operands(torch.bfloat16)
+    # a view one element into a buffer: contiguous, but 2 bytes off
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16)
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.is_contiguous() and q_off.data_ptr() % fa.TMA_ALIGN
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa.flash_attention_fwd(q_off, k, v, True, 0.125)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
+    with pytest.raises(ValueError, match="load q by TMA"):
+        fa.flash_attention_bwd(q_off, k, v, out, lse, do, True, 0.125)
+    assert len(calls["flash_fwd_launch"]) == 1 and "flash_bwd_dq_launch" not in calls
+    # f32 at dh 64 and bf16 at 128 do not load by TMA: any base goes
+    fa.check_tma_aligned(torch.float32, 64, q=q_off)
+    fa.check_tma_aligned(torch.bfloat16, 128, q=q_off)
 
 
 def _jax_grads(q, k, v, w, causal, lo, hi):
